@@ -4,11 +4,20 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``nope_nerf_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version at the shapes of the stock training
-step, then trains the stock configuration (``configs/default.yaml``: 1024
-rays x 128 samples, 8 x 256 MLP, pc + rgb_s losses, banded Chamfer) for two
-epochs of eight steps on an in-memory 8-frame 540x960 scene with random
-weights, and checks that the training went through every kernel.
+of the six kernels against its plain PyTorch version at the shapes of the
+training step (A: fused MLP + compositing, fwd and bwd; B: banded Chamfer;
+C: per-point fused MLP, fwd and bwd; D: exact Chamfer), then trains three
+configurations at full width for two epochs of eight steps each on an
+in-memory 8-frame 540x960 scene with random weights:
+
+* stock ``configs/default.yaml`` (1024 rays x 128 samples, 8 x 256 MLP,
+  pc + rgb_s losses, banded Chamfer): Kernels A and B;
+* stock with ``tpu.fuse_compositing: False, chamfer_mode: exact``: Kernels
+  C and D;
+* ``tpu.parity: True`` (f32 unfused MLP on torch.matmul, exact Chamfer,
+  randperm ray sampling): Kernel D;
+
+and checks that each run went through every kernel it should reach.
 
 Prints, in order: the card's name and power limit, the kernel build time,
 one line per kernel check, one line per epoch, a JSON line with every
@@ -39,6 +48,13 @@ EPOCHS = 2
 # 1.9e-6, alpha 5.7e-5, gradients relL2 <= 4.1e-3 (d_rays). The bars are
 # tightened to leave a margin of 2.4x or more over those.
 RGB_ATOL, DIST_ATOL, ALPHA_ATOL, GRAD_RELL2 = 1e-3, 1e-3, 1e-3, 1e-2
+# Kernel C runs Kernel A's GEMM chain with the same rounding points, so it is
+# held to the same bars (rgb and density max|err| RGB_ATOL / ALPHA_ATOL,
+# gradients relL2 GRAD_RELL2) under the training step's cotangents: those of
+# rgb and depth carried back through the plain compositing. Kernel C + the
+# plain compositing against Kernel A: the JAX package holds its two paths to
+# atol 2e-5 on rgb and alpha and 2e-4 on depth (tests/test_pallas.py:298-311).
+C_VS_A_ATOL, C_VS_A_DIST_ATOL = 2e-5, 2e-4
 
 
 def card_line():
@@ -81,9 +97,10 @@ def stock_cfg():
     return load_config(DEFAULT_CONFIG)
 
 
-def check_kernel_a(dev, card):
-    """Kernel A (fused MLP + compositing) against its plain version at the
-    stock step's shapes: forward errors, backward relL2, both times."""
+def stock_mlp_inputs(dev):
+    """Random weights (seed SEED) and a 1024-ray x 128-sample batch at the
+    stock step's shapes: (cfg, weights, origins, rays, dirs, z, deltas, the
+    numpy generator for the cotangents, a host-to-device helper)."""
     import numpy as np
     import torch
 
@@ -107,14 +124,26 @@ def check_kernel_a(dev, card):
         return x.requires_grad_() if grad else x
 
     origins = t(np.broadcast_to(rng.normal(scale=0.1, size=3), (N, 3)), True)
-    rays_t, dirs = t(rays, True), t(-rays, True)
-    z_t, deltas_t = t(z), t(deltas)
+    return (cfg, weights, origins, t(rays, True), t(-rays, True), t(z),
+            t(deltas), rng, t)
+
+
+def check_kernel_a(dev, card):
+    """Kernel A (fused MLP + compositing) against its plain version at the
+    stock step's shapes: forward errors, backward relL2, both times."""
+    import torch
+
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    (cfg, weights, origins, rays_t, dirs, z_t, deltas_t, rng,
+     t) = stock_mlp_inputs(dev)
+    N, S = N_RAYS, N_SAMPLES
     # cotangents as the training loss gives them: rgb and depth are read,
     # alpha is not. (A random alpha cotangent on all 131k samples makes the
     # backward chaotic: two runs of the plain version whose matmul outputs
     # differ by 1e-7 relative then differ by 5e-3 relL2 in the trunk.)
     cots = (t(rng.normal(size=(N, 3)) / N), t(rng.normal(size=(N, 1)) / N),
-            t(np.zeros((N, S))))
+            torch.zeros((N, S), device=dev))
     static = (cfg["model"]["pos_enc_levels"], cfg["model"]["dir_enc_levels"],
               cfg["model"]["occ_activation"], True, False, False, S)
     inputs = [origins, rays_t, dirs] + weights
@@ -180,21 +209,18 @@ def check_kernel_a(dev, card):
     return fwd_rec, bwd_rec
 
 
-def check_kernel_b(dev, card):
-    """Kernel B (banded Chamfer argmin) against its plain version on a
-    135x240 depth-map pair warped by a small rigid motion."""
+def depth_pair(dev, hs, ws, seed):
+    """Two noisy (hs x ws) depth maps of one smooth surface, backprojected
+    and the first warped by a small rigid motion, as the pc loss pairs its
+    clouds: (X, Y, camera matrix)."""
     import numpy as np
     import torch
 
-    from nope_nerf_tpu_torch.geometry.rays import (
-        arange_pixels, project_to_cam, transform_to_world)
+    from nope_nerf_tpu_torch.geometry.rays import (arange_pixels,
+                                                   transform_to_world)
     from nope_nerf_tpu_torch.geometry.so3 import make_c2w
-    from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
 
-    cfg = stock_cfg()
-    ratio = cfg["training"]["pc_ratio"]
-    hs, ws = int(H / ratio), int(W / ratio)
-    rng = np.random.default_rng(SEED + 1)
+    rng = np.random.default_rng(seed)
     cam = torch.tensor([[1.6, 0, 0, 0], [0, -1.8, 0, 0], [0, 0, -1, 0],
                         [0, 0, 0, 1]], dtype=torch.float32, device=dev)
     _, pix = arange_pixels((hs, ws), device=dev)
@@ -208,8 +234,21 @@ def check_kernel_b(dev, card):
     pc2 = transform_to_world(pix, td(d2), cam)
     rel = make_c2w(torch.tensor([0.01, -0.02, 0.005], device=dev),
                    torch.tensor([0.02, 0.01, -0.03], device=dev))
-    X = pc1 @ rel[:3, :3].t() + rel[:3, 3]
-    Y = pc2
+    return pc1 @ rel[:3, :3].t() + rel[:3, 3], pc2, cam
+
+
+def check_kernel_b(dev, card):
+    """Kernel B (banded Chamfer argmin) against its plain version on a
+    135x240 depth-map pair warped by a small rigid motion."""
+    import torch
+
+    from nope_nerf_tpu_torch.geometry.rays import project_to_cam
+    from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
+
+    cfg = stock_cfg()
+    ratio = cfg["training"]["pc_ratio"]
+    hs, ws = int(H / ratio), int(W / ratio)
+    X, Y, cam = depth_pair(dev, hs, ws, SEED + 1)
     k = max(2, round(cfg["tpu"]["chamfer_band_rows"] * ws / cb.TILE))
     n = hs * ws
     starts = cb.rows_to_start_tiles(X, n, (hs, ws), cam, project_to_cam, k)
@@ -236,41 +275,216 @@ def check_kernel_b(dev, card):
             "plain_ms": ms_plain}
 
 
-def run_slice(dev, card):
-    """Train the stock configuration for two epochs through the port's
-    ``train`` and return the launch counts of that run."""
+def check_kernel_c(dev, card):
+    """Kernel C (per-point fused MLP) against its plain version at the
+    stock step's 131,072 points, under the training step's cotangents;
+    then Kernel C + the plain compositing against Kernel A on the same
+    rays."""
+    import torch
+
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+    from nope_nerf_tpu_torch.ops.rendering import composite
+
+    (cfg, weights, origins, rays_t, dirs, z_t, deltas_t, rng,
+     t) = stock_mlp_inputs(dev)
+    N, S = N_RAYS, N_SAMPLES
+    l_pos, l_dir = cfg["model"]["pos_enc_levels"], cfg["model"]["dir_enc_levels"]
+    act = cfg["model"]["occ_activation"]
+    # the points and directions as the unfused renderer forms them
+    pts = (origins[:, None, :] + rays_t[:, None, :] * z_t[..., None]).reshape(
+        -1, 3).detach().requires_grad_()
+    pdirs = dirs[:, None, :].expand(N, S, 3).reshape(-1, 3).detach(
+    ).requires_grad_()
+    inputs = [pts, pdirs] + weights
+
+    def fwd(fn):
+        return fn(weights, pts, pdirs, l_pos, l_dir, act, True)
+
+    def render(out):
+        rgbv, dist, _ = composite(out[0].reshape(N, S, 3),
+                                  out[1].reshape(N, S), z_t)
+        return rgbv, dist
+
+    out_k, out_r = fwd(mk.fused_mlp), fwd(mk.fused_mlp_reference)
+    # per-point cotangents of a loss that reads rgb and depth per ray
+    cots = torch.autograd.grad(
+        render(out_r), out_r,
+        (t(rng.normal(size=(N, 3)) / N), t(rng.normal(size=(N,)) / N)),
+        retain_graph=True)
+
+    def grads(outs):
+        return torch.autograd.grad(outs, inputs, cots, retain_graph=True)
+
+    g_k, g_r = grads(out_k), grads(out_r)
+    torch.cuda.synchronize()
+    o_k = [o.detach() for o in out_k]
+    o_r = [o.detach() for o in out_r]
+    err = {n: float(torch.max(torch.abs(a - b)))
+           for n, a, b in zip(("rgb", "density"), o_k, o_r)}
+    names = ["d_pts", "d_dirs"] + [
+        f"{n}/{k}" for n in mk.W_NAMES for k in ("w", "b")]
+    rels = {n: rel_l2(a, b) for n, a, b in zip(names, g_k, g_r)}
+    bwd_abs = max(float(torch.max(torch.abs(a - b))) for a, b in zip(g_k, g_r))
+    finite = all(bool(torch.isfinite(x).all()) for x in (*o_k, *g_k))
+
+    ms_fwd = cuda_ms(lambda: fwd(mk.fused_mlp))
+    ms_fwd_plain = cuda_ms(lambda: fwd(mk.fused_mlp_reference))
+    ms_bwd = cuda_ms(lambda: grads(out_k))
+    ms_bwd_plain = cuda_ms(lambda: grads(out_r))
+
+    # Kernel C + plain compositing against Kernel A at the same inputs
+    with torch.no_grad():
+        rgbv_a, dist_a, alpha_a = mk.fused_mlp_composite(
+            weights, origins, rays_t, dirs, z_t, deltas_t, l_pos, l_dir,
+            act, True, False, False, S)
+        rgbv_c, dist_c = render(o_k)
+    vs_a = {"rgb": float(torch.max(torch.abs(rgbv_c - rgbv_a))),
+            "alpha": float(torch.max(torch.abs(o_k[1].reshape(N, S)
+                                               - alpha_a))),
+            "dist": float(torch.max(torch.abs(dist_c - dist_a[:, 0])))}
+
+    print(f"kernel C fwd [{card}] M={N * S} D={cfg['model']['hidden_dim']}:"
+          f" max|err| rgb={err['rgb']:.3e} density={err['density']:.3e};"
+          f" kernel {ms_fwd:.3f} ms, plain {ms_fwd_plain:.3f} ms")
+    worst = max(rels, key=rels.get)
+    print(f"kernel C bwd [{card}]: relL2 max {rels[worst]:.3e} ({worst}); "
+          + " ".join(f"{n}={v:.2e}" for n, v in rels.items())
+          + f"; kernel {ms_bwd:.3f} ms, plain {ms_bwd_plain:.3f} ms")
+    print(f"kernel C + plain compositing vs kernel A [{card}]: max|err| "
+          + " ".join(f"{n}={v:.3e}" for n, v in vs_a.items()))
+    fails = []
+    if not finite:
+        fails.append("non-finite kernel output")
+    if err["rgb"] > RGB_ATOL:
+        fails.append(f"rgb max|err| {err['rgb']:.3e} > {RGB_ATOL}")
+    if err["density"] > ALPHA_ATOL:
+        fails.append(f"density max|err| {err['density']:.3e} > {ALPHA_ATOL}")
+    fails += [f"{n} relL2 {v:.3e} >= {GRAD_RELL2}"
+              for n, v in rels.items() if not v < GRAD_RELL2]
+    for n, bar in (("rgb", C_VS_A_ATOL), ("alpha", C_VS_A_ATOL),
+                   ("dist", C_VS_A_DIST_ATOL)):
+        if not vs_a[n] <= bar:
+            fails.append(f"{n} against kernel A {vs_a[n]:.3e} > {bar}")
+    if fails:
+        raise AssertionError("kernel C disagrees: " + "; ".join(fails))
+    fwd_rec = {"name": "mlp_point_fwd", "route": "cuda",
+               "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu",
+               "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:244",
+               "max_abs_err": max(err.values()),
+               "max_abs_err_vs_kernel_a": max(vs_a.values()), "ms": ms_fwd,
+               "plain_ms": ms_fwd_plain}
+    bwd_rec = {"name": "mlp_point_bwd", "route": "cuda",
+               "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu",
+               "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:258",
+               "max_abs_err": bwd_abs, "max_rel_l2": rels[worst],
+               "ms": ms_bwd, "plain_ms": ms_bwd_plain}
+    return fwd_rec, bwd_rec
+
+
+def check_kernel_d(dev, card):
+    """Kernel D (exact Chamfer argmin, both directions) against its plain
+    version on warped depth-map pairs of 135x240 (the stock pc_ratio) and
+    270x480 points: identical indices required. Times the kernel, the plain
+    version and the grid mode at both sizes, and prints the cost laws of
+    ``chamfer_mode: auto`` they give."""
+    import torch
+
+    from nope_nerf_tpu_torch.ops import chamfer as ch
+    from nope_nerf_tpu_torch.ops.kernels import chamfer_kernel as ck
+
+    ratio = stock_cfg()["training"]["pc_ratio"]
+    rows = []
+    for r in (ratio, ratio / 2):
+        hs, ws = int(H / r), int(W / r)
+        n = hs * ws
+        X, Y, _ = depth_pair(dev, hs, ws, SEED + 2)
+        idx_k = ck.nearest_idx_exact(X, Y)
+        idx_r = ck.nearest_idx_exact_reference(X, Y)
+        loss_k = ck.chamfer_loss_exact(X, Y)
+        loss_r = ch.chamfer_loss(X, Y)
+        torch.cuda.synchronize()
+        mism = sum(int(torch.sum(a != b)) for a, b in zip(idx_k, idx_r))
+        loss_err = float(torch.abs(loss_k - loss_r))
+        ms = cuda_ms(lambda: ck.nearest_idx_exact(X, Y), iters=10)
+        ms_plain = cuda_ms(lambda: ck.nearest_idx_exact_reference(X, Y),
+                           iters=2, warmup=1)
+        ms_grid = cuda_ms(lambda: ch.nearest_idx_window(X, Y), iters=5)
+        print(f"kernel D [{card}] {n} x {n} points: {mism} index mismatches,"
+              f" |loss err| {loss_err:.3e}; kernel {ms:.3f} ms, plain "
+              f"{ms_plain:.3f} ms; grid mode {ms_grid:.3f} ms")
+        if mism:
+            raise AssertionError(f"kernel D: {mism} indices differ from its "
+                                 f"plain version at {n} points")
+        rows.append((n, mism, loss_err, ms, ms_plain, ms_grid))
+    per_pair = sum(row[3] / row[0] ** 2 for row in rows) / len(rows)
+    per_point = sum(row[5] / (2 * row[0]) for row in rows) / len(rows)
+    print(f"chamfer auto cost laws [{card}]: exact {per_pair:.3e} ms/pair, "
+          f"grid {per_point:.3e} ms/point; equal clouds cross over at "
+          f"{2 * per_point / per_pair:.0f} points")
+    n, mism, loss_err, ms, ms_plain, ms_grid = rows[0]
+    return {"name": "chamfer_exact", "route": "cuda",
+            "source": "nope_nerf_tpu_torch/csrc/chamfer_exact.cu",
+            "replaces": "nope_nerf_tpu/ops/pallas/chamfer_kernel.py:87",
+            "max_abs_err": loss_err, "index_mismatches": mism, "ms": ms,
+            "plain_ms": ms_plain, "grid_ms": ms_grid,
+            "large": {"points": rows[1][0], "ms": rows[1][3],
+                      "plain_ms": rows[1][4], "grid_ms": rows[1][5]}}
+
+
+# the training runs: (label, tpu overrides, kernels the run must launch;
+# every other kernel must stay idle)
+RUNS = (
+    ("stock", {}, ("mlp_composite_fwd", "mlp_composite_bwd", "chamfer_band")),
+    ("unfused_exact", {"fuse_compositing": False, "chamfer_mode": "exact"},
+     ("mlp_point_fwd", "mlp_point_bwd", "chamfer_exact")),
+    ("parity", {"parity": True}, ("chamfer_exact",)),
+)
+
+
+def run_training(dev, card, label, overrides, expect):
+    """Train the stock configuration with ``overrides`` under ``tpu`` for
+    EPOCHS epochs through the port's ``train``; return the launch counts of
+    that run."""
     import math
 
+    import torch
+
     from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
+    from nope_nerf_tpu_torch.ops.kernels import chamfer_kernel as ck
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
     from nope_nerf_tpu_torch.synthetic import MemoryScene
     from nope_nerf_tpu_torch.training.loop import train
 
     cfg = stock_cfg()
+    cfg["tpu"].update(overrides)
     cfg["training"]["out_dir"] = os.path.join(ROOT, "chiprun_out",
-                                              "chip_smoke")
+                                              "chip_smoke", label)
     cfg["training"]["seed"] = SEED
     scene = MemoryScene(N_FRAMES, H, W, SEED)
-    counters = (mk.FWD_LAUNCHES, mk.BWD_LAUNCHES, cb.LAUNCHES)
+    counters = (mk.FWD_LAUNCHES, mk.BWD_LAUNCHES, cb.LAUNCHES,
+                mk.FWD_POINT_LAUNCHES, mk.BWD_POINT_LAUNCHES, ck.LAUNCHES)
+    torch.cuda.empty_cache()  # every run starts from the same allocator state
     for c in counters:
         c.reset()
     _, _, _, history = train(cfg, max_epochs=EPOCHS, scene=scene, device=dev)
     counts = {c.name: c.count for c in counters}
     for h in history:
-        print(f"epoch {h['epoch']} [{card}]: {h['steps']} steps, "
+        print(f"{label} epoch {h['epoch']} [{card}]: {h['steps']} steps, "
               f"loss {h['loss']:.6f}, {h['ms_per_step']:.3f} ms/step, "
               f"{h['rays_per_sec']:.1f} rays/s")
     steps = sum(h["steps"] for h in history)
     if steps != EPOCHS * N_FRAMES:
-        raise AssertionError(f"{steps} training steps, expected "
+        raise AssertionError(f"{label}: {steps} training steps, expected "
                              f"{EPOCHS * N_FRAMES}")
     bad = [h for h in history for v in h["step_losses"] if not math.isfinite(v)]
     if bad:
-        raise AssertionError("non-finite training loss")
-    idle = [n for n, v in counts.items() if v == 0]
-    if idle:
-        raise AssertionError(f"training never launched kernel(s) {idle}")
-    print(f"training launches: {counts}")
+        raise AssertionError(f"{label}: non-finite training loss")
+    idle = [n for n in expect if counts[n] == 0]
+    stray = [n for n, v in counts.items() if v and n not in expect]
+    if idle or stray:
+        raise AssertionError(f"{label}: kernels never launched {idle}, "
+                             f"launched off this path {stray}")
+    print(f"{label} training launches: {counts}")
     return counts
 
 
@@ -302,10 +516,16 @@ def main():
 
     a_fwd, a_bwd = check_kernel_a(dev, card)
     b = check_kernel_b(dev, card)
-    records = [a_fwd, a_bwd, b]
-    counts = run_slice(dev, card)
+    c_fwd, c_bwd = check_kernel_c(dev, card)
+    d = check_kernel_d(dev, card)
+    records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d]
+    launches = {rec["name"]: 0 for rec in records}
+    for label, overrides, expect in RUNS:
+        counts = run_training(dev, card, label, overrides, expect)
+        for name, v in counts.items():
+            launches[name] += v
     for rec in records:
-        rec["launches"] = counts[rec["name"]]
+        rec["launches"] = launches[rec["name"]]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

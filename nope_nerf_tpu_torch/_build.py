@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface and loaded with :mod:`ctypes` (no PyTorch
-headers, so a build takes seconds, not minutes). The library is built at
-first use, keyed by a hash of the sources and flags, under ``build/`` at the
+Each source is compiled with ``nvcc`` for ``sm_90a`` into an object file,
+all at once in parallel, and the objects are linked into one shared library
+with a plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so
+a build takes seconds, not minutes). The library is built at first use,
+keyed by a hash of the sources and flags, under ``build/`` at the
 repository root (listed in ``.gitignore``). ``--use_fast_math`` is
 deliberately absent: the positional encoding needs full-precision
 ``sinf``/``cosf`` at arguments up to 2^9 * |x|.
@@ -21,11 +22,11 @@ import threading
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("mlp_composite.cu", "chamfer_band.cu")
+SOURCES = ("mlp_composite.cu", "chamfer_band.cu", "chamfer_exact.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -56,30 +57,41 @@ def library_path():
     return os.path.join(BUILD_DIR, f"libnnt_kernels_{_source_hash()}.so")
 
 
+def _run_all(cmds, verbose):
+    """Run the commands in parallel; raise with the first failure's
+    output once all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if verbose and err:
+            print(err, file=sys.stderr)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} (rc={proc.returncode}):\n"
+                          f"{err[-8000:]}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + failed[0])
+
+
 def build(verbose=False):
     """Compile the sources unless a library for this exact source hash
-    exists; returns its path. Writes atomically (temp file + rename)."""
+    exists; returns its path. Writes atomically (temp dir + rename)."""
     path = library_path()
     if os.path.isfile(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp] + [os.path.join(CSRC_DIR, s) for s in SOURCES]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if verbose and proc.stderr:
-            print(proc.stderr, file=sys.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (rc={proc.returncode}):\n{proc.stderr[-8000:]}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", o,
+                   os.path.join(CSRC_DIR, s)]
+                  for s, o in zip(SOURCES, objs)], verbose)
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]], verbose)
+        os.replace(lib, path)
     return path
 
 

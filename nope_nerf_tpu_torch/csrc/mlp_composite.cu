@@ -1,10 +1,22 @@
-// Kernel A of the port: NeRF MLP + alpha compositing, forward and backward.
+// Kernels A and C of the port: the NeRF MLP, forward and backward, with alpha
+// compositing (A) or per point with the head activations (C).
 //
 // Replaces the Pallas kernels of nope_nerf_tpu/ops/pallas/mlp_kernel.py:
-//   forward  _make_fwd_composite_kernel (l.668), reached from
-//            fused_mlp_composite -> _fused_mlp_composite_call (l.852);
-//   backward _make_bwd_composite_kernel (l.702), reached from
-//            _fused_mlp_composite_bwd (l.909).
+//   A forward  _make_fwd_composite_kernel (l.668), reached from
+//              fused_mlp_composite -> _fused_mlp_composite_call (l.852);
+//   A backward _make_bwd_composite_kernel (l.702), reached from
+//              _fused_mlp_composite_bwd (l.909);
+//   C forward  _make_fwd_kernel (l.244), reached from fused_mlp ->
+//              _fused_mlp_call (l.387);
+//   C backward _make_bwd_kernel (l.258), reached from _fused_mlp_bwd ->
+//              _fused_mlp_bwd_call (l.440).
+// C is A without the ray expansion and the compositing: the same GEMM, heads
+// and reduction entries run its trunk (the direction encoding is per point,
+// row divisor 1), and four per-point entries replace A's per-ray ones:
+// encode_points (pts or dirs -> bf16 encoding), head_act_fwd (raw heads ->
+// rgb, density), head_act_bwd (cotangents of rgb, density -> of the raw
+// heads) and encode_points_bwd (encoding cotangents -> d_pts or d_dirs, no
+// ray sums). Like A, C is bound by its GEMMs.
 //
 // What bounds it on the H100: the trunk is ten (M x K) @ (K x N) products
 // at M = rays * samples = 131,072 points and K, N <= 319 -- about 0.2 TFLOP
@@ -73,6 +85,13 @@ __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)
 // Positional encoding, forward.
 // ---------------------------------------------------------------------------
 
+// pts = o + r * z rounded after the product and after the sum (no FMA), as
+// PyTorch computes the points of the plain versions and of the per-point
+// path: the top encoding frequency 2^9 would amplify a one-ulp difference.
+__device__ __forceinline__ float expand(float o, float r, float z) {
+  return __fadd_rn(o, __fmul_rn(r, z));
+}
+
 __device__ __forceinline__ void encode_one(const float p[3], int levels, bf16* out) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) out[c] = to_bf16(p[c]);
@@ -97,7 +116,7 @@ __global__ void encode_points_kernel(const float* __restrict__ o, const float* _
   const float zz = z[m];
   float p[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) p[c] = o[ray * 3 + c] + r[ray * 3 + c] * zz;
+  for (int c = 0; c < 3; ++c) p[c] = expand(o[ray * 3 + c], r[ray * 3 + c], zz);
   encode_one(p, levels, enc + m * ld);
 }
 
@@ -635,7 +654,7 @@ __global__ void encode_bwd_kernel(const float* __restrict__ o, const float* __re
       const float f = ldexpf(1.f, l);
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const float p = o[ray * 3 + c] + r[ray * 3 + c] * zz;
+        const float p = expand(o[ray * 3 + c], r[ray * 3 + c], zz);
         float sn, cs;
         sincosf(p * f, &sn, &cs);
         const int ks = 3 * (1 + 2 * l) + c, kc = 3 * (2 + 2 * l) + c;
@@ -676,6 +695,68 @@ __global__ void encode_bwd_kernel(const float* __restrict__ o, const float* __re
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) d_d[ray * 3 + c] = dd[c];
+}
+
+// ---------------------------------------------------------------------------
+// Kernel C's per-point entries.
+// ---------------------------------------------------------------------------
+
+// rgb = sigmoid(raw rgb), density = density activation of the raw sigma.
+__global__ void head_act_fwd_kernel(const float* __restrict__ raw, float* __restrict__ rgb,
+                                    float* __restrict__ density, int m, CompositeFlags f) {
+  const int64_t pt = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (pt >= m) return;
+  const float* rw = raw + pt * 4;
+  density[pt] = density_act(rw[0], f);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) rgb[pt * 3 + c] = sigmoid(rw[1 + c]);
+}
+
+// Cotangents of the raw heads from those of rgb and density (the TPU
+// kernel's _act_bwd, mlp_kernel.py:228-241).
+__global__ void head_act_bwd_kernel(const float* __restrict__ raw, const float* __restrict__ g_rgb,
+                                    const float* __restrict__ g_density,
+                                    float* __restrict__ g_raw, int m, CompositeFlags f) {
+  const int64_t pt = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (pt >= m) return;
+  const float* rw = raw + pt * 4;
+  const float rs = rw[0];
+  float dd = f.softplus_act ? sigmoid(rs) : (rs > 0.f ? 1.f : 0.f);
+  if (f.occ_alpha) dd *= expf(-(f.softplus_act ? softplus(rs) : fmaxf(rs, 0.f)));
+  float* out = g_raw + pt * 4;
+  out[0] = g_density[pt] * dd;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float s = sigmoid(rw[1 + c]);
+    out[1 + c] = g_rgb[pt * 3 + c] * s * (1.f - s);
+  }
+}
+
+// d_x (rows, 3) from the cotangent of the encoding [x, sin 2^l x, cos 2^l x],
+// given as the sum of two f32 summands (ge2 may be null), one thread per row.
+__global__ void encode_points_bwd_kernel(const float* __restrict__ x,
+                                         const float* __restrict__ ge1, int ld1,
+                                         const float* __restrict__ ge2, int ld2,
+                                         float* __restrict__ d_x, int rows, int levels) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows) return;
+  const float* g1 = ge1 + i * ld1;
+  const float* g2 = ge2 ? ge2 + i * ld2 : nullptr;
+  const auto g = [&](int k) { return g2 ? g1[k] + g2[k] : g1[k]; };
+  float dp[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) dp[c] = g(c);
+  for (int l = 0; l < levels; ++l) {
+    const float fr = ldexpf(1.f, l);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float sn, cs;
+      sincosf(x[i * 3 + c] * fr, &sn, &cs);
+      dp[c] += (g(3 * (1 + 2 * l) + c) * cs - g(3 * (2 + 2 * l) + c) * sn) * fr;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) d_x[i * 3 + c] = dp[c];
 }
 
 inline unsigned blocks_for(int64_t n, int threads) {
@@ -802,6 +883,37 @@ int nnt_encode_bwd(const float* o, const float* r, const float* dirs, const floa
                       static_cast<cudaStream_t>(stream)>>>(o, r, dirs, z, ge1, ld1, ge2, ld2,
                                                            gd, ldd, d_o, d_r, d_d, n_rays,
                                                            n_samples, l_pos, l_dir);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel C: per-point positional encoding of x (rows, 3) into enc (rows, ld)
+// bf16.
+int nnt_encode_points(const float* x, void* enc, int ld, int rows, int levels, void* stream) {
+  encode_rows_kernel<<<blocks_for(rows, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, static_cast<bf16*>(enc), ld, rows, levels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nnt_head_act_fwd(const float* raw, float* rgb, float* density, int m, int softplus_act,
+                     int occ_alpha, void* stream) {
+  CompositeFlags f{softplus_act, occ_alpha, 0, 0};
+  head_act_fwd_kernel<<<blocks_for(m, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      raw, rgb, density, m, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nnt_head_act_bwd(const float* raw, const float* g_rgb, const float* g_density, float* g_raw,
+                     int m, int softplus_act, int occ_alpha, void* stream) {
+  CompositeFlags f{softplus_act, occ_alpha, 0, 0};
+  head_act_bwd_kernel<<<blocks_for(m, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      raw, g_rgb, g_density, g_raw, m, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nnt_encode_points_bwd(const float* x, const float* ge1, int ld1, const float* ge2, int ld2,
+                          float* d_x, int rows, int levels, void* stream) {
+  encode_points_bwd_kernel<<<blocks_for(rows, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, ge1, ld1, ge2, ld2, d_x, rows, levels);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,7 +5,11 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.chamfer import chamfer_loss, resolve_chamfer_mode
+from ..ops.chamfer import (
+    chamfer_loss,
+    chamfer_loss_window,
+    resolve_chamfer_mode,
+)
 
 
 def mse2psnr(mse):
@@ -74,16 +78,46 @@ def rgb_s_loss(rgb1, rgb2, valid_points, with_ssim=False, rgb2_ori=None):
     return mean_on_mask(diff, valid_points)
 
 
+def chamfer_pc_loss(X, Y, *, use_kernel, mode="exact", starts=None,
+                    band_tiles=8, window=512, auto_costs=(None, None)):
+    """The pc term: Chamfer between X and Y in ``mode`` ('auto' resolved by
+    the cloud sizes and whether band ``starts`` exist). Exact and band run
+    Kernels D and B when ``use_kernel``, else their plain versions; grid is
+    plain PyTorch (the JAX package runs it in XLA)."""
+    mode = resolve_chamfer_mode(
+        mode, X.shape[0], Y.shape[0], n_devices=1, sharded_exact=False,
+        hints_available=starts is not None, exact_ms_per_pair=auto_costs[0],
+        grid_ms_per_point=auto_costs[1])
+    if mode == "band":
+        if starts is None:
+            raise ValueError("chamfer_mode 'band' needs projection hints "
+                             "(chamfer_starts)")
+        from ..ops.kernels.chamfer_band import chamfer_loss_banded
+
+        return chamfer_loss_banded(X, Y, starts[0], starts[1],
+                                   k_tiles=band_tiles, use_kernel=use_kernel)
+    if mode == "grid":
+        return chamfer_loss_window(X, Y, window=window)
+    if use_kernel:
+        from ..ops.kernels.chamfer_kernel import chamfer_loss_exact
+
+        return chamfer_loss_exact(X, Y)
+    return chamfer_loss(X, Y)
+
+
 def total_loss(weights, *, rgb_pred=None, rgb_gt=None, depth_pred=None,
                depth_gt=None, depth_valid=None, t_list=None, X=None, Y=None,
                rgb_pc1=None, rgb_pc1_proj=None, rgb_pc1_ori=None,
                valid_points=None, w_l1=1.0, w_l2=0.0, with_ssim=False,
-               with_auto_mask=False, depth_loss_type="l1", chamfer_block=2048,
-               chamfer_mode="exact", chamfer_starts=None,
-               chamfer_band_tiles=8):
+               with_auto_mask=False, depth_loss_type="l1",
+               use_pallas_chamfer=True, chamfer_mode="exact",
+               chamfer_window=512, chamfer_starts=None, chamfer_band_tiles=8,
+               chamfer_auto_costs=(None, None)):
     """Weighted sum of the seven terms; returns the JAX package's dict of
     scalars (loss, loss_rgb, loss_depth, l2_mean, loss_dist_1st,
-    loss_dist_2nd, loss_pc, loss_rgb_s, loss_depth_consistency)."""
+    loss_dist_2nd, loss_pc, loss_rgb_s, loss_depth_consistency). The
+    Chamfer arguments go to :func:`chamfer_pc_loss` (``use_pallas_chamfer``
+    selects the kernels)."""
     ref = next(v for v in (rgb_pred, X, t_list, rgb_pc1) if v is not None)
     zero = torch.zeros((), dtype=torch.float32, device=ref.device)
     rgb_loss = (rgb_full_loss(rgb_pred, rgb_gt, w_l1, w_l2)
@@ -100,21 +134,11 @@ def total_loss(weights, *, rgb_pred=None, rgb_gt=None, depth_pred=None,
         loss_dist_1st = loss_dist_2nd = zero
     pc = zero
     if X is not None:
-        mode = resolve_chamfer_mode(chamfer_mode,
-                                    hints_available=chamfer_starts is not None)
-        if mode == "band":
-            if chamfer_starts is None:
-                raise ValueError("chamfer_mode 'band' needs projection hints "
-                                 "(chamfer_starts)")
-            from ..ops.kernels.chamfer_band import chamfer_loss_banded
-
-            pc = chamfer_loss_banded(X, Y, chamfer_starts[0],
-                                     chamfer_starts[1],
-                                     k_tiles=chamfer_band_tiles)
-        elif mode == "exact":
-            pc = chamfer_loss(X, Y, block=chamfer_block)
-        else:
-            raise NotImplementedError(f"chamfer_mode {mode!r} is not ported")
+        pc = chamfer_pc_loss(X, Y, use_kernel=use_pallas_chamfer,
+                             mode=chamfer_mode, starts=chamfer_starts,
+                             band_tiles=chamfer_band_tiles,
+                             window=chamfer_window,
+                             auto_costs=chamfer_auto_costs)
     rgb_s = (rgb_s_loss(rgb_pc1, rgb_pc1_proj, valid_points, with_ssim,
                         rgb2_ori=rgb_pc1_ori if with_auto_mask else None)
              if rgb_pc1 is not None else zero)

@@ -110,13 +110,11 @@ def apply_nerf(params, pts, dirs, cfg_model):
     """Evaluate the field: pts, dirs (M, 3) -> (rgb (M, 3), density (M, 1)).
 
     Density activation is softplus or relu; without ``dist_alpha`` the field
-    emits occupancy alpha = 1 - exp(-density).
+    emits occupancy alpha = 1 - exp(-density). With ``use_pallas_mlp`` the
+    field runs in Kernel C (:func:`_apply_nerf_fused`).
     """
     if cfg_model.get("use_pallas_mlp", False):
-        raise NotImplementedError(
-            "the point-level fused MLP kernel (fuse_compositing: False with "
-            "use_pallas_mlp) is not ported yet; set tpu.fuse_compositing: "
-            "True or tpu.use_pallas_mlp: False")
+        return _apply_nerf_fused(params, pts, dirs, cfg_model)
     bf16 = bool(cfg_model.get("mlp_bf16", False))
     x = _trunk(params, pts, cfg_model["pos_enc_levels"], bf16)
     density = _dense(params["fc_density"], x, bf16).to(_F32)
@@ -134,3 +132,22 @@ def apply_nerf(params, pts, dirs, cfg_model):
                           bf16))
     rgb = torch.sigmoid(_dense(params["fc_rgb"], h, bf16).to(_F32))
     return rgb, density
+
+
+def _apply_nerf_fused(params, pts, dirs, cfg_model):
+    """The field through Kernel C (``ops/kernels/mlp_kernel.fused_mlp``):
+    encodings, MLP and head activations, bf16 operands with f32
+    accumulation. M is zero-padded to a multiple of ``BM`` as the JAX
+    package pads it, so both packages evaluate the same batch."""
+    from ..ops.kernels.mlp_kernel import BM, collect_weights, fused_mlp
+
+    M = pts.shape[0]
+    pad = (-M) % BM
+    if pad:
+        pts = torch.cat([pts, pts.new_zeros((pad, 3))])
+        dirs = torch.cat([dirs, dirs.new_zeros((pad, 3))])
+    rgb, density = fused_mlp(
+        collect_weights(params), pts, dirs, cfg_model["pos_enc_levels"],
+        cfg_model["dir_enc_levels"], cfg_model["occ_activation"],
+        not cfg_model["dist_alpha"])
+    return rgb[:M], density[:M]

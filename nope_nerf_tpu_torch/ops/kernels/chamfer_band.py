@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..._build import c_function, check
+from ..chamfer import gather_loss
 from . import LaunchCounter
 
 TILE = 1024      # Y rows per band tile
@@ -143,13 +144,12 @@ def nearest_idx_banded(X, Y, starts, k_tiles=8):
     return out[:S]
 
 
-def chamfer_loss_banded(X, Y, starts_x, starts_y, k_tiles=8):
-    """Symmetric Chamfer with the banded argmin: gradient-free indices, then
-    the differentiable distance to the gathered neighbour (safe sqrt)."""
-    idx_x = nearest_idx_banded(X, Y, starts_x, k_tiles).long()
-    idx_y = nearest_idx_banded(Y, X, starts_y, k_tiles).long()
-    dxv = X - Y[idx_x]
-    dyv = Y - X[idx_y]
-    dx = torch.sqrt(torch.clamp_min(torch.sum(dxv * dxv, dim=-1), 1e-24))
-    dy = torch.sqrt(torch.clamp_min(torch.sum(dyv * dyv, dim=-1), 1e-24))
-    return torch.mean(dx) + torch.mean(dy)
+def chamfer_loss_banded(X, Y, starts_x, starts_y, k_tiles=8,
+                        use_kernel=True):
+    """Symmetric Chamfer with the banded argmin (the kernel wrapper, or the
+    plain version when not ``use_kernel``): gradient-free indices, then the
+    differentiable distance to the gathered neighbour."""
+    nearest = (nearest_idx_banded if use_kernel
+               else nearest_idx_banded_reference)
+    return gather_loss(X, Y, nearest(X, Y, starts_x, k_tiles),
+                       nearest(Y, X, starts_y, k_tiles))

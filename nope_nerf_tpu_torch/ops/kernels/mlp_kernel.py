@@ -1,21 +1,26 @@
-"""Kernel A: the fused NeRF MLP + alpha compositing, forward and backward.
+"""Kernels A and C: the fused NeRF MLP, forward and backward, with alpha
+compositing (A) or per point (C).
 
-Port of ``nope_nerf_tpu/ops/pallas/mlp_kernel.py::fused_mlp_composite``
+Port of ``nope_nerf_tpu/ops/pallas/mlp_kernel.py``: ``fused_mlp_composite``
 (Pallas kernels ``_make_fwd_composite_kernel`` l.668 and
-``_make_bwd_composite_kernel`` l.702). The CUDA source is
+``_make_bwd_composite_kernel`` l.702) and ``fused_mlp`` (``_make_fwd_kernel``
+l.244 and ``_make_bwd_kernel`` l.258). The CUDA source is
 ``nope_nerf_tpu_torch/csrc/mlp_composite.cu``; its header says what bounds
-the kernel on the H100 and how the design answers it.
+the kernels on the H100 and how the design answers it.
 
-* :func:`fused_mlp_composite` is the public wrapper. For CUDA tensors it runs
-  :class:`FusedMLPComposite` (a fixed sequence of hand-written kernels
-  forward, another backward) and counts the launches in
-  :data:`FWD_LAUNCHES` / :data:`BWD_LAUNCHES`; for CPU tensors it runs
-  :func:`fused_mlp_composite_reference`; any other device raises.
-* :func:`fused_mlp_composite_reference` is the plain PyTorch version: bf16
-  operands emulated as bf16-rounded f32 tensors with f32 matmuls, autograd
-  for the backward (matmul cotangents rounded to bf16 as in the kernels).
+* :func:`fused_mlp_composite` (Kernel A) and :func:`fused_mlp` (Kernel C)
+  are the public wrappers. For CUDA tensors they run
+  :class:`FusedMLPComposite` / :class:`FusedMLP` (a fixed sequence of
+  hand-written kernels forward, another backward) and count the launches in
+  :data:`FWD_LAUNCHES` / :data:`BWD_LAUNCHES` and :data:`FWD_POINT_LAUNCHES`
+  / :data:`BWD_POINT_LAUNCHES`; for CPU tensors they run the plain versions
+  :func:`fused_mlp_composite_reference` / :func:`fused_mlp_reference`; any
+  other device raises.
+* The plain versions emulate bf16 operands as bf16-rounded f32 tensors with
+  f32 matmuls and take the backward from autograd (matmul cotangents
+  rounded to bf16 as in the kernels); both share :func:`_chain_reference`.
 
-Numerics (both versions): bf16 matmul operands, f32 accumulation, f32
+Numerics (all versions): bf16 matmul operands, f32 accumulation, f32
 biases, activations rounded to bf16 after the bias/ReLU epilogue, raw head
 outputs in f32, stable softplus, exclusive cumprod of (1 - alpha + 1e-6).
 z and deltas get no gradient (z never depends on parameters).
@@ -29,6 +34,8 @@ from ...models.nerf import matmul_bf16
 from ..encoding import encode_position
 from . import LaunchCounter
 
+BM = 1024  # point-padding quantum of the reference package's fused_mlp
+
 # parameter layout: (name, (fan_in, fan_out)) in kernel argument order
 W_NAMES = (
     "trunk0_0", "trunk0_1", "trunk0_2", "trunk0_3",
@@ -38,6 +45,8 @@ W_NAMES = (
 
 FWD_LAUNCHES = LaunchCounter("mlp_composite_fwd")
 BWD_LAUNCHES = LaunchCounter("mlp_composite_bwd")
+FWD_POINT_LAUNCHES = LaunchCounter("mlp_point_fwd")
+BWD_POINT_LAUNCHES = LaunchCounter("mlp_point_bwd")
 
 _F32 = torch.float32
 _BF = torch.bfloat16
@@ -57,8 +66,13 @@ def collect_weights(params):
     return tuple(ws)
 
 
+def _weights_dict(weights):
+    return {name: (weights[2 * i], weights[2 * i + 1])
+            for i, name in enumerate(W_NAMES)}
+
+
 # ---------------------------------------------------------------------------
-# Plain PyTorch version
+# Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
 
@@ -91,18 +105,9 @@ def _act_fwd(raw_sigma, raw_rgb, act, occ_alpha):
     return torch.sigmoid(raw_rgb), d
 
 
-def fused_mlp_composite_reference(weights, origins, rays, dirs, z, deltas,
-                                  l_pos, l_dir, act, occ_alpha, dist_alpha,
-                                  white_bg, S):
-    """Plain PyTorch version of :func:`fused_mlp_composite` (same arguments
-    and outputs): per-ray (N, 3) geometry and (N, S) z/deltas ->
-    (rgb_values (N, 3), dist (N, 1), alpha (N, S))."""
-    W = {name: (weights[2 * i], weights[2 * i + 1])
-         for i, name in enumerate(W_NAMES)}
-    N = origins.shape[0]
-    pts = origins[:, None, :] + rays[:, None, :] * z[..., None]
-    enc = _bf(encode_position(pts.reshape(-1, 3), l_pos))
-    denc = _bf(encode_position(dirs, l_dir)).repeat_interleave(S, dim=0)
+def _chain_reference(W, enc, denc):
+    """The MLP from the bf16-rounded encodings (M, 63) / (M, 27) to the raw
+    heads: (raw_sigma (M, 1), raw_rgb (M, 3)), f32."""
     h = enc
     for i in range(4):
         w, b = W[f"trunk0_{i}"]
@@ -116,6 +121,30 @@ def fused_mlp_composite_reference(weights, origins, rays, dirs, z, deltas,
     catr = torch.cat([feat, denc], dim=-1)
     hr = _bf(torch.relu(_mm(catr, W["rgb_layer"][0]) + W["rgb_layer"][1]))
     raw_rgb = _mm(hr, W["fc_rgb"][0]) + W["fc_rgb"][1]
+    return raw_sigma, raw_rgb
+
+
+def fused_mlp_reference(weights, pts, dirs, l_pos=10, l_dir=4,
+                        act="softplus", occ_alpha=False):
+    """Plain PyTorch version of :func:`fused_mlp` (same arguments and
+    outputs): pts, dirs (M, 3) -> (rgb (M, 3), density (M, 1))."""
+    enc = _bf(encode_position(pts, l_pos))
+    denc = _bf(encode_position(dirs, l_dir))
+    raw_sigma, raw_rgb = _chain_reference(_weights_dict(weights), enc, denc)
+    return _act_fwd(raw_sigma, raw_rgb, act, occ_alpha)
+
+
+def fused_mlp_composite_reference(weights, origins, rays, dirs, z, deltas,
+                                  l_pos, l_dir, act, occ_alpha, dist_alpha,
+                                  white_bg, S):
+    """Plain PyTorch version of :func:`fused_mlp_composite` (same arguments
+    and outputs): per-ray (N, 3) geometry and (N, S) z/deltas ->
+    (rgb_values (N, 3), dist (N, 1), alpha (N, S))."""
+    N = origins.shape[0]
+    pts = origins[:, None, :] + rays[:, None, :] * z[..., None]
+    enc = _bf(encode_position(pts.reshape(-1, 3), l_pos))
+    denc = _bf(encode_position(dirs, l_dir)).repeat_interleave(S, dim=0)
+    raw_sigma, raw_rgb = _chain_reference(_weights_dict(weights), enc, denc)
     rgb, d = _act_fwd(raw_sigma, raw_rgb, act, occ_alpha)
     sig2d = d.reshape(N, S)
     if dist_alpha:
@@ -267,23 +296,147 @@ def _dims(weights, l_pos, l_dir):
     return n_pos, n_dir, D, H2
 
 
+def _kernel_weights(weights):
+    """bf16 matrices (a list in W_NAMES order) and f32 bias vectors (a dict)
+    as the kernels read them."""
+    wb = [weights[2 * i].detach().to(_BF).contiguous()
+          for i in range(len(W_NAMES))]
+    bs = {name: weights[2 * i + 1].detach().reshape(-1).to(_F32).contiguous()
+          for i, name in enumerate(W_NAMES)}
+    return wb, bs
+
+
+def _chain_fwd(Wb, Bs, enc, denc, denc_div, M, dims):
+    """The GEMM chain from the bf16 encodings to the raw heads. ``denc``
+    rows are read once per ``denc_div`` points (per ray in Kernel A, per
+    point in C). Returns (acts (the 8 trunk outputs), feat, hr, raw (M, 4)
+    f32 = [raw_sigma, raw_rgb])."""
+    n_pos, n_dir, D, H2 = dims
+    dev = enc.device
+    acts = []
+    h = _Mat(enc, n_pos)
+    for i in range(4):
+        out = torch.empty((M, D), dtype=_BF, device=dev)
+        _gemm_nn(h, Wb[f"trunk0_{i}"], M, D, out,
+                 bias=Bs[f"trunk0_{i}"], relu=True)
+        acts.append(out)
+        h = _Mat(out, D)
+    for i in range(4):
+        out = torch.empty((M, D), dtype=_BF, device=dev)
+        w = Wb[f"trunk1_{i}"]
+        if i == 0:
+            # skip concat [h, enc] as two operand pairs
+            _gemm_nn(h, w[:D], M, D, out, a2=_Mat(enc, n_pos), b2=w[D:],
+                     bias=Bs["trunk1_0"], relu=True)
+        else:
+            _gemm_nn(h, w, M, D, out, bias=Bs[f"trunk1_{i}"], relu=True)
+        acts.append(out)
+        h = _Mat(out, D)
+    feat = torch.empty((M, D), dtype=_BF, device=dev)
+    _gemm_nn(h, Wb["fc_feature"], M, D, feat, bias=Bs["fc_feature"])
+    hr = torch.empty((M, H2), dtype=_BF, device=dev)
+    wr = Wb["rgb_layer"]
+    # [feat, denc] without building the concat
+    _gemm_nn(_Mat(feat, D), wr[:D], M, H2, hr,
+             a2=_Mat(denc, n_dir, row_div=denc_div), b2=wr[D:],
+             bias=Bs["rgb_layer"], relu=True)
+    raw = torch.empty((M, 4), dtype=_F32, device=dev)
+    err = c_function("nnt_heads_fwd", "pppppppiiip")(
+        _ptr(acts[7]), _ptr(hr), _ptr(Wb["fc_density"]),
+        _ptr(Bs["fc_density"]), _ptr(Wb["fc_rgb"]), _ptr(Bs["fc_rgb"]),
+        _ptr(raw), M, D, H2, _stream(raw))
+    check(err, "heads_fwd")
+    return acts, feat, hr, raw
+
+
+def _chain_bwd(Wb, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims):
+    """Backward of :func:`_chain_fwd` from the cotangents of the raw heads.
+    Returns (the 24 weight and bias gradients in kernel order, the
+    cotangent of the position encoding as two f32 summands (_Mat, _Mat),
+    the cotangent of the direction encoding (_Mat), per point)."""
+    n_pos, n_dir, D, H2 = dims
+    dev = g_raw.device
+    grads = {}
+    Wt = {k: _padded_t(v) for k, v in Wb.items()
+          if k not in ("fc_density", "fc_rgb")}
+    # fc_rgb
+    g_rgb = _Mat(g_raw, 3, ld=4, offset=1)
+    grads["fc_rgb"] = (_weight_grad(_Mat(hr, H2), g_rgb, M),
+                       _bias_grad(g_rgb, M))
+    g_hr = torch.empty((M, H2), dtype=_F32, device=dev)
+    err = c_function("nnt_heads_bwd", "ppppiip")(
+        _ptr(g_raw), _ptr(hr), _ptr(Wb["fc_rgb"]), _ptr(g_hr), M, H2,
+        _stream(g_hr))
+    check(err, "heads_bwd")
+    # rgb_layer: input [feat, denc]
+    g_hr_m = _Mat(g_hr, H2)
+    grads["rgb_layer"] = (
+        _weight_grad(_Mat(feat, D), g_hr_m, M,
+                     x2=_Mat(denc, n_dir, row_div=denc_div)),
+        _bias_grad(g_hr_m, M))
+    g_catr = torch.empty((M, _pad8(D + n_dir)), dtype=_F32, device=dev)
+    _gemm_nn(g_hr_m, Wt["rgb_layer"], M, D + n_dir, g_catr)
+    g_feat = _Mat(g_catr, D)
+    g_sig = _Mat(g_raw, 1, ld=4)
+    a13 = _Mat(acts[7], D)
+    grads["fc_feature"] = (_weight_grad(a13, g_feat, M),
+                           _bias_grad(g_feat, M))
+    grads["fc_density"] = (_weight_grad(a13, g_sig, M),
+                           _bias_grad(g_sig, M))
+    # d(a13) = g_feat @ Wf^T + g_sig @ Wd^T, masked by relu(a13); the
+    # (D, 1) density weight is already (1, D) in memory when transposed
+    g_h = torch.empty((M, D), dtype=_F32, device=dev)
+    _gemm_nn(g_feat, Wt["fc_feature"], M, D, g_h, a2=g_sig,
+             b2=Wb["fc_density"].reshape(1, -1), mask=a13)
+    # trunk1, last layer first
+    for j in (3, 2, 1):
+        x_in = _Mat(acts[4 + j - 1], D)
+        g = _Mat(g_h, D)
+        grads[f"trunk1_{j}"] = (_weight_grad(x_in, g, M), _bias_grad(g, M))
+        g_h = _gemm_nn(g, Wt[f"trunk1_{j}"], M, D,
+                       torch.empty((M, D), dtype=_F32, device=dev),
+                       mask=x_in)
+    g = _Mat(g_h, D)
+    a03 = _Mat(acts[3], D)
+    grads["trunk1_0"] = (_weight_grad(a03, g, M, x2=_Mat(enc, n_pos)),
+                         _bias_grad(g, M))
+    # d(cat): [d a03 (masked), d enc (skip branch, unmasked)]
+    g_cat = torch.empty((M, _pad8(D + n_pos)), dtype=_F32, device=dev)
+    _gemm_nn(g, Wt["trunk1_0"], M, D + n_pos, g_cat, mask=a03)
+    g = _Mat(g_cat, D)
+    for j in (3, 2, 1, 0):
+        x_in = _Mat(acts[j - 1], D) if j > 0 else _Mat(enc, n_pos)
+        grads[f"trunk0_{j}"] = (_weight_grad(x_in, g, M), _bias_grad(g, M))
+        width = D if j > 0 else n_pos
+        out = torch.empty((M, _pad8(width)), dtype=_F32, device=dev)
+        _gemm_nn(g, Wt[f"trunk0_{j}"], M, width, out,
+                 mask=x_in if j > 0 else None)
+        g = _Mat(out, width)
+    d_weights = [t for name in W_NAMES for t in grads[name]]
+    return (d_weights, (_Mat(g_cat, n_pos, offset=D), g),
+            _Mat(g_catr, n_dir, offset=D))
+
+
+def _cotangent(g, shape, dev):
+    if g is None:
+        return torch.zeros(shape, dtype=_F32, device=dev)
+    return g.to(_F32).contiguous()
+
+
 class FusedMLPComposite(torch.autograd.Function):
-    """CUDA forward/backward of :func:`fused_mlp_composite`. ``cfg`` is
-    (l_pos, l_dir, act, occ_alpha, dist_alpha, white_bg, S)."""
+    """CUDA forward/backward of :func:`fused_mlp_composite` (Kernel A).
+    ``cfg`` is (l_pos, l_dir, act, occ_alpha, dist_alpha, white_bg, S)."""
 
     @staticmethod
     def forward(ctx, origins, rays, dirs, z, deltas, cfg, *weights):
         l_pos, l_dir, act, occ_alpha, dist_alpha, white_bg, S = cfg
-        n_pos, n_dir, D, H2 = _dims(weights, l_pos, l_dir)
+        dims = _dims(weights, l_pos, l_dir)
+        n_pos, n_dir = dims[:2]
         N = origins.shape[0]
         M = N * S
         dev = origins.device
-        wb = [weights[2 * i].detach().to(_BF).contiguous()
-              for i in range(len(W_NAMES))]
-        bs = [weights[2 * i + 1].detach().reshape(-1).to(_F32).contiguous()
-              for i in range(len(W_NAMES))]
+        wb, Bs = _kernel_weights(weights)
         Wb = dict(zip(W_NAMES, wb))
-        Bs = dict(zip(W_NAMES, bs))
         stream = _stream(origins)
 
         enc = torch.empty((M, _pad8(n_pos)), dtype=_BF, device=dev)
@@ -293,40 +446,7 @@ class FusedMLPComposite(torch.autograd.Function):
             enc.shape[1], _ptr(denc), denc.shape[1], N, S, l_pos, l_dir,
             stream)
         check(err, "encode_fwd")
-
-        acts = []
-        h = _Mat(enc, n_pos)
-        for i in range(4):
-            out = torch.empty((M, D), dtype=_BF, device=dev)
-            _gemm_nn(h, Wb[f"trunk0_{i}"], M, D, out,
-                     bias=Bs[f"trunk0_{i}"], relu=True)
-            acts.append(out)
-            h = _Mat(out, D)
-        for i in range(4):
-            out = torch.empty((M, D), dtype=_BF, device=dev)
-            w = Wb[f"trunk1_{i}"]
-            if i == 0:
-                # skip concat [h, enc] as two operand pairs
-                _gemm_nn(h, w[:D], M, D, out, a2=_Mat(enc, n_pos), b2=w[D:],
-                         bias=Bs["trunk1_0"], relu=True)
-            else:
-                _gemm_nn(h, w, M, D, out, bias=Bs[f"trunk1_{i}"], relu=True)
-            acts.append(out)
-            h = _Mat(out, D)
-        feat = torch.empty((M, D), dtype=_BF, device=dev)
-        _gemm_nn(h, Wb["fc_feature"], M, D, feat, bias=Bs["fc_feature"])
-        hr = torch.empty((M, H2), dtype=_BF, device=dev)
-        wr = Wb["rgb_layer"]
-        # [feat, denc] with the direction encoding read once per ray
-        _gemm_nn(_Mat(feat, D), wr[:D], M, H2, hr,
-                 a2=_Mat(denc, n_dir, row_div=S), b2=wr[D:],
-                 bias=Bs["rgb_layer"], relu=True)
-        raw = torch.empty((M, 4), dtype=_F32, device=dev)
-        err = c_function("nnt_heads_fwd", "pppppppiiip")(
-            _ptr(acts[7]), _ptr(hr), _ptr(Wb["fc_density"]),
-            _ptr(Bs["fc_density"]), _ptr(Wb["fc_rgb"]), _ptr(Bs["fc_rgb"]),
-            _ptr(raw), M, D, H2, stream)
-        check(err, "heads_fwd")
+        acts, feat, hr, raw = _chain_fwd(Wb, Bs, enc, denc, S, M, dims)
         rgbv = torch.empty((N, 3), dtype=_F32, device=dev)
         dist = torch.empty((N, 1), dtype=_F32, device=dev)
         alpha = torch.empty((N, S), dtype=_F32, device=dev)
@@ -338,7 +458,7 @@ class FusedMLPComposite(torch.autograd.Function):
         FWD_LAUNCHES.add()
 
         ctx.cfg = cfg
-        ctx.dims = (n_pos, n_dir, D, H2)
+        ctx.dims = dims
         ctx.save_for_backward(origins, rays, dirs, z, deltas, enc, denc,
                               feat, hr, raw, *acts, *wb)
         return rgbv, dist, alpha
@@ -346,7 +466,6 @@ class FusedMLPComposite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_rgbv, g_dist, g_alpha):
         l_pos, l_dir, act, occ_alpha, dist_alpha, white_bg, S = ctx.cfg
-        n_pos, n_dir, D, H2 = ctx.dims
         saved = ctx.saved_tensors
         origins, rays, dirs, z, deltas, enc, denc, feat, hr, raw = saved[:10]
         acts = saved[10:18]
@@ -355,15 +474,9 @@ class FusedMLPComposite(torch.autograd.Function):
         M = N * S
         dev = origins.device
         stream = _stream(origins)
-
-        def cot(g, shape):
-            if g is None:
-                return torch.zeros(shape, dtype=_F32, device=dev)
-            return g.to(_F32).contiguous()
-
-        g_rgbv = cot(g_rgbv, (N, 3))
-        g_dist = cot(g_dist, (N, 1))
-        g_alpha = cot(g_alpha, (N, S))
+        g_rgbv = _cotangent(g_rgbv, (N, 3), dev)
+        g_dist = _cotangent(g_dist, (N, 1), dev)
+        g_alpha = _cotangent(g_alpha, (N, S), dev)
 
         # compositing + head activations -> cotangents of the raw heads
         g_raw = torch.empty((M, 4), dtype=_F32, device=dev)
@@ -374,88 +487,105 @@ class FusedMLPComposite(torch.autograd.Function):
             int(act == "softplus"), int(occ_alpha), int(dist_alpha),
             int(white_bg), stream)
         check(err, "composite_bwd")
-
-        grads = {}
-        Wt = {k: _padded_t(v) for k, v in Wb.items()
-              if k not in ("fc_density", "fc_rgb")}
-        # fc_rgb
-        g_rgb = _Mat(g_raw, 3, ld=4, offset=1)
-        grads["fc_rgb"] = (_weight_grad(_Mat(hr, H2), g_rgb, M),
-                           _bias_grad(g_rgb, M))
-        g_hr = torch.empty((M, H2), dtype=_F32, device=dev)
-        err = c_function("nnt_heads_bwd", "ppppiip")(
-            _ptr(g_raw), _ptr(hr), _ptr(Wb["fc_rgb"]), _ptr(g_hr), M, H2,
-            stream)
-        check(err, "heads_bwd")
-        # rgb_layer: input [feat, denc]
-        g_hr_m = _Mat(g_hr, H2)
-        grads["rgb_layer"] = (
-            _weight_grad(_Mat(feat, D), g_hr_m, M,
-                         x2=_Mat(denc, n_dir, row_div=S)),
-            _bias_grad(g_hr_m, M))
-        g_catr = torch.empty((M, _pad8(D + n_dir)), dtype=_F32, device=dev)
-        _gemm_nn(g_hr_m, Wt["rgb_layer"], M, D + n_dir, g_catr)
-        g_feat = _Mat(g_catr, D)
-        g_sig = _Mat(g_raw, 1, ld=4)
-        a13 = _Mat(acts[7], D)
-        grads["fc_feature"] = (_weight_grad(a13, g_feat, M),
-                               _bias_grad(g_feat, M))
-        grads["fc_density"] = (_weight_grad(a13, g_sig, M),
-                               _bias_grad(g_sig, M))
-        # d(a13) = g_feat @ Wf^T + g_sig @ Wd^T, masked by relu(a13); the
-        # (D, 1) density weight is already (1, D) in memory when transposed
-        g_h = torch.empty((M, D), dtype=_F32, device=dev)
-        _gemm_nn(g_feat, Wt["fc_feature"], M, D, g_h, a2=g_sig,
-                 b2=Wb["fc_density"].reshape(1, -1), mask=a13)
-        # trunk1, last layer first
-        for j in (3, 2, 1):
-            x_in = _Mat(acts[4 + j - 1], D)
-            g = _Mat(g_h, D)
-            grads[f"trunk1_{j}"] = (_weight_grad(x_in, g, M),
-                                    _bias_grad(g, M))
-            g_h = _gemm_nn(g, Wt[f"trunk1_{j}"], M, D,
-                           torch.empty((M, D), dtype=_F32, device=dev),
-                           mask=x_in)
-        g = _Mat(g_h, D)
-        a03 = _Mat(acts[3], D)
-        grads["trunk1_0"] = (_weight_grad(a03, g, M, x2=_Mat(enc, n_pos)),
-                             _bias_grad(g, M))
-        # d(cat): [d a03 (masked), d enc (skip branch, unmasked)]
-        g_cat = torch.empty((M, _pad8(D + n_pos)), dtype=_F32, device=dev)
-        _gemm_nn(g, Wt["trunk1_0"], M, D + n_pos, g_cat, mask=a03)
-        g = _Mat(g_cat, D)
-        for j in (3, 2, 1, 0):
-            x_in = _Mat(acts[j - 1], D) if j > 0 else _Mat(enc, n_pos)
-            grads[f"trunk0_{j}"] = (_weight_grad(x_in, g, M),
-                                    _bias_grad(g, M))
-            width = D if j > 0 else n_pos
-            out = torch.empty((M, _pad8(width)), dtype=_F32, device=dev)
-            _gemm_nn(g, Wt[f"trunk0_{j}"], M, width, out,
-                     mask=x_in if j > 0 else None)
-            g = _Mat(out, width)
+        d_weights, (ge1, ge2), gd = _chain_bwd(
+            Wb, g_raw, enc, denc, S, feat, hr, acts, M, ctx.dims)
         # encoding backward + ray sums
         d_o = torch.empty((N, 3), dtype=_F32, device=dev)
         d_r = torch.empty((N, 3), dtype=_F32, device=dev)
         d_d = torch.empty((N, 3), dtype=_F32, device=dev)
         err = c_function("nnt_encode_bwd", "ppppp" "ipipi" "pppiiiip")(
             _ptr(origins), _ptr(rays), _ptr(dirs), _ptr(z),
-            _ptr(g_cat, D), g_cat.shape[1], _ptr(g.t), g.ld,
-            _ptr(g_catr, D), g_catr.shape[1],
+            ge1.ptr, ge1.ld, ge2.ptr, ge2.ld, gd.ptr, gd.ld,
             _ptr(d_o), _ptr(d_r), _ptr(d_d), N, S, l_pos, l_dir, stream)
         check(err, "encode_bwd")
         BWD_LAUNCHES.add()
-
-        d_weights = []
-        for name in W_NAMES:
-            d_weights += list(grads[name])
         return (d_o, d_r, d_d, None, None, None, *d_weights)
+
+
+class FusedMLP(torch.autograd.Function):
+    """CUDA forward/backward of :func:`fused_mlp` (Kernel C). ``cfg`` is
+    (l_pos, l_dir, act, occ_alpha)."""
+
+    @staticmethod
+    def forward(ctx, pts, dirs, cfg, *weights):
+        l_pos, l_dir, act, occ_alpha = cfg
+        dims = _dims(weights, l_pos, l_dir)
+        n_pos, n_dir = dims[:2]
+        M = pts.shape[0]
+        dev = pts.device
+        wb, Bs = _kernel_weights(weights)
+        Wb = dict(zip(W_NAMES, wb))
+        stream = _stream(pts)
+
+        encs = []
+        for x, levels, n in ((pts, l_pos, n_pos), (dirs, l_dir, n_dir)):
+            e = torch.empty((M, _pad8(n)), dtype=_BF, device=dev)
+            err = c_function("nnt_encode_points", "ppiiip")(
+                _ptr(x), _ptr(e), e.shape[1], M, levels, stream)
+            check(err, "encode_points")
+            encs.append(e)
+        enc, denc = encs
+        acts, feat, hr, raw = _chain_fwd(Wb, Bs, enc, denc, 1, M, dims)
+        rgb = torch.empty((M, 3), dtype=_F32, device=dev)
+        density = torch.empty((M, 1), dtype=_F32, device=dev)
+        err = c_function("nnt_head_act_fwd", "pppiiip")(
+            _ptr(raw), _ptr(rgb), _ptr(density), M, int(act == "softplus"),
+            int(occ_alpha), stream)
+        check(err, "head_act_fwd")
+        FWD_POINT_LAUNCHES.add()
+
+        ctx.cfg = cfg
+        ctx.dims = dims
+        ctx.save_for_backward(pts, dirs, enc, denc, feat, hr, raw, *acts,
+                              *wb)
+        return rgb, density
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_density):
+        l_pos, l_dir, act, occ_alpha = ctx.cfg
+        saved = ctx.saved_tensors
+        pts, dirs, enc, denc, feat, hr, raw = saved[:7]
+        acts = saved[7:15]
+        Wb = dict(zip(W_NAMES, saved[15:]))
+        M = pts.shape[0]
+        dev = pts.device
+        stream = _stream(pts)
+        g_rgb = _cotangent(g_rgb, (M, 3), dev)
+        g_density = _cotangent(g_density, (M, 1), dev)
+
+        g_raw = torch.empty((M, 4), dtype=_F32, device=dev)
+        err = c_function("nnt_head_act_bwd", "ppppiiip")(
+            _ptr(raw), _ptr(g_rgb), _ptr(g_density), _ptr(g_raw), M,
+            int(act == "softplus"), int(occ_alpha), stream)
+        check(err, "head_act_bwd")
+        d_weights, (ge1, ge2), gd = _chain_bwd(
+            Wb, g_raw, enc, denc, 1, feat, hr, acts, M, ctx.dims)
+        d_pts = torch.empty((M, 3), dtype=_F32, device=dev)
+        d_dirs = torch.empty((M, 3), dtype=_F32, device=dev)
+        for x, g1, g2, levels, out in ((pts, ge1, ge2, l_pos, d_pts),
+                                       (dirs, gd, None, l_dir, d_dirs)):
+            err = c_function("nnt_encode_points_bwd", "ppipipiip")(
+                _ptr(x), g1.ptr, g1.ld, g2.ptr if g2 else None,
+                g2.ld if g2 else 0, _ptr(out), M, levels, stream)
+            check(err, "encode_points_bwd")
+        BWD_POINT_LAUNCHES.add()
+        return (d_pts, d_dirs, None, *d_weights)
+
+
+def _check_inputs(name, dev, tensors):
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for t in tensors:
+        if t.device != dev or t.dtype != _F32:
+            raise ValueError(f"{name}: every input must be f32 on {dev}")
 
 
 def fused_mlp_composite(weights, origins, rays, dirs, z, deltas,
                         l_pos, l_dir, act, occ_alpha, dist_alpha,
                         white_bg, S):
-    """Fully fused render: per-RAY inputs (origins/rays/dirs (N, 3),
-    z/deltas (N, S)) -> (rgb_values (N, 3), dist_pred (N, 1), alpha (N, S)).
+    """Fully fused render (Kernel A): per-RAY inputs (origins/rays/dirs
+    (N, 3), z/deltas (N, S)) -> (rgb_values (N, 3), dist_pred (N, 1),
+    alpha (N, S)).
 
     ``weights`` is the 24-tuple of :func:`collect_weights`. CUDA tensors run
     the hand-written kernels; CPU tensors run the plain version."""
@@ -464,13 +594,8 @@ def fused_mlp_composite(weights, origins, rays, dirs, z, deltas,
         return fused_mlp_composite_reference(
             weights, origins, rays, dirs, z, deltas, l_pos, l_dir, act,
             occ_alpha, dist_alpha, white_bg, S)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_mlp_composite: unsupported device {dev}")
-    tensors = (origins, rays, dirs, z, deltas) + tuple(weights)
-    for t in tensors:
-        if t.device != dev or t.dtype != _F32:
-            raise ValueError("fused_mlp_composite: every input must be f32 "
-                             f"on {dev}")
+    _check_inputs("fused_mlp_composite", dev,
+                  (origins, rays, dirs, z, deltas) + tuple(weights))
     N = origins.shape[0]
     if any(t.shape != (N, 3) for t in (origins, rays, dirs)):
         raise ValueError(f"origins/rays/dirs must be ({N}, 3)")
@@ -481,3 +606,23 @@ def fused_mlp_composite(weights, origins, rays, dirs, z, deltas,
     return FusedMLPComposite.apply(
         origins.contiguous(), rays.contiguous(), dirs.contiguous(),
         z.contiguous(), deltas.contiguous(), cfg, *weights)
+
+
+def fused_mlp(weights, pts, dirs, l_pos=10, l_dir=4, act="softplus",
+              occ_alpha=False):
+    """Per-point fused field (Kernel C): ``weights`` (the 24-tuple of
+    :func:`collect_weights`), pts, dirs (M, 3) f32 -> (rgb (M, 3)
+    post-sigmoid, density (M, 1) post-activation: softplus or relu, then
+    1 - exp(-d) with ``occ_alpha``). Any M; callers pad to :data:`BM` to
+    match the reference package's batches. CUDA tensors run the
+    hand-written kernels; CPU tensors run the plain version."""
+    dev = pts.device
+    if dev.type == "cpu":
+        return fused_mlp_reference(weights, pts, dirs, l_pos, l_dir, act,
+                                   occ_alpha)
+    _check_inputs("fused_mlp", dev, (pts, dirs) + tuple(weights))
+    M = pts.shape[0]
+    if pts.shape != (M, 3) or dirs.shape != (M, 3):
+        raise ValueError(f"pts/dirs must be ({M}, 3)")
+    cfg = (int(l_pos), int(l_dir), act, bool(occ_alpha))
+    return FusedMLP.apply(pts.contiguous(), dirs.contiguous(), cfg, *weights)

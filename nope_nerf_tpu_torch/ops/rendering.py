@@ -6,7 +6,8 @@ Two field paths, chosen by the render config:
   encodings, MLP, head activations and compositing in Kernel A
   (:func:`..ops.kernels.mlp_kernel.fused_mlp_composite`), per-ray tensors
   in and out;
-* unfused: :func:`..models.nerf.apply_nerf` on the (N*S, 3) points, then
+* unfused: :func:`..models.nerf.apply_nerf` on the (N*S, 3) points (in
+  Kernel C with ``use_pallas_mlp``, else plain ``torch.matmul``), then
   :func:`composite` -- the oracle of the fused path.
 
 Semantics kept from the JAX package: eps 1e-6 in the transmittance cumprod,
@@ -146,6 +147,13 @@ def render_rays(nerf_params, pixels, depth_prior, camera_mat, world_mat,
         pts = (origins[:, None, :] + rays_in[:, None, :] * z_val[..., None])
         pts = pts.reshape(-1, 3)
         dirs = dir_per_ray[:, None, :].expand(N, S, 3).reshape(-1, 3)
+        if cfg.get("use_pallas_mlp", False):
+            # Kernel C pads each chunk to a multiple of BM points: chunks
+            # of whole BMs keep the padded batch within the bound (or at
+            # one BM when the bound is smaller)
+            from .kernels.mlp_kernel import BM
+
+            n_max = max(n_max // BM, 1) * BM
         chunks = [apply_nerf(nerf_params, pts[i:i + n_max], dirs[i:i + n_max],
                              cfg)
                   for i in range(0, N * S, n_max)]

@@ -1,8 +1,10 @@
 """Profile the stock training step on a CUDA device:
 
     python -m nope_nerf_tpu_torch.profile_step [--steps 8] [--out DIR]
+        [--set KEY=VALUE ...]
 
-Trains the stock configuration (``configs/default.yaml``) on the in-memory
+Trains the stock configuration (``configs/default.yaml``, each ``--set``
+applied to its ``tpu:`` group, e.g. ``--set parity=True``) on the in-memory
 8-frame 540x960 scene: a few warm-up steps, then ``--steps`` steps timed on
 the host clock around a device synchronise, then the same number under
 ``torch.profiler``. Prints ms per step, rays/s, the device's busy share of
@@ -18,18 +20,26 @@ import time
 
 import numpy as np
 import torch
+import yaml
 
-from .config import DEFAULT_CONFIG, load_config
+from .config import DEFAULT_CONFIG, apply_parity_profile, load_config
 from .synthetic import MemoryScene
 from .training.loop import build_params, scene_batch_arrays
 from .training.scheduler import Scheduler
-from .training.trainer import init_train_state, make_render_cfg, make_train_step
+from .training.trainer import (
+    describe_routes,
+    init_train_state,
+    make_render_cfg,
+    make_train_step,
+)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", default="chiprun_out/profile_step")
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="override a tpu: key (the value is read as YAML)")
     ap.add_argument("--sync-debug", action="store_true",
                     help="list the operations that synchronise with the "
                          "device during one step")
@@ -41,13 +51,21 @@ def main(argv=None):
     os.makedirs(args.out, exist_ok=True)
 
     cfg = load_config(DEFAULT_CONFIG)
+    for item in args.set:
+        key, _, value = item.partition("=")
+        cfg["tpu"][key] = yaml.safe_load(value)
+    apply_parity_profile(cfg)
     scene = MemoryScene()
     cfg["_num_cams"] = scene.N_imgs
     batch0 = scene_batch_arrays(scene, cfg, dev)
     params, init_c2w = build_params(cfg, scene, torch.Generator().manual_seed(0),
                                     dev)
     state = init_train_state(params)
-    step = make_train_step(cfg, make_render_cfg(cfg, dev), init_c2w)
+    render_cfg = make_render_cfg(cfg, dev)
+    n_pc = (int(batch0["dpts"].shape[1] / cfg["training"]["pc_ratio"])
+            * int(batch0["dpts"].shape[2] / cfg["training"]["pc_ratio"]))
+    print(describe_routes(cfg, render_cfg, dev, n_pc))
+    step = make_train_step(cfg, render_cfg, init_c2w)
     sched = Scheduler(cfg)
     w_l1, w_l2 = sched.rgb_loss_switch(0)
     scalars = {"weights": sched.weights(0), "w_l1": w_l1, "w_l2": w_l2,

@@ -30,7 +30,12 @@ from ..models.nerf import init_nerf_params
 from ..models.pose import init_pose_params
 from ..ops.interp import resize_bilinear, resize_nearest
 from .scheduler import Scheduler, ScheduleState
-from .trainer import init_train_state, make_render_cfg, make_train_step
+from .trainer import (
+    describe_routes,
+    init_train_state,
+    make_render_cfg,
+    make_train_step,
+)
 
 
 class MetricsLogger:
@@ -156,6 +161,11 @@ def train(cfg, max_epochs=None, scene=None, device=None):
     cfg = dict(cfg)
     cfg["_num_cams"] = n_views
     render_cfg = make_render_cfg(cfg, device)
+    ratio = cfg["training"]["pc_ratio"]
+    n_pc = (int(batch0["dpts"].shape[1] / ratio)
+            * int(batch0["dpts"].shape[2] / ratio))
+    print("nope_nerf_tpu_torch: "
+          + describe_routes(cfg, render_cfg, device, n_pc))
     params, init_c2w = build_params(cfg, scene, init_gen, device)
     state = init_train_state(params)
     sched_state = ScheduleState(

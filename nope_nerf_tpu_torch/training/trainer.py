@@ -264,8 +264,11 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
         w_l2=scalars["w_l2"],
         with_ssim=tcfg["with_ssim"],
         depth_loss_type=tcfg["depth_loss_type"],
-        chamfer_block=tpu.get("chamfer_block", 2048),
+        use_pallas_chamfer=use_chamfer_kernels(cfg, dev),
         chamfer_mode=tpu.get("chamfer_mode", "exact"),
+        chamfer_window=tpu.get("chamfer_window", 512),
+        chamfer_auto_costs=(tpu.get("chamfer_auto_exact_ms_per_pair"),
+                            tpu.get("chamfer_auto_grid_ms_per_point")),
         with_auto_mask=tcfg.get("with_auto_mask", False),
         **loss_kwargs,
     )
@@ -308,12 +311,52 @@ def make_train_step(cfg, render_cfg, init_c2w=None):
     return step
 
 
+def use_chamfer_kernels(cfg, device):
+    """Kernels B / D run the pc loss's argmins on CUDA unless
+    ``tpu.use_pallas: False`` opts out to their plain versions."""
+    return (bool((cfg.get("tpu", {}) or {}).get("use_pallas", True))
+            and torch.device(device).type == "cuda")
+
+
+def describe_routes(cfg, render_cfg, device, n_pc):
+    """One line naming the Chamfer mode and the MLP route a run resolves
+    to, for clouds of ``n_pc`` points each."""
+    from ..ops.chamfer import resolve_chamfer_mode
+
+    tpu = cfg.get("tpu", {}) or {}
+    on_cuda = torch.device(device).type == "cuda"
+    asked = tpu.get("chamfer_mode", "exact")
+    mode = resolve_chamfer_mode(
+        asked, n_pc, n_pc, n_devices=1, sharded_exact=False,
+        hints_available=asked in ("band", "auto"),
+        exact_ms_per_pair=tpu.get("chamfer_auto_exact_ms_per_pair"),
+        grid_ms_per_point=tpu.get("chamfer_auto_grid_ms_per_point"))
+    if mode == "grid":
+        chamfer = "plain PyTorch Morton windows"
+    else:
+        kernel = {"band": "Kernel B", "exact": "Kernel D"}[mode]
+        chamfer = (kernel if use_chamfer_kernels(cfg, device) else
+                   f"plain version of {kernel} ("
+                   + ("tpu.use_pallas: False" if on_cuda else "CPU") + ")")
+    if render_cfg.get("use_pallas_mlp", False):
+        kernel = ("Kernel A (MLP + compositing)"
+                  if render_cfg.get("fuse_compositing", False) else
+                  "Kernel C (per-point MLP) + plain compositing")
+        mlp = kernel if on_cuda else f"plain version of {kernel} (CPU)"
+    else:
+        mlp = ("plain torch.matmul MLP, "
+               + ("bf16 operands" if render_cfg.get("mlp_bf16") else "f32"))
+    return (f"chamfer_mode {asked} -> {mode} on {n_pc}-point clouds: "
+            f"{chamfer}; MLP: {mlp}")
+
+
 def make_render_cfg(cfg, device):
     """Merge the rendering + model groups for ``render_rays``.
 
-    ``tpu.use_pallas_mlp`` (the hand-written CUDA kernel here) and
-    ``tpu.mlp_bf16`` default to True for CUDA tensors and False for CPU
-    ones; ``tpu.n_max_network_queries`` defaults to 2**21 points.
+    ``tpu.use_pallas_mlp`` (Kernel A, or Kernel C with
+    ``tpu.fuse_compositing: False``) and ``tpu.mlp_bf16`` default to True
+    for CUDA tensors and False for CPU ones; ``tpu.n_max_network_queries``
+    defaults to 2**21 points.
     """
     tpu = cfg.get("tpu", {}) or {}
     on_cuda = torch.device(device).type == "cuda"

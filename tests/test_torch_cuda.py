@@ -124,3 +124,91 @@ def test_kernel_b_matches_plain(dev, S, D, k):
     ref = cb.nearest_idx_banded_reference(X, Y, starts, k)
     assert idx.dtype == torch.int32 and idx.shape == (S,)
     assert torch.equal(idx, ref)
+
+
+def _kernel_c_inputs(dev, M, hidden, seed):
+    from nope_nerf_tpu_torch.models.nerf import init_nerf_params
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    cfg = {"model": {"hidden_dim": hidden, "pos_enc_levels": 10,
+                     "dir_enc_levels": 4}, "rendering": {"white_background": False}}
+    rng = np.random.default_rng(seed)
+    params = init_nerf_params(torch.Generator().manual_seed(seed), cfg, dev)
+    d = rng.normal(size=(M, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    pts = t(rng.normal(size=(M, 3)))
+    cots = [t(rng.normal(size=s) / M) for s in ((M, 3), (M, 1))]
+    return mk.collect_weights(params), [pts, t(d)], cots
+
+
+@pytest.mark.parametrize("act,occ_alpha", [("softplus", True),
+                                           ("softplus", False),
+                                           ("relu", True), ("relu", False)])
+def test_kernel_c_matches_plain(dev, act, occ_alpha):
+    """Kernel C against its plain version over the four head-activation
+    branches on a ragged batch (1500 points): forward at tests/
+    test_pallas.py's bars (rgb atol 0.03, density rtol 0.08 / atol 0.05),
+    gradients at its relL2 0.02; one launch counted per direction."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    ws, ins, cots = _kernel_c_inputs(dev, 1500, 64, 5)
+    results = []
+    for fn in (mk.fused_mlp, mk.fused_mlp_reference):
+        w = [x.clone().requires_grad_() for x in ws]
+        x = [a.clone().requires_grad_() for a in ins]
+        f0 = (mk.FWD_POINT_LAUNCHES.count, mk.BWD_POINT_LAUNCHES.count)
+        out = fn(w, *x, 10, 4, act, occ_alpha)
+        grads = torch.autograd.grad(out, w + x, cots)
+        launches = (mk.FWD_POINT_LAUNCHES.count - f0[0],
+                    mk.BWD_POINT_LAUNCHES.count - f0[1])
+        results.append(([o.detach() for o in out], grads, launches))
+    (ok, gk, lk), (orf, gr, lr) = results
+    assert lk == (1, 1) and lr == (0, 0)
+    assert ok[0].shape == (1500, 3) and ok[1].shape == (1500, 1)
+    torch.testing.assert_close(ok[0], orf[0], atol=0.03, rtol=0)
+    torch.testing.assert_close(ok[1], orf[1], atol=0.05, rtol=0.08)
+    for i, (a, b) in enumerate(zip(gk, gr)):
+        assert torch.isfinite(a).all()
+        assert _rel_l2(a, b) < 0.02, i
+
+
+def test_kernel_c_backward_is_deterministic(dev):
+    """Two backward passes of Kernel C give bitwise equal weight
+    gradients."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    ws, ins, cots = _kernel_c_inputs(dev, 2048, 64, 6)
+    w = [x.clone().requires_grad_() for x in ws]
+    out = mk.fused_mlp(w, *ins, 10, 4, "softplus", True)
+    g1 = torch.autograd.grad(out, w, cots, retain_graph=True)
+    g2 = torch.autograd.grad(out, w, cots)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S,D,masked", [(1500, 2100, False),
+                                        (1024, 700, False),
+                                        (1500, 2100, True)])
+def test_kernel_d_matches_plain(dev, S, D, masked):
+    """Kernel D gives the plain version's indices, both directions, on
+    ragged sizes and with validity masks; one launch per direction."""
+    from nope_nerf_tpu_torch.ops.kernels import chamfer_kernel as ck
+
+    rng = np.random.default_rng(7)
+    X = torch.tensor(rng.normal(size=(S, 3)), dtype=torch.float32, device=dev)
+    Y = torch.tensor(rng.normal(size=(D, 3)), dtype=torch.float32, device=dev)
+    masks = (None, None)
+    if masked:
+        masks = tuple(torch.tensor((rng.uniform(size=n) > 0.3).astype(
+            np.float32), device=dev) for n in (S, D))
+    n0 = ck.LAUNCHES.count
+    idx = ck.nearest_idx_exact(X, Y, *masks)
+    assert ck.LAUNCHES.count == n0 + 2
+    ref = ck.nearest_idx_exact_reference(X, Y, *masks)
+    for a, b, n in zip(idx, ref, (S, D)):
+        assert a.dtype == torch.int32 and a.shape == (n,)
+        assert torch.equal(a, b)

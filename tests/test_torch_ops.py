@@ -257,6 +257,9 @@ def test_port_imports_without_jax():
         "import nope_nerf_tpu_torch, nope_nerf_tpu_torch.train\n"
         "import nope_nerf_tpu_torch.ops.kernels.mlp_kernel\n"
         "import nope_nerf_tpu_torch.ops.kernels.chamfer_band\n"
+        "import nope_nerf_tpu_torch.ops.kernels.chamfer_kernel\n"
+        "import nope_nerf_tpu_torch.ops.chamfer, nope_nerf_tpu_torch.models.nerf\n"
+        "import nope_nerf_tpu_torch.losses.losses, nope_nerf_tpu_torch.profile_step\n"
         "import nope_nerf_tpu_torch.training.loop, nope_nerf_tpu_torch.convert\n"
         "bad = [m for m in sys.modules if m.startswith('nope_nerf_tpu.')\n"
         "       or m == 'nope_nerf_tpu' or (m.startswith('jax') and sys.modules[m])]\n"
@@ -275,6 +278,7 @@ def test_wrappers_pick_plain_version_only_for_cpu(nrng):
     """CPU tensors run the plain version and count no launch; a tensor on
     any other non-CUDA device raises (a CUDA tensor launches the kernel)."""
     from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
+    from nope_nerf_tpu_torch.ops.kernels import chamfer_kernel as ck
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     X = _t(nrng.normal(size=(50, 3)))
@@ -288,9 +292,20 @@ def test_wrappers_pick_plain_version_only_for_cpu(nrng):
     with pytest.raises(ValueError, match="unsupported device"):
         cb.nearest_idx_banded(X.to("meta"), Y.to("meta"), starts.to("meta"))
 
+    n0 = ck.LAUNCHES.count
+    for a, b in zip(ck.nearest_idx_exact(X, Y),
+                    ck.nearest_idx_exact_reference(X, Y)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert ck.LAUNCHES.count == n0
+    with pytest.raises(ValueError, match="unsupported device"):
+        ck.nearest_idx_exact(X.to("meta"), Y.to("meta"))
+
     ws = [torch.zeros(s) for s in ((63, 8), (1, 8))]
     with pytest.raises(ValueError, match="unsupported device"):
         mk.fused_mlp_composite([w.to("meta") for w in ws],
                                *(torch.zeros(2, 3, device="meta"),) * 3,
                                *(torch.zeros(2, 4, device="meta"),) * 2,
                                10, 4, "softplus", True, False, False, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        mk.fused_mlp([w.to("meta") for w in ws],
+                     *(torch.zeros(2, 3, device="meta"),) * 2)

@@ -274,16 +274,17 @@ def test_banded_nearest_and_loss():
 
 
 def test_exact_chamfer_loss():
-    """The exact mode (score-form argmin, gather distance) on random
-    clouds; a summation-order difference can only swap near-tied
-    neighbours, which moves the mean distance by far less than 1e-5."""
+    """The exact mode (the port's direct-distance argmin against JAX's
+    score form, then the gather distance) on random clouds; the two forms
+    can only swap near-tied neighbours, which moves the mean distance by
+    far less than 1e-5."""
     from nope_nerf_tpu.ops.chamfer import chamfer_loss as jchamfer
     from nope_nerf_tpu_torch.ops.chamfer import chamfer_loss
 
     rng = np.random.default_rng(12)
     X = rng.normal(size=(700, 3)).astype(np.float32)
     Y = rng.normal(size=(900, 3)).astype(np.float32)
-    np.testing.assert_allclose(float(chamfer_loss(_t(X), _t(Y), block=256)),
+    np.testing.assert_allclose(float(chamfer_loss(_t(X), _t(Y))),
                                float(jchamfer(jnp.asarray(X), jnp.asarray(Y),
                                               block=256)), rtol=1e-5)
 

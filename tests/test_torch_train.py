@@ -144,12 +144,41 @@ def test_slice_trajectory_f32():
     1e-4 relative gradient difference grows where a later step's gradient
     is small against the first).
     """
+    _check_trajectory(_setup(False))
+
+
+def test_slice_trajectory_parity():
+    """3 steps under ``tpu.parity: True`` on both sides, at the bars of
+    test_slice_trajectory_f32: exact Chamfer (the port's direct-distance
+    plain search against JAX's score form), the f32 unfused MLP, randperm
+    ray sampling. Both sides take the same injected ray indices; the
+    port's own randperm draw gives distinct pixels."""
+    from nope_nerf_tpu.config import apply_parity_profile
+    from nope_nerf_tpu_torch.training.trainer import (_sample_ray_idx,
+                                                      describe_routes,
+                                                      make_render_cfg)
+
+    setup = _setup(False)
+    cfg, pbatch = setup[0], setup[4]
+    cfg["tpu"].update(parity=True, chamfer_mode="auto")
+    apply_parity_profile(cfg)
+    assert cfg["tpu"]["chamfer_mode"] == "exact"
+    assert not cfg["tpu"]["fast_ray_sampling"]
+    assert describe_routes(cfg, make_render_cfg(cfg, "cpu"), "cpu",
+                           HD * WD).startswith("chamfer_mode exact -> exact")
+    idx = _sample_ray_idx(pbatch, 64, H, W, False,
+                          torch.Generator().manual_seed(0))
+    assert len(set(idx.tolist())) == 64
+    _check_trajectory(setup)
+
+
+def _check_trajectory(setup):
     from nope_nerf_tpu.training.trainer import (init_train_state,
                                                 make_render_cfg,
                                                 make_train_step)
     from nope_nerf_tpu_torch.training import trainer as pt
 
-    cfg, jparams, jbatch, pparams, pbatch, ray_idx = _setup(False)
+    cfg, jparams, jbatch, pparams, pbatch, ray_idx = setup
     scalars = _scalars()
     jscal = {"weights": {k: np.float32(v) for k, v in
                          scalars["weights"].items()},
