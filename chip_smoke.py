@@ -8,7 +8,8 @@ of the six kernels against its plain PyTorch version at the shapes of the
 training step (A: fused MLP + compositing, fwd and bwd; B: banded Chamfer;
 C: per-point fused MLP, fwd and bwd; D: exact Chamfer), then trains three
 configurations at full width for two epochs of eight steps each on an
-in-memory 8-frame 540x960 scene with random weights:
+in-memory 8-frame 540x960 scene with random weights and a smooth camera
+trajectory:
 
 * stock ``configs/default.yaml`` (1024 rays x 128 samples, 8 x 256 MLP,
   pc + rgb_s losses, banded Chamfer): Kernels A and B;
@@ -17,17 +18,29 @@ in-memory 8-frame 540x960 scene with random weights:
 * ``tpu.parity: True`` (f32 unfused MLP on torch.matmul, exact Chamfer,
   randperm ray sampling): Kernel D;
 
-and checks that each run went through every kernel it should reach.
+and checks that each run went through every kernel it should reach. The
+stock run writes its checkpoints and per-epoch pose metrics; the eval phase
+then restores them into fresh tensors (bit for bit), runs the eval CLI's
+``main`` on the held-out view (test-time pose optimisation on Kernel A's
+input-only backward, the 540x960 render through Kernel A's forward, PSNR /
+SSIM, PNGs and video), checks its launch counts (Kernel A both ways, no
+weight-gradient GEMM, no other kernel), renders a 135x240 view through
+Kernel A and through its plain version, holds the input-only backward
+bitwise to the full one, and times the render and a pose-optimisation step
+with each backward.
 
 Prints, in order: the card's name and power limit, the kernel build time,
-one line per kernel check, one line per epoch, a JSON line with every
-kernel's errors, launches and times, and last
+one line per kernel check, one line per epoch, the eval phase's lines, a
+JSON line with every kernel's errors, launches and times, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that last line. It needs a CUDA device and the
 repository beside it; it imports nothing of JAX.
 """
+import contextlib
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -39,6 +52,11 @@ SEED = 0
 N_RAYS, N_SAMPLES = 1024, 128
 H, W, N_FRAMES = 540, 960, 8
 EPOCHS = 2
+# the eval phase: test-time pose optimisation epochs on the held-out view
+# (the stock configs run 1000), its rays per step, and the side of the view
+# that is rendered through Kernel A and its plain version
+EVAL_POSE_EPOCHS, EVAL_POINTS = 5, 1024
+SMALL_VIEW = (135, 240)
 
 # Kernel A's bars against its plain version. tests/test_pallas.py holds the
 # TPU kernel to rgb atol 0.03, density rtol 0.08 / atol 0.05 and gradients
@@ -431,6 +449,16 @@ def check_kernel_d(dev, card):
                       "plain_ms": rows[1][4], "grid_ms": rows[1][5]}}
 
 
+def kernel_counters():
+    """The launch counters of the six kernels."""
+    from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
+    from nope_nerf_tpu_torch.ops.kernels import chamfer_kernel as ck
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    return (mk.FWD_LAUNCHES, mk.BWD_LAUNCHES, cb.LAUNCHES,
+            mk.FWD_POINT_LAUNCHES, mk.BWD_POINT_LAUNCHES, ck.LAUNCHES)
+
+
 # the training runs: (label, tpu overrides, kernels the run must launch;
 # every other kernel must stay idle)
 RUNS = (
@@ -443,15 +471,13 @@ RUNS = (
 
 def run_training(dev, card, label, overrides, expect):
     """Train the stock configuration with ``overrides`` under ``tpu`` for
-    EPOCHS epochs through the port's ``train``; return the launch counts of
-    that run."""
+    EPOCHS epochs through the port's ``train`` in a fresh ``out_dir`` (a
+    run there would otherwise resume from the last one's checkpoints);
+    return the launch counts of that run, its state and its config."""
     import math
 
     import torch
 
-    from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
-    from nope_nerf_tpu_torch.ops.kernels import chamfer_kernel as ck
-    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
     from nope_nerf_tpu_torch.synthetic import MemoryScene
     from nope_nerf_tpu_torch.training.loop import train
 
@@ -460,18 +486,20 @@ def run_training(dev, card, label, overrides, expect):
     cfg["training"]["out_dir"] = os.path.join(ROOT, "chiprun_out",
                                               "chip_smoke", label)
     cfg["training"]["seed"] = SEED
+    shutil.rmtree(cfg["training"]["out_dir"], ignore_errors=True)
     scene = MemoryScene(N_FRAMES, H, W, SEED)
-    counters = (mk.FWD_LAUNCHES, mk.BWD_LAUNCHES, cb.LAUNCHES,
-                mk.FWD_POINT_LAUNCHES, mk.BWD_POINT_LAUNCHES, ck.LAUNCHES)
+    counters = kernel_counters()
     torch.cuda.empty_cache()  # every run starts from the same allocator state
     for c in counters:
         c.reset()
-    _, _, _, history = train(cfg, max_epochs=EPOCHS, scene=scene, device=dev)
+    state, _, _, history = train(cfg, max_epochs=EPOCHS, scene=scene,
+                                 device=dev)
     counts = {c.name: c.count for c in counters}
     for h in history:
         print(f"{label} epoch {h['epoch']} [{card}]: {h['steps']} steps, "
               f"loss {h['loss']:.6f}, {h['ms_per_step']:.3f} ms/step, "
-              f"{h['rays_per_sec']:.1f} rays/s")
+              f"{h['rays_per_sec']:.1f} rays/s; ATE {h['ate_trans']:.5f}, "
+              f"RPE trans {h['rpe_trans']:.5f}, rot {h['rpe_rot']:.5f} deg")
     steps = sum(h["steps"] for h in history)
     if steps != EPOCHS * N_FRAMES:
         raise AssertionError(f"{label}: {steps} training steps, expected "
@@ -484,8 +512,237 @@ def run_training(dev, card, label, overrides, expect):
     if idle or stray:
         raise AssertionError(f"{label}: kernels never launched {idle}, "
                              f"launched off this path {stray}")
-    print(f"{label} training launches: {counts}")
-    return counts
+    ckpts = sorted(f for f in os.listdir(cfg["training"]["out_dir"])
+                   if f.endswith(".npz"))
+    if "model.npz" not in ckpts or "model_pose.npz" not in ckpts:
+        raise AssertionError(f"{label}: checkpoints not written: {ckpts}")
+    print(f"{label} training launches: {counts}; checkpoints {ckpts}")
+    return counts, state, cfg
+
+
+@contextlib.contextmanager
+def kernel_a_plain():
+    """Route the renderer's Kernel A calls to its plain version (the
+    renderer looks the wrapper up at each call)."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    real = mk.fused_mlp_composite
+    mk.fused_mlp_composite = mk.fused_mlp_composite_reference
+    try:
+        yield
+    finally:
+        mk.fused_mlp_composite = real
+
+
+def host_ms(fn, iters, warmup=1):
+    """Mean wall time of ``fn`` in ms, each call ended by a device
+    synchronise (the host clock of a caller that waits for its result)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def check_restore(dev, card, cfg, trained):
+    """The stock run's four streams and Adam moments, restored into fresh
+    tensors, equal the trained state's bit for bit."""
+    import torch
+
+    from nope_nerf_tpu_torch.convert import adam_state_from_jax_leaves
+    from nope_nerf_tpu_torch.synthetic import MemoryScene
+    from nope_nerf_tpu_torch.training.checkpoints import CheckpointIO
+    from nope_nerf_tpu_torch.training.loop import build_params, restore
+    from nope_nerf_tpu_torch.training.trainer import (group_tensors,
+                                                      init_train_state)
+
+    scene = MemoryScene(N_FRAMES, 8, 8, SEED + 1)
+    fresh, _ = build_params(dict(cfg, _num_cams=N_FRAMES), scene,
+                            torch.Generator().manual_seed(SEED + 1), dev)
+    params, scalars, leaves = restore(CheckpointIO(cfg["training"]["out_dir"]),
+                                      cfg, fresh, dev)
+    state = init_train_state(params)
+    adam_state_from_jax_leaves(state.optimizer, leaves)
+    n_params = n_moments = 0
+    bad = []
+    for g in ("nerf", "pose", "focal", "distortion"):
+        for a, b in zip(group_tensors(params[g]),
+                        group_tensors(trained.params[g])):
+            n_params += 1
+            if not torch.equal(a.detach(), b.detach()):
+                bad.append(f"{g} param")
+            if g == "nerf":
+                sa, sb = state.optimizer.state[a], trained.optimizer.state[b]
+                for key in ("exp_avg", "exp_avg_sq"):
+                    n_moments += 1
+                    if not torch.equal(sa[key], sb[key]):
+                        bad.append(f"nerf {key}")
+    print(f"eval restore [{card}]: {n_params} parameter tensors and "
+          f"{n_moments} nerf Adam moments restored into fresh tensors from "
+          f"the stock run's checkpoints (it={scalars['it']}, "
+          f"epoch_it={scalars['epoch_it']}): {len(bad)} differ")
+    if bad:
+        raise AssertionError(f"restored checkpoints differ: {bad}")
+    return params
+
+
+def check_input_only_backward(dev, card):
+    """Kernel A's input-only backward (no weight needs a gradient) against
+    the full one at the stock shapes: d_origins / d_rays / d_dirs bitwise
+    equal, 12 weight-gradient GEMMs against none, both timed."""
+    import torch
+
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    (cfg, weights, origins, rays_t, dirs, z_t, deltas_t, rng,
+     t) = stock_mlp_inputs(dev)
+    static = (cfg["model"]["pos_enc_levels"], cfg["model"]["dir_enc_levels"],
+              cfg["model"]["occ_activation"], True, False, False, N_SAMPLES)
+    cots = (t(rng.normal(size=(N_RAYS, 3)) / N_RAYS),
+            t(rng.normal(size=(N_RAYS, 1)) / N_RAYS),
+            torch.zeros((N_RAYS, N_SAMPLES), device=dev))
+    frozen = [w.detach() for w in weights]
+    geo = [origins, rays_t, dirs]
+    out_full = mk.fused_mlp_composite(weights, *geo, z_t, deltas_t, *static)
+    out_in = mk.fused_mlp_composite(frozen, *geo, z_t, deltas_t, *static)
+    n0 = mk.WGRAD_LAUNCHES.count
+    g_full = torch.autograd.grad(out_full, geo + weights, cots,
+                                 retain_graph=True)
+    n1 = mk.WGRAD_LAUNCHES.count
+    g_in = torch.autograd.grad(out_in, geo, cots, retain_graph=True)
+    n2 = mk.WGRAD_LAUNCHES.count
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(g_in, g_full[:3])]
+    ms_full = cuda_ms(lambda: torch.autograd.grad(
+        out_full, geo + weights, cots, retain_graph=True))
+    ms_in = cuda_ms(lambda: torch.autograd.grad(out_in, geo, cots,
+                                                retain_graph=True))
+    print(f"kernel A input-only bwd [{card}] N={N_RAYS} S={N_SAMPLES}: "
+          f"d_origins/d_rays/d_dirs bitwise equal to the full backward "
+          f"{same}; weight-gradient GEMMs {n1 - n0} (full) vs {n2 - n1}; "
+          f"full {ms_full:.3f} ms, input-only {ms_in:.3f} ms")
+    if not all(same) or (n1 - n0, n2 - n1) != (12, 0):
+        raise AssertionError("kernel A's input-only backward differs from "
+                             "the full one")
+    return {"ms_full": ms_full, "ms_input_only": ms_in}
+
+
+def pose_step_ms(dev, nerf_params, scene, render_cfg, weight_grads):
+    """Wall ms of one test-time pose-optimisation step (ray draw, render,
+    MSE, backward, Adam) at EVAL_POINTS rays, with the field's weights
+    requiring gradients (the full backward) or frozen (input-only)."""
+    import torch
+
+    from nope_nerf_tpu_torch.evaluation.pose_opt import pose_opt_loss
+    from nope_nerf_tpu_torch.models.pose import init_pose_params
+    from nope_nerf_tpu_torch.training.trainer import sample_ray_idx
+
+    nerf = {k: {kk: v.detach().clone().requires_grad_(weight_grads)
+                for kk, v in layer.items()} for k, layer in nerf_params.items()}
+    imgs = torch.as_tensor(scene.imgs, device=dev)
+    cam = torch.as_tensor(scene.K, device=dev)
+    eye = torch.eye(4, device=dev)
+    init = torch.as_tensor(scene.c2ws, device=dev)
+    pose = init_pose_params(scene.N_imgs, dev)
+    for v in pose.values():
+        v.requires_grad_(True)
+    opt = torch.optim.Adam(list(pose.values()), lr=1e-3)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def step():
+        idx = sample_ray_idx(EVAL_POINTS, imgs.shape[1:3], True, gen, dev)
+        opt.zero_grad(set_to_none=True)
+        pose_opt_loss(pose, nerf, imgs, cam, eye, 0, idx, init,
+                      render_cfg).backward()
+        opt.step()
+
+    return host_ms(step, iters=20, warmup=3)
+
+
+def run_eval(dev, card, cfg, trained):
+    """The eval phase on the stock run's checkpoints (see the module
+    docstring). Returns the eval launch counts and the measured numbers."""
+    import torch
+
+    from nope_nerf_tpu_torch import eval as peval
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+    from nope_nerf_tpu_torch.ops.rendering import render_image
+    from nope_nerf_tpu_torch.synthetic import MemoryScene
+    from nope_nerf_tpu_torch.training.trainer import make_render_cfg
+
+    nerf = check_restore(dev, card, cfg, trained)["nerf"]
+    cfg = dict(cfg, eval_pose=dict(cfg["eval_pose"],
+                                   opt_pose_epoch=EVAL_POSE_EPOCHS,
+                                   n_points=EVAL_POINTS))
+    train_scene = MemoryScene(N_FRAMES, H, W, SEED)
+    eval_scene = MemoryScene(N_FRAMES, H, W, SEED, mode="eval")
+    counters = kernel_counters() + (mk.WGRAD_LAUNCHES,)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.reset()
+    res = peval.main(cfg, device=dev, train_scene=train_scene,
+                     eval_scene=eval_scene)
+    counts = {c.name: c.count for c in counters}
+    peak = torch.cuda.max_memory_allocated(dev)
+    finite = all(math.isfinite(res[k]) for k in ("psnr", "ssim"))
+    print(f"eval [{card}]: {EVAL_POSE_EPOCHS} pose epochs x "
+          f"{eval_scene.N_imgs} held-out view at {EVAL_POINTS} rays, then "
+          f"{H}x{W} through Kernel A: PSNR {res['psnr']:.4f}, SSIM "
+          f"{res['ssim']:.5f}, {res['ms_per_image'][0]:.1f} ms/image (render"
+          f" + scoring + PNGs), peak memory {peak / 2**30:.3f} GiB; "
+          f"launches {counts}")
+    stray = [n for n, v in counts.items() if v and n not in (
+        "mlp_composite_fwd", "mlp_composite_bwd")]
+    if not (counts["mlp_composite_fwd"] and counts["mlp_composite_bwd"]) \
+            or stray or not finite:
+        raise AssertionError(f"eval: kernel A fwd/bwd not both launched, or "
+                             f"launched off this path {stray}, or non-finite "
+                             f"metrics {res}")
+
+    render_cfg = make_render_cfg(cfg, dev)
+    cam = torch.as_tensor(train_scene.K, device=dev)
+    world = torch.linalg.inv(torch.as_tensor(train_scene.c2ws[0], device=dev))
+    eye = torch.eye(4, device=dev)
+    render_ms = host_ms(lambda: render_image(nerf, (H, W), cam, world, eye,
+                                             render_cfg, chunk=65536), iters=3)
+    small = render_image(nerf, SMALL_VIEW, cam, world, eye, render_cfg)
+    with kernel_a_plain():
+        small_plain = render_image(nerf, SMALL_VIEW, cam, world, eye,
+                                   render_cfg)
+        small_plain_ms = host_ms(lambda: render_image(
+            nerf, SMALL_VIEW, cam, world, eye, render_cfg), iters=3)
+    small_ms = host_ms(lambda: render_image(nerf, SMALL_VIEW, cam, world, eye,
+                                            render_cfg), iters=3)
+    err = {n: float(torch.max(torch.abs(a - b)))
+           for n, a, b in zip(("rgb", "depth"), small, small_plain)}
+    print(f"eval render [{card}]: {H}x{W} through Kernel A {render_ms:.1f} "
+          f"ms/image; {SMALL_VIEW[0]}x{SMALL_VIEW[1]} Kernel A vs its plain "
+          f"version max|err| rgb={err['rgb']:.3e} depth={err['depth']:.3e}; "
+          f"kernel {small_ms:.1f} ms, plain {small_plain_ms:.1f} ms")
+    if not (err["rgb"] <= RGB_ATOL and err["depth"] <= DIST_ATOL):
+        raise AssertionError(f"eval render: Kernel A disagrees with its plain "
+                             f"version {err}")
+
+    bwd = check_input_only_backward(dev, card)
+    ms_full = pose_step_ms(dev, nerf, eval_scene, render_cfg, True)
+    ms_in = pose_step_ms(dev, nerf, eval_scene, render_cfg, False)
+    print(f"eval pose step [{card}]: {EVAL_POINTS} rays, full backward "
+          f"{ms_full:.3f} ms/step, input-only backward {ms_in:.3f} ms/step")
+    return counts, {"psnr": res["psnr"], "ssim": res["ssim"],
+                    "ms_per_image": res["ms_per_image"][0],
+                    "render_ms": render_ms, "peak_bytes": peak,
+                    "small_view_max_abs_err": err, "small_view_ms": small_ms,
+                    "small_view_plain_ms": small_plain_ms,
+                    "bwd_full_ms": bwd["ms_full"],
+                    "bwd_input_only_ms": bwd["ms_input_only"],
+                    "pose_step_full_ms": ms_full,
+                    "pose_step_input_only_ms": ms_in}
 
 
 def main():
@@ -521,11 +778,16 @@ def main():
     records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d]
     launches = {rec["name"]: 0 for rec in records}
     for label, overrides, expect in RUNS:
-        counts = run_training(dev, card, label, overrides, expect)
+        counts, state, cfg = run_training(dev, card, label, overrides, expect)
+        if label == "stock":
+            stock = (cfg, state)
         for name, v in counts.items():
             launches[name] += v
+    eval_counts, eval_rec = run_eval(dev, card, *stock)
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches"] = launches[rec["name"]] + eval_counts[rec["name"]]
+        rec["eval_launches"] = eval_counts[rec["name"]]
+    print(json.dumps({"eval": eval_rec}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,10 +1,13 @@
-"""Parameters between the JAX package and the port.
+"""Parameters and Adam moments between the JAX package and the port.
 
 Both packages hold the four groups as nested dicts with the same keys and
 layouts -- nerf ``{layer: {"w": (fan_in, fan_out), "b": (fan_out,)}}`` for
 the 12 layers of ``W_NAMES``, pose ``{"r", "t"}`` (N, 3), focal ``{"fx"[,
 "fy"]}`` scalars, distortion ``{"scales", "shifts"}`` (N, 1) -- so the
-conversion is a leaf-wise copy between numpy arrays and f32 tensors.
+conversion is a leaf-wise copy between numpy arrays and f32 tensors. The
+Adam moments map between the port's ``torch.optim.Adam`` and the leaves of
+the JAX ``optax`` state (:func:`adam_state_to_jax_leaves`,
+:func:`adam_state_from_jax_leaves`).
 """
 from __future__ import annotations
 
@@ -41,3 +44,69 @@ def params_from_jax(tree, device=None):
 def params_to_numpy(params):
     """The port's parameter dict -> the same tree of numpy f32 arrays."""
     return _map(params, lambda t: t.detach().cpu().numpy().astype(np.float32))
+
+
+# The JAX trainer's optimizer is ``optax.multi_transform`` of one
+# ``scale_by_adam`` per group; ``jax.tree.leaves`` of its state lists, per
+# group in sorted name order (distortion, focal, nerf, pose): the step
+# ``count`` (int32), then ``mu`` and then ``nu``, each over the group's
+# parameters in sorted key order. The port's Adam keeps one param group per
+# name with the same sorted order (``training.trainer.group_tensors``), and
+# per parameter ``step``, ``exp_avg`` (mu) and ``exp_avg_sq`` (nu).
+
+
+def _groups_in_jax_order(optimizer):
+    return sorted(optimizer.param_groups, key=lambda g: g["name"])
+
+
+def adam_state_to_jax_leaves(optimizer):
+    """The port's Adam state -> the JAX optax state's leaves (numpy), in
+    ``jax.tree.leaves`` order. A parameter not stepped yet has zero
+    moments and count 0, as ``optax`` initialises them."""
+    leaves = []
+    for group in _groups_in_jax_order(optimizer):
+        states = [optimizer.state.get(p, {}) for p in group["params"]]
+        step = states[0].get("step", 0) if states else 0
+        leaves.append(np.asarray(int(step), np.int32))
+        for key in ("exp_avg", "exp_avg_sq"):
+            for p, st in zip(group["params"], states):
+                m = st.get(key)
+                leaves.append(np.zeros(tuple(p.shape), np.float32) if m is None
+                              else m.detach().cpu().numpy().astype(np.float32))
+    return leaves
+
+
+def adam_state_from_jax_leaves(optimizer, leaves):
+    """Load the JAX optax state's leaves into the port's Adam, in place.
+    Raises ValueError, and changes nothing, when their number or shapes do
+    not fit the optimizer's parameters (the JAX ``restore_leaves`` check)."""
+    plan, i = [], 0
+    for group in _groups_in_jax_order(optimizer):
+        ps = group["params"]
+        if i + 1 + 2 * len(ps) > len(leaves):
+            raise ValueError(f"optimizer-state mismatch: {len(leaves)} leaves "
+                             "are too few for the optimizer's parameters")
+        count = leaves[i]
+        mus = leaves[i + 1:i + 1 + len(ps)]
+        nus = leaves[i + 1 + len(ps):i + 1 + 2 * len(ps)]
+        i += 1 + 2 * len(ps)
+        if np.shape(count) != ():
+            raise ValueError(f"optimizer-state mismatch: count of shape "
+                             f"{np.shape(count)}")
+        for p, mu, nu in zip(ps, mus, nus):
+            for a in (mu, nu):
+                if np.shape(a) != tuple(p.shape):
+                    raise ValueError(f"optimizer-state shape mismatch "
+                                     f"{np.shape(a)} vs {tuple(p.shape)}")
+            plan.append((p, int(count), mu, nu))
+    if i != len(leaves):
+        raise ValueError(f"optimizer-state mismatch: {len(leaves)} leaves for "
+                         f"{i} expected")
+    for p, count, mu, nu in plan:
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": torch.tensor(np.asarray(mu, np.float32),
+                                    device=p.device),
+            "exp_avg_sq": torch.tensor(np.asarray(nu, np.float32),
+                                       device=p.device),
+        }

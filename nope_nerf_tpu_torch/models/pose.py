@@ -30,3 +30,12 @@ def pose_c2w(params, idx, init_c2w=None, learn_R=True, learn_t=True):
     if init_c2w is not None:
         c2w = c2w @ init_c2w[idx]
     return c2w
+
+
+def all_poses(params, init_c2w=None, learn_R=True, learn_t=True):
+    """All N c2w matrices (N, 4, 4) in one batched op."""
+    c2w = make_c2w(_maybe_stop(params["r"], learn_R),
+                   _maybe_stop(params["t"], learn_t))
+    if init_c2w is not None:
+        c2w = c2w @ init_c2w
+    return c2w

@@ -16,6 +16,13 @@ the kernels on the H100 and how the design answers it.
   / :data:`BWD_POINT_LAUNCHES`; for CPU tensors they run the plain versions
   :func:`fused_mlp_composite_reference` / :func:`fused_mlp_reference`; any
   other device raises.
+* What the graph needs, and no more: when nothing is to be differentiated
+  (grad disabled, or no input requires grad: the eval render) the forward
+  runs the trunk on two ping-pong buffers and saves nothing; when no weight
+  needs a gradient (test-time pose optimisation) the backward skips the
+  12 weight-gradient GEMMs (counted in :data:`WGRAD_LAUNCHES`) and the
+  bias sums. Either way the outputs and input gradients are bitwise those
+  of the full path.
 * The plain versions emulate bf16 operands as bf16-rounded f32 tensors with
   f32 matmuls and take the backward from autograd (matmul cotangents
   rounded to bf16 as in the kernels); both share :func:`_chain_reference`.
@@ -47,6 +54,10 @@ FWD_LAUNCHES = LaunchCounter("mlp_composite_fwd")
 BWD_LAUNCHES = LaunchCounter("mlp_composite_bwd")
 FWD_POINT_LAUNCHES = LaunchCounter("mlp_point_fwd")
 BWD_POINT_LAUNCHES = LaunchCounter("mlp_point_bwd")
+# weight-gradient GEMMs of Kernels A and C's backwards: 12 per backward
+# that computes the weight gradients, none in one that needs only the
+# input gradients
+WGRAD_LAUNCHES = LaunchCounter("mlp_weight_grad_gemm")
 
 _F32 = torch.float32
 _BF = torch.bfloat16
@@ -252,6 +263,7 @@ def _weight_grad(x1, g, m, x2=None):
         g.ptr, g.ld, n, m, rps, _ptr(partial), _stream(partial),
     )
     check(err, "gemm_tn")
+    WGRAD_LAUNCHES.add()
     return _reduce_splits(partial, (K, n))
 
 
@@ -306,23 +318,37 @@ def _kernel_weights(weights):
     return wb, bs
 
 
-def _chain_fwd(Wb, Bs, enc, denc, denc_div, M, dims):
+def _chain_fwd(Wb, Bs, enc, denc, denc_div, M, dims, save=True):
     """The GEMM chain from the bf16 encodings to the raw heads. ``denc``
     rows are read once per ``denc_div`` points (per ray in Kernel A, per
     point in C). Returns (acts (the 8 trunk outputs), feat, hr, raw (M, 4)
-    f32 = [raw_sigma, raw_rgb])."""
+    f32 = [raw_sigma, raw_rgb]).
+
+    With ``save`` False (nothing will be differentiated) the trunk runs on
+    two ping-pong buffers and ``feat`` reuses the free one: only
+    ``acts[-1]`` is then still the trunk output it names, and the outputs
+    are bitwise those of the saving chain (the same GEMMs on the same
+    inputs)."""
     n_pos, n_dir, D, H2 = dims
     dev = enc.device
     acts = []
+    bufs = (None if save else
+            [torch.empty((M, D), dtype=_BF, device=dev) for _ in range(2)])
+
+    def trunk_out(i):
+        if save:
+            return torch.empty((M, D), dtype=_BF, device=dev)
+        return bufs[i % 2]
+
     h = _Mat(enc, n_pos)
     for i in range(4):
-        out = torch.empty((M, D), dtype=_BF, device=dev)
+        out = trunk_out(i)
         _gemm_nn(h, Wb[f"trunk0_{i}"], M, D, out,
                  bias=Bs[f"trunk0_{i}"], relu=True)
         acts.append(out)
         h = _Mat(out, D)
     for i in range(4):
-        out = torch.empty((M, D), dtype=_BF, device=dev)
+        out = trunk_out(4 + i)
         w = Wb[f"trunk1_{i}"]
         if i == 0:
             # skip concat [h, enc] as two operand pairs
@@ -332,7 +358,7 @@ def _chain_fwd(Wb, Bs, enc, denc, denc_div, M, dims):
             _gemm_nn(h, w, M, D, out, bias=Bs[f"trunk1_{i}"], relu=True)
         acts.append(out)
         h = _Mat(out, D)
-    feat = torch.empty((M, D), dtype=_BF, device=dev)
+    feat = trunk_out(8)
     _gemm_nn(h, Wb["fc_feature"], M, D, feat, bias=Bs["fc_feature"])
     hr = torch.empty((M, H2), dtype=_BF, device=dev)
     wr = Wb["rgb_layer"]
@@ -342,27 +368,34 @@ def _chain_fwd(Wb, Bs, enc, denc, denc_div, M, dims):
              bias=Bs["rgb_layer"], relu=True)
     raw = torch.empty((M, 4), dtype=_F32, device=dev)
     err = c_function("nnt_heads_fwd", "pppppppiiip")(
-        _ptr(acts[7]), _ptr(hr), _ptr(Wb["fc_density"]),
+        _ptr(acts[-1]), _ptr(hr), _ptr(Wb["fc_density"]),
         _ptr(Bs["fc_density"]), _ptr(Wb["fc_rgb"]), _ptr(Bs["fc_rgb"]),
         _ptr(raw), M, D, H2, _stream(raw))
     check(err, "heads_fwd")
     return acts, feat, hr, raw
 
 
-def _chain_bwd(Wb, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims):
+def _chain_bwd(Wb, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
+               weight_grads=True):
     """Backward of :func:`_chain_fwd` from the cotangents of the raw heads.
-    Returns (the 24 weight and bias gradients in kernel order, the
-    cotangent of the position encoding as two f32 summands (_Mat, _Mat),
-    the cotangent of the direction encoding (_Mat), per point)."""
+    Returns (the 24 weight and bias gradients in kernel order, or 24 Nones
+    without ``weight_grads``, the cotangent of the position encoding as two
+    f32 summands (_Mat, _Mat), the cotangent of the direction encoding
+    (_Mat), per point). The input cotangents come from the same GEMMs
+    either way, so they are bitwise equal with and without the weight
+    gradients."""
     n_pos, n_dir, D, H2 = dims
     dev = g_raw.device
     grads = {}
+
+    def param_grads(name, x1, g, x2=None):
+        if weight_grads:
+            grads[name] = (_weight_grad(x1, g, M, x2=x2), _bias_grad(g, M))
+
     Wt = {k: _padded_t(v) for k, v in Wb.items()
           if k not in ("fc_density", "fc_rgb")}
     # fc_rgb
-    g_rgb = _Mat(g_raw, 3, ld=4, offset=1)
-    grads["fc_rgb"] = (_weight_grad(_Mat(hr, H2), g_rgb, M),
-                       _bias_grad(g_rgb, M))
+    param_grads("fc_rgb", _Mat(hr, H2), _Mat(g_raw, 3, ld=4, offset=1))
     g_hr = torch.empty((M, H2), dtype=_F32, device=dev)
     err = c_function("nnt_heads_bwd", "ppppiip")(
         _ptr(g_raw), _ptr(hr), _ptr(Wb["fc_rgb"]), _ptr(g_hr), M, H2,
@@ -370,19 +403,15 @@ def _chain_bwd(Wb, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims):
     check(err, "heads_bwd")
     # rgb_layer: input [feat, denc]
     g_hr_m = _Mat(g_hr, H2)
-    grads["rgb_layer"] = (
-        _weight_grad(_Mat(feat, D), g_hr_m, M,
-                     x2=_Mat(denc, n_dir, row_div=denc_div)),
-        _bias_grad(g_hr_m, M))
+    param_grads("rgb_layer", _Mat(feat, D), g_hr_m,
+                x2=_Mat(denc, n_dir, row_div=denc_div))
     g_catr = torch.empty((M, _pad8(D + n_dir)), dtype=_F32, device=dev)
     _gemm_nn(g_hr_m, Wt["rgb_layer"], M, D + n_dir, g_catr)
     g_feat = _Mat(g_catr, D)
     g_sig = _Mat(g_raw, 1, ld=4)
     a13 = _Mat(acts[7], D)
-    grads["fc_feature"] = (_weight_grad(a13, g_feat, M),
-                           _bias_grad(g_feat, M))
-    grads["fc_density"] = (_weight_grad(a13, g_sig, M),
-                           _bias_grad(g_sig, M))
+    param_grads("fc_feature", a13, g_feat)
+    param_grads("fc_density", a13, g_sig)
     # d(a13) = g_feat @ Wf^T + g_sig @ Wd^T, masked by relu(a13); the
     # (D, 1) density weight is already (1, D) in memory when transposed
     g_h = torch.empty((M, D), dtype=_F32, device=dev)
@@ -392,27 +421,27 @@ def _chain_bwd(Wb, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims):
     for j in (3, 2, 1):
         x_in = _Mat(acts[4 + j - 1], D)
         g = _Mat(g_h, D)
-        grads[f"trunk1_{j}"] = (_weight_grad(x_in, g, M), _bias_grad(g, M))
+        param_grads(f"trunk1_{j}", x_in, g)
         g_h = _gemm_nn(g, Wt[f"trunk1_{j}"], M, D,
                        torch.empty((M, D), dtype=_F32, device=dev),
                        mask=x_in)
     g = _Mat(g_h, D)
     a03 = _Mat(acts[3], D)
-    grads["trunk1_0"] = (_weight_grad(a03, g, M, x2=_Mat(enc, n_pos)),
-                         _bias_grad(g, M))
+    param_grads("trunk1_0", a03, g, x2=_Mat(enc, n_pos))
     # d(cat): [d a03 (masked), d enc (skip branch, unmasked)]
     g_cat = torch.empty((M, _pad8(D + n_pos)), dtype=_F32, device=dev)
     _gemm_nn(g, Wt["trunk1_0"], M, D + n_pos, g_cat, mask=a03)
     g = _Mat(g_cat, D)
     for j in (3, 2, 1, 0):
         x_in = _Mat(acts[j - 1], D) if j > 0 else _Mat(enc, n_pos)
-        grads[f"trunk0_{j}"] = (_weight_grad(x_in, g, M), _bias_grad(g, M))
+        param_grads(f"trunk0_{j}", x_in, g)
         width = D if j > 0 else n_pos
         out = torch.empty((M, _pad8(width)), dtype=_F32, device=dev)
         _gemm_nn(g, Wt[f"trunk0_{j}"], M, width, out,
                  mask=x_in if j > 0 else None)
         g = _Mat(out, width)
-    d_weights = [t for name in W_NAMES for t in grads[name]]
+    d_weights = ([t for name in W_NAMES for t in grads[name]]
+                 if weight_grads else [None] * (2 * len(W_NAMES)))
     return (d_weights, (_Mat(g_cat, n_pos, offset=D), g),
             _Mat(g_catr, n_dir, offset=D))
 
@@ -423,45 +452,56 @@ def _cotangent(g, shape, dev):
     return g.to(_F32).contiguous()
 
 
+def _composite_fwd(origins, rays, dirs, z, deltas, cfg, weights, save):
+    """Kernel A's forward launches: (rgbv, dist, alpha) and, with ``save``,
+    the tensors its backward reads (None without)."""
+    l_pos, l_dir, act, occ_alpha, dist_alpha, white_bg, S = cfg
+    dims = _dims(weights, l_pos, l_dir)
+    n_pos, n_dir = dims[:2]
+    N = origins.shape[0]
+    M = N * S
+    dev = origins.device
+    wb, Bs = _kernel_weights(weights)
+    Wb = dict(zip(W_NAMES, wb))
+    stream = _stream(origins)
+
+    enc = torch.empty((M, _pad8(n_pos)), dtype=_BF, device=dev)
+    denc = torch.empty((N, _pad8(n_dir)), dtype=_BF, device=dev)
+    err = c_function("nnt_encode_fwd", "pppppipiiiiip")(
+        _ptr(origins), _ptr(rays), _ptr(dirs), _ptr(z), _ptr(enc),
+        enc.shape[1], _ptr(denc), denc.shape[1], N, S, l_pos, l_dir,
+        stream)
+    check(err, "encode_fwd")
+    acts, feat, hr, raw = _chain_fwd(Wb, Bs, enc, denc, S, M, dims, save)
+    rgbv = torch.empty((N, 3), dtype=_F32, device=dev)
+    dist = torch.empty((N, 1), dtype=_F32, device=dev)
+    alpha = torch.empty((N, S), dtype=_F32, device=dev)
+    err = c_function("nnt_composite_fwd", "ppppppiiiiiip")(
+        _ptr(raw), _ptr(z), _ptr(deltas), _ptr(rgbv), _ptr(dist),
+        _ptr(alpha), N, S, int(act == "softplus"), int(occ_alpha),
+        int(dist_alpha), int(white_bg), stream)
+    check(err, "composite_fwd")
+    FWD_LAUNCHES.add()
+    saved = ((origins, rays, dirs, z, deltas, enc, denc, feat, hr, raw,
+              *acts, *wb) if save else None)
+    return (rgbv, dist, alpha), dims, saved
+
+
 class FusedMLPComposite(torch.autograd.Function):
     """CUDA forward/backward of :func:`fused_mlp_composite` (Kernel A).
-    ``cfg`` is (l_pos, l_dir, act, occ_alpha, dist_alpha, white_bg, S)."""
+    ``cfg`` is (l_pos, l_dir, act, occ_alpha, dist_alpha, white_bg, S).
+    The backward computes the weight gradients only when a weight needs
+    one (test-time pose optimisation needs only d_origins / d_rays /
+    d_dirs)."""
 
     @staticmethod
     def forward(ctx, origins, rays, dirs, z, deltas, cfg, *weights):
-        l_pos, l_dir, act, occ_alpha, dist_alpha, white_bg, S = cfg
-        dims = _dims(weights, l_pos, l_dir)
-        n_pos, n_dir = dims[:2]
-        N = origins.shape[0]
-        M = N * S
-        dev = origins.device
-        wb, Bs = _kernel_weights(weights)
-        Wb = dict(zip(W_NAMES, wb))
-        stream = _stream(origins)
-
-        enc = torch.empty((M, _pad8(n_pos)), dtype=_BF, device=dev)
-        denc = torch.empty((N, _pad8(n_dir)), dtype=_BF, device=dev)
-        err = c_function("nnt_encode_fwd", "pppppipiiiiip")(
-            _ptr(origins), _ptr(rays), _ptr(dirs), _ptr(z), _ptr(enc),
-            enc.shape[1], _ptr(denc), denc.shape[1], N, S, l_pos, l_dir,
-            stream)
-        check(err, "encode_fwd")
-        acts, feat, hr, raw = _chain_fwd(Wb, Bs, enc, denc, S, M, dims)
-        rgbv = torch.empty((N, 3), dtype=_F32, device=dev)
-        dist = torch.empty((N, 1), dtype=_F32, device=dev)
-        alpha = torch.empty((N, S), dtype=_F32, device=dev)
-        err = c_function("nnt_composite_fwd", "ppppppiiiiiip")(
-            _ptr(raw), _ptr(z), _ptr(deltas), _ptr(rgbv), _ptr(dist),
-            _ptr(alpha), N, S, int(act == "softplus"), int(occ_alpha),
-            int(dist_alpha), int(white_bg), stream)
-        check(err, "composite_fwd")
-        FWD_LAUNCHES.add()
-
+        outs, dims, saved = _composite_fwd(origins, rays, dirs, z, deltas,
+                                           cfg, weights, save=True)
         ctx.cfg = cfg
         ctx.dims = dims
-        ctx.save_for_backward(origins, rays, dirs, z, deltas, enc, denc,
-                              feat, hr, raw, *acts, *wb)
-        return rgbv, dist, alpha
+        ctx.save_for_backward(*saved)
+        return outs
 
     @staticmethod
     def backward(ctx, g_rgbv, g_dist, g_alpha):
@@ -488,7 +528,8 @@ class FusedMLPComposite(torch.autograd.Function):
             int(white_bg), stream)
         check(err, "composite_bwd")
         d_weights, (ge1, ge2), gd = _chain_bwd(
-            Wb, g_raw, enc, denc, S, feat, hr, acts, M, ctx.dims)
+            Wb, g_raw, enc, denc, S, feat, hr, acts, M, ctx.dims,
+            weight_grads=any(ctx.needs_input_grad[6:]))
         # encoding backward + ray sums
         d_o = torch.empty((N, 3), dtype=_F32, device=dev)
         d_r = torch.empty((N, 3), dtype=_F32, device=dev)
@@ -502,43 +543,51 @@ class FusedMLPComposite(torch.autograd.Function):
         return (d_o, d_r, d_d, None, None, None, *d_weights)
 
 
+def _point_fwd(pts, dirs, cfg, weights, save):
+    """Kernel C's forward launches: (rgb, density) and, with ``save``, the
+    tensors its backward reads (None without)."""
+    l_pos, l_dir, act, occ_alpha = cfg
+    dims = _dims(weights, l_pos, l_dir)
+    n_pos, n_dir = dims[:2]
+    M = pts.shape[0]
+    dev = pts.device
+    wb, Bs = _kernel_weights(weights)
+    Wb = dict(zip(W_NAMES, wb))
+    stream = _stream(pts)
+
+    encs = []
+    for x, levels, n in ((pts, l_pos, n_pos), (dirs, l_dir, n_dir)):
+        e = torch.empty((M, _pad8(n)), dtype=_BF, device=dev)
+        err = c_function("nnt_encode_points", "ppiiip")(
+            _ptr(x), _ptr(e), e.shape[1], M, levels, stream)
+        check(err, "encode_points")
+        encs.append(e)
+    enc, denc = encs
+    acts, feat, hr, raw = _chain_fwd(Wb, Bs, enc, denc, 1, M, dims, save)
+    rgb = torch.empty((M, 3), dtype=_F32, device=dev)
+    density = torch.empty((M, 1), dtype=_F32, device=dev)
+    err = c_function("nnt_head_act_fwd", "pppiiip")(
+        _ptr(raw), _ptr(rgb), _ptr(density), M, int(act == "softplus"),
+        int(occ_alpha), stream)
+    check(err, "head_act_fwd")
+    FWD_POINT_LAUNCHES.add()
+    saved = ((pts, dirs, enc, denc, feat, hr, raw, *acts, *wb) if save
+             else None)
+    return (rgb, density), dims, saved
+
+
 class FusedMLP(torch.autograd.Function):
     """CUDA forward/backward of :func:`fused_mlp` (Kernel C). ``cfg`` is
-    (l_pos, l_dir, act, occ_alpha)."""
+    (l_pos, l_dir, act, occ_alpha). Weight gradients as in
+    :class:`FusedMLPComposite`: only when a weight needs one."""
 
     @staticmethod
     def forward(ctx, pts, dirs, cfg, *weights):
-        l_pos, l_dir, act, occ_alpha = cfg
-        dims = _dims(weights, l_pos, l_dir)
-        n_pos, n_dir = dims[:2]
-        M = pts.shape[0]
-        dev = pts.device
-        wb, Bs = _kernel_weights(weights)
-        Wb = dict(zip(W_NAMES, wb))
-        stream = _stream(pts)
-
-        encs = []
-        for x, levels, n in ((pts, l_pos, n_pos), (dirs, l_dir, n_dir)):
-            e = torch.empty((M, _pad8(n)), dtype=_BF, device=dev)
-            err = c_function("nnt_encode_points", "ppiiip")(
-                _ptr(x), _ptr(e), e.shape[1], M, levels, stream)
-            check(err, "encode_points")
-            encs.append(e)
-        enc, denc = encs
-        acts, feat, hr, raw = _chain_fwd(Wb, Bs, enc, denc, 1, M, dims)
-        rgb = torch.empty((M, 3), dtype=_F32, device=dev)
-        density = torch.empty((M, 1), dtype=_F32, device=dev)
-        err = c_function("nnt_head_act_fwd", "pppiiip")(
-            _ptr(raw), _ptr(rgb), _ptr(density), M, int(act == "softplus"),
-            int(occ_alpha), stream)
-        check(err, "head_act_fwd")
-        FWD_POINT_LAUNCHES.add()
-
+        outs, dims, saved = _point_fwd(pts, dirs, cfg, weights, save=True)
         ctx.cfg = cfg
         ctx.dims = dims
-        ctx.save_for_backward(pts, dirs, enc, denc, feat, hr, raw, *acts,
-                              *wb)
-        return rgb, density
+        ctx.save_for_backward(*saved)
+        return outs
 
     @staticmethod
     def backward(ctx, g_rgb, g_density):
@@ -559,7 +608,8 @@ class FusedMLP(torch.autograd.Function):
             int(act == "softplus"), int(occ_alpha), stream)
         check(err, "head_act_bwd")
         d_weights, (ge1, ge2), gd = _chain_bwd(
-            Wb, g_raw, enc, denc, 1, feat, hr, acts, M, ctx.dims)
+            Wb, g_raw, enc, denc, 1, feat, hr, acts, M, ctx.dims,
+            weight_grads=any(ctx.needs_input_grad[3:]))
         d_pts = torch.empty((M, 3), dtype=_F32, device=dev)
         d_dirs = torch.empty((M, 3), dtype=_F32, device=dev)
         for x, g1, g2, levels, out in ((pts, ge1, ge2, l_pos, d_pts),
@@ -570,6 +620,10 @@ class FusedMLP(torch.autograd.Function):
             check(err, "encode_points_bwd")
         BWD_POINT_LAUNCHES.add()
         return (d_pts, d_dirs, None, *d_weights)
+
+
+def _needs_graph(tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _check_inputs(name, dev, tensors):
@@ -603,9 +657,12 @@ def fused_mlp_composite(weights, origins, rays, dirs, z, deltas,
         raise ValueError(f"z/deltas must be ({N}, {S})")
     cfg = (int(l_pos), int(l_dir), act, bool(occ_alpha), bool(dist_alpha),
            bool(white_bg), int(S))
-    return FusedMLPComposite.apply(
-        origins.contiguous(), rays.contiguous(), dirs.contiguous(),
-        z.contiguous(), deltas.contiguous(), cfg, *weights)
+    args = (origins.contiguous(), rays.contiguous(), dirs.contiguous(),
+            z.contiguous(), deltas.contiguous())
+    if not _needs_graph(args + tuple(weights)):
+        # nothing to differentiate (e.g. the eval render): save nothing
+        return _composite_fwd(*args, cfg, weights, save=False)[0]
+    return FusedMLPComposite.apply(*args, cfg, *weights)
 
 
 def fused_mlp(weights, pts, dirs, l_pos=10, l_dir=4, act="softplus",
@@ -625,4 +682,7 @@ def fused_mlp(weights, pts, dirs, l_pos=10, l_dir=4, act="softplus",
     if pts.shape != (M, 3) or dirs.shape != (M, 3):
         raise ValueError(f"pts/dirs must be ({M}, 3)")
     cfg = (int(l_pos), int(l_dir), act, bool(occ_alpha))
-    return FusedMLP.apply(pts.contiguous(), dirs.contiguous(), cfg, *weights)
+    args = (pts.contiguous(), dirs.contiguous())
+    if not _needs_graph(args + tuple(weights)):
+        return _point_fwd(*args, cfg, weights, save=False)[0]
+    return FusedMLP.apply(*args, cfg, *weights)

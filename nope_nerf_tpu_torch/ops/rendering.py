@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..geometry.rays import (
+    arange_pixels,
     get_ndc_rays_fxfy,
     image_points_to_world,
     origin_to_world,
@@ -166,6 +167,39 @@ def render_rays(nerf_params, pixels, depth_prior, camera_mat, world_mat,
     return _render_outputs(cfg, eval_mode, valid_mask, dists, z_val, alpha,
                            rgb_values, dist_pred, camera_world, ray_vector,
                            ray_norm, d_i_gt, sample_option)
+
+
+def render_image(nerf_params, resolution, camera_mat, world_mat, scale_mat,
+                 cfg, chunk: int = 16384):
+    """Full-image eval render: the (h * w) pixels in chunks of ``chunk``
+    rays (the last one padded), each through ``render_rays(eval_mode=True,
+    add_noise=False)`` without autograd. Returns (rgb (h, w, 3), depth
+    (h, w)) on the matrices' device.
+
+    Routing as in the JAX package: a fused config renders through Kernel A's
+    forward; ``use_pallas_mlp`` without ``fuse_compositing`` drops to the
+    plain MLP, since Kernel C pays off only in the backward.
+    """
+    h, w = resolution
+    n = h * w
+    chunk = min(chunk, n)
+    if cfg.get("use_pallas_mlp", False) and not cfg.get("fuse_compositing",
+                                                        False):
+        cfg = dict(cfg, use_pallas_mlp=False)
+    dev = camera_mat.device
+    _, pixels = arange_pixels((h, w), device=dev)
+    pixels = torch.cat([pixels, pixels.new_zeros(((-n) % chunk, 2))])
+    depth = torch.ones(pixels.shape[0], dtype=torch.float32, device=dev)
+    rgbs, depths = [], []
+    with torch.no_grad():
+        for i in range(0, pixels.shape[0], chunk):
+            out = render_rays(nerf_params, pixels[i:i + chunk],
+                              depth[i:i + chunk], camera_mat, world_mat,
+                              scale_mat, cfg, add_noise=False, eval_mode=True)
+            rgbs.append(out["rgb"])
+            depths.append(out["depth_pred"])
+    rgb = torch.cat(rgbs)[:n].reshape(h, w, 3)
+    return rgb, torch.cat(depths)[:n].reshape(h, w)
 
 
 def _render_fused_composite(nerf_params, origins, rays_in, dir_per_ray,

@@ -1,15 +1,15 @@
-"""Training orchestration (port of the per-step path of
-``nope_nerf_tpu/training/loop.py``): epoch loop, frame shuffling,
-reference-frame sampling, the schedule state machine and per-epoch metrics.
+"""Training orchestration (port of ``nope_nerf_tpu/training/loop.py``):
+epoch loop, frame shuffling, reference-frame sampling, the schedule state
+machine, the four checkpoint streams with resume, per-epoch metrics and
+pose accuracy (ATE/RPE), and ``scheduling_mode: reset``.
 
 Same host-side draws as the JAX loop: ``np.random.permutation`` for the
 frame order and ``scene.sample_ref_idx(i, pyrng)`` for the reference
 frames, both seeded with ``training.seed``. The JAX package's ``epoch_scan``
 mode exists to amortise TPU dispatch; the port always runs step by step.
 
-Not ported yet (see ROADMAP.md): checkpoints, per-epoch pose metrics,
-visualisation and pair dumps are not written (one line says so);
-``scheduling_mode: reset``, ``rays_per_step_multiplier > 1`` and
+Not ported yet (see ROADMAP.md): visualisation and pair dumps are not
+written (one line says so); ``rays_per_step_multiplier > 1`` and
 ``n_devices > 1`` change results and raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -23,12 +23,20 @@ import numpy as np
 import torch
 
 from ..config import apply_parity_profile, check_supported
+from ..convert import (
+    adam_state_from_jax_leaves,
+    adam_state_to_jax_leaves,
+    params_from_jax,
+    params_to_numpy,
+)
+from ..geometry.align import align_ate_c2b_use_a2b, compute_ate, compute_rpe
 from ..losses.losses import mse2psnr
 from ..models.distortion import init_distortion_params
 from ..models.intrinsics import init_focal_params
 from ..models.nerf import init_nerf_params
-from ..models.pose import init_pose_params
+from ..models.pose import all_poses, init_pose_params
 from ..ops.interp import resize_bilinear, resize_nearest
+from .checkpoints import CheckpointIO
 from .scheduler import Scheduler, ScheduleState
 from .trainer import (
     describe_routes,
@@ -105,44 +113,105 @@ def scene_batch_arrays(scene, cfg, device):
 
 def _check_ported(cfg):
     tcfg, tpu = cfg["training"], cfg.get("tpu", {}) or {}
-    if tcfg.get("scheduling_mode") == "reset":
-        raise NotImplementedError("training.scheduling_mode: reset is not "
-                                  "ported yet")
     if int(tpu.get("rays_per_step_multiplier", 1) or 1) > 1:
         raise NotImplementedError("tpu.rays_per_step_multiplier > 1 is not "
                                   "ported yet")
     if int(tpu.get("n_devices", 1) or 1) > 1:
         raise NotImplementedError("tpu.n_devices > 1 is not ported yet")
     skipped = [name for name, on in (
-        ("checkpoints", (tcfg.get("checkpoint_every") or 0) > 0
-         or (tcfg.get("backup_every") or 0) > 0),
-        ("per-epoch pose metrics", (tcfg.get("eval_pose_every") or 0) > 0),
         ("visualisation", (tcfg.get("visualize_every") or 0) > 0),
         ("reprojection pair dumps", (tcfg.get("vis_reprojection_every") or 0) > 0),
-        ("per-view scale/shift logs", tcfg.get("log_scale_shift_per_view")),
     ) if on]
     if skipped:
         print("nope_nerf_tpu_torch: not honoured yet: " + ", ".join(skipped))
 
 
-def train(cfg, max_epochs=None, scene=None, device=None):
+def resolve_device(device="cuda"):
+    """``torch.device(device)``; raises when it names CUDA and there is no
+    CUDA device. Nothing falls back to the CPU: ask for ``"cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"nope_nerf_tpu_torch: device {str(device)!r} asked for, but no "
+            "CUDA device is available; pass device='cpu' (--device cpu) to "
+            "run on the CPU")
+    return dev
+
+
+def restore(checkpoint_io, cfg, params, device):
+    """Load the four streams named by ``training.load_*dir`` into
+    ``params`` (each group whose file exists is replaced by new tensors on
+    ``device``; a missing file leaves its group fresh). Returns (params, the
+    main stream's scalars, its optimizer leaves or None). The leaves are
+    None under ``training.load_ckpt_model_only`` or when the file has none;
+    :func:`..convert.adam_state_from_jax_leaves` loads them."""
+    tcfg = cfg["training"]
+    streams = {"nerf": tcfg["load_dir"], "pose": tcfg["load_pose_dir"],
+               "focal": tcfg["load_focal_dir"],
+               "distortion": tcfg["load_distortion_dir"]}
+    scalars, leaves = {}, None
+    for group, fname in streams.items():
+        try:
+            tree, sc, lv = checkpoint_io.load(fname)
+        except FileNotFoundError:
+            continue
+        params[group] = params_from_jax({group: tree["params"]},
+                                        device)[group]
+        if group == "nerf":
+            scalars = sc
+            if lv and not tcfg.get("load_ckpt_model_only", False):
+                leaves = lv
+    return params, scalars, leaves
+
+
+def save_all(checkpoint_io, state, sched_state, cfg, suffix=""):
+    """The four streams; the main one carries the scheduler scalars and the
+    Adam moments (as the JAX optax leaves), so a resume keeps both."""
+    sc = sched_state.to_dict()
+    params = params_to_numpy(state.params)
+    checkpoint_io.save(f"model{suffix}.npz", {"params": params["nerf"]},
+                       opt_leaves=adam_state_to_jax_leaves(state.optimizer),
+                       **sc)
+    for group, on in (("pose", cfg["pose"]["learn_pose"]),
+                      ("focal", cfg["pose"]["learn_focal"]),
+                      ("distortion", cfg["distortion"]["learn_distortion"])):
+        if on:
+            checkpoint_io.save(f"model_{group}{suffix}.npz",
+                               {"params": params[group]},
+                               epoch_it=sc["epoch_it"], it=sc["it"])
+
+
+def pose_metrics(pose_params, init_c2w, gt_poses, pcfg):
+    """(ATE, RPE translation x100, RPE rotation in degrees) of the learned
+    poses after their Sim(3) alignment to ``gt_poses``."""
+    learned = all_poses(pose_params, init_c2w, pcfg["learn_R"],
+                        pcfg["learn_t"]).detach().cpu().numpy()
+    aligned = align_ate_c2b_use_a2b(learned, gt_poses)
+    rpe_t, rpe_r = compute_rpe(gt_poses, aligned)
+    return compute_ate(gt_poses, aligned), rpe_t * 100, float(np.rad2deg(rpe_r))
+
+
+def train(cfg, max_epochs=None, scene=None, device="cuda"):
     """Run training; ``max_epochs`` caps the loop.
 
     ``scene`` is any object with N_imgs, K, scale_mat, imgs (N, H, W, 3),
-    dpt_depth (N, H, W) or None, c2ws and ``sample_ref_idx(i, rng)``; when
-    None it is loaded from ``dataloading`` with the JAX package's numpy
-    loader (``nope_nerf_tpu.dataloading.scene``, numpy + PIL). ``device``
-    defaults to the first CUDA device when there is one.
+    dpt_depth (N, H, W) or None, c2ws (N, 4, 4) or None and
+    ``sample_ref_idx(i, rng)``; when None it is loaded from ``dataloading``
+    with the JAX package's numpy loader (``nope_nerf_tpu.dataloading.scene``,
+    numpy + PIL). ``device`` is a CUDA device unless "cpu" is asked for
+    (:func:`resolve_device`).
 
-    Returns (state, scheduler, scene, history): history has one dict per
-    epoch (epoch, it, steps, loss, step_losses, psnr, ms_per_step,
-    rays_per_sec).
+    Resumes from the checkpoints in ``training.out_dir`` when there are
+    any, saves every ``checkpoint_every`` / ``backup_every`` steps and at
+    the end. Returns (state, scheduler, scene, history): history has one
+    dict per epoch run (epoch, it, steps, loss, step_losses, psnr,
+    ms_per_step, rays_per_sec, and ate_trans, rpe_trans, rpe_rot in the
+    epochs that score the poses).
     """
     check_supported(cfg)
     apply_parity_profile(cfg)
     _check_ported(cfg)
-    device = torch.device(device if device is not None else
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(device)
     seed = int(cfg["training"].get("seed", 42) or 42)
     np.random.seed(seed)
     pyrng = pyrandom.Random(seed)
@@ -167,13 +236,30 @@ def train(cfg, max_epochs=None, scene=None, device=None):
     print("nope_nerf_tpu_torch: "
           + describe_routes(cfg, render_cfg, device, n_pc))
     params, init_c2w = build_params(cfg, scene, init_gen, device)
+    tcfg = cfg["training"]
+    checkpoint_io = CheckpointIO(out_dir)
+    params, ck_scalars, opt_leaves = restore(checkpoint_io, cfg, params,
+                                             device)
     state = init_train_state(params)
-    sched_state = ScheduleState(
-        scheduling_start=cfg["training"]["scheduling_start"])
+    if opt_leaves is not None:
+        try:
+            adam_state_from_jax_leaves(state.optimizer, opt_leaves)
+        except ValueError as e:
+            # e.g. a scene of another size: the params load, the moments
+            # start fresh (the JAX loop's semantics)
+            print(f"nope_nerf_tpu_torch: Adam moments start fresh ({e})")
+    sched_state = ScheduleState.from_dict(ck_scalars,
+                                          tcfg["scheduling_start"])
     sched = Scheduler(cfg, sched_state)
     step_fn = make_train_step(cfg, render_cfg, init_c2w)
-    print_every = cfg["training"]["print_every"]
-    n_rays = cfg["training"]["n_training_points"]
+    print_every = tcfg["print_every"]
+    checkpoint_every = tcfg["checkpoint_every"] or 0
+    backup_every = tcfg["backup_every"] or 0
+    eval_pose_every = tcfg["eval_pose_every"] or 0
+    log_ss_per_view = tcfg.get("log_scale_shift_per_view", False)
+    gt_poses = getattr(scene, "c2ws", None)
+    n_rays = tcfg["n_training_points"]
+    scale_dict, shift_dict = {}, {}
     history = []
 
     while sched_state.epoch_it < sched.total_epochs:
@@ -198,11 +284,23 @@ def train(cfg, max_epochs=None, scene=None, device=None):
             state, aux = step_fn(state, batch, scalars, static, step_gen)
             for k in steps:
                 steps[k].append(float(aux[k]))
+            if log_ss_per_view:
+                scale_dict["view %02d" % idx] = float(aux["scale"])
+                shift_dict["view %02d" % idx] = float(aux["shift"])
             if print_every > 0 and it % print_every == 0:
                 print(f"[Epoch {epoch:02d}] it={it:03d}, "
                       f"loss={steps['loss'][-1]:.8f}")
                 for tag, v in aux.items():
                     logger.add_scalar(f"train/{tag}", float(v), it)
+                for vname, v in scale_dict.items():
+                    logger.add_scalar(f"train/scale{vname}", v, it)
+                for vname, v in shift_dict.items():
+                    logger.add_scalar(f"train/shift{vname}", v, it)
+            if checkpoint_every > 0 and it % checkpoint_every == 0:
+                save_all(checkpoint_io, state, sched_state, cfg)
+            if backup_every > 0 and it % backup_every == 0:
+                save_all(checkpoint_io, state, sched_state, cfg,
+                         suffix=f"_{it}")
         dt = time.perf_counter() - t0
         n = len(order)
         psnr = float(mse2psnr(float(np.mean(steps["l2_mean"]))))
@@ -211,7 +309,6 @@ def train(cfg, max_epochs=None, scene=None, device=None):
                "step_losses": steps["loss"], "psnr": psnr,
                "ms_per_step": 1e3 * dt / n,
                "rays_per_sec": n * n_rays / dt}
-        history.append(rec)
         print(f"[Epoch {epoch:02d}] it={sched_state.it:03d}, "
               f"loss={rec['loss']:.8f}, psnr={psnr:.4f}, "
               f"ms/step={rec['ms_per_step']:.3f}, "
@@ -222,11 +319,29 @@ def train(cfg, max_epochs=None, scene=None, device=None):
                           np.mean(steps["loss_rgb_s"]), sched_state.it)
         logger.add_scalar("perf/rays_per_sec", rec["rays_per_sec"],
                           sched_state.it)
-        if (cfg["training"]["eval_img_every"] or 0) > 0 and (
-                epoch % cfg["training"]["eval_img_every"]) == 0:
+        if (eval_pose_every > 0 and epoch % eval_pose_every == 0
+                and gt_poses is not None and cfg["pose"]["learn_pose"]):
+            ate, rpe_t, rpe_r = pose_metrics(state.params["pose"], init_c2w,
+                                             gt_poses, cfg["pose"])
+            rec.update(ate_trans=ate, rpe_trans=rpe_t, rpe_rot=rpe_r)
+            logger.add_scalar("eval/ate_trans", ate, sched_state.it)
+            logger.add_scalar("eval/rpe_trans", rpe_t, sched_state.it)
+            logger.add_scalar("eval/rpe_rot", rpe_r, sched_state.it)
+        history.append(rec)
+        if (tcfg["eval_img_every"] or 0) > 0 and (
+                epoch % tcfg["eval_img_every"]) == 0:
             logger.add_scalar("train/psnr", psnr, sched_state.it)
-        sched.update_plateau(epoch, psnr)
+        switched = sched.update_plateau(epoch, psnr)
+        if switched and tcfg.get("scheduling_mode") == "reset":
+            # a fresh field in the same tensors, so Adam keeps its moments
+            # (the JAX loop keeps opt_state across the re-init)
+            fresh = init_nerf_params(init_gen, cfg, device)
+            with torch.no_grad():
+                for name, layer in state.params["nerf"].items():
+                    for k, t in layer.items():
+                        t.copy_(fresh[name][k])
         for g, v in sched.lrs(epoch).items():
             logger.add_scalar(f"train/lr_{g}", v, sched_state.it)
+    save_all(checkpoint_io, state, sched_state, cfg)
     logger.close()
     return state, sched, scene, history

@@ -57,6 +57,19 @@ class ScheduleState:
             "scheduling_start": self.scheduling_start,
         }
 
+    @classmethod
+    def from_dict(cls, d, default_scheduling_start):
+        """The state saved by :meth:`to_dict` (fresh values where a key is
+        missing)."""
+        return cls(
+            epoch_it=int(d.get("epoch_it", -1)),
+            it=int(d.get("it", -1)),
+            metric_val_best=float(d.get("loss_val_best", -np.inf)),
+            patient_count=int(d.get("patient_count", 0)),
+            scheduling_start=int(
+                d.get("scheduling_start", default_scheduling_start)),
+        )
+
 
 class Scheduler:
     """Produces per-epoch weights / lrs and runs the plateau detector."""

@@ -66,15 +66,23 @@ def _apply_distortion(depth, scale, shift, shift_first):
     return depth * scale + shift
 
 
+def sample_ray_idx(n_points, hw, fast_sampling, generator, device):
+    """``n_points`` flat pixel indices of an (H, W) image: ``randint``
+    with ``tpu.fast_ray_sampling``, else distinct pixels (``randperm``)."""
+    H, W = hw
+    if fast_sampling:
+        return torch.randint(0, H * W, (n_points,), generator=generator,
+                             device=device)
+    return torch.randperm(H * W, generator=generator,
+                          device=device)[:n_points]
+
+
 def _sample_ray_idx(batch, n_points, H, W, fast_sampling, generator):
     dev = batch["imgs"].device
     if "ray_idx" in batch:
         # injected indices (parity harnesses) replace the random draw
         return batch["ray_idx"].to(dev).long()
-    if fast_sampling:
-        return torch.randint(0, H * W, (n_points,), generator=generator,
-                             device=dev)
-    return torch.randperm(H * W, generator=generator, device=dev)[:n_points]
+    return sample_ray_idx(n_points, (H, W), fast_sampling, generator, dev)
 
 
 def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,

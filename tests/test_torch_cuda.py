@@ -190,6 +190,65 @@ def test_kernel_c_backward_is_deterministic(dev):
         assert torch.equal(a, b)
 
 
+def _kernel_call(dev, kernel):
+    """(fn(weights, inputs) -> outputs, weights, inputs, cotangents) of
+    Kernel A (256 rays x 32 samples) or Kernel C (1500 points), width 64."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    if kernel == "A":
+        ws, geo, z, deltas, cots = _kernel_a_inputs(dev, 256, 32, 64, 7)
+        static = (10, 4, "softplus", True, False, False, 32)
+        cots[2] = torch.zeros_like(cots[2])
+        return (lambda w, x: mk.fused_mlp_composite(w, *x, z, deltas, *static),
+                ws, geo, cots)
+    ws, ins, cots = _kernel_c_inputs(dev, 1500, 64, 8)
+    return (lambda w, x: mk.fused_mlp(w, *x, 10, 4, "softplus", True), ws,
+            ins, cots)
+
+
+@pytest.mark.parametrize("kernel", ["A", "C"])
+def test_forward_without_graph_saves_nothing(dev, kernel):
+    """With nothing to differentiate (no input requires grad, or grad
+    disabled) the forward runs on ping-pong buffers and builds no graph;
+    its outputs equal the saving forward's bit for bit, and it counts one
+    launch."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    fn, ws, ins, _ = _kernel_call(dev, kernel)
+    counter = mk.FWD_LAUNCHES if kernel == "A" else mk.FWD_POINT_LAUNCHES
+    w = [x.clone().requires_grad_() for x in ws]
+    saving = fn(w, ins)
+    n0 = counter.count
+    plain_inputs = fn(ws, ins)
+    with torch.no_grad():
+        no_grad = fn(w, ins)
+    assert counter.count == n0 + 2
+    assert saving[0].grad_fn is not None
+    for outs in (plain_inputs, no_grad):
+        assert all(o.grad_fn is None for o in outs)
+        for a, b in zip(outs, saving):
+            assert torch.equal(a, b.detach())
+
+
+@pytest.mark.parametrize("kernel", ["A", "C"])
+def test_input_only_backward_is_bitwise(dev, kernel):
+    """When no weight needs a gradient (test-time pose optimisation), the
+    backward runs none of the 12 weight-gradient GEMMs and returns the input
+    gradients of the full backward bit for bit."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    fn, ws, ins, cots = _kernel_call(dev, kernel)
+    x = [a.clone().requires_grad_() for a in ins]
+    w = [a.clone().requires_grad_() for a in ws]
+    n0 = mk.WGRAD_LAUNCHES.count
+    full = torch.autograd.grad(fn(w, x), x + w, cots)
+    n1 = mk.WGRAD_LAUNCHES.count
+    inputs_only = torch.autograd.grad(fn(ws, x), x, cots)
+    assert (n1 - n0, mk.WGRAD_LAUNCHES.count - n1) == (12, 0)
+    for a, b in zip(inputs_only, full[:len(x)]):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("S,D,masked", [(1500, 2100, False),
                                         (1024, 700, False),
                                         (1500, 2100, True)])

@@ -261,6 +261,13 @@ def test_port_imports_without_jax():
         "import nope_nerf_tpu_torch.ops.chamfer, nope_nerf_tpu_torch.models.nerf\n"
         "import nope_nerf_tpu_torch.losses.losses, nope_nerf_tpu_torch.profile_step\n"
         "import nope_nerf_tpu_torch.training.loop, nope_nerf_tpu_torch.convert\n"
+        "import nope_nerf_tpu_torch.training.checkpoints\n"
+        "import nope_nerf_tpu_torch.eval, nope_nerf_tpu_torch.eval_poses\n"
+        "import nope_nerf_tpu_torch.evaluation.pose_opt\n"
+        "import nope_nerf_tpu_torch.evaluation.eval_images\n"
+        "import nope_nerf_tpu_torch.evaluation.trajectory_errors\n"
+        "import nope_nerf_tpu_torch.geometry.align, nope_nerf_tpu_torch.ops.ssim\n"
+        "import nope_nerf_tpu_torch.synthetic\n"
         "bad = [m for m in sys.modules if m.startswith('nope_nerf_tpu.')\n"
         "       or m == 'nope_nerf_tpu' or (m.startswith('jax') and sys.modules[m])]\n"
         "assert not bad, bad\n"
