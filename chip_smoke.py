@@ -6,10 +6,14 @@
 Builds the port's CUDA kernels from ``nope_nerf_tpu_torch/csrc``, holds each
 of the six kernels against its plain PyTorch version at the shapes of the
 training step (A: fused MLP + compositing, fwd and bwd; B: banded Chamfer;
-C: per-point fused MLP, fwd and bwd; D: exact Chamfer), then trains three
-configurations at full width for two epochs of eight steps each on an
-in-memory 8-frame 540x960 scene with random weights and a smooth camera
-trajectory:
+C: per-point fused MLP, fwd and bwd; D: exact Chamfer), runs the GEMM phase
+(the forward's TMA + wgmma layer GEMM of ``csrc/mlp_gemm_sm90.cu``, which
+A-fwd and C-fwd run on, at four layer shapes at M = 131,072: its error
+against ``gemm_fwd_reference`` in bf16 ulps, a bitwise rerun, and its time
+beside the WMMA GEMM it replaced, ``torch.addmm`` in bf16 as the cuBLAS
+yardstick, and the memory bound), then trains three configurations at full
+width for two epochs of eight steps each on an in-memory 8-frame 540x960
+scene with random weights and a smooth camera trajectory:
 
 * stock ``configs/default.yaml`` (1024 rays x 128 samples, 8 x 256 MLP,
   pc + rgb_s losses, banded Chamfer): Kernels A and B;
@@ -18,7 +22,8 @@ trajectory:
 * ``tpu.parity: True`` (f32 unfused MLP on torch.matmul, exact Chamfer,
   randperm ray sampling): Kernel D;
 
-and checks that each run went through every kernel it should reach. The
+and checks that each run went through every kernel it should reach (the
+new GEMM 11 times per forward, the WMMA GEMM only in backwards). The
 stock run writes its checkpoints and per-epoch pose metrics; the eval phase
 then restores them into fresh tensors (bit for bit), runs the eval CLI's
 ``main`` on the held-out view (test-time pose optimisation on Kernel A's
@@ -30,8 +35,9 @@ bitwise to the full one, and times the render and a pose-optimisation step
 with each backward.
 
 Prints, in order: the card's name and power limit, the kernel build time,
-one line per kernel check, one line per epoch, the eval phase's lines, a
-JSON line with every kernel's errors, launches and times, and last
+one line per kernel check, the GEMM phase's lines, one line per epoch, the
+eval phase's lines, a JSON line with every kernel's errors, launches,
+times and bound (and the library call's time where one exists), and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that last line. It needs a CUDA device and the
 repository beside it; it imports nothing of JAX.
@@ -73,6 +79,18 @@ RGB_ATOL, DIST_ATOL, ALPHA_ATOL, GRAD_RELL2 = 1e-3, 1e-3, 1e-3, 1e-2
 # plain compositing against Kernel A: the JAX package holds its two paths to
 # atol 2e-5 on rgb and alpha and 2e-4 on depth (tests/test_pallas.py:298-311).
 C_VS_A_ATOL, C_VS_A_DIST_ATOL = 2e-5, 2e-4
+# The forward GEMM against gemm_fwd_reference (the same bf16 operands, f32
+# sums in another order): at most one bf16 ulp, judged at the magnitude of
+# max(|ref|, |out|, max|ref| / 256) -- below that, a value is a cancellation
+# whose f32 order error is set by the terms, not by the value.
+GEMM_ULPS = 1.0
+
+# the card's peaks (H100 SXM datasheet, at 700 W):
+# dense bf16 tensor-core FLOP/s, memory bytes/s, FP32 lane instructions/s
+BF16_FLOPS, HBM_BYTES, FP32_INSTR = 989e12, 3.35e12, 33.5e12
+# FP32 instructions per point pair of the Chamfer argmins (3 sub, 3 mul,
+# 2 add, compare and select; no FMA by design)
+PAIR_INSTR = 10
 
 
 def card_line():
@@ -100,6 +118,31 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(flops=0.0, nbytes=0.0, instr=0.0):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of ``nbytes`` (each input read once, each output written once) over
+    the memory rate and the operations over their peak (bf16 tensor-core
+    FLOPs, FP32 lane instructions)."""
+    t_ops = max(flops / BF16_FLOPS, instr / FP32_INSTR)
+    t_mem = nbytes / HBM_BYTES
+    return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem
+                                     else "bytes")
+
+
+def nbytes(*tensors):
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def mlp_bounds(weights, m, io):
+    """Bounds of a forward and a full backward of the fused MLP on ``m``
+    points: 2 m sum(K N) FLOPs forward, twice that backward (input- and
+    weight-gradient GEMMs); ``io`` the function's other inputs and
+    outputs (the backward also writes a gradient per weight)."""
+    flops = 2.0 * m * sum(w.numel() for w in weights[0::2])
+    wb = nbytes(*weights)
+    return bound(flops, wb + io), bound(2 * flops, 2 * wb + io)
 
 
 def rel_l2(a, b):
@@ -214,16 +257,21 @@ def check_kernel_a(dev, card):
     if fails:
         raise AssertionError("kernel A disagrees with its plain version: "
                              + "; ".join(fails))
+    (b_fwd, by_fwd), (b_bwd, by_bwd) = mlp_bounds(
+        weights, N * S, nbytes(origins, rays_t, dirs, z_t, deltas_t, *o_k))
     fwd_rec = {"name": "mlp_composite_fwd", "route": "cuda",
-               "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu",
+               "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu + "
+                         "nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu",
                "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:668",
                "max_abs_err": max(err.values()), "ms": ms_fwd,
-               "plain_ms": ms_fwd_plain}
+               "plain_ms": ms_fwd_plain, "bound_ms": b_fwd,
+               "bound_by": by_fwd, "library_ms": None}
     bwd_rec = {"name": "mlp_composite_bwd", "route": "cuda",
                "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu",
                "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:702",
                "max_abs_err": bwd_abs, "max_rel_l2": rels[worst],
-               "ms": ms_bwd, "plain_ms": ms_bwd_plain}
+               "ms": ms_bwd, "plain_ms": ms_bwd_plain, "bound_ms": b_bwd,
+               "bound_by": by_bwd, "library_ms": None}
     return fwd_rec, bwd_rec
 
 
@@ -286,11 +334,16 @@ def check_kernel_b(dev, card):
     if mism:
         raise AssertionError(f"kernel B: {mism} indices differ from its "
                              "plain version")
+    # every query group scans k_tiles (at most Y's tiles) of TILE rows
+    pairs = (-(-n // cb.QB) * cb.QB * min(k, -(-n // cb.TILE)) * cb.TILE)
+    b_ms, b_by = bound(instr=PAIR_INSTR * pairs,
+                       nbytes=nbytes(X, Y, starts, idx_k))
     return {"name": "chamfer_band", "route": "cuda",
             "source": "nope_nerf_tpu_torch/csrc/chamfer_band.cu",
             "replaces": "nope_nerf_tpu/ops/pallas/chamfer_band.py:90",
             "max_abs_err": max_abs, "index_mismatches": mism, "ms": ms,
-            "plain_ms": ms_plain}
+            "plain_ms": ms_plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def check_kernel_c(dev, card):
@@ -385,17 +438,22 @@ def check_kernel_c(dev, card):
             fails.append(f"{n} against kernel A {vs_a[n]:.3e} > {bar}")
     if fails:
         raise AssertionError("kernel C disagrees: " + "; ".join(fails))
+    (b_fwd, by_fwd), (b_bwd, by_bwd) = mlp_bounds(
+        weights, N * S, nbytes(pts, pdirs, *o_k))
     fwd_rec = {"name": "mlp_point_fwd", "route": "cuda",
-               "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu",
+               "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu + "
+                         "nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu",
                "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:244",
                "max_abs_err": max(err.values()),
                "max_abs_err_vs_kernel_a": max(vs_a.values()), "ms": ms_fwd,
-               "plain_ms": ms_fwd_plain}
+               "plain_ms": ms_fwd_plain, "bound_ms": b_fwd,
+               "bound_by": by_fwd, "library_ms": None}
     bwd_rec = {"name": "mlp_point_bwd", "route": "cuda",
                "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu",
                "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:258",
                "max_abs_err": bwd_abs, "max_rel_l2": rels[worst],
-               "ms": ms_bwd, "plain_ms": ms_bwd_plain}
+               "ms": ms_bwd, "plain_ms": ms_bwd_plain, "bound_ms": b_bwd,
+               "bound_by": by_bwd, "library_ms": None}
     return fwd_rec, bwd_rec
 
 
@@ -433,38 +491,252 @@ def check_kernel_d(dev, card):
         if mism:
             raise AssertionError(f"kernel D: {mism} indices differ from its "
                                  f"plain version at {n} points")
-        rows.append((n, mism, loss_err, ms, ms_plain, ms_grid))
+        rows.append((n, mism, loss_err, ms, ms_plain, ms_grid,
+                     nbytes(X, Y, *idx_k)))
     per_pair = sum(row[3] / row[0] ** 2 for row in rows) / len(rows)
     per_point = sum(row[5] / (2 * row[0]) for row in rows) / len(rows)
     print(f"chamfer auto cost laws [{card}]: exact {per_pair:.3e} ms/pair, "
           f"grid {per_point:.3e} ms/point; equal clouds cross over at "
           f"{2 * per_point / per_pair:.0f} points")
-    n, mism, loss_err, ms, ms_plain, ms_grid = rows[0]
+    # both directions scan every pair
+    (b_ms, b_by), (b_large, _) = (bound(instr=PAIR_INSTR * 2 * row[0] ** 2,
+                                        nbytes=row[6]) for row in rows)
+    n, mism, loss_err, ms, ms_plain, ms_grid, _ = rows[0]
     return {"name": "chamfer_exact", "route": "cuda",
             "source": "nope_nerf_tpu_torch/csrc/chamfer_exact.cu",
             "replaces": "nope_nerf_tpu/ops/pallas/chamfer_kernel.py:87",
             "max_abs_err": loss_err, "index_mismatches": mism, "ms": ms,
-            "plain_ms": ms_plain, "grid_ms": ms_grid,
+            "plain_ms": ms_plain, "grid_ms": ms_grid, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
             "large": {"points": rows[1][0], "ms": rows[1][3],
-                      "plain_ms": rows[1][4], "grid_ms": rows[1][5]}}
+                      "plain_ms": rows[1][4], "grid_ms": rows[1][5],
+                      "bound_ms": b_large}}
+
+
+# the forward's layer GEMMs timed in the GEMM phase: (layer, K1, K2, N,
+# direction row term, ReLU) at the stock widths
+GEMM_CASES = (
+    ("trunk0_1", 256, 0, 256, False, True),
+    ("trunk0_0", 63, 0, 256, False, True),
+    ("trunk1_0", 256, 63, 256, False, True),
+    ("rgb_layer", 256, 0, 128, True, True),
+)
+
+
+def gemm_ulps(out, ref):
+    """max |out - ref| in bf16 ulps of max(|ref|, |out|, max|ref| / 256)
+    (see GEMM_ULPS)."""
+    import torch
+
+    out, ref = out.float(), ref.float()
+    mag = torch.maximum(torch.maximum(ref.abs(), out.abs()),
+                        ref.abs().max() / 256)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(torch.max((out - ref).abs() / ulp))
+
+
+def check_gemm(dev, card):
+    """The GEMM phase (see the module docstring). Operands: the stock
+    field's weights and biases (seed SEED), bf16 activations from a seeded
+    normal, and encodings whose padding column holds NaN (the tensor maps
+    take the true widths, so it must never be read)."""
+    import torch
+
+    from nope_nerf_tpu_torch.models.nerf import init_nerf_params
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    cfg = stock_cfg()
+    params = init_nerf_params(torch.Generator().manual_seed(SEED), cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    M, S = N_RAYS * N_SAMPLES, N_SAMPLES
+    bf = torch.bfloat16
+
+    def acts(rows, k):
+        buf = torch.full((rows, mk._pad8(k)), float("nan"), dtype=bf,
+                         device=dev)
+        buf[:, :k] = torch.randn((rows, k), generator=gen, device=dev)
+        return buf[:, :k]
+
+    layers, chain_new, chain_old, chain_lib = {}, [], [], []
+    for name, k1, k2, n, has_rt, relu in GEMM_CASES:
+        w, b = params[name]["w"].detach(), params[name]["b"].detach()
+        wt, wb = mk._padded_t(w), w.to(bf)
+        a1 = acts(M, k1)
+        a2 = acts(M, k2) if k2 else None
+        two = dict(a2=a2, w2t=wt[:, k1:k1 + k2]) if k2 else {}
+        rt, div, old_two, rt_err = None, 1, {}, None
+        if has_rt:  # the direction half of [feat, denc], one row per ray
+            denc = acts(N_RAYS, w.shape[0] - k1)
+            rt = mk.gemm_fwd(denc, wt[:, k1:w.shape[0]], out=torch.empty(
+                (N_RAYS, n), dtype=torch.float32, device=dev))
+            div = S
+            rt_err = float(torch.max(torch.abs(rt - mk.gemm_fwd_reference(
+                denc.float(), w[k1:], out_dtype=torch.float32))))
+            old_two = dict(a2=mk._Mat(denc, denc.shape[1], ld=denc.stride(0),
+                                      row_div=S), b2=wb[k1:])
+        elif k2:
+            old_two = dict(a2=mk._Mat(a2, k2, ld=a2.stride(0)), b2=wb[k1:])
+        out = torch.empty((M, n), dtype=bf, device=dev)
+        out_old = torch.empty_like(out)
+
+        def new(out=out, a1=a1, wt=wt, k1=k1, b=b, relu=relu, rt=rt, div=div,
+                two=two):
+            return mk.gemm_fwd(a1, wt[:, :k1], bias=b, relu=relu, rowterm=rt,
+                               div=div, out=out, **two)
+
+        def old(out=out_old, a1=a1, wb=wb, k1=k1, n=n, b=b, relu=relu,
+                two=old_two):
+            return mk._gemm_nn(mk._Mat(a1, k1, ld=a1.stride(0)), wb[:k1], M,
+                               n, out, bias=b, relu=relu, **two)
+
+        # cuBLAS on the same FLOPs (bias, no ReLU): [a1 | a2] @ W, or the
+        # main product of rgb_layer (its row term has no cuBLAS form)
+        a_lib = torch.cat([a1, a2], 1) if k2 else a1
+        w_lib = wb if k2 else wb[:k1]
+        b_lib = b.to(bf)
+
+        def lib(a=a_lib, w=w_lib, b=b_lib):
+            return torch.addmm(b, a, w)
+
+        def plain(a1=a1, w=w, k1=k1, a2=a2, b=b, relu=relu, rt=rt, div=div):
+            return mk.gemm_fwd_reference(
+                a1.float(), w[:k1], None if a2 is None else a2.float(),
+                w[k1:] if a2 is not None else None, b, relu, rt, div)
+
+        got, ref = new(), plain()
+        again = mk.gemm_fwd(a1, wt[:, :k1], bias=b, relu=relu, rowterm=rt,
+                            div=div, out=torch.empty_like(out), **two)
+        torch.cuda.synchronize()
+        ulps = gemm_ulps(got, ref)
+        abs_err = float(torch.max(torch.abs(got.float() - ref)))
+        bitwise = torch.equal(got, again)
+        finite = bool(torch.isfinite(got.float()).all())
+        ms = cuda_ms(new, iters=50, warmup=5)
+        ms_old = cuda_ms(old, iters=20, warmup=2)
+        ms_lib = cuda_ms(lib, iters=50, warmup=5)
+        ms_plain = cuda_ms(plain, iters=3, warmup=1)
+        moved = 2.0 * (M * (k1 + k2) + n * (k1 + k2) + M * n) + 4.0 * n + (
+            4.0 * rt.numel() if rt is not None else 0.0)
+        b_ms, b_by = bound(2.0 * M * n * (k1 + k2), moved)
+        rec = {"K": k1 + k2, "N": n, "max_ulps": ulps, "max_abs_err": abs_err,
+               "bitwise_rerun": bitwise, "ms": ms, "old_ms": ms_old,
+               "library_ms": ms_lib, "plain_ms": ms_plain, "bound_ms": b_ms,
+               "bound_by": b_by, "gb_per_s": moved / ms / 1e6,
+               "rowterm_max_abs_err": rt_err}
+        layers[name] = rec
+        print(f"gemm {name} [{card}] M={M} K={k1}+{k2} N={n}"
+              f"{f' + row term (max|err| {rt_err:.2e})' if has_rt else ''}"
+              f": max err {ulps:.2f} bf16 ulp "
+              f"(abs {abs_err:.3e}), bitwise rerun {bitwise}; new {ms:.4f} "
+              f"ms, old WMMA {ms_old:.4f} ms, addmm {ms_lib:.4f} ms, plain "
+              f"{ms_plain:.3f} ms; {rec['gb_per_s']:.0f} GB/s of "
+              f"{HBM_BYTES / 1e9:.0f}, bound {b_ms:.4f} ms ({b_by})")
+        if not (finite and bitwise and ulps <= GEMM_ULPS
+                and (rt_err is None or rt_err <= 1e-5)):
+            raise AssertionError(f"gemm {name}: {ulps:.2f} ulps (bar "
+                                 f"{GEMM_ULPS}), finite {finite}, bitwise "
+                                 f"rerun {bitwise}")
+    # the forward's ten layer GEMMs (+ the row term) as a chain
+    D = cfg["model"]["hidden_dim"]
+    tw = {n: (mk._padded_t(params[n]["w"].detach()), params[n]["b"].detach())
+          for n in mk.GEMM_LAYERS}
+    enc, denc = acts(M, 63), acts(N_RAYS, 27)
+    hbuf = [torch.empty((M, D), dtype=bf, device=dev) for _ in range(2)]
+    hr = torch.empty((M, D // 2), dtype=bf, device=dev)
+    rtb = torch.empty((N_RAYS, D // 2), dtype=torch.float32, device=dev)
+
+    def chain():
+        h = enc
+        for i, name in enumerate(mk.GEMM_LAYERS[:9]):
+            w, b = tw[name]
+            two = (dict(a2=enc, w2t=w[:, D:D + 63]) if name == "trunk1_0"
+                   else {})
+            h = mk.gemm_fwd(h, w[:, :h.shape[1]], bias=b,
+                            relu=name != "fc_feature", out=hbuf[i % 2], **two)
+        w, b = tw["rgb_layer"]
+        rt = mk.gemm_fwd(denc, w[:, D:D + 27], out=rtb)
+        return mk.gemm_fwd(h, w[:, :D], bias=b, relu=True, rowterm=rt, div=S,
+                           out=hr)
+
+    lib_ops = []
+    for name in mk.GEMM_LAYERS:
+        w, b = params[name]["w"].detach(), params[name]["b"].detach()
+        lib_ops.append((torch.randn((M, w.shape[0]), generator=gen,
+                                    device=dev).to(bf), w.to(bf), b.to(bf)))
+
+    def chain_addmm():
+        for a, w, b in lib_ops:
+            torch.addmm(b, a, w)
+
+    ms_chain = cuda_ms(chain, iters=10)
+    ms_chain_lib = cuda_ms(chain_addmm, iters=10)
+    # host cost of one launch (the training step is host-bound): 200 calls
+    # at M = 128, where the device finishes each before the next is issued
+    a_s, (w_s, b_s) = acts(128, D), tw["trunk0_1"]
+    w_s, wb_s = w_s[:, :D], params["trunk0_1"]["w"].detach().to(bf)
+    bb_s, o_s = b_s.to(bf), torch.empty((128, D), dtype=bf, device=dev)
+    host_us = {
+        "new": lambda: mk.gemm_fwd(a_s, w_s, bias=b_s, relu=True, out=o_s),
+        "old": lambda: mk._gemm_nn(mk._Mat(a_s, D), wb_s, 128, D, o_s,
+                                   bias=b_s, relu=True),
+        "addmm": lambda: torch.addmm(bb_s, a_s, wb_s)}
+    host_us = {k: host_ms(fn, iters=200, sync=False)
+               for k, fn in host_us.items()}
+    host_us = {k: 1e3 * v for k, v in host_us.items()}
+    flops = 2.0 * M * sum(params[n]["w"].numel() for n in mk.GEMM_LAYERS)
+    print(f"gemm chain [{card}] M={M}: ten layer GEMMs + row term "
+          f"{ms_chain:.4f} ms, ten addmm {ms_chain_lib:.4f} ms "
+          f"({flops / 1e9:.1f} GFLOP: {flops / ms_chain / 1e9:.1f} TFLOP/s);"
+          f" host us per launch: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in host_us.items()))
+    head = layers["trunk0_1"]
+    return {"name": "mlp_gemm_sm90", "route": "cuda",
+            "source": "nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu",
+            "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:668",
+            "also_serves": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:244",
+            "shape": "trunk0_1: M=131072 K=256 N=256",
+            "max_abs_err": max(r["max_abs_err"] for r in layers.values()),
+            "max_ulps": max(r["max_ulps"] for r in layers.values()),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "old_ms": head["old_ms"], "library_ms": head["library_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "layers": layers, "chain_ms": ms_chain,
+            "chain_addmm_ms": ms_chain_lib, "host_us_per_launch": host_us}
 
 
 def kernel_counters():
-    """The launch counters of the six kernels."""
+    """The launch counters of the six kernels, the forward's GEMM and the
+    backward's WMMA GEMM."""
     from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
     from nope_nerf_tpu_torch.ops.kernels import chamfer_kernel as ck
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     return (mk.FWD_LAUNCHES, mk.BWD_LAUNCHES, cb.LAUNCHES,
-            mk.FWD_POINT_LAUNCHES, mk.BWD_POINT_LAUNCHES, ck.LAUNCHES)
+            mk.FWD_POINT_LAUNCHES, mk.BWD_POINT_LAUNCHES, ck.LAUNCHES,
+            mk.GEMM_SM90_LAUNCHES, mk.GEMM_NN_LAUNCHES)
+
+
+def check_gemm_counts(label, counts):
+    """Every forward of Kernels A and C ran its 11 GEMMs on the new kernel
+    and no WMMA GEMM: the WMMA GEMM ran 10 times per backward, no more."""
+    fwd = counts["mlp_composite_fwd"] + counts["mlp_point_fwd"]
+    bwd = counts["mlp_composite_bwd"] + counts["mlp_point_bwd"]
+    if (counts["mlp_gemm_sm90"], counts["mlp_gemm_nn"]) != (11 * fwd,
+                                                            10 * bwd):
+        raise AssertionError(
+            f"{label}: {counts['mlp_gemm_sm90']} new-GEMM launches for {fwd} "
+            f"forwards (11 each), {counts['mlp_gemm_nn']} WMMA GEMM launches "
+            f"for {bwd} backwards (10 each)")
 
 
 # the training runs: (label, tpu overrides, kernels the run must launch;
 # every other kernel must stay idle)
+MLP_GEMMS = ("mlp_gemm_sm90", "mlp_gemm_nn")
 RUNS = (
-    ("stock", {}, ("mlp_composite_fwd", "mlp_composite_bwd", "chamfer_band")),
+    ("stock", {}, ("mlp_composite_fwd", "mlp_composite_bwd", "chamfer_band",
+                   *MLP_GEMMS)),
     ("unfused_exact", {"fuse_compositing": False, "chamfer_mode": "exact"},
-     ("mlp_point_fwd", "mlp_point_bwd", "chamfer_exact")),
+     ("mlp_point_fwd", "mlp_point_bwd", "chamfer_exact", *MLP_GEMMS)),
     ("parity", {"parity": True}, ("chamfer_exact",)),
 )
 
@@ -512,6 +784,7 @@ def run_training(dev, card, label, overrides, expect):
     if idle or stray:
         raise AssertionError(f"{label}: kernels never launched {idle}, "
                              f"launched off this path {stray}")
+    check_gemm_counts(label, counts)
     ckpts = sorted(f for f in os.listdir(cfg["training"]["out_dir"])
                    if f.endswith(".npz"))
     if "model.npz" not in ckpts or "model_pose.npz" not in ckpts:
@@ -534,9 +807,10 @@ def kernel_a_plain():
         mk.fused_mlp_composite = real
 
 
-def host_ms(fn, iters, warmup=1):
+def host_ms(fn, iters, warmup=1, sync=True):
     """Mean wall time of ``fn`` in ms, each call ended by a device
-    synchronise (the host clock of a caller that waits for its result)."""
+    synchronise (the host clock of a caller that waits for its result), or
+    with ``sync`` False only the last (the host's cost of issuing it)."""
     import torch
 
     for _ in range(warmup):
@@ -545,7 +819,9 @@ def host_ms(fn, iters, warmup=1):
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-        torch.cuda.synchronize()
+        if sync:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
@@ -698,19 +974,24 @@ def run_eval(dev, card, cfg, trained):
           f" + scoring + PNGs), peak memory {peak / 2**30:.3f} GiB; "
           f"launches {counts}")
     stray = [n for n, v in counts.items() if v and n not in (
-        "mlp_composite_fwd", "mlp_composite_bwd")]
+        "mlp_composite_fwd", "mlp_composite_bwd", *MLP_GEMMS)]
     if not (counts["mlp_composite_fwd"] and counts["mlp_composite_bwd"]) \
             or stray or not finite:
         raise AssertionError(f"eval: kernel A fwd/bwd not both launched, or "
                              f"launched off this path {stray}, or non-finite "
                              f"metrics {res}")
+    check_gemm_counts("eval", counts)
 
     render_cfg = make_render_cfg(cfg, dev)
     cam = torch.as_tensor(train_scene.K, device=dev)
     world = torch.linalg.inv(torch.as_tensor(train_scene.c2ws[0], device=dev))
     eye = torch.eye(4, device=dev)
+    before = {c.name: c.count for c in counters}
     render_ms = host_ms(lambda: render_image(nerf, (H, W), cam, world, eye,
                                              render_cfg, chunk=65536), iters=3)
+    during = {c.name: c.count - before[c.name] for c in counters}
+    check_gemm_counts("eval render", during)
+    print(f"eval render launches [{card}]: {during}")
     small = render_image(nerf, SMALL_VIEW, cam, world, eye, render_cfg)
     with kernel_a_plain():
         small_plain = render_image(nerf, SMALL_VIEW, cam, world, eye,
@@ -775,14 +1056,15 @@ def main():
     b = check_kernel_b(dev, card)
     c_fwd, c_bwd = check_kernel_c(dev, card)
     d = check_kernel_d(dev, card)
-    records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d]
+    gemm = check_gemm(dev, card)
+    records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d, gemm]
     launches = {rec["name"]: 0 for rec in records}
     for label, overrides, expect in RUNS:
         counts, state, cfg = run_training(dev, card, label, overrides, expect)
         if label == "stock":
             stock = (cfg, state)
-        for name, v in counts.items():
-            launches[name] += v
+        for rec in records:
+            launches[rec["name"]] += counts[rec["name"]]
     eval_counts, eval_rec = run_eval(dev, card, *stock)
     for rec in records:
         rec["launches"] = launches[rec["name"]] + eval_counts[rec["name"]]

@@ -25,20 +25,24 @@
 // backward) is memory- and latency-bound elementwise work on per-point and
 // per-ray tensors.
 //
-// Design (first, simple and correct; wgmma/TMA and cross-layer fusion are
-// later work): the TPU kernel kept every activation in VMEM and recomputed
-// the forward inside the backward. A block on this card has at most 227 KB of
-// shared memory, which does not hold the 1.2 MB of weights, so each layer is
-// its own tiled GEMM launch and the forward SAVES its bf16 activations
-// (about 0.7 GB at the stock step) for the backward instead of recomputing.
+// Design (first, simple and correct; the forward's layer GEMMs now run on
+// TMA + wgmma in mlp_gemm_sm90.cu, the backward's are queued for it, and
+// cross-layer fusion is later work): the TPU kernel kept every activation in
+// VMEM and recomputed the forward inside the backward. A block on this card
+// has at most 227 KB of shared memory, which does not hold the 1.2 MB of
+// weights, so each layer is its own tiled GEMM launch and the forward SAVES
+// its bf16 activations (about 0.7 GB at the stock step) for the backward
+// instead of recomputing.
 //   * encode_points / encode_rows: pts = o + r*z, [x, sin 2^l x, cos 2^l x]
 //     in f32 (full-precision sincosf), stored as bf16; directions encoded
 //     once per ray.
 //   * gemm_nn: C = epilogue(A1 @ B1 + A2 @ B2), bf16 x bf16 -> f32 on the
-//     tensor cores (WMMA 16x16x16). Two A inputs so the skip concats
-//     [h, enc] and [feat, denc] are never materialised; A2 may be indexed per
-//     ray (row / S). Epilogue: + bias (f32), optional ReLU, optional ReLU
-//     mask of a saved activation (backward), store bf16 or f32.
+//     tensor cores (WMMA 16x16x16): the backward's input-gradient GEMMs (A
+//     the f32 cotangents, rounded to bf16 on load). Two A inputs, so no
+//     concat is materialised; A2 may be indexed per ray (row / S). Epilogue:
+//     + bias (f32), optional ReLU, optional ReLU mask of a saved activation,
+//     store bf16 or f32 (bias, ReLU and the per-ray A2 serve chip_smoke.py's
+//     timing of this kernel on the forward's operands beside its successor).
 //   * gemm_tn: dW = X^T @ G as split-K partial sums over row chunks, then a
 //     deterministic reduce pass (no float atomics, so runs repeat bitwise);
 //     colsum does the same for the bias gradients.

@@ -14,9 +14,9 @@ renders every view, prints the per-image and mean PSNR / SSIM / LPIPS lines
 names LPIPS weights on disk raises ``NotImplementedError``.
 
 Runs on ``--device`` (default ``cuda``; with no CUDA device it raises
-unless ``--device cpu`` is given). Scenes are read with the JAX package's
-numpy loader and the video is written by its MJPEG muxer, both lazily
-(numpy + PIL only).
+unless ``--device cpu`` is given). Scenes are read with the port's numpy
+loader (``dataloading.scene``) and the video is written by its MJPEG muxer
+(``utils.mp4``), numpy + PIL only.
 """
 import argparse
 import os
@@ -32,6 +32,7 @@ from .config import (
     load_config,
 )
 from .convert import params_from_jax
+from .dataloading.scene import get_scene
 from .evaluation.eval_images import eval_image, resize_like_cv2
 from .evaluation.metrics import median_scaled_depth_errors
 from .evaluation.pose_opt import init_eval_poses, optimize_eval_poses
@@ -41,6 +42,7 @@ from .models.pose import all_poses
 from .training.checkpoints import CheckpointIO
 from .training.loop import MetricsLogger, resolve_device
 from .training.trainer import make_render_cfg
+from .utils.mp4 import write_mjpeg_mp4
 
 
 def _load_group(io, filename, group, device):
@@ -62,8 +64,6 @@ def main(cfg, eval_depth=False, device="cuda", train_scene=None,
     os.makedirs(generation_dir, exist_ok=True)
     logger = MetricsLogger(os.path.join(out_dir, "logs"))
     if train_scene is None or eval_scene is None:
-        from nope_nerf_tpu.dataloading.scene import get_scene
-
         train_scene = train_scene or get_scene(cfg, mode="train")
         eval_scene = eval_scene or get_scene(cfg, mode="eval")
 
@@ -158,8 +158,6 @@ def main(cfg, eval_depth=False, device="cuda", train_scene=None,
         with open(os.path.join(generation_dir, "depth_evaluation.txt"),
                   "a") as f:
             f.write(header + "\n" + row + "\n")
-
-    from nope_nerf_tpu.utils.mp4 import write_mjpeg_mp4
 
     video_dir = os.path.join(render_dir, "video_out")
     os.makedirs(video_dir, exist_ok=True)

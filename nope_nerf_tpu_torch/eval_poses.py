@@ -7,8 +7,9 @@ Loads the learned poses from ``training.out_dir``, Sim(3)-aligns them to
 the scene's COLMAP / gt trajectory and prints ``RPE_t x100 & RPE_r (deg) &
 ATE``; ``--vis`` writes both trajectories' camera frustums to
 ``<out_dir>/pose_vis.ply``. A few 4x4 matrices on the host: no device is
-used. The scene is read with the JAX package's numpy loader and the PLY
-written by its exporter, both lazily (numpy only).
+used. The scene is read with the port's numpy loader
+(``dataloading.scene``) and the PLY written by its exporter
+(``utils.vis``).
 """
 import argparse
 import os
@@ -18,17 +19,17 @@ import torch
 
 from .config import DEFAULT_CONFIG, apply_parity_profile, load_config
 from .convert import params_from_jax
+from .dataloading.scene import get_scene
 from .geometry.align import align_ate_c2b_use_a2b, compute_ate, compute_rpe
 from .models.pose import all_poses
 from .training.checkpoints import CheckpointIO
+from .utils.vis import export_camera_frustums
 
 
 def main(cfg, vis=False):
     """Print and return the pose errors of the run in ``training.out_dir``
     against its scene's training views; None when the scene has no
     reference poses."""
-    from nope_nerf_tpu.dataloading.scene import get_scene
-
     apply_parity_profile(cfg)
     out_dir = cfg["training"]["out_dir"]
     scene = get_scene(cfg, mode="train")
@@ -51,8 +52,6 @@ def main(cfg, vis=False):
     print("{0:.3f} & {1:.3f} & {2:.3f}".format(rpe_t * 100,
                                                np.rad2deg(rpe_r), ate))
     if vis:
-        from nope_nerf_tpu.utils.vis import export_camera_frustums
-
         ply = os.path.join(out_dir, "pose_vis.ply")
         export_camera_frustums(ply, [aligned, gt],
                                colors=[(0, 0, 255), (255, 0, 0)],

@@ -5,15 +5,19 @@ Port of ``nope_nerf_tpu/ops/pallas/mlp_kernel.py``: ``fused_mlp_composite``
 (Pallas kernels ``_make_fwd_composite_kernel`` l.668 and
 ``_make_bwd_composite_kernel`` l.702) and ``fused_mlp`` (``_make_fwd_kernel``
 l.244 and ``_make_bwd_kernel`` l.258). The CUDA source is
-``nope_nerf_tpu_torch/csrc/mlp_composite.cu``; its header says what bounds
-the kernels on the H100 and how the design answers it.
+``nope_nerf_tpu_torch/csrc/mlp_composite.cu``, and the forward's layer GEMMs
+run on ``nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu`` (TMA + wgmma); the
+headers say what bounds the kernels on the H100 and how the design answers
+it.
 
 * :func:`fused_mlp_composite` (Kernel A) and :func:`fused_mlp` (Kernel C)
   are the public wrappers. For CUDA tensors they run
   :class:`FusedMLPComposite` / :class:`FusedMLP` (a fixed sequence of
   hand-written kernels forward, another backward) and count the launches in
   :data:`FWD_LAUNCHES` / :data:`BWD_LAUNCHES` and :data:`FWD_POINT_LAUNCHES`
-  / :data:`BWD_POINT_LAUNCHES`; for CPU tensors they run the plain versions
+  / :data:`BWD_POINT_LAUNCHES` (the forward's GEMMs in
+  :data:`GEMM_SM90_LAUNCHES`, the backward's input-gradient GEMMs in
+  :data:`GEMM_NN_LAUNCHES`); for CPU tensors they run the plain versions
   :func:`fused_mlp_composite_reference` / :func:`fused_mlp_reference`; any
   other device raises.
 * What the graph needs, and no more: when nothing is to be differentiated
@@ -25,7 +29,9 @@ the kernels on the H100 and how the design answers it.
   of the full path.
 * The plain versions emulate bf16 operands as bf16-rounded f32 tensors with
   f32 matmuls and take the backward from autograd (matmul cotangents
-  rounded to bf16 as in the kernels); both share :func:`_chain_reference`.
+  rounded to bf16 as in the kernels); both share :func:`_chain_reference`,
+  whose layers are :func:`gemm_fwd_reference`, the plain version of
+  :func:`gemm_fwd`.
 
 Numerics (all versions): bf16 matmul operands, f32 accumulation, f32
 biases, activations rounded to bf16 after the bias/ReLU epilogue, raw head
@@ -58,6 +64,15 @@ BWD_POINT_LAUNCHES = LaunchCounter("mlp_point_bwd")
 # that computes the weight gradients, none in one that needs only the
 # input gradients
 WGRAD_LAUNCHES = LaunchCounter("mlp_weight_grad_gemm")
+# the forward's GEMMs on csrc/mlp_gemm_sm90.cu: 11 per forward (the ten layer
+# GEMMs and the direction row term of rgb_layer)
+GEMM_SM90_LAUNCHES = LaunchCounter("mlp_gemm_sm90")
+# the WMMA GEMM of csrc/mlp_composite.cu: the backward's 10 input-gradient
+# GEMMs, never a forward
+GEMM_NN_LAUNCHES = LaunchCounter("mlp_gemm_nn")
+# the layers that run as GEMMs (the two narrow heads run in heads_fwd)
+GEMM_LAYERS = tuple(n for n in W_NAMES if n not in ("fc_density", "fc_rgb"))
+HEAD_LAYERS = ("fc_density", "fc_rgb")
 
 _F32 = torch.float32
 _BF = torch.bfloat16
@@ -116,21 +131,52 @@ def _act_fwd(raw_sigma, raw_rgb, act, occ_alpha):
     return torch.sigmoid(raw_rgb), d
 
 
+def gemm_fwd_reference(a1, b1, a2=None, b2=None, bias=None, relu=False,
+                       rowterm=None, div=1, out_dtype=_BF):
+    """Plain version of :func:`gemm_fwd` with the weights as (K, N):
+    act((bf16(a1) @ bf16(b1) [+ bf16(a2) @ bf16(b2)] [+ rowterm[row // div]])
+    [+ bias]), f32 accumulation (TF32 off), rounded to bf16 (kept in f32) for
+    ``out_dtype`` bf16. Two inputs are one product over the concatenation,
+    as the kernel's one accumulator over A1's k-tiles, then A2's."""
+    x, w = a1, b1
+    if a2 is not None:
+        x, w = torch.cat([a1, a2], dim=-1), torch.cat([b1, b2], dim=0)
+    y = _mm(x, w)
+    if rowterm is not None:
+        if div != 1:
+            rowterm = rowterm[torch.arange(y.shape[0], device=y.device) // div]
+        y = y + rowterm
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.relu(y)
+    return _bf(y) if out_dtype == _BF else y
+
+
 def _chain_reference(W, enc, denc):
     """The MLP from the bf16-rounded encodings (M, 63) / (M, 27) to the raw
-    heads: (raw_sigma (M, 1), raw_rgb (M, 3)), f32."""
+    heads: (raw_sigma (M, 1), raw_rgb (M, 3)), f32. The layers are those of
+    the kernels' chain: rgb_layer's input [feat, denc] is split into feat @
+    W[:D] and the direction row term denc @ W[D:], added before the bias.
+    The row term is taken per point here (denc comes per point), so its
+    weight gradient sums the bf16-rounded per-point cotangents, as the
+    kernels' backward does."""
     h = enc
     for i in range(4):
         w, b = W[f"trunk0_{i}"]
-        h = _bf(torch.relu(_mm(h, w) + b))
-    h = torch.cat([h, enc], dim=-1)
+        h = gemm_fwd_reference(h, w, bias=b, relu=True)
+    D = h.shape[1]
     for i in range(4):
         w, b = W[f"trunk1_{i}"]
-        h = _bf(torch.relu(_mm(h, w) + b))
+        if i == 0:
+            h = gemm_fwd_reference(h, w[:D], enc, w[D:], bias=b, relu=True)
+        else:
+            h = gemm_fwd_reference(h, w, bias=b, relu=True)
     raw_sigma = _mm(h, W["fc_density"][0]) + W["fc_density"][1]
-    feat = _bf(_mm(h, W["fc_feature"][0]) + W["fc_feature"][1])
-    catr = torch.cat([feat, denc], dim=-1)
-    hr = _bf(torch.relu(_mm(catr, W["rgb_layer"][0]) + W["rgb_layer"][1]))
+    feat = gemm_fwd_reference(h, W["fc_feature"][0], bias=W["fc_feature"][1])
+    wr, br = W["rgb_layer"]
+    hr = gemm_fwd_reference(feat, wr[:D], bias=br, relu=True,
+                            rowterm=_mm(denc, wr[D:]))
     raw_rgb = _mm(hr, W["fc_rgb"][0]) + W["fc_rgb"][1]
     return raw_sigma, raw_rgb
 
@@ -210,9 +256,100 @@ def _pad8(n):
 
 
 def _padded_t(w):
-    """w^T (fan_out, fan_in) in a buffer whose row stride is padded to 8."""
-    out = w.new_zeros((w.shape[1], _pad8(w.shape[0])))
+    """bf16 w^T (fan_out, fan_in) in a zeroed buffer whose row stride is
+    padded to 8: the K-major weight of the forward's GEMMs and the B operand
+    of the backward's input-gradient GEMMs."""
+    out = torch.zeros((w.shape[1], _pad8(w.shape[0])), dtype=_BF,
+                      device=w.device)
     out[:, :w.shape[0]] = w.t()
+    return out
+
+
+# every tensor-map box is one 128-byte swizzle row wide; boxes are 128 rows
+# (A), N rows (B) and 64 rows (C, one consumer warpgroup's) deep
+TMA_BOX_BYTES = 128
+GEMM_BM, GEMM_STORE_ROWS = 128, 64
+# the output widths csrc/mlp_gemm_sm90.cu is built for
+GEMM_WIDTHS = {_BF: (32, 64, 128, 256), _F32: (32, 64, 128)}
+# the row term rides in registers beside the accumulators up to this width
+ROWTERM_MAX_N = 128
+
+
+def tma_2d(t, box_rows):
+    """The tensor-map arguments of a row-major 2D view ``t`` for
+    csrc/mlp_gemm_sm90.cu: (address, width, rows, row stride in bytes, box
+    width, box rows). The width is the view's true width, not the padded
+    row stride: TMA zero-fills the box's columns past it on a load (the
+    padding of an encoding is uninitialised, and NaN x 0 is NaN) and clips
+    them on a store. Raises unless the address and the row stride are
+    16-byte aligned, as TMA requires."""
+    if t.dim() != 2 or t.stride(1) != 1 or t.dtype not in GEMM_WIDTHS:
+        raise ValueError("a TMA operand is a row-major 2D bf16 or f32 view, "
+                         f"got {tuple(t.shape)} strides {t.stride()} {t.dtype}")
+    es = t.element_size()
+    stride = t.stride(0) * es
+    if t.data_ptr() % 16 or stride % 16:
+        raise ValueError(f"TMA needs 16-byte alignment: address {t.data_ptr()}"
+                         f", row stride {stride} bytes")
+    return (t.data_ptr(), t.shape[1], t.shape[0], stride,
+            TMA_BOX_BYTES // es, box_rows)
+
+
+_NO_MAP = (None, 0, 0, 0, 0, 0)
+
+
+def gemm_fwd(a1, w1t, a2=None, w2t=None, bias=None, relu=False, rowterm=None,
+             div=1, out=None):
+    """One layer of the forward chain: out (M, N) = act(a1 @ w1t^T [+ a2 @
+    w2t^T] [+ rowterm[row // div]] [+ bias]) on the TMA + wgmma GEMM
+    (csrc/mlp_gemm_sm90.cu), counted in :data:`GEMM_SM90_LAUNCHES`.
+
+    a1, a2: bf16 (M, K) views; w1t, w2t: the K-major bf16 weights (N, K)
+    (:func:`_padded_t` columns); bias f32 (N,); rowterm f32 (ceil(M / div),
+    N); out bf16 or f32 (M, N), allocated bf16 when None. CPU tensors run
+    :func:`gemm_fwd_reference`; on the card an operand the kernel cannot take
+    raises."""
+    M, N = a1.shape[0], w1t.shape[0]
+    dtype = _BF if out is None else out.dtype
+    if a1.device.type == "cpu":
+        res = gemm_fwd_reference(
+            a1.float(), w1t.float().t(), None if a2 is None else a2.float(),
+            None if w2t is None else w2t.float().t(), bias, relu, rowterm,
+            div, dtype)
+        if out is None:
+            return res.to(dtype)
+        return out.copy_(res)
+    if a1.device.type != "cuda":
+        raise ValueError(f"gemm_fwd: unsupported device {a1.device}")
+    if out is None:
+        out = torch.empty((M, N), dtype=_BF, device=a1.device)
+    if N not in GEMM_WIDTHS[dtype] or out.shape != (M, N):
+        raise ValueError(f"gemm_fwd: output {tuple(out.shape)} {dtype} for "
+                         f"({M}, {N}); widths {GEMM_WIDTHS[dtype]}")
+    if any(x is not None and x.dtype != _BF for x in (a1, w1t, a2, w2t)):
+        raise ValueError("gemm_fwd: A and B operands must be bf16")
+    if bias is not None and (bias.dtype != _F32 or bias.shape != (N,)
+                             or not bias.is_contiguous()):
+        raise ValueError(f"gemm_fwd: bias must be contiguous f32 ({N},)")
+    if rowterm is not None and (
+            N > ROWTERM_MAX_N or rowterm.dtype != _F32 or rowterm.dim() != 2
+            or rowterm.shape != (-(-M // div), N) or rowterm.stride(1) != 1):
+        raise ValueError(f"gemm_fwd: rowterm must be f32 ({-(-M // div)}, "
+                         f"{N}) rows, N <= {ROWTERM_MAX_N}")
+    if (a2 is None) != (w2t is None):
+        raise ValueError("gemm_fwd: a2 and w2t come together")
+    maps = (tma_2d(a1, GEMM_BM),
+            _NO_MAP if a2 is None else tma_2d(a2, GEMM_BM),
+            tma_2d(w1t, N), _NO_MAP if w2t is None else tma_2d(w2t, N),
+            tma_2d(out, GEMM_STORE_ROWS))
+    fn = c_function("nnt_gemm_sm90", "piiiii" * 5 + "ipipiip")
+    err = fn(*[x for m in maps for x in m], int(dtype == _F32),
+             _ptr(bias) if bias is not None else None, int(relu),
+             _ptr(rowterm) if rowterm is not None else None,
+             rowterm.stride(0) if rowterm is not None else 0, int(div),
+             _stream(out))
+    check(err, "gemm_sm90")
+    GEMM_SM90_LAUNCHES.add()
     return out
 
 
@@ -235,6 +372,7 @@ def _gemm_nn(a1, b1, m, n, out, a2=None, b2=None, bias=None, relu=False,
         _ptr(out), int(out.dtype == _F32), out.shape[1], m, n, _stream(out),
     )
     check(err, "gemm_nn")
+    GEMM_NN_LAUNCHES.add()
     return out
 
 
@@ -309,20 +447,25 @@ def _dims(weights, l_pos, l_dir):
 
 
 def _kernel_weights(weights):
-    """bf16 matrices (a list in W_NAMES order) and f32 bias vectors (a dict)
-    as the kernels read them."""
-    wb = [weights[2 * i].detach().to(_BF).contiguous()
-          for i in range(len(W_NAMES))]
-    bs = {name: weights[2 * i + 1].detach().reshape(-1).to(_F32).contiguous()
-          for i, name in enumerate(W_NAMES)}
-    return wb, bs
+    """The weights as the kernels read them: the K-major bf16 weights of the
+    GEMM layers (:func:`_padded_t`, a dict; the backward reuses them), the
+    bf16 (K, N) head weights (a dict) and the f32 bias vectors (a dict)."""
+    W = _weights_dict(weights)
+    wt = {name: _padded_t(W[name][0].detach()) for name in GEMM_LAYERS}
+    wh = {name: W[name][0].detach().to(_BF).contiguous()
+          for name in HEAD_LAYERS}
+    bs = {name: b.detach().reshape(-1).to(_F32).contiguous()
+          for name, (_, b) in W.items()}
+    return wt, wh, bs
 
 
-def _chain_fwd(Wb, Bs, enc, denc, denc_div, M, dims, save=True):
-    """The GEMM chain from the bf16 encodings to the raw heads. ``denc``
-    rows are read once per ``denc_div`` points (per ray in Kernel A, per
-    point in C). Returns (acts (the 8 trunk outputs), feat, hr, raw (M, 4)
-    f32 = [raw_sigma, raw_rgb]).
+def _chain_fwd(Wt, Wh, Bs, enc, denc, denc_div, M, dims, save=True):
+    """The GEMM chain from the bf16 encodings to the raw heads, its ten layer
+    GEMMs and the direction row term on :func:`gemm_fwd`. ``denc`` rows
+    are read once per ``denc_div`` points (per ray in Kernel A, per point in
+    C): rgb_layer = feat @ W[:D] + (denc @ W[D:])[row // denc_div] + b.
+    Returns (acts (the 8 trunk outputs), feat, hr, raw (M, 4) f32 =
+    [raw_sigma, raw_rgb]).
 
     With ``save`` False (nothing will be differentiated) the trunk runs on
     two ping-pong buffers and ``feat`` reuses the free one: only
@@ -340,42 +483,41 @@ def _chain_fwd(Wb, Bs, enc, denc, denc_div, M, dims, save=True):
             return torch.empty((M, D), dtype=_BF, device=dev)
         return bufs[i % 2]
 
-    h = _Mat(enc, n_pos)
+    pos = enc[:, :n_pos]  # true width: the padding column is never read
+    h = pos
     for i in range(4):
-        out = trunk_out(i)
-        _gemm_nn(h, Wb[f"trunk0_{i}"], M, D, out,
-                 bias=Bs[f"trunk0_{i}"], relu=True)
-        acts.append(out)
-        h = _Mat(out, D)
+        w = Wt[f"trunk0_{i}"]
+        h = gemm_fwd(h, w[:, :h.shape[1]], bias=Bs[f"trunk0_{i}"], relu=True,
+                     out=trunk_out(i))
+        acts.append(h)
     for i in range(4):
-        out = trunk_out(4 + i)
-        w = Wb[f"trunk1_{i}"]
-        if i == 0:
-            # skip concat [h, enc] as two operand pairs
-            _gemm_nn(h, w[:D], M, D, out, a2=_Mat(enc, n_pos), b2=w[D:],
-                     bias=Bs["trunk1_0"], relu=True)
-        else:
-            _gemm_nn(h, w, M, D, out, bias=Bs[f"trunk1_{i}"], relu=True)
-        acts.append(out)
-        h = _Mat(out, D)
-    feat = trunk_out(8)
-    _gemm_nn(h, Wb["fc_feature"], M, D, feat, bias=Bs["fc_feature"])
-    hr = torch.empty((M, H2), dtype=_BF, device=dev)
-    wr = Wb["rgb_layer"]
-    # [feat, denc] without building the concat
-    _gemm_nn(_Mat(feat, D), wr[:D], M, H2, hr,
-             a2=_Mat(denc, n_dir, row_div=denc_div), b2=wr[D:],
-             bias=Bs["rgb_layer"], relu=True)
+        w = Wt[f"trunk1_{i}"]
+        # the skip concat [h, enc] as two operand pairs
+        skip = dict(a2=pos, w2t=w[:, D:D + n_pos]) if i == 0 else {}
+        h = gemm_fwd(h, w[:, :D], bias=Bs[f"trunk1_{i}"], relu=True,
+                     out=trunk_out(4 + i), **skip)
+        acts.append(h)
+    feat = gemm_fwd(h, Wt["fc_feature"][:, :D], bias=Bs["fc_feature"],
+                    out=trunk_out(8))
+    wr = Wt["rgb_layer"]
+    # [feat, denc] without building the concat: the direction half once per
+    # denc row, added in the epilogue of the per-point GEMM
+    rowterm = gemm_fwd(denc[:, :n_dir], wr[:, D:D + n_dir],
+                       out=torch.empty((denc.shape[0], H2), dtype=_F32,
+                                       device=dev))
+    hr = gemm_fwd(feat, wr[:, :D], bias=Bs["rgb_layer"], relu=True,
+                  rowterm=rowterm, div=denc_div,
+                  out=torch.empty((M, H2), dtype=_BF, device=dev))
     raw = torch.empty((M, 4), dtype=_F32, device=dev)
     err = c_function("nnt_heads_fwd", "pppppppiiip")(
-        _ptr(acts[-1]), _ptr(hr), _ptr(Wb["fc_density"]),
-        _ptr(Bs["fc_density"]), _ptr(Wb["fc_rgb"]), _ptr(Bs["fc_rgb"]),
+        _ptr(acts[-1]), _ptr(hr), _ptr(Wh["fc_density"]),
+        _ptr(Bs["fc_density"]), _ptr(Wh["fc_rgb"]), _ptr(Bs["fc_rgb"]),
         _ptr(raw), M, D, H2, _stream(raw))
     check(err, "heads_fwd")
     return acts, feat, hr, raw
 
 
-def _chain_bwd(Wb, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
+def _chain_bwd(Wt, Wh, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
                weight_grads=True):
     """Backward of :func:`_chain_fwd` from the cotangents of the raw heads.
     Returns (the 24 weight and bias gradients in kernel order, or 24 Nones
@@ -392,13 +534,11 @@ def _chain_bwd(Wb, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
         if weight_grads:
             grads[name] = (_weight_grad(x1, g, M, x2=x2), _bias_grad(g, M))
 
-    Wt = {k: _padded_t(v) for k, v in Wb.items()
-          if k not in ("fc_density", "fc_rgb")}
     # fc_rgb
     param_grads("fc_rgb", _Mat(hr, H2), _Mat(g_raw, 3, ld=4, offset=1))
     g_hr = torch.empty((M, H2), dtype=_F32, device=dev)
     err = c_function("nnt_heads_bwd", "ppppiip")(
-        _ptr(g_raw), _ptr(hr), _ptr(Wb["fc_rgb"]), _ptr(g_hr), M, H2,
+        _ptr(g_raw), _ptr(hr), _ptr(Wh["fc_rgb"]), _ptr(g_hr), M, H2,
         _stream(g_hr))
     check(err, "heads_bwd")
     # rgb_layer: input [feat, denc]
@@ -416,7 +556,7 @@ def _chain_bwd(Wb, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
     # (D, 1) density weight is already (1, D) in memory when transposed
     g_h = torch.empty((M, D), dtype=_F32, device=dev)
     _gemm_nn(g_feat, Wt["fc_feature"], M, D, g_h, a2=g_sig,
-             b2=Wb["fc_density"].reshape(1, -1), mask=a13)
+             b2=Wh["fc_density"].reshape(1, -1), mask=a13)
     # trunk1, last layer first
     for j in (3, 2, 1):
         x_in = _Mat(acts[4 + j - 1], D)
@@ -446,6 +586,18 @@ def _chain_bwd(Wb, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
             _Mat(g_catr, n_dir, offset=D))
 
 
+def _weight_list(Wt, Wh):
+    """The kernel weights a backward reads, as saved tensors."""
+    return [Wt[n] for n in GEMM_LAYERS] + [Wh[n] for n in HEAD_LAYERS]
+
+
+def _weight_dicts(saved):
+    """Inverse of :func:`_weight_list`: (Wt, Wh)."""
+    n = len(GEMM_LAYERS)
+    return (dict(zip(GEMM_LAYERS, saved[:n])),
+            dict(zip(HEAD_LAYERS, saved[n:])))
+
+
 def _cotangent(g, shape, dev):
     if g is None:
         return torch.zeros(shape, dtype=_F32, device=dev)
@@ -461,8 +613,7 @@ def _composite_fwd(origins, rays, dirs, z, deltas, cfg, weights, save):
     N = origins.shape[0]
     M = N * S
     dev = origins.device
-    wb, Bs = _kernel_weights(weights)
-    Wb = dict(zip(W_NAMES, wb))
+    Wt, Wh, Bs = _kernel_weights(weights)
     stream = _stream(origins)
 
     enc = torch.empty((M, _pad8(n_pos)), dtype=_BF, device=dev)
@@ -472,7 +623,8 @@ def _composite_fwd(origins, rays, dirs, z, deltas, cfg, weights, save):
         enc.shape[1], _ptr(denc), denc.shape[1], N, S, l_pos, l_dir,
         stream)
     check(err, "encode_fwd")
-    acts, feat, hr, raw = _chain_fwd(Wb, Bs, enc, denc, S, M, dims, save)
+    acts, feat, hr, raw = _chain_fwd(Wt, Wh, Bs, enc, denc, S, M, dims,
+                                     save)
     rgbv = torch.empty((N, 3), dtype=_F32, device=dev)
     dist = torch.empty((N, 1), dtype=_F32, device=dev)
     alpha = torch.empty((N, S), dtype=_F32, device=dev)
@@ -483,7 +635,7 @@ def _composite_fwd(origins, rays, dirs, z, deltas, cfg, weights, save):
     check(err, "composite_fwd")
     FWD_LAUNCHES.add()
     saved = ((origins, rays, dirs, z, deltas, enc, denc, feat, hr, raw,
-              *acts, *wb) if save else None)
+              *acts, *_weight_list(Wt, Wh)) if save else None)
     return (rgbv, dist, alpha), dims, saved
 
 
@@ -509,7 +661,7 @@ class FusedMLPComposite(torch.autograd.Function):
         saved = ctx.saved_tensors
         origins, rays, dirs, z, deltas, enc, denc, feat, hr, raw = saved[:10]
         acts = saved[10:18]
-        Wb = dict(zip(W_NAMES, saved[18:]))
+        Wt, Wh = _weight_dicts(saved[18:])
         N = origins.shape[0]
         M = N * S
         dev = origins.device
@@ -528,7 +680,7 @@ class FusedMLPComposite(torch.autograd.Function):
             int(white_bg), stream)
         check(err, "composite_bwd")
         d_weights, (ge1, ge2), gd = _chain_bwd(
-            Wb, g_raw, enc, denc, S, feat, hr, acts, M, ctx.dims,
+            Wt, Wh, g_raw, enc, denc, S, feat, hr, acts, M, ctx.dims,
             weight_grads=any(ctx.needs_input_grad[6:]))
         # encoding backward + ray sums
         d_o = torch.empty((N, 3), dtype=_F32, device=dev)
@@ -551,8 +703,7 @@ def _point_fwd(pts, dirs, cfg, weights, save):
     n_pos, n_dir = dims[:2]
     M = pts.shape[0]
     dev = pts.device
-    wb, Bs = _kernel_weights(weights)
-    Wb = dict(zip(W_NAMES, wb))
+    Wt, Wh, Bs = _kernel_weights(weights)
     stream = _stream(pts)
 
     encs = []
@@ -563,7 +714,8 @@ def _point_fwd(pts, dirs, cfg, weights, save):
         check(err, "encode_points")
         encs.append(e)
     enc, denc = encs
-    acts, feat, hr, raw = _chain_fwd(Wb, Bs, enc, denc, 1, M, dims, save)
+    acts, feat, hr, raw = _chain_fwd(Wt, Wh, Bs, enc, denc, 1, M, dims,
+                                     save)
     rgb = torch.empty((M, 3), dtype=_F32, device=dev)
     density = torch.empty((M, 1), dtype=_F32, device=dev)
     err = c_function("nnt_head_act_fwd", "pppiiip")(
@@ -571,8 +723,8 @@ def _point_fwd(pts, dirs, cfg, weights, save):
         int(occ_alpha), stream)
     check(err, "head_act_fwd")
     FWD_POINT_LAUNCHES.add()
-    saved = ((pts, dirs, enc, denc, feat, hr, raw, *acts, *wb) if save
-             else None)
+    saved = ((pts, dirs, enc, denc, feat, hr, raw, *acts,
+              *_weight_list(Wt, Wh)) if save else None)
     return (rgb, density), dims, saved
 
 
@@ -595,7 +747,7 @@ class FusedMLP(torch.autograd.Function):
         saved = ctx.saved_tensors
         pts, dirs, enc, denc, feat, hr, raw = saved[:7]
         acts = saved[7:15]
-        Wb = dict(zip(W_NAMES, saved[15:]))
+        Wt, Wh = _weight_dicts(saved[15:])
         M = pts.shape[0]
         dev = pts.device
         stream = _stream(pts)
@@ -608,7 +760,7 @@ class FusedMLP(torch.autograd.Function):
             int(act == "softplus"), int(occ_alpha), stream)
         check(err, "head_act_bwd")
         d_weights, (ge1, ge2), gd = _chain_bwd(
-            Wb, g_raw, enc, denc, 1, feat, hr, acts, M, ctx.dims,
+            Wt, Wh, g_raw, enc, denc, 1, feat, hr, acts, M, ctx.dims,
             weight_grads=any(ctx.needs_input_grad[3:]))
         d_pts = torch.empty((M, 3), dtype=_F32, device=dev)
         d_dirs = torch.empty((M, 3), dtype=_F32, device=dev)

@@ -1,7 +1,7 @@
-"""Profile the stock training step on a CUDA device:
+"""Profile the stock training step, or the eval render, on a CUDA device:
 
     python -m nope_nerf_tpu_torch.profile_step [--steps 8] [--out DIR]
-        [--set KEY=VALUE ...]
+        [--set KEY=VALUE ...] [--render]
 
 Trains the stock configuration (``configs/default.yaml``, each ``--set``
 applied to its ``tpu:`` group, e.g. ``--set parity=True``) on the in-memory
@@ -10,7 +10,10 @@ the host clock around a device synchronise, then the same number under
 ``torch.profiler``. Prints ms per step, rays/s, the device's busy share of
 the profiled window and the device time per kernel, and writes the table
 and a Chrome trace under ``--out``. ``--sync-debug`` first lists where one
-step synchronises the host with the device.
+step synchronises the host with the device. ``--render`` profiles
+``--steps`` full 540x960 renders of the scene's first view through
+``render_image`` (the eval render: Kernel A's no-save forward) with random
+weights (seed 0) instead of training steps.
 """
 from __future__ import annotations
 
@@ -43,6 +46,8 @@ def main(argv=None):
     ap.add_argument("--sync-debug", action="store_true",
                     help="list the operations that synchronise with the "
                          "device during one step")
+    ap.add_argument("--render", action="store_true",
+                    help="profile full-image renders instead of steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
@@ -56,6 +61,8 @@ def main(argv=None):
         cfg["tpu"][key] = yaml.safe_load(value)
     apply_parity_profile(cfg)
     scene = MemoryScene()
+    if args.render:
+        return profile_render(cfg, scene, dev, args)
     cfg["_num_cams"] = scene.N_imgs
     batch0 = scene_batch_arrays(scene, cfg, dev)
     params, init_c2w = build_params(cfg, scene, torch.Generator().manual_seed(0),
@@ -108,26 +115,62 @@ def main(argv=None):
     print(f"steps without a per-step sync: {ms:.3f} ms/step, "
           f"{rays * 1e3 / ms:.1f} rays/s")
 
+    _profile(run, args.steps, args.out, "step")
+
+
+def _profile(run, n, out, unit):
+    """``run(n)`` under torch.profiler: wall and device-busy ms per
+    ``unit``, the per-kernel table (printed and written to
+    ``out/kernels.txt``) and ``out/trace.json``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run(args.steps)
+        run(n)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     events = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"profiled: {wall_us / args.steps / 1e3:.3f} ms/step wall, device "
-          f"busy {dev_us / args.steps / 1e3:.3f} ms/step "
+    print(f"profiled: {wall_us / n / 1e3:.3f} ms/{unit} wall, device "
+          f"busy {dev_us / n / 1e3:.3f} ms/{unit} "
           f"({100 * dev_us / wall_us:.1f}% of the window)")
     table = events.table(sort_by="self_device_time_total", row_limit=40,
                          max_name_column_width=70)
     print(table)
-    with open(os.path.join(args.out, "kernels.txt"), "w") as f:
+    with open(os.path.join(out, "kernels.txt"), "w") as f:
         f.write(table)
-    prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+
+
+def profile_render(cfg, scene, dev, args):
+    """The eval render: full-image renders of view 0 through
+    ``render_image`` (no graph, so Kernel A's forward saves nothing)."""
+    from .models.nerf import init_nerf_params
+    from .ops.rendering import render_image
+
+    params = init_nerf_params(torch.Generator().manual_seed(0), cfg, dev)
+    render_cfg = make_render_cfg(cfg, dev)
+    cam = torch.as_tensor(scene.K, device=dev)
+    world = torch.linalg.inv(torch.as_tensor(scene.c2ws[0], device=dev))
+    eye = torch.eye(4, device=dev)
+    hw = scene.imgs.shape[1:3]
+
+    def run(k):
+        for _ in range(k):
+            rgb, _ = render_image(params, hw, cam, world, eye, render_cfg,
+                                  chunk=65536)
+        assert bool(torch.isfinite(rgb).all())
+
+    run(1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(args.steps)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / args.steps
+    print(f"render {hw[0]}x{hw[1]}: {ms:.3f} ms/image")
+    _profile(run, args.steps, args.out, "image")
 
 
 if __name__ == "__main__":

@@ -29,6 +29,7 @@ from ..convert import (
     params_from_jax,
     params_to_numpy,
 )
+from ..dataloading.scene import get_scene
 from ..geometry.align import align_ate_c2b_use_a2b, compute_ate, compute_rpe
 from ..losses.losses import mse2psnr
 from ..models.distortion import init_distortion_params
@@ -197,8 +198,7 @@ def train(cfg, max_epochs=None, scene=None, device="cuda"):
     ``scene`` is any object with N_imgs, K, scale_mat, imgs (N, H, W, 3),
     dpt_depth (N, H, W) or None, c2ws (N, 4, 4) or None and
     ``sample_ref_idx(i, rng)``; when None it is loaded from ``dataloading``
-    with the JAX package's numpy loader (``nope_nerf_tpu.dataloading.scene``,
-    numpy + PIL). ``device`` is a CUDA device unless "cpu" is asked for
+    with the port's numpy loader (``dataloading.scene``, numpy + PIL). ``device`` is a CUDA device unless "cpu" is asked for
     (:func:`resolve_device`).
 
     Resumes from the checkpoints in ``training.out_dir`` when there are
@@ -222,8 +222,6 @@ def train(cfg, max_epochs=None, scene=None, device="cuda"):
     os.makedirs(out_dir, exist_ok=True)
     logger = MetricsLogger(os.path.join(out_dir, "logs"))
     if scene is None:
-        from nope_nerf_tpu.dataloading.scene import get_scene
-
         scene = get_scene(cfg, mode=cfg["training"]["mode"])
     batch0 = scene_batch_arrays(scene, cfg, device)
     n_views = scene.N_imgs

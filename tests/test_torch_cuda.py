@@ -271,3 +271,91 @@ def test_kernel_d_matches_plain(dev, S, D, masked):
     for a, b, n in zip(idx, ref, (S, D)):
         assert a.dtype == torch.int32 and a.shape == (n,)
         assert torch.equal(a, b)
+
+
+def _ulps(out, ref):
+    """max |out - ref| in bf16 ulps of max(|ref|, |out|, max|ref| / 256):
+    below max|ref| / 256 a value is a cancellation whose f32 order error is
+    set by its terms, not by the value."""
+    out, ref = out.float(), ref.float()
+    mag = torch.maximum(torch.maximum(ref.abs(), out.abs()),
+                        ref.abs().max() / 256)
+    return float(torch.max((out - ref).abs()
+                           / torch.exp2(torch.floor(torch.log2(mag)) - 7)))
+
+
+def _nan_padded(dev, gen, rows, k):
+    """bf16 (rows, k) normal values in a buffer padded to 8 columns of NaN:
+    the kernel must read only the true width."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    buf = torch.full((rows, mk._pad8(k)), float("nan"), dtype=torch.bfloat16,
+                     device=dev)
+    buf[:, :k] = torch.randn((rows, k), generator=gen, device=dev)
+    return buf[:, :k]
+
+
+@pytest.mark.parametrize("M", [1000, 131072])
+@pytest.mark.parametrize("k1,k2,n,rowterm,relu", [
+    (63, 0, 256, False, True),    # trunk0_0
+    (256, 0, 256, False, True),   # trunk0_1..3, trunk1_1..3
+    (256, 63, 256, False, True),  # trunk1_0: A2 is the position encoding
+    (256, 0, 256, False, False),  # fc_feature
+    (256, 0, 128, True, True),    # rgb_layer + the direction row term
+    (64, 63, 64, False, True),    # hidden 64
+    (64, 0, 32, True, True),      # hidden 64's rgb_layer
+])
+def test_gemm_sm90_matches_reference(dev, M, k1, k2, n, rowterm, relu):
+    """The forward GEMM against gemm_fwd_reference at every forward layer
+    shape, ragged and stock M: at most one bf16 ulp (the f32 sums differ in
+    order only), the row term to 1e-5, finite (the NaN padding is never
+    read), bitwise equal on a second run; one launch counted per call."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    gen = torch.Generator(device=dev).manual_seed(M + k1 + k2 + n)
+    w = torch.randn((k1 + k2, n), generator=gen, device=dev) * (k1 + k2) ** -0.5
+    b = torch.randn((n,), generator=gen, device=dev) * 0.1
+    wt = mk._padded_t(w)
+    a1 = _nan_padded(dev, gen, M, k1)
+    a2 = _nan_padded(dev, gen, M, k2) if k2 else None
+    two = dict(a2=a2, w2t=wt[:, k1:k1 + k2]) if k2 else {}
+    rt, div = None, 1
+    if rowterm:
+        div = 128
+        denc = _nan_padded(dev, gen, -(-M // div), 27)
+        wd = torch.randn((27, n), generator=gen, device=dev) * 0.2
+        rt = mk.gemm_fwd(denc, mk._padded_t(wd)[:, :27], out=torch.empty(
+            (denc.shape[0], n), dtype=torch.float32, device=dev))
+        want = mk.gemm_fwd_reference(denc.float(), wd,
+                                     out_dtype=torch.float32)
+        assert float(torch.max(torch.abs(rt - want))) <= 1e-5
+    n0 = mk.GEMM_SM90_LAUNCHES.count
+    outs = [mk.gemm_fwd(a1, wt[:, :k1], bias=b, relu=relu, rowterm=rt,
+                        div=div, **two) for _ in range(2)]
+    assert mk.GEMM_SM90_LAUNCHES.count == n0 + 2
+    ref = mk.gemm_fwd_reference(a1.float(), w[:k1],
+                                None if a2 is None else a2.float(),
+                                w[k1:] if k2 else None, b, relu, rt, div)
+    assert outs[0].dtype == torch.bfloat16 and outs[0].shape == (M, n)
+    assert torch.isfinite(outs[0].float()).all()
+    assert torch.equal(outs[0], outs[1])
+    assert _ulps(outs[0], ref) <= 1.0
+
+
+def test_gemm_sm90_rejects_what_it_cannot_take(dev):
+    """An operand the kernel cannot take raises; nothing falls back."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = _nan_padded(dev, gen, 256, 64)
+    wt = mk._padded_t(torch.randn((64, 256), device=dev))
+    n0 = mk.GEMM_SM90_LAUNCHES.count
+    with pytest.raises(ValueError, match="16-byte"):
+        mk.gemm_fwd(a[:, 1:], wt[:, 1:])  # misaligned base address
+    with pytest.raises(ValueError, match="widths"):
+        mk.gemm_fwd(a, mk._padded_t(torch.randn((64, 48), device=dev)))
+    with pytest.raises(ValueError, match="bf16"):
+        mk.gemm_fwd(a.float(), wt)
+    with pytest.raises(ValueError, match="rowterm"):  # wider than 128
+        mk.gemm_fwd(a, wt, rowterm=torch.zeros((256, 256), device=dev))
+    assert mk.GEMM_SM90_LAUNCHES.count == n0

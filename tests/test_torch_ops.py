@@ -268,6 +268,8 @@ def test_port_imports_without_jax():
         "import nope_nerf_tpu_torch.evaluation.trajectory_errors\n"
         "import nope_nerf_tpu_torch.geometry.align, nope_nerf_tpu_torch.ops.ssim\n"
         "import nope_nerf_tpu_torch.synthetic\n"
+        "import nope_nerf_tpu_torch.dataloading.scene\n"
+        "import nope_nerf_tpu_torch.utils.mp4, nope_nerf_tpu_torch.utils.vis\n"
         "bad = [m for m in sys.modules if m.startswith('nope_nerf_tpu.')\n"
         "       or m == 'nope_nerf_tpu' or (m.startswith('jax') and sys.modules[m])]\n"
         "assert not bad, bad\n"
