@@ -11,9 +11,16 @@ C: per-point fused MLP, fwd and bwd; D: exact Chamfer), runs the GEMM phase
 A-fwd and C-fwd run on, at four layer shapes at M = 131,072: its error
 against ``gemm_fwd_reference`` in bf16 ulps, a bitwise rerun, and its time
 beside the WMMA GEMM it replaced, ``torch.addmm`` in bf16 as the cuBLAS
-yardstick, and the memory bound), then trains three configurations at full
-width for two epochs of eight steps each on an in-memory 8-frame 540x960
-scene with random weights and a smooth camera trajectory:
+yardstick, and the memory bound) and the backward GEMM phase (A-bwd's and
+C-bwd's input-gradient GEMM ``gemm_dgrad`` at five shapes and their
+weight-gradient GEMM ``gemm_wgrad`` at three, with Kernel A's per-ray
+direction weight gradient, in the same file, at M = 131,072: error against
+the plain versions, bitwise rerun, time beside the WMMA ``gemm_nn`` /
+``gemm_tn`` they replaced, ``torch.mm`` in bf16 and the memory bound; the
+two narrow heads' weight gradients beside them),
+then trains three configurations at full width for two epochs of eight
+steps each on an in-memory 8-frame 540x960 scene with random weights and a
+smooth camera trajectory:
 
 * stock ``configs/default.yaml`` (1024 rays x 128 samples, 8 x 256 MLP,
   pc + rgb_s losses, banded Chamfer): Kernels A and B;
@@ -23,19 +30,21 @@ scene with random weights and a smooth camera trajectory:
   randperm ray sampling): Kernel D;
 
 and checks that each run went through every kernel it should reach (the
-new GEMM 11 times per forward, the WMMA GEMM only in backwards). The
+forward GEMM 11 times per forward, the input-gradient GEMM 12 times per
+backward, the weight-gradient launches 14 times per backward that needs
+them, the WMMA GEMM never). The
 stock run writes its checkpoints and per-epoch pose metrics; the eval phase
 then restores them into fresh tensors (bit for bit), runs the eval CLI's
 ``main`` on the held-out view (test-time pose optimisation on Kernel A's
 input-only backward, the 540x960 render through Kernel A's forward, PSNR /
 SSIM, PNGs and video), checks its launch counts (Kernel A both ways, no
-weight-gradient GEMM, no other kernel), renders a 135x240 view through
+weight-gradient launch, no other kernel), renders a 135x240 view through
 Kernel A and through its plain version, holds the input-only backward
 bitwise to the full one, and times the render and a pose-optimisation step
 with each backward.
 
 Prints, in order: the card's name and power limit, the kernel build time,
-one line per kernel check, the GEMM phase's lines, one line per epoch, the
+one line per kernel check, the two GEMM phases' lines, one line per epoch, the
 eval phase's lines, a JSON line with every kernel's errors, launches,
 times and bound (and the library call's time where one exists), and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -120,6 +129,29 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=10, warmup=2):
+    """Device time of ``fn`` in ms: the kernels' summed device time under
+    ``torch.profiler`` over ``iters`` calls, after ``warmup`` calls. Unlike
+    :func:`cuda_ms` it leaves out the host's gaps between launches, which on
+    a host-bound call of ~50 us kernels are most of the events' time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return us / iters / 1e3
+
+
 def bound(flops=0.0, nbytes=0.0, instr=0.0):
     """(bound_ms, bound_by): the least time the card could take, the larger
     of ``nbytes`` (each input read once, each output written once) over
@@ -143,6 +175,35 @@ def mlp_bounds(weights, m, io):
     flops = 2.0 * m * sum(w.numel() for w in weights[0::2])
     wb = nbytes(*weights)
     return bound(flops, wb + io), bound(2 * flops, 2 * wb + io)
+
+
+def mlp_bwd_floor(m, D, H2, n_pos, n_dir, div, weight_grads=True):
+    """The layer-by-layer memory floor of the fused MLP's backward on ``m``
+    points, ms at the memory rate: each launch of ``_chain_bwd`` reads its
+    inputs once and writes its outputs once (bf16 cotangents and saved
+    activations, f32 g_raw and encoding cotangents), with the compositing
+    or head-activation backward (raw, the cotangents in, g_raw out) and the
+    encoding backward (its f32 cotangents in); the weights, the split
+    partials and the (m / div)-row 3-vectors are left out. ``div`` is the
+    points per direction-encoding row (S in Kernel A, 1 in C)."""
+    bf, f4 = 2.0, 4.0
+    per_row = (
+        3 * 4 * f4                                  # raw, cotangents, g_raw
+        + 4 * f4 + 2 * H2 * bf                      # heads_bwd -> g_hr
+        + (H2 * bf + D * bf) + (H2 * bf + n_dir * f4)  # rgb_layer dgrad
+        + 3 * D * bf + f4                           # fc_feature + fc_density
+        + 7 * 3 * D * bf                            # masked trunk layers
+        + 2 * (D * bf + n_pos * f4)                 # the two encoding tails
+        + (2 * n_pos + n_dir) * f4)                 # encoding backward
+    if weight_grads:
+        per_row += (
+            (H2 * bf + 4 * f4) + (D * bf + 4 * f4)  # fc_rgb, fc_density
+            + (D * bf + H2 * bf)                    # rgb_layer feat half
+            + H2 * bf + n_dir * bf / div            # its direction half
+            + 8 * 2 * D * bf                        # 256 x 256 weight GEMMs
+            + 2 * (n_pos * bf + D * bf)             # trunk1_0 enc, trunk0_0
+            + 4 * f4)                               # the heads' bias sums
+    return 1e3 * m * per_row / HBM_BYTES
 
 
 def rel_l2(a, b):
@@ -235,6 +296,8 @@ def check_kernel_a(dev, card):
     ms_fwd_plain = cuda_ms(lambda: fwd(mk.fused_mlp_composite_reference))
     ms_bwd = cuda_ms(lambda: grads(out_k))
     ms_bwd_plain = cuda_ms(lambda: grads(out_r))
+    dev_bwd = device_ms(lambda: grads(out_k))
+    floor = mlp_bwd_floor(N * S, *_mlp_widths(weights, static), div=S)
     print(f"kernel A fwd [{card}] N={N} S={S} D={cfg['model']['hidden_dim']}:"
           f" max|err| rgb={err['rgb']:.3e} dist={err['dist']:.3e}"
           f" alpha={err['alpha']:.3e} (alpha entries over bar: {alpha_bad});"
@@ -242,7 +305,8 @@ def check_kernel_a(dev, card):
     worst = max(rels, key=rels.get)
     print(f"kernel A bwd [{card}]: relL2 max {rels[worst]:.3e} ({worst}); "
           + " ".join(f"{n}={v:.2e}" for n, v in rels.items())
-          + f"; kernel {ms_bwd:.3f} ms, plain {ms_bwd_plain:.3f} ms")
+          + f"; kernel {ms_bwd:.3f} ms (device {dev_bwd:.3f} ms), plain "
+          f"{ms_bwd_plain:.3f} ms; layer-by-layer memory floor {floor:.3f} ms")
     fails = []
     if not finite:
         fails.append("non-finite kernel output")
@@ -267,12 +331,23 @@ def check_kernel_a(dev, card):
                "plain_ms": ms_fwd_plain, "bound_ms": b_fwd,
                "bound_by": by_fwd, "library_ms": None}
     bwd_rec = {"name": "mlp_composite_bwd", "route": "cuda",
-               "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu",
+               "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu + "
+                         "nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu",
                "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:702",
                "max_abs_err": bwd_abs, "max_rel_l2": rels[worst],
-               "ms": ms_bwd, "plain_ms": ms_bwd_plain, "bound_ms": b_bwd,
-               "bound_by": by_bwd, "library_ms": None}
+               "ms": ms_bwd, "device_ms": dev_bwd, "plain_ms": ms_bwd_plain,
+               "bound_ms": b_bwd, "bound_by": by_bwd, "library_ms": None,
+               "floor_ms": floor}
     return fwd_rec, bwd_rec
+
+
+def _mlp_widths(weights, static):
+    """(D, H2, n_pos, n_dir) of the fused MLP's weights, ``static`` starting
+    with the two encodings' levels."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    n_pos, n_dir, D, H2 = mk._dims(weights, static[0], static[1])
+    return D, H2, n_pos, n_dir
 
 
 def depth_pair(dev, hs, ws, seed):
@@ -402,6 +477,8 @@ def check_kernel_c(dev, card):
     ms_fwd_plain = cuda_ms(lambda: fwd(mk.fused_mlp_reference))
     ms_bwd = cuda_ms(lambda: grads(out_k))
     ms_bwd_plain = cuda_ms(lambda: grads(out_r))
+    dev_bwd = device_ms(lambda: grads(out_k))
+    floor = mlp_bwd_floor(N * S, *_mlp_widths(weights, (l_pos, l_dir)), div=1)
 
     # Kernel C + plain compositing against Kernel A at the same inputs
     with torch.no_grad():
@@ -420,7 +497,8 @@ def check_kernel_c(dev, card):
     worst = max(rels, key=rels.get)
     print(f"kernel C bwd [{card}]: relL2 max {rels[worst]:.3e} ({worst}); "
           + " ".join(f"{n}={v:.2e}" for n, v in rels.items())
-          + f"; kernel {ms_bwd:.3f} ms, plain {ms_bwd_plain:.3f} ms")
+          + f"; kernel {ms_bwd:.3f} ms (device {dev_bwd:.3f} ms), plain "
+          f"{ms_bwd_plain:.3f} ms; layer-by-layer memory floor {floor:.3f} ms")
     print(f"kernel C + plain compositing vs kernel A [{card}]: max|err| "
           + " ".join(f"{n}={v:.3e}" for n, v in vs_a.items()))
     fails = []
@@ -449,11 +527,13 @@ def check_kernel_c(dev, card):
                "plain_ms": ms_fwd_plain, "bound_ms": b_fwd,
                "bound_by": by_fwd, "library_ms": None}
     bwd_rec = {"name": "mlp_point_bwd", "route": "cuda",
-               "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu",
+               "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu + "
+                         "nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu",
                "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:258",
                "max_abs_err": bwd_abs, "max_rel_l2": rels[worst],
-               "ms": ms_bwd, "plain_ms": ms_bwd_plain, "bound_ms": b_bwd,
-               "bound_by": by_bwd, "library_ms": None}
+               "ms": ms_bwd, "device_ms": dev_bwd, "plain_ms": ms_bwd_plain,
+               "bound_ms": b_bwd, "bound_by": by_bwd, "library_ms": None,
+               "floor_ms": floor}
     return fwd_rec, bwd_rec
 
 
@@ -704,34 +784,252 @@ def check_gemm(dev, card):
             "chain_addmm_ms": ms_chain_lib, "host_us_per_launch": host_us}
 
 
+# the backward's input-gradient GEMMs timed in the backward GEMM phase:
+# (what it computes, K, N, output type, ReLU mask, fc_density's rank-1 term,
+# column sums) at the stock widths; the trunk shape also serves trunk1_3..0
+# (activation half) and trunk0_3..1, the 63-wide one trunk0_0
+DGRAD_CASES = (
+    ("rgb_layer->feat", 128, 256, "bf16", False, False, True),
+    ("rgb_layer->denc", 128, 27, "f32", False, False, False),
+    ("fc_feature+fc_density", 256, 256, "bf16", True, True, True),
+    ("trunk", 256, 256, "bf16", True, False, True),
+    ("trunk1_0->enc", 256, 63, "f32", False, False, False),
+)
+# its weight gradients: (layer, K_in, N, kind) with kind "wgmma" (gemm_wgrad),
+# "per_ray" (Kernel A's direction half of rgb_layer: ray sums, then an f32
+# product) or "head" (a narrow head, from g_raw's f32 columns)
+WGRAD_CASES = (
+    ("trunk", 256, 256, "wgmma"),
+    ("trunk0_0 / trunk1_0 enc", 63, 256, "wgmma"),
+    ("rgb_layer feat", 256, 128, "wgmma"),
+    ("rgb_layer denc per ray", 27, 128, "per_ray"),
+    ("fc_density", 256, 1, "head"),
+    ("fc_rgb", 128, 3, "head"),
+)
+
+
+def check_gemm_bwd(dev, card):
+    """The backward GEMM phase: each input-gradient shape of gemm_dgrad and
+    each weight-gradient shape of gemm_wgrad (and Kernel A's per-ray
+    direction weight gradient) at M = 131,072 against its plain version
+    (bf16 outputs in bf16 ulps as in the forward's phase, f32 outputs and
+    column sums in relL2), a bitwise rerun, and its device time
+    (:func:`device_ms`: the split-K reductions included) beside the WMMA
+    gemm_nn / gemm_tn it replaced (run as they ran, on f32 cotangents),
+    ``torch.mm`` in bf16 on the same operands, and the memory bound."""
+    import torch
+
+    from nope_nerf_tpu_torch.models.nerf import init_nerf_params
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    cfg = stock_cfg()
+    D = cfg["model"]["hidden_dim"]
+    params = init_nerf_params(torch.Generator().manual_seed(SEED), cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    M, S = N_RAYS * N_SAMPLES, N_SAMPLES
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rows(m, k, relu=False, scale=1.0):
+        """bf16 (m, k) normal values with NaN in the row padding."""
+        buf = torch.full((m, mk._pad8(k)), float("nan"), dtype=bf, device=dev)
+        x = torch.randn((m, k), generator=gen, device=dev) * scale
+        buf[:, :k] = x.relu() if relu else x
+        return buf[:, :k]
+
+    def out_buf(m, n, dtype):
+        return torch.empty((m, mk._pad8(n)), dtype=dtype, device=dev)[:, :n]
+
+    def rel(a, b):
+        return rel_l2(a.float(), b.float())
+
+    dgrad, wgrad = {}, {}
+    g_raw = torch.randn((M, 4), generator=gen, device=dev) * 1e-3
+    wd = params["fc_density"]["w"].detach().to(bf).reshape(-1)
+    for name, K, N, odt, masked, rank1, sums in DGRAD_CASES:
+        dtype = bf if odt == "bf16" else f32
+        # a weight whose rows are the layer's inputs and columns its K
+        w = mk._padded(torch.randn((N, K), generator=gen, device=dev)
+                       * K ** -0.5)
+        a = rows(M, K, scale=1e-3)
+        mask = rows(M, N, relu=True) if masked else None
+        extra = dict(gsig=g_raw[:, 0], wd=wd) if rank1 else {}
+
+        def new(out=out_buf(M, N, dtype), a=a, w=w, mask=mask, extra=extra,
+                sums=sums):
+            return mk.gemm_dgrad(a, w, out, mask=mask, colsum=sums, **extra)
+
+        def plain(a=a, w=w, mask=mask, rank1=rank1):
+            return mk.gemm_dgrad_reference(
+                a.float(), w.float(), None if mask is None else mask.float(),
+                g_raw[:, 0] if rank1 else None, wd.float() if rank1 else None)
+
+        got, colsum = new()
+        again, colsum2 = new(out=out_buf(M, N, dtype))
+        ref = plain()
+        torch.cuda.synchronize()
+        err = (gemm_ulps(got, ref.to(bf)) if dtype == bf else rel(got, ref))
+        sum_err = rel(colsum, ref.sum(0)) if sums else None
+        bitwise = torch.equal(got, again) and (
+            not sums or torch.equal(colsum, colsum2))
+        finite = bool(torch.isfinite(got.float()).all())
+        # the WMMA kernel as the old backward ran it: f32 cotangents, the
+        # transposed weight as its (K, n) B, an f32 output
+        a_old = a.float().contiguous()
+        w_old = mk._padded_t(w.float())
+        out_old = torch.empty((M, mk._pad8(N)), dtype=f32, device=dev)
+        m_old = None if mask is None else mk._Mat(mask, N)
+        ms = device_ms(new, iters=20)
+        ms_old = device_ms(lambda a_old=a_old, w_old=w_old, m_old=m_old, N=N,
+                           K=K, out_old=out_old: mk._gemm_nn(
+                               mk._Mat(a_old, K), w_old, M, N, out_old,
+                               mask=m_old), iters=5)
+        ms_lib = device_ms(lambda a=a, w=w: torch.mm(a, w.t()), iters=20)
+        ms_plain = device_ms(plain, iters=3, warmup=1)
+        moved = (2.0 * M * K + 2.0 * N * K + M * N * got.element_size()
+                 + (2.0 * M * N if masked else 0.0)
+                 + (4.0 * M + 2.0 * N if rank1 else 0.0)
+                 + (4.0 * N if sums else 0.0))
+        b_ms, b_by = bound(2.0 * M * K * N, moved)
+        rec = {"K": K, "N": N, "out": odt, "mask": masked, "rank1": rank1,
+               "err": err, "err_unit": "bf16 ulps" if dtype == bf else
+               "relL2", "colsum_rel_l2": sum_err, "bitwise_rerun": bitwise,
+               "ms": ms, "old_ms": ms_old, "library_ms": ms_lib,
+               "plain_ms": ms_plain, "bound_ms": b_ms, "bound_by": b_by,
+               "gb_per_s": moved / ms / 1e6,
+               "max_abs_err": float(torch.max(torch.abs(got.float() - ref)))}
+        dgrad[name] = rec
+        print(f"gemm dgrad {name} [{card}] M={M} K={K} N={N} {odt}"
+              f"{' mask' if masked else ''}{' rank-1' if rank1 else ''}: err "
+              f"{err:.3e} {rec['err_unit']}"
+              + (f", column sums relL2 {sum_err:.2e}" if sums else "")
+              + f"; bitwise rerun {bitwise}; new {ms:.4f} ms, old WMMA "
+              f"{ms_old:.4f} ms, torch.mm {ms_lib:.4f} ms, plain "
+              f"{ms_plain:.3f} ms; {rec['gb_per_s']:.0f} GB/s, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        ok = finite and bitwise and (err <= GEMM_ULPS if dtype == bf
+                                     else err <= 1e-5)
+        if not ok or (sums and not sum_err <= 1e-5):
+            raise AssertionError(f"gemm dgrad {name}: err {err}, column sums "
+                                 f"{sum_err}, finite {finite}, bitwise "
+                                 f"{bitwise}")
+
+    denc = rows(N_RAYS, 27)
+    g4 = torch.randn((M, 4), generator=gen, device=dev) * 1e-3  # g_raw
+    for name, K, N, kind in WGRAD_CASES:
+        x = denc if kind == "per_ray" else rows(M, K, relu=True)
+        # a head reads g_raw's f32 columns: fc_density the first, fc_rgb 1:4
+        c0 = 0 if N == 1 else 1
+        g = g4[:, c0:c0 + N] if kind == "head" else rows(M, N, scale=1e-3)
+
+        def new(x=x, g=g, kind=kind, K=K, N=N):
+            if kind == "head":
+                return mk.head_weight_grad(x, g)
+            out = torch.empty((K, N), dtype=f32, device=dev)
+            if kind == "per_ray":
+                return mk.dir_weight_grad(x, g, S, out)
+            return mk.gemm_wgrad(x, g, out)
+
+        def plain(x=x, g=g, kind=kind):
+            if kind == "per_ray":
+                return mk.dir_weight_grad_reference(x, g, S)
+            return mk.gemm_wgrad_reference(x.float(), g.float())
+
+        got, again, ref = new(), new(), plain()
+        torch.cuda.synchronize()
+        err = rel(got, ref)
+        bitwise = torch.equal(got, again)
+        # the WMMA gemm_tn as the old backward ran it, on f32 cotangents
+        g_old = (mk._Mat(g4, N, offset=c0) if kind == "head"
+                 else mk._Mat(g.float().contiguous(), N))
+        if kind == "per_ray":  # its one [feat | denc per ray] launch
+            feat = rows(M, D, relu=True)
+            x_old = dict(x1=mk._Mat(feat, D), x2=mk._Mat(denc, 27, row_div=S))
+        else:
+            x_old = dict(x1=mk._Mat(x, K))
+        g_lib = None if kind == "per_ray" else g.to(bf).contiguous()
+        ms = device_ms(new, iters=20)
+        ms_old = device_ms(lambda g_old=g_old, x_old=x_old: mk._weight_grad(
+            g=g_old, m=M, **x_old), iters=5)
+        ms_lib = None if g_lib is None else device_ms(
+            lambda x=x, g_lib=g_lib: torch.mm(x.t(), g_lib), iters=20)
+        ms_plain = device_ms(plain, iters=3, warmup=1)
+        moved = (2.0 * x.shape[0] * K + M * N * g.element_size()
+                 + 4.0 * K * N)
+        b_ms, b_by = bound(2.0 * M * K * N, moved)
+        rec = {"K_in": K, "N": N, "kind": kind, "rel_l2": err,
+               "bitwise_rerun": bitwise, "ms": ms, "old_ms": ms_old,
+               "library_ms": ms_lib, "plain_ms": ms_plain, "bound_ms": b_ms,
+               "bound_by": b_by, "gb_per_s": moved / ms / 1e6,
+               "max_abs_err": float(torch.max(torch.abs(got - ref)))}
+        wgrad[name] = rec
+        print(f"gemm wgrad {name} [{card}] M={M} K_in={K} N={N} ({kind}): "
+              f"relL2 {err:.3e}; bitwise rerun {bitwise}; new {ms:.4f} ms, "
+              f"old WMMA {ms_old:.4f} ms"
+              f"{' (with the feat half)' if kind == 'per_ray' else ''}"
+              ", torch.mm " + ("n/a" if ms_lib is None else f"{ms_lib:.4f} ms")
+              + f", plain {ms_plain:.3f} ms; {rec['gb_per_s']:.0f} GB/s, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        if not (bitwise and err <= 1e-5 and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"gemm wgrad {name}: relL2 {err}, bitwise "
+                                 f"{bitwise}")
+    src = "nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu"
+    recs = []
+    for rec_name, head, table, err_key in (
+            ("mlp_gemm_dgrad", dgrad["trunk"], dgrad, "max_abs_err"),
+            ("mlp_gemm_wgrad", wgrad["trunk"], wgrad, "max_abs_err")):
+        recs.append({
+            "name": rec_name, "route": "cuda", "source": src,
+            "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:702",
+            "also_serves": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:258",
+            "shape": "one 256x256 trunk layer at M=131072",
+            "max_abs_err": max(r[err_key] for r in table.values()),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "old_ms": head["old_ms"], "library_ms": head["library_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "shapes": table})
+    return recs
+
+
 def kernel_counters():
-    """The launch counters of the six kernels, the forward's GEMM and the
-    backward's WMMA GEMM."""
+    """The launch counters of the six kernels, the forward's GEMM, the
+    backward's input- and weight-gradient GEMMs (and every weight-gradient
+    launch) and the WMMA GEMM they replaced."""
     from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
     from nope_nerf_tpu_torch.ops.kernels import chamfer_kernel as ck
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     return (mk.FWD_LAUNCHES, mk.BWD_LAUNCHES, cb.LAUNCHES,
             mk.FWD_POINT_LAUNCHES, mk.BWD_POINT_LAUNCHES, ck.LAUNCHES,
-            mk.GEMM_SM90_LAUNCHES, mk.GEMM_NN_LAUNCHES)
+            mk.GEMM_SM90_LAUNCHES, mk.GEMM_DGRAD_LAUNCHES,
+            mk.GEMM_WGRAD_LAUNCHES, mk.WGRAD_LAUNCHES, mk.GEMM_NN_LAUNCHES)
 
 
-def check_gemm_counts(label, counts):
-    """Every forward of Kernels A and C ran its 11 GEMMs on the new kernel
-    and no WMMA GEMM: the WMMA GEMM ran 10 times per backward, no more."""
+def check_gemm_counts(label, counts, weight_grads=True):
+    """Every forward of Kernels A and C ran its 11 GEMMs on the TMA + wgmma
+    kernel, every backward its 12 input-gradient GEMMs on gemm_dgrad and,
+    with ``weight_grads``, its weight gradients (11 of A's and 12 of C's on
+    gemm_wgrad, 14 weight-gradient launches in all; none without); the WMMA
+    GEMM never ran."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
     fwd = counts["mlp_composite_fwd"] + counts["mlp_point_fwd"]
-    bwd = counts["mlp_composite_bwd"] + counts["mlp_point_bwd"]
-    if (counts["mlp_gemm_sm90"], counts["mlp_gemm_nn"]) != (11 * fwd,
-                                                            10 * bwd):
-        raise AssertionError(
-            f"{label}: {counts['mlp_gemm_sm90']} new-GEMM launches for {fwd} "
-            f"forwards (11 each), {counts['mlp_gemm_nn']} WMMA GEMM launches "
-            f"for {bwd} backwards (10 each)")
+    a_bwd, c_bwd = counts["mlp_composite_bwd"], counts["mlp_point_bwd"]
+    want = {"mlp_gemm_sm90": 11 * fwd, "mlp_gemm_nn": 0,
+            "mlp_gemm_dgrad": mk.DGRAD_PER_BWD * (a_bwd + c_bwd),
+            "mlp_gemm_wgrad": (11 * a_bwd + 12 * c_bwd) if weight_grads else 0,
+            "mlp_weight_grad_gemm": (mk.WGRAD_PER_BWD * (a_bwd + c_bwd)
+                                     if weight_grads else 0)}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: GEMM launches {got} for {fwd} "
+                             f"forwards and {a_bwd} + {c_bwd} backwards, "
+                             f"expected {want}")
 
 
 # the training runs: (label, tpu overrides, kernels the run must launch;
 # every other kernel must stay idle)
-MLP_GEMMS = ("mlp_gemm_sm90", "mlp_gemm_nn")
+MLP_GEMMS = ("mlp_gemm_sm90", "mlp_gemm_dgrad", "mlp_gemm_wgrad",
+             "mlp_weight_grad_gemm")
 RUNS = (
     ("stock", {}, ("mlp_composite_fwd", "mlp_composite_bwd", "chamfer_band",
                    *MLP_GEMMS)),
@@ -870,7 +1168,9 @@ def check_restore(dev, card, cfg, trained):
 def check_input_only_backward(dev, card):
     """Kernel A's input-only backward (no weight needs a gradient) against
     the full one at the stock shapes: d_origins / d_rays / d_dirs bitwise
-    equal, 12 weight-gradient GEMMs against none, both timed."""
+    equal, the same input-gradient GEMMs, WGRAD_PER_BWD weight-gradient
+    launches against none, both timed beside the input-only memory
+    floor."""
     import torch
 
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -886,26 +1186,36 @@ def check_input_only_backward(dev, card):
     geo = [origins, rays_t, dirs]
     out_full = mk.fused_mlp_composite(weights, *geo, z_t, deltas_t, *static)
     out_in = mk.fused_mlp_composite(frozen, *geo, z_t, deltas_t, *static)
-    n0 = mk.WGRAD_LAUNCHES.count
+    count = (mk.WGRAD_LAUNCHES, mk.GEMM_DGRAD_LAUNCHES)
+    n0 = [c.count for c in count]
     g_full = torch.autograd.grad(out_full, geo + weights, cots,
                                  retain_graph=True)
-    n1 = mk.WGRAD_LAUNCHES.count
+    n1 = [c.count for c in count]
     g_in = torch.autograd.grad(out_in, geo, cots, retain_graph=True)
-    n2 = mk.WGRAD_LAUNCHES.count
+    n2 = [c.count for c in count]
     torch.cuda.synchronize()
     same = [torch.equal(a, b) for a, b in zip(g_in, g_full[:3])]
     ms_full = cuda_ms(lambda: torch.autograd.grad(
         out_full, geo + weights, cots, retain_graph=True))
     ms_in = cuda_ms(lambda: torch.autograd.grad(out_in, geo, cots,
                                                 retain_graph=True))
+    dev_in = device_ms(lambda: torch.autograd.grad(out_in, geo, cots,
+                                                   retain_graph=True))
+    floor = mlp_bwd_floor(N_RAYS * N_SAMPLES, *_mlp_widths(weights, static),
+                          div=N_SAMPLES, weight_grads=False)
     print(f"kernel A input-only bwd [{card}] N={N_RAYS} S={N_SAMPLES}: "
           f"d_origins/d_rays/d_dirs bitwise equal to the full backward "
-          f"{same}; weight-gradient GEMMs {n1 - n0} (full) vs {n2 - n1}; "
-          f"full {ms_full:.3f} ms, input-only {ms_in:.3f} ms")
-    if not all(same) or (n1 - n0, n2 - n1) != (12, 0):
+          f"{same}; weight-gradient launches {n1[0] - n0[0]} (full) vs "
+          f"{n2[0] - n1[0]}, input-gradient GEMMs {n1[1] - n0[1]} vs "
+          f"{n2[1] - n1[1]}; full {ms_full:.3f} ms, input-only {ms_in:.3f} ms"
+          f" (device {dev_in:.3f} ms); input-only memory floor {floor:.3f} ms")
+    want = ((mk.WGRAD_PER_BWD, mk.DGRAD_PER_BWD), (0, mk.DGRAD_PER_BWD))
+    got = tuple((b[0] - a[0], b[1] - a[1]) for a, b in ((n0, n1), (n1, n2)))
+    if not all(same) or got != want:
         raise AssertionError("kernel A's input-only backward differs from "
-                             "the full one")
-    return {"ms_full": ms_full, "ms_input_only": ms_in}
+                             f"the full one (launches {got}, expected {want})")
+    return {"ms_full": ms_full, "ms_input_only": ms_in,
+            "device_ms_input_only": dev_in, "floor_ms_input_only": floor}
 
 
 def pose_step_ms(dev, nerf_params, scene, render_cfg, weight_grads):
@@ -957,7 +1267,7 @@ def run_eval(dev, card, cfg, trained):
                                    n_points=EVAL_POINTS))
     train_scene = MemoryScene(N_FRAMES, H, W, SEED)
     eval_scene = MemoryScene(N_FRAMES, H, W, SEED, mode="eval")
-    counters = kernel_counters() + (mk.WGRAD_LAUNCHES,)
+    counters = kernel_counters()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters:
@@ -980,7 +1290,7 @@ def run_eval(dev, card, cfg, trained):
         raise AssertionError(f"eval: kernel A fwd/bwd not both launched, or "
                              f"launched off this path {stray}, or non-finite "
                              f"metrics {res}")
-    check_gemm_counts("eval", counts)
+    check_gemm_counts("eval", counts, weight_grads=False)
 
     render_cfg = make_render_cfg(cfg, dev)
     cam = torch.as_tensor(train_scene.K, device=dev)
@@ -990,7 +1300,7 @@ def run_eval(dev, card, cfg, trained):
     render_ms = host_ms(lambda: render_image(nerf, (H, W), cam, world, eye,
                                              render_cfg, chunk=65536), iters=3)
     during = {c.name: c.count - before[c.name] for c in counters}
-    check_gemm_counts("eval render", during)
+    check_gemm_counts("eval render", during, weight_grads=False)
     print(f"eval render launches [{card}]: {during}")
     small = render_image(nerf, SMALL_VIEW, cam, world, eye, render_cfg)
     with kernel_a_plain():
@@ -1022,6 +1332,8 @@ def run_eval(dev, card, cfg, trained):
                     "small_view_plain_ms": small_plain_ms,
                     "bwd_full_ms": bwd["ms_full"],
                     "bwd_input_only_ms": bwd["ms_input_only"],
+                    "bwd_input_only_device_ms": bwd["device_ms_input_only"],
+                    "bwd_input_only_floor_ms": bwd["floor_ms_input_only"],
                     "pose_step_full_ms": ms_full,
                     "pose_step_input_only_ms": ms_in}
 
@@ -1057,7 +1369,8 @@ def main():
     c_fwd, c_bwd = check_kernel_c(dev, card)
     d = check_kernel_d(dev, card)
     gemm = check_gemm(dev, card)
-    records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d, gemm]
+    gemm_bwd = check_gemm_bwd(dev, card)
+    records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d, gemm, *gemm_bwd]
     launches = {rec["name"]: 0 for rec in records}
     for label, overrides, expect in RUNS:
         counts, state, cfg = run_training(dev, card, label, overrides, expect)

@@ -83,6 +83,14 @@ def check_supported(cfg) -> None:
                       "reference's validation branch is non-functional)",
                       stacklevel=2)
     tpu = cfg.get("tpu", {}) or {}
+    mp = tpu.get("matmul_precision", "default")
+    if mp not in ("default", "high", "highest"):
+        raise ValueError(f"tpu.matmul_precision={mp!r}: must be 'default', "
+                         "'high' or 'highest' (lowercase)")
+    if mp != "default":
+        warnings.warn("tpu.matmul_precision has no effect in the port: its "
+                      "f32 matmuls always run in full f32 (TF32 off) and "
+                      "the kernels in bf16", stacklevel=2)
     cm = tpu.get("chamfer_mode", "exact")
     if cm not in ("exact", "band", "grid", "auto"):
         raise ValueError(f"tpu.chamfer_mode={cm!r}: must be 'exact', 'band', "

@@ -19,39 +19,38 @@
 // ray sums). Like A, C is bound by its GEMMs.
 //
 // What bounds it on the H100: the trunk is ten (M x K) @ (K x N) products
-// at M = rays * samples = 131,072 points and K, N <= 319 -- about 0.2 TFLOP
+// at M = rays * samples = 131,072 points and K, N <= 319 -- about 0.47 TFLOP
 // for forward + backward, which the bf16 tensor cores finish in well under a
-// millisecond at peak. The rest (encoding, heads, compositing, the encoding
-// backward) is memory- and latency-bound elementwise work on per-point and
-// per-ray tensors.
+// millisecond at peak, but each layer moves more bytes than that takes, so
+// the GEMMs are memory-bound (mlp_gemm_sm90.cu). The rest (encoding, heads,
+// compositing, the encoding backward) is memory- and latency-bound
+// elementwise work on per-point and per-ray tensors.
 //
-// Design (first, simple and correct; the forward's layer GEMMs now run on
-// TMA + wgmma in mlp_gemm_sm90.cu, the backward's are queued for it, and
-// cross-layer fusion is later work): the TPU kernel kept every activation in
-// VMEM and recomputed the forward inside the backward. A block on this card
-// has at most 227 KB of shared memory, which does not hold the 1.2 MB of
-// weights, so each layer is its own tiled GEMM launch and the forward SAVES
-// its bf16 activations (about 0.7 GB at the stock step) for the backward
-// instead of recomputing.
+// Design: the TPU kernel kept every activation in VMEM and recomputed the
+// forward inside the backward. A block on this card has at most 227 KB of
+// shared memory, which does not hold the 1.2 MB of weights, so each layer is
+// its own GEMM launch on mlp_gemm_sm90.cu (TMA + wgmma, both directions)
+// and the forward SAVES its bf16 activations (about 0.7 GB at the stock
+// step) for the backward instead of recomputing. This file holds the rest:
 //   * encode_points / encode_rows: pts = o + r*z, [x, sin 2^l x, cos 2^l x]
 //     in f32 (full-precision sincosf), stored as bf16; directions encoded
 //     once per ray.
-//   * gemm_nn: C = epilogue(A1 @ B1 + A2 @ B2), bf16 x bf16 -> f32 on the
-//     tensor cores (WMMA 16x16x16): the backward's input-gradient GEMMs (A
-//     the f32 cotangents, rounded to bf16 on load). Two A inputs, so no
-//     concat is materialised; A2 may be indexed per ray (row / S). Epilogue:
-//     + bias (f32), optional ReLU, optional ReLU mask of a saved activation,
-//     store bf16 or f32 (bias, ReLU and the per-ray A2 serve chip_smoke.py's
-//     timing of this kernel on the forward's operands beside its successor).
-//   * gemm_tn: dW = X^T @ G as split-K partial sums over row chunks, then a
-//     deterministic reduce pass (no float atomics, so runs repeat bitwise);
-//     colsum does the same for the bias gradients.
 //   * heads / composite: density and rgb heads (f32 raw outputs), head
 //     activations, and the compositing scan one thread per ray, sequential
 //     over the samples. The TPU layout tricks (selector matmuls, log-space
 //     cumprod, triangular-matmul suffix sums) become plain loops.
+//   * heads_bwd: the rgb head's backward, the first bf16 cotangent and
+//     rgb_layer's bias sums; head_wgrad: the two narrow heads' weight
+//     gradients from g_raw's f32 columns; ray_sum + dir_wgrad: Kernel A's
+//     per-ray direction half of rgb_layer's weight gradient.
+//   * reduce_splits: the split partial sums (weight gradients, column sums)
+//     added in a fixed order (no float atomics, so runs repeat bitwise);
+//     colsum: the narrow heads' bias sums.
 //   * encode_bwd: one warp per ray; the encoding backward and the ray sums
 //     that give d_origins, d_rays and d_dirs.
+//   * gemm_nn / gemm_tn: the WMMA GEMMs (16x16x16, register-staged tiles)
+//     that the backward ran on before mlp_gemm_sm90.cu's; no path runs them,
+//     chip_smoke.py times them beside their successors.
 // Numerics follow the TPU kernel: bf16 operands, f32 accumulation, f32
 // biases, activations rounded to bf16 after the epilogue, raw heads in f32,
 // stable softplus, eps 1e-6 in the transmittance product.
@@ -207,7 +206,8 @@ __device__ __forceinline__ void frag_epilogue(const AccFrag& acc, float* stage, 
 // indexed per ray, row / a2_div), B row-major bf16 (K x n, ld), bf16 WMMA
 // fragments, f32 accumulators. Block tile 128 x 128, 8 warps as 2 x 4, each
 // warp 64 x 32. Epilogue: + bias (f32), optional ReLU, optional ReLU mask of
-// a saved activation (backward), store bf16 or f32.
+// a saved activation, store bf16 or f32. Kept for chip_smoke.py's timing of
+// the GEMMs that replaced it; no path launches it.
 // ---------------------------------------------------------------------------
 
 struct GemmNN {
@@ -322,7 +322,8 @@ __global__ void __launch_bounds__(G_THREADS) gemm_nn_kernel(GemmNN p) {
 }
 
 // ---------------------------------------------------------------------------
-// Weight-gradient GEMM: partial[split] = X[rows of split]^T @ G[rows of split]
+// Weight-gradient GEMM (kept, like gemm_nn, for chip_smoke.py's timing):
+// partial[split] = X[rows of split]^T @ G[rows of split]
 // with X = [X1 | X2] (bf16; X2 may be indexed per ray, row / x2_div) and G
 // f32 (rounded to bf16 on load, as the TPU kernel's dW operands). Output
 // tile 128 (X columns) x 128 (G columns), 32 rows per step, 8 warps as
@@ -437,7 +438,8 @@ __global__ void __launch_bounds__(G_THREADS) gemm_tn_kernel(GemmTN p) {
       frag_epilogue(acc[i][j], stage[warp], i0 + wi * 64 + i * 16, j0 + wj * 32 + j * 16, put);
 }
 
-// Column sums of an f32 (m x n, ld) matrix, split over row chunks.
+// Column sums of an f32 (m x n, ld) matrix, split over row chunks (the two
+// narrow heads' biases, from g_raw's four columns).
 __global__ void colsum_kernel(const float* __restrict__ g, int ldg, int n, int m,
                               int rows_per_split, float* __restrict__ partial) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
@@ -450,14 +452,37 @@ __global__ void colsum_kernel(const float* __restrict__ g, int ldg, int n, int m
   partial[(int64_t)split * n + col] = s;
 }
 
-// out[i] = sum over splits of partial[s][i], in split order.
+// out[i] = sum over splits of partial[s][i] in a fixed order: a block of
+// GROUPS warps owns 32 consecutive i; lane e of warp g sums splits g,
+// g + GROUPS, ... of its i in order, and the group sums are added in group
+// order. GROUPS loads in flight per output, not one: the partials are read
+// at the rate of the memory, not of its latency. Many splits of a small
+// output (column sums, the narrow heads) take 32 groups, the rest 8.
+template <int GROUPS>
 __global__ void reduce_splits_kernel(const float* __restrict__ partial, int splits,
                                      int64_t size, float* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= size) return;
+  __shared__ float part[GROUPS][32];
+  const int e = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int64_t i = (int64_t)blockIdx.x * 32 + e;
   float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += partial[(int64_t)k * size + i];
-  out[i] = s;
+  if (i < size)
+    for (int k = g; k < splits; k += GROUPS) s += partial[(int64_t)k * size + i];
+  part[g][e] = s;
+  __syncthreads();
+  if (g == 0 && i < size) {
+    float total = 0.f;
+#pragma unroll
+    for (int k = 0; k < GROUPS; ++k) total += part[k][e];
+    out[i] = total;
+  }
+}
+
+void reduce_splits(const float* partial, int splits, int64_t size, float* out, cudaStream_t st) {
+  const unsigned blocks = static_cast<unsigned>((size + 31) / 32);
+  if (splits >= 128)
+    reduce_splits_kernel<32><<<blocks, 32 * 32, 0, st>>>(partial, splits, size, out);
+  else
+    reduce_splits_kernel<8><<<blocks, 32 * 8, 0, st>>>(partial, splits, size, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -607,21 +632,113 @@ __global__ void composite_bwd_kernel(const float* __restrict__ raw, const float*
   }
 }
 
-// g_hr = relu_mask(hr) * (bf16(g_raw_rgb) @ bf16(wc)^T), f32 (m x h2).
+// g_hr = relu_mask(hr) * (bf16(g_raw_rgb) @ bf16(wc)^T), stored bf16 (m x h2):
+// the cotangent that rgb_layer's input-gradient and weight-gradient GEMMs
+// read. One thread per column, `rows` rows per block; with `partial`, the
+// f32 column sums of the block's rows before rounding (rgb_layer's bias
+// gradient) go to partial[blockIdx.x], in row order.
 __global__ void heads_bwd_kernel(const float* __restrict__ g_raw, const bf16* __restrict__ hr,
-                                 const bf16* __restrict__ wc, float* __restrict__ g_hr, int m,
-                                 int h2) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)m * h2) return;
-  const int64_t pt = idx / h2;
-  const int k = idx % h2;
-  float v = 0.f;
-  if (f32(hr[idx]) > 0.f) {
-    const float* g = g_raw + pt * 4 + 1;
-    v = round_bf16(g[0]) * f32(wc[k * 3]) + round_bf16(g[1]) * f32(wc[k * 3 + 1]) +
-        round_bf16(g[2]) * f32(wc[k * 3 + 2]);
+                                 const bf16* __restrict__ wc, bf16* __restrict__ g_hr,
+                                 float* __restrict__ partial, int m, int h2, int rows) {
+  const int k = threadIdx.x;
+  if (k >= h2) return;
+  const float w0 = f32(wc[k * 3]), w1 = f32(wc[k * 3 + 1]), w2 = f32(wc[k * 3 + 2]);
+  const int r0 = blockIdx.x * rows;
+  const int r1 = min(m, r0 + rows);
+  float s = 0.f;
+  for (int r = r0; r < r1; ++r) {
+    const int64_t idx = (int64_t)r * h2 + k;
+    float v = 0.f;
+    if (f32(hr[idx]) > 0.f) {
+      const float* g = g_raw + (int64_t)r * 4 + 1;
+      v = round_bf16(g[0]) * w0 + round_bf16(g[1]) * w1 + round_bf16(g[2]) * w2;
+    }
+    s += v;
+    g_hr[idx] = to_bf16(v);
   }
-  g_hr[idx] = v;
+  if (partial) partial[(int64_t)blockIdx.x * h2 + k] = s;
+}
+
+// Kernel A's direction half of rgb_layer's weight gradient. The direction
+// encoding is per ray, so dW_dir = denc^T @ (the per-ray sums of g_hr):
+// gsum (n_rays x n) f32 sums each ray's n_samples rows of the bf16 g in
+// sample order, one thread per column; then partial[split] (k x n) =
+// denc[rays of split]^T @ gsum[rays of split] in f32, `rays` rays per split,
+// one thread per output, rays in order (reduce_splits adds the splits).
+
+__global__ void ray_sum_kernel(const bf16* __restrict__ g, int ldg, int n, int n_samples,
+                               float* __restrict__ gsum) {
+  const int col = threadIdx.x, ray = blockIdx.x;
+  if (col >= n) return;
+  const bf16* p = g + (int64_t)ray * n_samples * ldg + col;
+  float s = 0.f;
+  for (int i = 0; i < n_samples; ++i) s += f32(p[(int64_t)i * ldg]);
+  gsum[(int64_t)ray * n + col] = s;
+}
+
+__global__ void dir_wgrad_kernel(const bf16* __restrict__ denc, int ldd,
+                                 const float* __restrict__ gsum, int n, int n_rays, int rays,
+                                 float* __restrict__ partial) {
+  const int col = threadIdx.x, k = blockIdx.x, split = blockIdx.y;
+  if (col >= n) return;
+  const int r1 = min(n_rays, (split + 1) * rays);
+  float s = 0.f;
+  for (int ray = split * rays; ray < r1; ++ray)
+    s += f32(denc[(int64_t)ray * ldd + k]) * gsum[(int64_t)ray * n + col];
+  partial[((int64_t)split * gridDim.x + k) * n + col] = s;
+}
+
+// The weight gradients of the two narrow heads (fc_rgb n = 3, fc_density
+// n = 1), whose cotangents are columns of g_raw in f32: partial[split]
+// (k x n) = x[rows of split]^T @ bf16(g[rows of split]), `rows` rows per
+// split. A block's HW_THREADS threads are row groups of k / 2 threads, each
+// thread two columns of x (a 4-byte load; the g row a broadcast load) and
+// every groups-th row, eight rows in flight; the group sums are added in
+// group order through shared memory. Bound by the bytes of x.
+constexpr int HW_THREADS = 256;
+constexpr int HW_MAX_N = 4;
+
+__global__ void __launch_bounds__(HW_THREADS)
+    head_wgrad_kernel(const bf16* __restrict__ x, int ldx, int k, const float* __restrict__ g,
+                      int ldg, int n, int m, int rows, float* __restrict__ partial) {
+  __shared__ float red[HW_THREADS][2 * HW_MAX_N];
+  const int pairs = k / 2, groups = HW_THREADS / pairs;
+  const int p = threadIdx.x % pairs, grp = threadIdx.x / pairs, split = blockIdx.x;
+  const int r1 = min(m, (split + 1) * rows);
+  float acc[2][HW_MAX_N] = {};
+  if (grp < groups) {
+#pragma unroll 8
+    for (int r = split * rows + grp; r < r1; r += groups) {
+      const float2 xv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(x + (int64_t)r * ldx + 2 * p));
+      const float* gr = g + (int64_t)r * ldg;
+#pragma unroll
+      for (int j = 0; j < HW_MAX_N; ++j) {
+        if (j < n) {
+          const float gj = round_bf16(gr[j]);
+          acc[0][j] += xv.x * gj;
+          acc[1][j] += xv.y * gj;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < HW_MAX_N; ++j) {
+    red[threadIdx.x][j] = acc[0][j];
+    red[threadIdx.x][HW_MAX_N + j] = acc[1][j];
+  }
+  __syncthreads();
+  if (grp != 0) return;
+  float* out = partial + ((int64_t)split * k + 2 * p) * n;
+  for (int j = 0; j < n; ++j) {
+    float s0 = 0.f, s1 = 0.f;
+    for (int q = 0; q < groups; ++q) {
+      s0 += red[q * pairs + p][j];
+      s1 += red[q * pairs + p][HW_MAX_N + j];
+    }
+    out[j] = s0;
+    out[n + j] = s1;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -837,8 +954,8 @@ int nnt_colsum(const float* g, int ldg, int n, int m, int rows_per_split, float*
 }
 
 int nnt_reduce_splits(const float* partial, int splits, int size, float* out, void* stream) {
-  reduce_splits_kernel<<<blocks_for(size, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      partial, splits, size, out);
+  if (size <= 0) return 0;
+  reduce_splits(partial, splits, size, out, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -870,11 +987,47 @@ int nnt_composite_bwd(const float* raw, const float* z, const float* deltas,
   return static_cast<int>(cudaGetLastError());
 }
 
-int nnt_heads_bwd(const float* g_raw, const void* hr, const void* wc, float* g_hr, int m, int h2,
+// g_hr bf16 (m x h2, h2 <= 1024); partial (ceil(m / rows) x h2) f32 or null
+int nnt_heads_bwd(const float* g_raw, const void* hr, const void* wc, void* g_hr, float* partial,
+                  int m, int h2, int rows, void* stream) {
+  if (h2 > 1024 || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0) return 0;
+  const int threads = (h2 + 31) / 32 * 32;
+  heads_bwd_kernel<<<blocks_for(m, rows), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      g_raw, static_cast<const bf16*>(hr), static_cast<const bf16*>(wc), static_cast<bf16*>(g_hr),
+      partial, m, h2, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dw (k x n) f32 = denc[:, :k]^T @ gsum with gsum (n_rays x n) the per-ray sums
+// of g (n_rays * n_samples x n, row stride ldg, bf16); n <= 1024. Scratch: gsum
+// (n_rays x n) and partial (ceil(n_rays / rays) x k x n), f32.
+int nnt_dir_wgrad(const void* denc, int ldd, int k, const void* g, int ldg, int n, int n_rays,
+                  int n_samples, int rays, float* gsum, float* partial, float* dw,
                   void* stream) {
-  heads_bwd_kernel<<<blocks_for((int64_t)m * h2, 256), 256, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      g_raw, static_cast<const bf16*>(hr), static_cast<const bf16*>(wc), g_hr, m, h2);
+  if (n > 1024 || rays < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rays <= 0 || k <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = (n + 31) / 32 * 32;
+  const int splits = (n_rays + rays - 1) / rays;
+  ray_sum_kernel<<<n_rays, threads, 0, st>>>(static_cast<const bf16*>(g), ldg, n, n_samples, gsum);
+  dir_wgrad_kernel<<<dim3(k, splits), threads, 0, st>>>(static_cast<const bf16*>(denc), ldd, gsum,
+                                                        n, n_rays, rays, partial);
+  reduce_splits(partial, splits, (int64_t)k * n, dw, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// partial (ceil(m / rows) x k x n) f32 = the row splits of x^T @ bf16(g): x bf16
+// (m x k, row stride ldx, k <= 512 and ldx even, 4-byte aligned), g f32 (m x n,
+// row stride ldg), n <= 4
+int nnt_head_wgrad(const void* x, int ldx, int k, const float* g, int ldg, int n, int m,
+                   int rows, float* partial, void* stream) {
+  if (n < 1 || n > HW_MAX_N || k < 2 || k % 2 || k > 2 * HW_THREADS || ldx % 2 || rows < 1 ||
+      reinterpret_cast<uintptr_t>(x) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0) return 0;
+  head_wgrad_kernel<<<blocks_for(m, rows), HW_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), ldx, k, g, ldg, n, m, rows, partial);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,11 +4,11 @@ compositing (A) or per point (C).
 Port of ``nope_nerf_tpu/ops/pallas/mlp_kernel.py``: ``fused_mlp_composite``
 (Pallas kernels ``_make_fwd_composite_kernel`` l.668 and
 ``_make_bwd_composite_kernel`` l.702) and ``fused_mlp`` (``_make_fwd_kernel``
-l.244 and ``_make_bwd_kernel`` l.258). The CUDA source is
-``nope_nerf_tpu_torch/csrc/mlp_composite.cu``, and the forward's layer GEMMs
-run on ``nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu`` (TMA + wgmma); the
-headers say what bounds the kernels on the H100 and how the design answers
-it.
+l.244 and ``_make_bwd_kernel`` l.258). The CUDA sources are
+``nope_nerf_tpu_torch/csrc/mlp_composite.cu`` and
+``nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu``, whose TMA + wgmma GEMMs run
+every layer both ways; the headers say what bounds the kernels on the H100
+and how the design answers it.
 
 * :func:`fused_mlp_composite` (Kernel A) and :func:`fused_mlp` (Kernel C)
   are the public wrappers. For CUDA tensors they run
@@ -17,16 +17,21 @@ it.
   :data:`FWD_LAUNCHES` / :data:`BWD_LAUNCHES` and :data:`FWD_POINT_LAUNCHES`
   / :data:`BWD_POINT_LAUNCHES` (the forward's GEMMs in
   :data:`GEMM_SM90_LAUNCHES`, the backward's input-gradient GEMMs in
-  :data:`GEMM_NN_LAUNCHES`); for CPU tensors they run the plain versions
+  :data:`GEMM_DGRAD_LAUNCHES` and weight-gradient GEMMs in
+  :data:`GEMM_WGRAD_LAUNCHES`); for CPU tensors they run the plain versions
   :func:`fused_mlp_composite_reference` / :func:`fused_mlp_reference`; any
   other device raises.
 * What the graph needs, and no more: when nothing is to be differentiated
   (grad disabled, or no input requires grad: the eval render) the forward
   runs the trunk on two ping-pong buffers and saves nothing; when no weight
   needs a gradient (test-time pose optimisation) the backward skips the
-  12 weight-gradient GEMMs (counted in :data:`WGRAD_LAUNCHES`) and the
+  weight-gradient launches (counted in :data:`WGRAD_LAUNCHES`) and the
   bias sums. Either way the outputs and input gradients are bitwise those
   of the full path.
+* The backward (:func:`_chain_bwd`) keeps its cotangents bf16 after their
+  ReLU masks and takes the bias gradients as f32 column sums in the GEMMs'
+  epilogues; every step has a plain version beside it, so it runs whole on
+  CPU tensors too.
 * The plain versions emulate bf16 operands as bf16-rounded f32 tensors with
   f32 matmuls and take the backward from autograd (matmul cotangents
   rounded to bf16 as in the kernels); both share :func:`_chain_reference`,
@@ -60,15 +65,24 @@ FWD_LAUNCHES = LaunchCounter("mlp_composite_fwd")
 BWD_LAUNCHES = LaunchCounter("mlp_composite_bwd")
 FWD_POINT_LAUNCHES = LaunchCounter("mlp_point_fwd")
 BWD_POINT_LAUNCHES = LaunchCounter("mlp_point_bwd")
-# weight-gradient GEMMs of Kernels A and C's backwards: 12 per backward
-# that computes the weight gradients, none in one that needs only the
-# input gradients
+# weight-gradient launches of Kernels A and C's backwards: WGRAD_PER_BWD per
+# backward that computes the weight gradients (11 on gemm_wgrad, 12 in C,
+# whose direction half is per point; A's per-ray direction half; the two
+# narrow heads on the WMMA gemm_tn), none in one that needs only the input
+# gradients
 WGRAD_LAUNCHES = LaunchCounter("mlp_weight_grad_gemm")
+WGRAD_PER_BWD = 14
 # the forward's GEMMs on csrc/mlp_gemm_sm90.cu: 11 per forward (the ten layer
 # GEMMs and the direction row term of rgb_layer)
 GEMM_SM90_LAUNCHES = LaunchCounter("mlp_gemm_sm90")
-# the WMMA GEMM of csrc/mlp_composite.cu: the backward's 10 input-gradient
-# GEMMs, never a forward
+# the backward's input-gradient GEMMs on csrc/mlp_gemm_sm90.cu: DGRAD_PER_BWD
+# per backward, with or without the weight gradients
+GEMM_DGRAD_LAUNCHES = LaunchCounter("mlp_gemm_dgrad")
+DGRAD_PER_BWD = 12
+# the backward's weight-gradient GEMMs on csrc/mlp_gemm_sm90.cu (wgmma)
+GEMM_WGRAD_LAUNCHES = LaunchCounter("mlp_gemm_wgrad")
+# the WMMA GEMM of csrc/mlp_composite.cu that the GEMMs above replaced; no
+# path launches it (chip_smoke.py times it beside them)
 GEMM_NN_LAUNCHES = LaunchCounter("mlp_gemm_nn")
 # the layers that run as GEMMs (the two narrow heads run in heads_fwd)
 GEMM_LAYERS = tuple(n for n in W_NAMES if n not in ("fc_density", "fc_rgb"))
@@ -151,6 +165,40 @@ def gemm_fwd_reference(a1, b1, a2=None, b2=None, bias=None, relu=False,
     if relu:
         y = torch.relu(y)
     return _bf(y) if out_dtype == _BF else y
+
+
+def gemm_dgrad_reference(a, b, mask=None, gsig=None, wd=None):
+    """Plain version of :func:`gemm_dgrad`, in f32 and before the output's
+    rounding: mask(bf16(a) @ bf16(b)^T [+ bf16(gsig) bf16(wd)^T]), the
+    entries whose ``mask`` activation is <= 0 set to 0. ``b`` is the layer's
+    (fan_in, fan_out) weight; the rank-1 term is a product over K = 1 (exact
+    in f32), added as autograd adds the two heads' shares of d(a13)."""
+    y = _mm(a, b.t())
+    if gsig is not None:
+        y = y + _mm(gsig.reshape(-1, 1), wd.reshape(1, -1))
+    if mask is not None:
+        y = torch.where(mask > 0, y, torch.zeros_like(y))
+    return y
+
+
+def gemm_wgrad_reference(x, g):
+    """Plain version of :func:`gemm_wgrad`: bf16(x)^T @ bf16(g), f32."""
+    return _mm(x.t(), g)
+
+
+def heads_bwd_reference(g_raw, hr, wc):
+    """Plain version of :func:`heads_bwd`, in f32 before the rounding:
+    relu_mask(hr) * (bf16(g_raw[:, 1:4]) @ bf16(wc)^T)."""
+    y = _mm(g_raw[:, 1:4], wc.t())
+    return torch.where(hr > 0, y, torch.zeros_like(y))
+
+
+def dir_weight_grad_reference(denc, g, div):
+    """Plain version of :func:`dir_weight_grad`: denc^T @ (each ray's sum
+    of its ``div`` rows of the bf16 g), both f32 (the ray sums are not
+    rounded)."""
+    gsum = g.float().reshape(denc.shape[0], div, -1).sum(1)
+    return denc.float().t() @ gsum
 
 
 def _chain_reference(W, enc, denc):
@@ -238,7 +286,7 @@ class _Mat:
 
     def __init__(self, t, k, ld=None, offset=0, row_div=1):
         self.t, self.k, self.offset, self.row_div = t, k, offset, row_div
-        self.ld = t.shape[-1] if ld is None else ld
+        self.ld = t.stride(0) if ld is None else ld
 
     @property
     def ptr(self):
@@ -257,12 +305,21 @@ def _pad8(n):
 
 def _padded_t(w):
     """bf16 w^T (fan_out, fan_in) in a zeroed buffer whose row stride is
-    padded to 8: the K-major weight of the forward's GEMMs and the B operand
-    of the backward's input-gradient GEMMs."""
+    padded to 8: the K-major weight of the forward's GEMMs."""
     out = torch.zeros((w.shape[1], _pad8(w.shape[0])), dtype=_BF,
                       device=w.device)
     out[:, :w.shape[0]] = w.t()
     return out
+
+
+def _padded(w):
+    """bf16 w (fan_in, fan_out), untransposed, row stride padded to 8: the
+    B operand of the backward's input-gradient GEMMs (:func:`gemm_dgrad`),
+    whose rows are the layer's inputs and whose columns its K."""
+    out = torch.zeros((w.shape[0], _pad8(w.shape[1])), dtype=_BF,
+                      device=w.device)
+    out[:, :w.shape[1]] = w
+    return out[:, :w.shape[1]]
 
 
 # every tensor-map box is one 128-byte swizzle row wide; boxes are 128 rows
@@ -353,11 +410,222 @@ def gemm_fwd(a1, w1t, a2=None, w2t=None, bias=None, relu=False, rowterm=None,
     return out
 
 
+def _device(name, t):
+    """'cpu' or 'cuda' for a wrapper's operand; raises on any other."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type
+
+
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _tile_width(n, dtype):
+    """The tile width of csrc/mlp_gemm_sm90.cu that holds an output n wide."""
+    for w in GEMM_WIDTHS[dtype]:
+        if n <= w:
+            return w
+    raise ValueError(f"no GEMM tile holds {n} {dtype} columns; widths "
+                     f"{GEMM_WIDTHS[dtype]}")
+
+
+def gemm_dgrad(a, b, out, mask=None, gsig=None, wd=None, colsum=False):
+    """One input-gradient GEMM of the backward chain: out (M, N) =
+    mask(a @ b^T [+ bf16(gsig) wd^T]) on the TMA + wgmma GEMM
+    (csrc/mlp_gemm_sm90.cu), counted in :data:`GEMM_DGRAD_LAUNCHES`.
+
+    a: the bf16 cotangent (M, K) view; b: bf16 rows of a layer's weight as
+    :func:`_padded` stores it, (N, K = fan_out); out: bf16 (a cotangent, N
+    a tile width) or f32 (an encoding's cotangent, N <= 128) (M, N) view;
+    mask: a bf16 (M, N) activation whose entries <= 0 zero the output; gsig
+    f32 (M,) (any stride) and wd bf16 (N,): the rank-1 term. Returns (out,
+    the f32 column sums of the values before rounding (N,), with
+    ``colsum``, else None). CPU tensors run :func:`gemm_dgrad_reference`; on
+    the card an operand the kernel cannot take raises."""
+    M, N = out.shape
+    if _device("gemm_dgrad", a) == "cpu":
+        y = gemm_dgrad_reference(
+            a.float(), b.float(), None if mask is None else mask.float(),
+            gsig, None if wd is None else wd.float())
+        out.copy_(y)
+        return out, (y.sum(0) if colsum else None)
+    bn = _tile_width(N, out.dtype)
+    if a.dtype != _BF or b.dtype != _BF or a.shape != (M, b.shape[1]) \
+            or b.shape[0] != N:
+        raise ValueError(f"gemm_dgrad: a {tuple(a.shape)} {a.dtype}, b "
+                         f"{tuple(b.shape)} {b.dtype} for out {tuple(out.shape)}"
+                         "; a and b must be bf16 (M, K) and (N, K)")
+    if mask is not None and (mask.dtype != _BF or mask.shape != (M, N)
+                             or out.dtype != _BF or N != bn):
+        raise ValueError("gemm_dgrad: a mask is a bf16 (M, N) activation of a "
+                         "bf16 output N a tile width wide")
+    if (gsig is None) != (wd is None) or (gsig is not None and (
+            gsig.dtype != _F32 or gsig.shape != (M,) or wd.dtype != _BF
+            or wd.shape != (N,) or not wd.is_contiguous() or N != bn)):
+        raise ValueError("gemm_dgrad: the rank-1 term is f32 gsig (M,) with "
+                         "contiguous bf16 wd (N,), N a tile width")
+    if colsum and N != bn:
+        raise ValueError(f"gemm_dgrad: column sums need N a tile width, not {N}")
+    # persistent blocks: one per 128-row tile, up to one per SM; each
+    # warpgroup's column sums are one row of ``sums``
+    grid = max(1, min(-(-M // GEMM_BM), _sm_count(out.device)))
+    sums = (torch.empty((2 * grid, N), dtype=_F32, device=out.device)
+            if colsum else None)
+    maps = (tma_2d(a, GEMM_BM), tma_2d(b, bn), tma_2d(out, GEMM_STORE_ROWS))
+    mask_map = _NO_MAP if mask is None else tma_2d(mask, GEMM_STORE_ROWS)
+    fn = c_function("nnt_gemm_dgrad", "piiiii" * 3 + "i" + "piiiii" + "pippip")
+    err = fn(*[x for m in maps for x in m], int(out.dtype == _F32), *mask_map,
+             _ptr(gsig) if gsig is not None else None,
+             gsig.stride(0) if gsig is not None else 0,
+             _ptr(wd) if wd is not None else None,
+             _ptr(sums) if sums is not None else None, grid, _stream(out))
+    check(err, "gemm_dgrad")
+    GEMM_DGRAD_LAUNCHES.add()
+    if sums is None:
+        return out, None
+    return out, _reduce_splits(sums, torch.empty(N, dtype=_F32,
+                                                 device=out.device))
+
+
+# rows per ring stage of the weight-gradient GEMM, and the rows of dW a block
+# owns (two warpgroups x 64)
+WGRAD_CHUNK, WGRAD_ROWS = 64, 128
+
+
+def wgrad_rows_per_split(m, k_in, sms):
+    """Rows each block of :func:`gemm_wgrad` sums: about one block per SM
+    over the (dW row tiles x splits) grid, a multiple of the 64-row chunk."""
+    splits = max(1, sms // -(-k_in // WGRAD_ROWS))
+    return -(-m // (splits * WGRAD_CHUNK)) * WGRAD_CHUNK
+
+
+def gemm_wgrad(x, g, out=None):
+    """One weight-gradient GEMM of the backward chain: out (K_in, N) f32 =
+    x^T @ g summed over the M rows, on wgmma (csrc/mlp_gemm_sm90.cu) as
+    deterministic split-K partial sums + :func:`_reduce_splits`, counted in
+    :data:`GEMM_WGRAD_LAUNCHES` and :data:`WGRAD_LAUNCHES`.
+
+    x: the saved bf16 activation (M, K_in) view; g: the bf16 cotangent (M, N)
+    view, N a multiple of 8 up to 256; out: a contiguous f32 (K_in, N) (rows
+    of a larger dW), allocated when None. CPU tensors run
+    :func:`gemm_wgrad_reference`; on the card an operand the kernel cannot
+    take raises."""
+    (M, K), N = x.shape, g.shape[1]
+    if out is None:
+        out = torch.empty((K, N), dtype=_F32, device=x.device)
+    if _device("gemm_wgrad", x) == "cpu":
+        return out.copy_(gemm_wgrad_reference(x.float(), g.float()))
+    if x.dtype != _BF or g.dtype != _BF or g.shape[0] != M or N % 8 \
+            or N > 256 or out.dtype != _F32 or out.shape != (K, N) \
+            or not out.is_contiguous():
+        raise ValueError(f"gemm_wgrad: x {tuple(x.shape)} {x.dtype}, g "
+                         f"{tuple(g.shape)} {g.dtype}, out {tuple(out.shape)}"
+                         f" {out.dtype}: x and g bf16 with M rows, N a "
+                         "multiple of 8 <= 256, out contiguous f32 (K_in, N)")
+    if M == 0:
+        return out.zero_()
+    rps = wgrad_rows_per_split(M, K, _sm_count(x.device))
+    partial = torch.empty((-(-M // rps), K, N), dtype=_F32, device=x.device)
+    err = c_function("nnt_gemm_wgrad", "piiiii" * 2 + "ipp")(
+        *tma_2d(x, WGRAD_CHUNK), *tma_2d(g, WGRAD_CHUNK), rps, _ptr(partial),
+        _stream(partial))
+    check(err, "gemm_wgrad")
+    GEMM_WGRAD_LAUNCHES.add()
+    WGRAD_LAUNCHES.add()
+    return _reduce_splits(partial, out)
+
+
+# rows per block of heads_bwd_kernel, rays per split of dir_wgrad_kernel and
+# rows per split of head_wgrad_kernel (the partial sums' row counts)
+HEADS_BWD_ROWS, DIR_WGRAD_RAYS, HEAD_WGRAD_ROWS = 64, 32, 256
+
+
+def heads_bwd(g_raw, hr, wc, out, colsum=False):
+    """The rgb head's backward: out (M, H2) bf16 = relu_mask(hr) *
+    (bf16(g_raw[:, 1:4]) @ wc^T), from g_raw (M, 4) f32, the saved bf16 hr
+    and the bf16 fc_rgb weight wc (H2, 3). Returns (out, the f32 column sums
+    before rounding (H2,): rgb_layer's bias gradient, with ``colsum``, else
+    None). CPU tensors run :func:`heads_bwd_reference`."""
+    M, H2 = hr.shape
+    if _device("heads_bwd", g_raw) == "cpu":
+        y = heads_bwd_reference(g_raw, hr.float(), wc.float())
+        out.copy_(y)
+        return out, (y.sum(0) if colsum else None)
+    if out.dtype != _BF or out.shape != (M, H2) or not out.is_contiguous() \
+            or not hr.is_contiguous() or not g_raw.is_contiguous():
+        raise ValueError("heads_bwd: contiguous g_raw, hr and a bf16 out")
+    sums = (torch.empty((-(-M // HEADS_BWD_ROWS), H2), dtype=_F32,
+                        device=out.device) if colsum else None)
+    err = c_function("nnt_heads_bwd", "pppppiiip")(
+        _ptr(g_raw), _ptr(hr), _ptr(wc), _ptr(out),
+        _ptr(sums) if sums is not None else None, M, H2, HEADS_BWD_ROWS,
+        _stream(out))
+    check(err, "heads_bwd")
+    if sums is None:
+        return out, None
+    return out, _reduce_splits(sums, torch.empty(H2, dtype=_F32,
+                                                 device=out.device))
+
+
+def dir_weight_grad(denc, g, div, out):
+    """Kernel A's direction half of rgb_layer's weight gradient, with the
+    direction encoding per ray: out (k, N) f32 = denc^T @ (the per-ray sums
+    of the bf16 g (M = rays x ``div``, N)), both steps in f32 (csrc/
+    mlp_composite.cu: ray_sum_kernel, dir_wgrad_kernel), counted in
+    :data:`WGRAD_LAUNCHES`. It equals the per-point sum of the plain version
+    up to f32 order. CPU tensors run :func:`dir_weight_grad_reference`."""
+    if _device("dir_weight_grad", denc) == "cpu":
+        return out.copy_(dir_weight_grad_reference(denc, g, div))
+    rays, k = denc.shape
+    N = g.shape[1]
+    if denc.stride(1) != 1 or g.stride(1) != 1 or g.shape[0] != rays * div \
+            or out.shape != (k, N) or not out.is_contiguous():
+        raise ValueError("dir_weight_grad: row-major denc (rays, k), g "
+                         "(rays x div, N) and a contiguous out (k, N)")
+    gsum = torch.empty((rays, N), dtype=_F32, device=out.device)
+    partial = torch.empty((-(-rays // DIR_WGRAD_RAYS), k, N), dtype=_F32,
+                          device=out.device)
+    err = c_function("nnt_dir_wgrad", "piipiiiiipppp")(
+        _ptr(denc), denc.stride(0), k, _ptr(g), g.stride(0), N, rays, div,
+        DIR_WGRAD_RAYS, _ptr(gsum), _ptr(partial), _ptr(out), _stream(out))
+    check(err, "dir_wgrad")
+    WGRAD_LAUNCHES.add()
+    return out
+
+
+def head_weight_grad(x, g):
+    """The weight gradient of a narrow head (fc_rgb, fc_density): (K, n)
+    f32 = x^T @ bf16(g) with x the saved bf16 (M, K) activation and g an f32
+    (M, n <= 4) view of g_raw's columns (csrc/mlp_composite.cu
+    head_wgrad_kernel, split over rows + :func:`_reduce_splits`), counted in
+    :data:`WGRAD_LAUNCHES`. CPU tensors run :func:`gemm_wgrad_reference`."""
+    (M, K), n = x.shape, g.shape[1]
+    if _device("head_weight_grad", x) == "cpu":
+        return gemm_wgrad_reference(x.float(), g)
+    if x.dtype != _BF or g.dtype != _F32 or g.shape[0] != M or n > 4 \
+            or x.stride(1) != 1 or g.stride(1) != 1 or K % 2 or K > 512 \
+            or x.stride(0) % 2 or x.data_ptr() % 4:
+        raise ValueError("head_weight_grad: row-major bf16 x (M, K <= 512), K"
+                         " and its row stride even, and f32 g (M, n <= 4)")
+    partial = torch.empty((-(-M // HEAD_WGRAD_ROWS), K, n), dtype=_F32,
+                          device=x.device)
+    err = c_function("nnt_head_wgrad", "piipiiiipp")(
+        _ptr(x), x.stride(0), K, _ptr(g), g.stride(0), n, M, HEAD_WGRAD_ROWS,
+        _ptr(partial), _stream(partial))
+    check(err, "head_wgrad")
+    WGRAD_LAUNCHES.add()
+    return _reduce_splits(partial, torch.empty((K, n), dtype=_F32,
+                                               device=x.device))
+
+
 def _gemm_nn(a1, b1, m, n, out, a2=None, b2=None, bias=None, relu=False,
              mask=None):
-    """out (m, n) = epilogue(a1 @ b1 [+ a2 @ b2] [+ bias]); ``mask`` is a
-    ``_Mat`` of a saved bf16 activation whose ReLU mask zeroes out[:, :k].
-    b1 / b2 are bf16 (K, >= n) tensors, their row stride is shape[1]."""
+    """out (m, n) = epilogue(a1 @ b1 [+ a2 @ b2] [+ bias]) on the WMMA
+    gemm_nn that gemm_fwd and gemm_dgrad replaced, kept for chip_smoke.py's
+    timing beside them; ``mask`` is a ``_Mat`` of a saved bf16 activation
+    whose ReLU mask zeroes out[:, :k]. b1 / b2 are bf16 (K, >= n) tensors,
+    their row stride is shape[1]."""
     fn = c_function("nnt_gemm_nn", "piiipiiiipipipipiipiiiip")
     err = fn(
         a1.ptr, a1.is_f32, a1.ld, a1.k,
@@ -386,13 +654,16 @@ def _split_rows(m, K, n, blocks=528):
 
 
 def _weight_grad(x1, g, m, x2=None):
-    """dW = [x1 | x2]^T @ g as deterministic split-K partial sums + reduce.
-    x1/x2 are bf16 ``_Mat``s, g an f32 ``_Mat``; returns f32 (K, n)."""
+    """dW = [x1 | x2]^T @ bf16(g) on the WMMA gemm_tn as deterministic
+    split-K partial sums + reduce: the weight-gradient GEMM that gemm_wgrad
+    replaced, kept for chip_smoke.py's timing beside it. x1/x2 are bf16
+    ``_Mat``s (x2 may be read per ray, row / row_div), g an f32 ``_Mat``;
+    returns f32 (K, n)."""
     K = x1.k + (x2.k if x2 else 0)
     n = g.k
+    dev = g.t.device
     rps = _split_rows(m, K, n)
     splits = -(-m // rps)
-    dev = g.t.device
     partial = torch.empty((splits, K, n), dtype=_F32, device=dev)
     err = c_function("nnt_gemm_tn", "piipiiipiiiipp")(
         x1.ptr, x1.ld, x1.k,
@@ -402,29 +673,52 @@ def _weight_grad(x1, g, m, x2=None):
     )
     check(err, "gemm_tn")
     WGRAD_LAUNCHES.add()
-    return _reduce_splits(partial, (K, n))
+    return _reduce_splits(partial, torch.empty((K, n), dtype=_F32,
+                                               device=dev))
 
 
-def _bias_grad(g, m):
-    """Column sums of an f32 ``_Mat`` (split + reduce); returns (1, n).
-    256-row splits: one thread per column and split, so the sum needs many
-    splits to fill the card."""
+def _bias_grad(g):
+    """Column sums (1, n) of an f32 (M, n) view (split + reduce): the
+    biases of the two narrow heads, from g_raw's four columns. 256-row
+    splits, one thread per column and split. CPU tensors run the plain
+    version."""
+    m, n = g.shape
+    if _device("bias_grad", g) == "cpu":
+        return g.sum(0, keepdim=True)
     rps = 256
     splits = -(-m // rps)
-    partial = torch.empty((splits, g.k), dtype=_F32, device=g.t.device)
+    partial = torch.empty((splits, n), dtype=_F32, device=g.device)
     err = c_function("nnt_colsum", "piiiipp")(
-        g.ptr, g.ld, g.k, m, rps, _ptr(partial), _stream(partial))
+        _ptr(g), g.stride(0), n, m, rps, _ptr(partial), _stream(partial))
     check(err, "colsum")
-    return _reduce_splits(partial, (1, g.k))
+    return _reduce_splits(partial, torch.empty((1, n), dtype=_F32,
+                                               device=g.device))
 
 
-def _reduce_splits(partial, shape):
-    out = torch.empty(shape, dtype=_F32, device=partial.device)
+def _reduce_splits(partial, out):
+    """out (contiguous, partial[0]'s size) = the sum over partial's first
+    dimension, in order."""
     err = c_function("nnt_reduce_splits", "piipp")(
         _ptr(partial), partial.shape[0], out.numel(), _ptr(out),
         _stream(out))
     check(err, "reduce_splits")
     return out
+
+
+def heads_fwd(h, hr, wd, bd, wc, bc):
+    """The two narrow heads: raw (M, 4) f32 = [h @ wd + bd, hr @ wc + bc]
+    (bf16 operands, f32 sums; csrc/mlp_composite.cu heads_fwd_kernel). CPU
+    tensors run the plain version."""
+    M, D = h.shape
+    if _device("heads_fwd", h) == "cpu":
+        return torch.cat([_mm(h.float(), wd.float()) + bd,
+                          _mm(hr.float(), wc.float()) + bc], 1)
+    raw = torch.empty((M, 4), dtype=_F32, device=h.device)
+    err = c_function("nnt_heads_fwd", "pppppppiiip")(
+        _ptr(h), _ptr(hr), _ptr(wd), _ptr(bd), _ptr(wc), _ptr(bc), _ptr(raw),
+        M, D, hr.shape[1], _stream(raw))
+    check(err, "heads_fwd")
+    return raw
 
 
 def _dims(weights, l_pos, l_dir):
@@ -446,17 +740,21 @@ def _dims(weights, l_pos, l_dir):
     return n_pos, n_dir, D, H2
 
 
-def _kernel_weights(weights):
+def _kernel_weights(weights, save):
     """The weights as the kernels read them: the K-major bf16 weights of the
-    GEMM layers (:func:`_padded_t`, a dict; the backward reuses them), the
-    bf16 (K, N) head weights (a dict) and the f32 bias vectors (a dict)."""
+    forward's GEMM layers (:func:`_padded_t`), with ``save`` the untransposed
+    bf16 weights of the backward's input-gradient GEMMs (:func:`_padded`;
+    else None), the bf16 (K, N) head weights and the f32 bias vectors (all
+    dicts)."""
     W = _weights_dict(weights)
     wt = {name: _padded_t(W[name][0].detach()) for name in GEMM_LAYERS}
+    wb = ({name: _padded(W[name][0].detach()) for name in GEMM_LAYERS}
+          if save else None)
     wh = {name: W[name][0].detach().to(_BF).contiguous()
           for name in HEAD_LAYERS}
     bs = {name: b.detach().reshape(-1).to(_F32).contiguous()
           for name, (_, b) in W.items()}
-    return wt, wh, bs
+    return wt, wb, wh, bs
 
 
 def _chain_fwd(Wt, Wh, Bs, enc, denc, denc_div, M, dims, save=True):
@@ -508,91 +806,102 @@ def _chain_fwd(Wt, Wh, Bs, enc, denc, denc_div, M, dims, save=True):
     hr = gemm_fwd(feat, wr[:, :D], bias=Bs["rgb_layer"], relu=True,
                   rowterm=rowterm, div=denc_div,
                   out=torch.empty((M, H2), dtype=_BF, device=dev))
-    raw = torch.empty((M, 4), dtype=_F32, device=dev)
-    err = c_function("nnt_heads_fwd", "pppppppiiip")(
-        _ptr(acts[-1]), _ptr(hr), _ptr(Wh["fc_density"]),
-        _ptr(Bs["fc_density"]), _ptr(Wh["fc_rgb"]), _ptr(Bs["fc_rgb"]),
-        _ptr(raw), M, D, H2, _stream(raw))
-    check(err, "heads_fwd")
+    raw = heads_fwd(acts[-1], hr, Wh["fc_density"], Bs["fc_density"],
+                    Wh["fc_rgb"], Bs["fc_rgb"])
     return acts, feat, hr, raw
 
 
-def _chain_bwd(Wt, Wh, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
+def _chain_bwd(Wb, Wh, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
                weight_grads=True):
-    """Backward of :func:`_chain_fwd` from the cotangents of the raw heads.
+    """Backward of :func:`_chain_fwd` from the cotangents of the raw heads,
+    g_raw (M, 4) f32 = [sigma, rgb].
+
+    Every cotangent that a matmul reads is stored bf16, after its ReLU mask:
+    the rounding the plain version (and the TPU kernel) applies where it
+    enters the matmul, and rounding commutes with the mask. Each bias
+    gradient is the f32 column sum of a masked cotangent before rounding,
+    taken in the epilogue that produces it; the encodings' cotangents stay
+    f32. The twelve input-gradient GEMMs run on :func:`gemm_dgrad`: the
+    direction half of rgb_layer and its feature half, fc_feature with
+    fc_density's rank-1 term, the trunk (trunk1_0 as its activation half and
+    its encoding half) down to trunk0_0.
+
     Returns (the 24 weight and bias gradients in kernel order, or 24 Nones
-    without ``weight_grads``, the cotangent of the position encoding as two
-    f32 summands (_Mat, _Mat), the cotangent of the direction encoding
-    (_Mat), per point). The input cotangents come from the same GEMMs
-    either way, so they are bitwise equal with and without the weight
-    gradients."""
+    without ``weight_grads``; the cotangent of the position encoding as two
+    f32 (M, n_pos) summands; that of the direction encoding, f32 (M, n_dir),
+    per point). Without ``weight_grads`` the same GEMMs run without their
+    column sums, so the input cotangents are bitwise equal either way. Runs
+    on CPU tensors too (every step's plain version)."""
     n_pos, n_dir, D, H2 = dims
     dev = g_raw.device
-    grads = {}
+    sums = weight_grads
 
-    def param_grads(name, x1, g, x2=None):
-        if weight_grads:
-            grads[name] = (_weight_grad(x1, g, M, x2=x2), _bias_grad(g, M))
+    def buf(width, dtype=_BF):
+        # rows padded to 16 bytes, as TMA needs; the view has the true width
+        return torch.empty((M, _pad8(width)), dtype=dtype, device=dev)[:, :width]
 
-    # fc_rgb
-    param_grads("fc_rgb", _Mat(hr, H2), _Mat(g_raw, 3, ld=4, offset=1))
-    g_hr = torch.empty((M, H2), dtype=_F32, device=dev)
-    err = c_function("nnt_heads_bwd", "ppppiip")(
-        _ptr(g_raw), _ptr(hr), _ptr(Wh["fc_rgb"]), _ptr(g_hr), M, H2,
-        _stream(g_hr))
-    check(err, "heads_bwd")
-    # rgb_layer: input [feat, denc]
-    g_hr_m = _Mat(g_hr, H2)
-    param_grads("rgb_layer", _Mat(feat, D), g_hr_m,
-                x2=_Mat(denc, n_dir, row_div=denc_div))
-    g_catr = torch.empty((M, _pad8(D + n_dir)), dtype=_F32, device=dev)
-    _gemm_nn(g_hr_m, Wt["rgb_layer"], M, D + n_dir, g_catr)
-    g_feat = _Mat(g_catr, D)
-    g_sig = _Mat(g_raw, 1, ld=4)
-    a13 = _Mat(acts[7], D)
-    param_grads("fc_feature", a13, g_feat)
-    param_grads("fc_density", a13, g_sig)
-    # d(a13) = g_feat @ Wf^T + g_sig @ Wd^T, masked by relu(a13); the
-    # (D, 1) density weight is already (1, D) in memory when transposed
-    g_h = torch.empty((M, D), dtype=_F32, device=dev)
-    _gemm_nn(g_feat, Wt["fc_feature"], M, D, g_h, a2=g_sig,
-             b2=Wh["fc_density"].reshape(1, -1), mask=a13)
-    # trunk1, last layer first
+    b = {}  # bias gradients
+    g_hr, b["rgb_layer"] = heads_bwd(g_raw, hr, Wh["fc_rgb"], buf(H2), sums)
+    wr = Wb["rgb_layer"]
+    g_feat, b["fc_feature"] = gemm_dgrad(g_hr, wr[:D], buf(D), colsum=sums)
+    g_denc, _ = gemm_dgrad(g_hr, wr[D:D + n_dir], buf(n_dir, _F32))
+    a13 = acts[7]
+    # g[name]: the masked cotangent of a trunk layer's output
+    g = {}
+    g["trunk1_3"], b["trunk1_3"] = gemm_dgrad(
+        g_feat, Wb["fc_feature"], buf(D), mask=a13, gsig=g_raw[:, 0],
+        wd=Wh["fc_density"].reshape(-1), colsum=sums)
     for j in (3, 2, 1):
-        x_in = _Mat(acts[4 + j - 1], D)
-        g = _Mat(g_h, D)
-        param_grads(f"trunk1_{j}", x_in, g)
-        g_h = _gemm_nn(g, Wt[f"trunk1_{j}"], M, D,
-                       torch.empty((M, D), dtype=_F32, device=dev),
-                       mask=x_in)
-    g = _Mat(g_h, D)
-    a03 = _Mat(acts[3], D)
-    param_grads("trunk1_0", a03, g, x2=_Mat(enc, n_pos))
-    # d(cat): [d a03 (masked), d enc (skip branch, unmasked)]
-    g_cat = torch.empty((M, _pad8(D + n_pos)), dtype=_F32, device=dev)
-    _gemm_nn(g, Wt["trunk1_0"], M, D + n_pos, g_cat, mask=a03)
-    g = _Mat(g_cat, D)
-    for j in (3, 2, 1, 0):
-        x_in = _Mat(acts[j - 1], D) if j > 0 else _Mat(enc, n_pos)
-        param_grads(f"trunk0_{j}", x_in, g)
-        width = D if j > 0 else n_pos
-        out = torch.empty((M, _pad8(width)), dtype=_F32, device=dev)
-        _gemm_nn(g, Wt[f"trunk0_{j}"], M, width, out,
-                 mask=x_in if j > 0 else None)
-        g = _Mat(out, width)
-    d_weights = ([t for name in W_NAMES for t in grads[name]]
-                 if weight_grads else [None] * (2 * len(W_NAMES)))
-    return (d_weights, (_Mat(g_cat, n_pos, offset=D), g),
-            _Mat(g_catr, n_dir, offset=D))
+        lower = f"trunk1_{j - 1}"
+        g[lower], b[lower] = gemm_dgrad(g[f"trunk1_{j}"], Wb[f"trunk1_{j}"],
+                                        buf(D), mask=acts[4 + j - 1],
+                                        colsum=sums)
+    w10 = Wb["trunk1_0"]  # its input is [a03, enc]
+    g["trunk0_3"], b["trunk0_3"] = gemm_dgrad(
+        g["trunk1_0"], w10[:D], buf(D), mask=acts[3], colsum=sums)
+    g_enc_skip, _ = gemm_dgrad(g["trunk1_0"], w10[D:D + n_pos],
+                               buf(n_pos, _F32))
+    for j in (3, 2, 1):
+        lower = f"trunk0_{j - 1}"
+        g[lower], b[lower] = gemm_dgrad(g[f"trunk0_{j}"], Wb[f"trunk0_{j}"],
+                                        buf(D), mask=acts[j - 1], colsum=sums)
+    g_enc, _ = gemm_dgrad(g["trunk0_0"], Wb["trunk0_0"], buf(n_pos, _F32))
+    enc_cots = (g_enc_skip, g_enc)
+    if not weight_grads:
+        return [None] * (2 * len(W_NAMES)), enc_cots, g_denc
+
+    pos = enc[:, :n_pos]
+    heads_b = _bias_grad(g_raw)  # [fc_density, fc_rgb]
+    b["fc_density"], b["fc_rgb"] = heads_b[0, :1], heads_b[0, 1:]
+    dw = {"fc_rgb": head_weight_grad(hr, g_raw[:, 1:]),
+          "fc_density": head_weight_grad(a13, g_raw[:, :1])}
+    dw["rgb_layer"] = torch.empty((D + n_dir, H2), dtype=_F32, device=dev)
+    gemm_wgrad(feat, g_hr, dw["rgb_layer"][:D])
+    if denc_div == 1:
+        gemm_wgrad(denc[:, :n_dir], g_hr, dw["rgb_layer"][D:])
+    else:
+        dir_weight_grad(denc[:, :n_dir], g_hr, denc_div, dw["rgb_layer"][D:])
+    dw["fc_feature"] = gemm_wgrad(a13, g_feat)
+    for j in (3, 2, 1):
+        dw[f"trunk1_{j}"] = gemm_wgrad(acts[4 + j - 1], g[f"trunk1_{j}"])
+    dw["trunk1_0"] = torch.empty((D + n_pos, D), dtype=_F32, device=dev)
+    gemm_wgrad(acts[3], g["trunk1_0"], dw["trunk1_0"][:D])
+    gemm_wgrad(pos, g["trunk1_0"], dw["trunk1_0"][D:])
+    for j in (3, 2, 1):
+        dw[f"trunk0_{j}"] = gemm_wgrad(acts[j - 1], g[f"trunk0_{j}"])
+    dw["trunk0_0"] = gemm_wgrad(pos, g["trunk0_0"])
+    d_weights = [t for name in W_NAMES
+                 for t in (dw[name], b[name].reshape(1, -1))]
+    return d_weights, enc_cots, g_denc
 
 
-def _weight_list(Wt, Wh):
+def _weight_list(Wb, Wh):
     """The kernel weights a backward reads, as saved tensors."""
-    return [Wt[n] for n in GEMM_LAYERS] + [Wh[n] for n in HEAD_LAYERS]
+    return [Wb[n] for n in GEMM_LAYERS] + [Wh[n] for n in HEAD_LAYERS]
 
 
 def _weight_dicts(saved):
-    """Inverse of :func:`_weight_list`: (Wt, Wh)."""
+    """Inverse of :func:`_weight_list`: (Wb, Wh)."""
     n = len(GEMM_LAYERS)
     return (dict(zip(GEMM_LAYERS, saved[:n])),
             dict(zip(HEAD_LAYERS, saved[n:])))
@@ -613,7 +922,7 @@ def _composite_fwd(origins, rays, dirs, z, deltas, cfg, weights, save):
     N = origins.shape[0]
     M = N * S
     dev = origins.device
-    Wt, Wh, Bs = _kernel_weights(weights)
+    Wt, Wb, Wh, Bs = _kernel_weights(weights, save)
     stream = _stream(origins)
 
     enc = torch.empty((M, _pad8(n_pos)), dtype=_BF, device=dev)
@@ -635,7 +944,7 @@ def _composite_fwd(origins, rays, dirs, z, deltas, cfg, weights, save):
     check(err, "composite_fwd")
     FWD_LAUNCHES.add()
     saved = ((origins, rays, dirs, z, deltas, enc, denc, feat, hr, raw,
-              *acts, *_weight_list(Wt, Wh)) if save else None)
+              *acts, *_weight_list(Wb, Wh)) if save else None)
     return (rgbv, dist, alpha), dims, saved
 
 
@@ -661,7 +970,7 @@ class FusedMLPComposite(torch.autograd.Function):
         saved = ctx.saved_tensors
         origins, rays, dirs, z, deltas, enc, denc, feat, hr, raw = saved[:10]
         acts = saved[10:18]
-        Wt, Wh = _weight_dicts(saved[18:])
+        Wb, Wh = _weight_dicts(saved[18:])
         N = origins.shape[0]
         M = N * S
         dev = origins.device
@@ -680,7 +989,7 @@ class FusedMLPComposite(torch.autograd.Function):
             int(white_bg), stream)
         check(err, "composite_bwd")
         d_weights, (ge1, ge2), gd = _chain_bwd(
-            Wt, Wh, g_raw, enc, denc, S, feat, hr, acts, M, ctx.dims,
+            Wb, Wh, g_raw, enc, denc, S, feat, hr, acts, M, ctx.dims,
             weight_grads=any(ctx.needs_input_grad[6:]))
         # encoding backward + ray sums
         d_o = torch.empty((N, 3), dtype=_F32, device=dev)
@@ -688,7 +997,8 @@ class FusedMLPComposite(torch.autograd.Function):
         d_d = torch.empty((N, 3), dtype=_F32, device=dev)
         err = c_function("nnt_encode_bwd", "ppppp" "ipipi" "pppiiiip")(
             _ptr(origins), _ptr(rays), _ptr(dirs), _ptr(z),
-            ge1.ptr, ge1.ld, ge2.ptr, ge2.ld, gd.ptr, gd.ld,
+            _ptr(ge1), ge1.stride(0), _ptr(ge2), ge2.stride(0), _ptr(gd),
+            gd.stride(0),
             _ptr(d_o), _ptr(d_r), _ptr(d_d), N, S, l_pos, l_dir, stream)
         check(err, "encode_bwd")
         BWD_LAUNCHES.add()
@@ -703,7 +1013,7 @@ def _point_fwd(pts, dirs, cfg, weights, save):
     n_pos, n_dir = dims[:2]
     M = pts.shape[0]
     dev = pts.device
-    Wt, Wh, Bs = _kernel_weights(weights)
+    Wt, Wb, Wh, Bs = _kernel_weights(weights, save)
     stream = _stream(pts)
 
     encs = []
@@ -724,7 +1034,7 @@ def _point_fwd(pts, dirs, cfg, weights, save):
     check(err, "head_act_fwd")
     FWD_POINT_LAUNCHES.add()
     saved = ((pts, dirs, enc, denc, feat, hr, raw, *acts,
-              *_weight_list(Wt, Wh)) if save else None)
+              *_weight_list(Wb, Wh)) if save else None)
     return (rgb, density), dims, saved
 
 
@@ -747,7 +1057,7 @@ class FusedMLP(torch.autograd.Function):
         saved = ctx.saved_tensors
         pts, dirs, enc, denc, feat, hr, raw = saved[:7]
         acts = saved[7:15]
-        Wt, Wh = _weight_dicts(saved[15:])
+        Wb, Wh = _weight_dicts(saved[15:])
         M = pts.shape[0]
         dev = pts.device
         stream = _stream(pts)
@@ -760,15 +1070,17 @@ class FusedMLP(torch.autograd.Function):
             int(act == "softplus"), int(occ_alpha), stream)
         check(err, "head_act_bwd")
         d_weights, (ge1, ge2), gd = _chain_bwd(
-            Wt, Wh, g_raw, enc, denc, 1, feat, hr, acts, M, ctx.dims,
+            Wb, Wh, g_raw, enc, denc, 1, feat, hr, acts, M, ctx.dims,
             weight_grads=any(ctx.needs_input_grad[3:]))
         d_pts = torch.empty((M, 3), dtype=_F32, device=dev)
         d_dirs = torch.empty((M, 3), dtype=_F32, device=dev)
         for x, g1, g2, levels, out in ((pts, ge1, ge2, l_pos, d_pts),
                                        (dirs, gd, None, l_dir, d_dirs)):
             err = c_function("nnt_encode_points_bwd", "ppipipiip")(
-                _ptr(x), g1.ptr, g1.ld, g2.ptr if g2 else None,
-                g2.ld if g2 else 0, _ptr(out), M, levels, stream)
+                _ptr(x), _ptr(g1), g1.stride(0),
+                _ptr(g2) if g2 is not None else None,
+                g2.stride(0) if g2 is not None else 0, _ptr(out), M, levels,
+                stream)
             check(err, "encode_points_bwd")
         BWD_POINT_LAUNCHES.add()
         return (d_pts, d_dirs, None, *d_weights)

@@ -122,6 +122,8 @@ def _check_ported(cfg):
     skipped = [name for name, on in (
         ("visualisation", (tcfg.get("visualize_every") or 0) > 0),
         ("reprojection pair dumps", (tcfg.get("vis_reprojection_every") or 0) > 0),
+        ("tpu.profile_dir", bool(tpu.get("profile_dir"))),
+        ("tpu.debug_nans", bool(tpu.get("debug_nans"))),
     ) if on]
     if skipped:
         print("nope_nerf_tpu_torch: not honoured yet: " + ", ".join(skipped))

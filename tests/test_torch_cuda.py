@@ -240,11 +240,17 @@ def test_input_only_backward_is_bitwise(dev, kernel):
     fn, ws, ins, cots = _kernel_call(dev, kernel)
     x = [a.clone().requires_grad_() for a in ins]
     w = [a.clone().requires_grad_() for a in ws]
-    n0 = mk.WGRAD_LAUNCHES.count
+    counters = (mk.WGRAD_LAUNCHES, mk.GEMM_WGRAD_LAUNCHES,
+                mk.GEMM_DGRAD_LAUNCHES, mk.GEMM_NN_LAUNCHES)
+    n0 = [c.count for c in counters]
     full = torch.autograd.grad(fn(w, x), x + w, cots)
-    n1 = mk.WGRAD_LAUNCHES.count
+    n1 = [c.count for c in counters]
     inputs_only = torch.autograd.grad(fn(ws, x), x, cots)
-    assert (n1 - n0, mk.WGRAD_LAUNCHES.count - n1) == (12, 0)
+    n2 = [c.count for c in counters]
+    on_wgmma = 11 if kernel == "A" else 12  # C's direction half is per point
+    assert [b - a for a, b in zip(n0, n1)] == [
+        mk.WGRAD_PER_BWD, on_wgmma, mk.DGRAD_PER_BWD, 0]
+    assert [b - a for a, b in zip(n1, n2)] == [0, 0, mk.DGRAD_PER_BWD, 0]
     for a, b in zip(inputs_only, full[:len(x)]):
         assert torch.equal(a, b)
 
@@ -359,3 +365,153 @@ def test_gemm_sm90_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="rowterm"):  # wider than 128
         mk.gemm_fwd(a, wt, rowterm=torch.zeros((256, 256), device=dev))
     assert mk.GEMM_SM90_LAUNCHES.count == n0
+
+
+# the backward's input-gradient GEMMs: (K, N, output, ReLU mask, fc_density's
+# rank-1 term, column sums) at the stock widths and at hidden 64
+DGRAD_SHAPES = [
+    (128, 256, "bf16", False, False, True),  # rgb_layer -> feat
+    (128, 27, "f32", False, False, False),   # rgb_layer -> direction encoding
+    (256, 256, "bf16", True, True, True),    # fc_feature + fc_density
+    (256, 256, "bf16", True, False, True),   # trunk1_3 .. trunk0_1
+    (256, 63, "f32", False, False, False),   # trunk1_0 -> enc, trunk0_0
+    (64, 64, "bf16", True, True, True),      # hidden 64
+    (32, 64, "bf16", False, False, True),    # hidden 64's rgb_layer -> feat
+    (64, 63, "f32", False, False, False),
+]
+
+
+@pytest.mark.parametrize("M", [1000, 131072])
+@pytest.mark.parametrize("K,N,odt,masked,rank1,sums", DGRAD_SHAPES)
+def test_gemm_dgrad_matches_reference(dev, M, K, N, odt, masked, rank1,
+                                      sums):
+    """The input-gradient GEMM against gemm_dgrad_reference at every
+    backward layer shape, ragged and stock M: bf16 outputs within one bf16
+    ulp of the rounded reference, f32 outputs and the column sums to relL2
+    1e-5 (f32 order only), finite (the NaN row padding is never read; rows
+    past M add nothing to the sums), bitwise equal on a second run; one
+    launch counted per call."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    dtype = torch.bfloat16 if odt == "bf16" else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(M + K + N)
+    a = _nan_padded(dev, gen, M, K)
+    w = mk._padded(torch.randn((N, K), generator=gen, device=dev) * K ** -0.5)
+    mask = _nan_padded(dev, gen, M, N) if masked else None
+    g_raw = torch.randn((M, 4), generator=gen, device=dev)
+    wd = torch.randn((N,), generator=gen, device=dev).to(torch.bfloat16)
+    extra = dict(gsig=g_raw[:, 0], wd=wd) if rank1 else {}
+    n0 = mk.GEMM_DGRAD_LAUNCHES.count
+    outs = []
+    for _ in range(2):
+        out = torch.empty((M, mk._pad8(N)), dtype=dtype, device=dev)[:, :N]
+        outs.append(mk.gemm_dgrad(a, w, out, mask=mask, colsum=sums,
+                                  **extra))
+    assert mk.GEMM_DGRAD_LAUNCHES.count == n0 + 2
+    ref = mk.gemm_dgrad_reference(
+        a.float(), w.float(), None if mask is None else mask.float(),
+        g_raw[:, 0] if rank1 else None, wd.float() if rank1 else None)
+    (got, s1), (again, s2) = outs
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
+    if dtype == torch.bfloat16:
+        assert _ulps(got, ref.to(dtype)) <= 1.0
+    else:
+        assert _rel_l2(got, ref) <= 1e-5
+    if sums:
+        assert s1.shape == (N,) and torch.equal(s1, s2)
+        assert _rel_l2(s1, ref.sum(0)) <= 1e-5
+    else:
+        assert s1 is None
+
+
+@pytest.mark.parametrize("M", [1000, 131072])
+@pytest.mark.parametrize("K,N", [(256, 256), (63, 256), (256, 128),
+                                 (27, 128), (64, 64), (63, 64), (64, 32)])
+def test_gemm_wgrad_matches_reference(dev, M, K, N):
+    """The weight-gradient GEMM (MN-major wgmma operands) against
+    gemm_wgrad_reference at every backward layer shape, ragged and stock M:
+    relL2 1e-5 (f32 order only), finite (the NaN padding of a 63- or 27-wide
+    activation is never read), bitwise equal on a second run, written into a
+    row slice of a larger dW; one launch counted per call."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    gen = torch.Generator(device=dev).manual_seed(M + K + N + 1)
+    x = _nan_padded(dev, gen, M, K)
+    g = _nan_padded(dev, gen, M, N)
+    n0 = mk.GEMM_WGRAD_LAUNCHES.count
+    big = torch.full((K + 8, N), float("nan"), device=dev)
+    got = mk.gemm_wgrad(x, g, big[8:])
+    again = mk.gemm_wgrad(x, g)
+    assert mk.GEMM_WGRAD_LAUNCHES.count == n0 + 2
+    assert torch.isnan(big[:8]).all() and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert _rel_l2(got, mk.gemm_wgrad_reference(x.float(), g.float())) <= 1e-5
+
+
+@pytest.mark.parametrize("rays,S,N", [(1024, 128, 128), (37, 8, 32)])
+def test_dir_weight_grad_and_heads_bwd_match_plain(dev, rays, S, N):
+    """Kernel A's per-ray direction weight gradient, the rgb head's
+    backward (bf16 cotangent + column sums) and the narrow heads' weight
+    gradients (g_raw's f32 columns) against their plain versions:
+    f32 order only (relL2 1e-5, the bf16 g_hr within one ulp), bitwise on a
+    rerun."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    gen = torch.Generator(device=dev).manual_seed(rays + S)
+    M = rays * S
+    denc = _nan_padded(dev, gen, rays, 27)
+    g = _nan_padded(dev, gen, M, N)
+    got = [mk.dir_weight_grad(denc, g, S, torch.empty((27, N), device=dev))
+           for _ in range(2)]
+    assert torch.equal(got[0], got[1])
+    assert _rel_l2(got[0], mk.dir_weight_grad_reference(denc, g, S)) <= 1e-5
+
+    g_raw = torch.randn((M, 4), generator=gen, device=dev)
+    hr = torch.randn((M, N), generator=gen, device=dev).relu().to(
+        torch.bfloat16)
+    wc = torch.randn((N, 3), generator=gen, device=dev).to(torch.bfloat16)
+    outs = [mk.heads_bwd(g_raw, hr, wc, torch.empty_like(hr), colsum=True)
+            for _ in range(2)]
+    ref = mk.heads_bwd_reference(g_raw, hr.float(), wc.float())
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert _ulps(outs[0][0], ref.to(torch.bfloat16)) <= 1.0
+    assert _rel_l2(outs[0][1], ref.sum(0)) <= 1e-5
+
+    for x, cols in ((hr, slice(1, 4)), (g, slice(0, 1))):  # fc_rgb, fc_density
+        got = [mk.head_weight_grad(x, g_raw[:, cols]) for _ in range(2)]
+        assert torch.equal(got[0], got[1])
+        assert _rel_l2(got[0], mk.gemm_wgrad_reference(
+            x.float(), g_raw[:, cols])) <= 1e-5
+
+
+def test_backward_gemms_reject_what_they_cannot_take(dev):
+    """An operand the backward GEMMs cannot take raises; nothing falls
+    back, and nothing is counted."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = _nan_padded(dev, gen, 256, 64)
+    w = mk._padded(torch.randn((64, 64), device=dev))
+    out = torch.empty((256, 64), dtype=torch.bfloat16, device=dev)
+    counters = (mk.GEMM_DGRAD_LAUNCHES, mk.GEMM_WGRAD_LAUNCHES)
+    n0 = [c.count for c in counters]
+    with pytest.raises(ValueError, match="16-byte"):
+        mk.gemm_dgrad(a[:, 1:], w[:, 1:], out)  # misaligned base address
+    with pytest.raises(ValueError, match="bf16"):
+        mk.gemm_dgrad(a.float(), w, out)
+    with pytest.raises(ValueError, match="no GEMM tile"):
+        mk.gemm_dgrad(a, mk._padded(torch.randn((256, 64), device=dev)),
+                      torch.empty((256, 256), device=dev))  # f32 is <= 128
+    with pytest.raises(ValueError, match="mask"):  # a mask of an f32 output
+        mk.gemm_dgrad(a, w, torch.empty((256, 64), device=dev), mask=out)
+    with pytest.raises(ValueError, match="column sums"):
+        mk.gemm_dgrad(a, w[:63], torch.empty(
+            (256, 64), dtype=torch.bfloat16, device=dev)[:, :63], colsum=True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        mk.gemm_wgrad(a, torch.empty((256, 27), dtype=torch.bfloat16,
+                                     device=dev))
+    with pytest.raises(ValueError, match="bf16"):
+        mk.gemm_wgrad(a, a.float())
+    assert [c.count for c in counters] == n0

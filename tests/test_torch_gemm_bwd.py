@@ -1,0 +1,334 @@
+"""The Python side of the backward's GEMMs (csrc/mlp_gemm_sm90.cu: the
+input-gradient ``gemm_dgrad`` and the weight-gradient ``gemm_wgrad``) and of
+the chain backward that runs on them: their tensor-map arguments, the plain
+versions against the JAX kernels' ``_mm_t`` / ``_mm_acc``, the wrappers' CPU
+paths, and ``_chain_bwd`` run whole on CPU tensors (every step's plain
+version: buffer widths, f32 tails, bias sums) against autograd through the
+plain chain and against the JAX Pallas ``fused_mlp`` backward in interpret
+mode. The kernels themselves run only on the card (tests/test_torch_cuda.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+BF = torch.bfloat16
+F32 = torch.float32
+
+
+def _rel_l2(a, b):
+    a = np.asarray(a.detach() if torch.is_tensor(a) else a, np.float64)
+    b = np.asarray(b.detach() if torch.is_tensor(b) else b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _nan_padded(rng, rows, k, scale=1.0):
+    """bf16 (rows, k) normal values in a buffer padded to 8 columns of NaN;
+    returns the buffer (its first k columns are the values)."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    buf = torch.full((rows, mk._pad8(k)), float("nan"), dtype=BF)
+    buf[:, :k] = torch.tensor(rng.normal(size=(rows, k)) * scale, dtype=F32)
+    return buf
+
+
+def test_tma_2d_arguments_of_the_backward_operands():
+    """The dgrad B operand is rows of the untransposed bf16 weight (true
+    width fan_out, row stride padded, box as deep as the output tile); the
+    wgrad operands are 64-row boxes down M of the activations (true widths
+    63 and 27 with the padded stride) and of the cotangents."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    rng = np.random.default_rng(0)
+    D, M = 256, 300
+    w_rgb = mk._padded(torch.zeros((D + 27, D // 2)))
+    w_skip = mk._padded(torch.zeros((D + 63, D)))
+    assert w_rgb.dtype == BF and w_rgb.shape == (D + 27, D // 2)
+    enc = _nan_padded(rng, M, 63)[:, :63]
+    denc = _nan_padded(rng, M, 27)[:, :27]
+    g = torch.zeros((M, D), dtype=BF)
+    cases = [(w_rgb[:D], 256, (128, D, 256, 64, 256)),
+             (w_rgb[D:D + 27], 32, (128, 27, 256, 64, 32)),
+             (w_skip[:D], 256, (256, D, 512, 64, 256)),
+             (w_skip[D:D + 63], 64, (256, 63, 512, 64, 64)),
+             (enc, mk.WGRAD_CHUNK, (63, M, 128, 64, 64)),
+             (denc, mk.WGRAD_CHUNK, (27, M, 64, 64, 64)),
+             (g, mk.WGRAD_CHUNK, (256, M, 512, 64, 64))]
+    for view, box_rows, want in cases:
+        args = mk.tma_2d(view, box_rows)
+        assert args[0] == view.data_ptr() and args[0] % 16 == 0
+        assert args[1:] == want
+    assert mk.tma_2d(w_rgb[D:D + 27], 32)[0] == w_rgb.data_ptr() + D * 256
+    assert mk.tma_2d(w_skip[D:], 64)[0] == w_skip.data_ptr() + D * 512
+    # the tile an output runs at, and what no tile holds
+    assert [mk._tile_width(n, BF) for n in (27, 63, 128, 256)] == [
+        32, 64, 128, 256]
+    assert mk._tile_width(63, F32) == 64
+    with pytest.raises(ValueError, match="no GEMM tile"):
+        mk._tile_width(256, F32)
+
+
+@pytest.mark.parametrize("M", [200, 2048])
+def test_wgrad_rows_per_split(M):
+    """About one block per SM of an H100 (132), splits of whole 64-row
+    chunks that cover M, the dW row tiles of one split side by side."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    for k_in, tiles in ((256, 2), (63, 1), (27, 1)):
+        rps = mk.wgrad_rows_per_split(M * 64, k_in, 132)
+        splits = -(-M * 64 // rps)
+        assert rps % mk.WGRAD_CHUNK == 0 and splits * rps >= M * 64
+        assert splits * tiles <= 132
+    assert mk.wgrad_rows_per_split(131072, 256, 132) == 2048
+
+
+def _bf(x):
+    return np.asarray(torch.tensor(np.asarray(x, np.float32)).to(BF).float())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_backward_gemm_references_match_jax(seed):
+    """gemm_dgrad_reference against the JAX kernels' ``_mm_t`` (with the
+    ReLU mask, and with fc_density's rank-1 term as the second ``_mm_t`` of
+    l.310-312), gemm_wgrad_reference against ``_mm_acc``, and
+    heads_bwd_reference against ``_mm_t(g_rgb, W_rgb) * mask``, on the same
+    numpy inputs: bf16 operands, f32 sums in another order (rtol 1e-5)."""
+    import nope_nerf_tpu.ops.pallas.mlp_kernel as jmk
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    rng = np.random.default_rng(seed)
+    M, D = 96, 64
+    g = rng.normal(size=(M, D)).astype(np.float32)
+    w = (rng.normal(size=(D + 27, D)) * D ** -0.5).astype(np.float32)
+    act = _bf(np.maximum(rng.normal(size=(M, D + 27)), 0.0))
+    gsig = rng.normal(size=(M, 1)).astype(np.float32)
+    wd = rng.normal(size=(D + 27, 1)).astype(np.float32)
+    wc = rng.normal(size=(D, 3)).astype(np.float32)
+    g_rgb = rng.normal(size=(M, 3)).astype(np.float32)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
+
+    def close(got, want):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+
+    mask = np.asarray(act) > 0
+    close(mk.gemm_dgrad_reference(t(g), t(w)), jmk._mm_t(g, w))
+    close(mk.gemm_dgrad_reference(t(g), t(w), mask=t(act)),
+          jmk._mm_t(g, w) * mask)
+    close(mk.gemm_dgrad_reference(t(g), t(w), mask=t(act), gsig=t(gsig[:, 0]),
+                                  wd=t(wd[:, 0])),
+          (jmk._mm_t(g, w) + jmk._mm_t(gsig, wd)) * mask)
+    close(mk.gemm_wgrad_reference(t(act), t(g)), jmk._mm_acc(act, g))
+    g_raw = np.concatenate([gsig, g_rgb], 1)
+    close(mk.heads_bwd_reference(t(g_raw), t(act[:, :D]), t(wc)),
+          jmk._mm_t(g_rgb, wc) * mask[:, :D])
+
+
+def test_backward_wrappers_cpu_path_is_the_plain_version():
+    """gemm_dgrad, gemm_wgrad, heads_bwd, dir_weight_grad and
+    head_weight_grad on CPU tensors return their plain versions' values
+    (rounded to the output's type, the column sums taken before the
+    rounding), into the given outputs, and launch nothing; any other device
+    raises."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    rng = np.random.default_rng(4)
+    M, D, S = 64, 32, 8
+    g = _nan_padded(rng, M, D)[:, :D]
+    act = _nan_padded(rng, M, D)[:, :D]
+    w = mk._padded(torch.tensor(rng.normal(size=(D + 27, D)) * 0.2,
+                                dtype=F32))
+    gsig = torch.tensor(rng.normal(size=(M, 4)), dtype=F32)[:, 0]
+    wd = torch.tensor(rng.normal(size=(D,)), dtype=F32).to(BF)
+    counters = (mk.GEMM_DGRAD_LAUNCHES, mk.GEMM_WGRAD_LAUNCHES,
+                mk.WGRAD_LAUNCHES)
+    n0 = [c.count for c in counters]
+
+    out = torch.empty((M, D), dtype=BF)
+    res, sums = mk.gemm_dgrad(g, w[:D], out, mask=act, gsig=gsig, wd=wd,
+                              colsum=True)
+    want = mk.gemm_dgrad_reference(g.float(), w[:D].float(), act.float(),
+                                   gsig, wd.float())
+    assert res is out
+    torch.testing.assert_close(out, want.to(BF), rtol=0, atol=0)
+    torch.testing.assert_close(sums, want.sum(0), rtol=0, atol=0)
+    tail = torch.empty((M, 32), dtype=F32)[:, :27]
+    res, none = mk.gemm_dgrad(g, w[D:], tail)
+    assert none is None and res is tail
+    torch.testing.assert_close(tail, mk.gemm_dgrad_reference(
+        g.float(), w[D:].float()), rtol=0, atol=0)
+
+    dw = mk.gemm_wgrad(act, g)
+    torch.testing.assert_close(dw, mk.gemm_wgrad_reference(act.float(),
+                                                           g.float()),
+                               rtol=0, atol=0)
+    denc = _nan_padded(rng, M // S, 27)[:, :27]
+    got = mk.dir_weight_grad(denc, g, S, torch.empty((27, D)))
+    per_point = denc.float().repeat_interleave(S, 0)
+    torch.testing.assert_close(got, mk.gemm_wgrad_reference(per_point,
+                                                            g.float()),
+                               rtol=1e-5, atol=1e-5)
+
+    g_raw = torch.tensor(rng.normal(size=(M, 4)), dtype=F32)
+    for cols in (slice(1, 4), slice(0, 1)):  # fc_rgb, fc_density
+        torch.testing.assert_close(
+            mk.head_weight_grad(act, g_raw[:, cols]),
+            mk.gemm_wgrad_reference(act.float(), g_raw[:, cols]),
+            rtol=0, atol=0)
+    wc = torch.tensor(rng.normal(size=(D, 3)), dtype=F32).to(BF)
+    g_hr, sums = mk.heads_bwd(g_raw, act, wc, torch.empty((M, D), dtype=BF),
+                              colsum=True)
+    want = mk.heads_bwd_reference(g_raw, act.float(), wc.float())
+    torch.testing.assert_close(g_hr, want.to(BF), rtol=0, atol=0)
+    torch.testing.assert_close(sums, want.sum(0), rtol=0, atol=0)
+    assert [c.count for c in counters] == n0
+    meta = lambda x: x.to("meta")  # noqa: E731
+    with pytest.raises(ValueError, match="unsupported device"):
+        mk.gemm_dgrad(meta(g), meta(w[:D]), meta(out))
+    with pytest.raises(ValueError, match="unsupported device"):
+        mk.gemm_wgrad(meta(act), meta(g))
+    with pytest.raises(ValueError, match="unsupported device"):
+        mk.heads_bwd(meta(g_raw), meta(act), meta(wc), meta(out))
+
+
+def _chain_inputs(hidden, M, div, seed):
+    """Random field weights (the port's init), NaN-padded bf16 encodings
+    (per point, the direction one per ``div`` points) and the kernel
+    chain's forward on CPU tensors: (weights, enc, denc, the forward's
+    saved tensors (acts, feat, hr, raw), dims, the kernel weights)."""
+    from nope_nerf_tpu_torch.models.nerf import init_nerf_params
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    cfg = {"model": {"hidden_dim": hidden, "pos_enc_levels": 10,
+                     "dir_enc_levels": 4},
+           "rendering": {"white_background": False}}
+    rng = np.random.default_rng(seed)
+    params = init_nerf_params(torch.Generator().manual_seed(seed), cfg)
+    weights = mk.collect_weights(params)
+    enc = _nan_padded(rng, M, 63)
+    denc = _nan_padded(rng, M // div, 27)
+    dims = mk._dims(weights, 10, 4)
+    Wt, Wb, Wh, Bs = mk._kernel_weights(weights, True)
+    fwd = mk._chain_fwd(Wt, Wh, Bs, enc, denc, div, M, dims)
+    return weights, enc, denc, fwd, dims, (Wb, Wh), rng
+
+
+@pytest.mark.parametrize("hidden,M,div", [(32, 296, 8), (64, 296, 1),
+                                          (64, 200, 8), (32, 200, 1)])
+def test_chain_bwd_matches_autograd(hidden, M, div):
+    """_chain_bwd on CPU tensors (ragged M) against autograd through the
+    plain chain on the same forward: every weight and bias gradient and the
+    two encodings' cotangents to relL2 1e-5 (the same bf16 roundings; only
+    the f32 order of the bias sums and of the per-ray direction weight
+    gradient differs). The forward's raw heads are the plain chain's."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    weights, enc, denc, (acts, feat, hr, raw), dims, (Wb, Wh), rng = \
+        _chain_inputs(hidden, M, div, hidden + M + div)
+    g_raw = torch.tensor(rng.normal(size=(M, 4)) / M, dtype=F32)
+    d_w, (ge1, ge2), gd = mk._chain_bwd(Wb, Wh, g_raw, enc, denc, div, feat,
+                                        hr, acts, M, dims)
+    assert ge1.dtype == F32 and ge1.shape == (M, 63) and gd.shape == (M, 27)
+
+    ws = [w.detach().clone().requires_grad_() for w in weights]
+    enc_in = enc[:, :63].float().requires_grad_()
+    denc_in = denc[:, :27].float().repeat_interleave(div, 0).requires_grad_()
+    rs, rr = mk._chain_reference(mk._weights_dict(ws), enc_in, denc_in)
+    torch.testing.assert_close(raw, torch.cat([rs, rr], 1).detach(),
+                               rtol=1e-6, atol=1e-6)
+    torch.autograd.backward([rs, rr], [g_raw[:, :1], g_raw[:, 1:]])
+    names = [f"{n}/{k}" for n in mk.W_NAMES for k in "wb"]
+    for name, got, w in zip(names, d_w, ws):
+        assert got.shape == w.shape, name
+        assert _rel_l2(got, w.grad) <= 1e-5, (name, _rel_l2(got, w.grad))
+    assert _rel_l2(ge1 + ge2, enc_in.grad) <= 1e-5
+    assert _rel_l2(gd, denc_in.grad) <= 1e-5
+
+
+def test_chain_bwd_input_only_is_bitwise():
+    """Without the weight gradients the chain runs the same input-gradient
+    GEMMs without their column sums: the encodings' cotangents are bitwise
+    those of the full backward, and no weight gradient is returned."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    M, div = 160, 8
+    _, enc, denc, (acts, feat, hr, _), dims, (Wb, Wh), rng = _chain_inputs(
+        32, M, div, 5)
+    g_raw = torch.tensor(rng.normal(size=(M, 4)) / M, dtype=F32)
+    full = mk._chain_bwd(Wb, Wh, g_raw, enc, denc, div, feat, hr, acts, M,
+                         dims)
+    inputs_only = mk._chain_bwd(Wb, Wh, g_raw, enc, denc, div, feat, hr,
+                                acts, M, dims, weight_grads=False)
+    assert all(x is None for x in inputs_only[0])
+    for a, b in zip((*inputs_only[1], inputs_only[2]), (*full[1], full[2])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("act,occ_alpha", [("softplus", True),
+                                           ("relu", False)])
+def test_chain_bwd_weight_grads_vs_pallas(act, occ_alpha):
+    """_chain_bwd's 24 weight and bias gradients on CPU tensors against the
+    JAX Pallas ``fused_mlp`` backward in interpret mode (Kernel C's VJP) on
+    the same numpy points, directions and cotangents, with g_raw from
+    autograd through the plain head activations: the bar of
+    tests/test_torch_kernels_cd.py::test_fused_mlp_reference_vs_pallas
+    (relL2 0.02)."""
+    import nope_nerf_tpu.ops.pallas.mlp_kernel as jmk
+    from nope_nerf_tpu.models.nerf import init_nerf_params
+    from nope_nerf_tpu_torch.convert import params_from_jax
+    from nope_nerf_tpu_torch.ops.encoding import encode_position
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    cfg = {"model": {"hidden_dim": 32, "pos_enc_levels": 10,
+                     "dir_enc_levels": 4},
+           "rendering": {"white_background": False}}
+    tree = jax.device_get(init_nerf_params(jax.random.PRNGKey(7), cfg))
+    weights = mk.collect_weights(params_from_jax({"nerf": tree})["nerf"])
+    rng = np.random.default_rng(23)
+    M = 2048
+    pts = rng.normal(size=(M, 3)).astype(np.float32)
+    d = rng.normal(size=(M, 3))
+    dirs = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    c_rgb = rng.normal(size=(M, 3)).astype(np.float32) / M
+    c_den = rng.normal(size=(M, 1)).astype(np.float32) / M
+
+    jw = jmk.collect_weights(jax.tree.map(jnp.asarray, tree))
+
+    def jloss(w):
+        rgb, den = jmk.fused_mlp(w, jnp.asarray(pts), jnp.asarray(dirs), 10,
+                                 4, act, occ_alpha)
+        return jnp.sum(rgb * jnp.asarray(c_rgb)) + jnp.sum(
+            den * jnp.asarray(c_den))
+
+    jmk.INTERPRET = True
+    try:
+        jg = jax.grad(jloss)(jw)
+    finally:
+        jmk.INTERPRET = False
+
+    def encoded(x, levels, n):
+        buf = torch.full((M, mk._pad8(n)), float("nan"), dtype=BF)
+        buf[:, :n] = encode_position(torch.tensor(x), levels).to(BF)
+        return buf
+
+    enc, denc = encoded(pts, 10, 63), encoded(dirs, 4, 27)
+    dims = mk._dims(weights, 10, 4)
+    Wt, Wb, Wh, Bs = mk._kernel_weights(weights, True)
+    acts, feat, hr, raw = mk._chain_fwd(Wt, Wh, Bs, enc, denc, 1, M, dims)
+    raw_sigma = raw[:, :1].clone().requires_grad_()
+    raw_rgb = raw[:, 1:].clone().requires_grad_()
+    rgb, den = mk._act_fwd(raw_sigma, raw_rgb, act, occ_alpha)
+    g_sig, g_rgb = torch.autograd.grad(
+        (rgb, den), (raw_sigma, raw_rgb),
+        (torch.tensor(c_rgb), torch.tensor(c_den)))
+    g_raw = torch.cat([g_sig, g_rgb], 1)
+    d_w, _, _ = mk._chain_bwd(Wb, Wh, g_raw, enc, denc, 1, feat, hr, acts, M,
+                              dims)
+    names = [f"{n}/{k}" for n in mk.W_NAMES for k in "wb"]
+    for name, got, want in zip(names, d_w, jg):
+        assert got.shape == tuple(want.shape), name
+        assert _rel_l2(got, want) < 0.02, (name, _rel_l2(got, want))

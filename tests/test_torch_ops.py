@@ -215,6 +215,64 @@ def test_config_matches_jax(scene_cfg):
     assert pc.apply_parity_profile(a) == jc.apply_parity_profile(b)
 
 
+@pytest.mark.parametrize("tpu", [
+    {}, {"matmul_precision": "default"}, {"matmul_precision": "high"},
+    {"matmul_precision": "highest"}, {"matmul_precision": "HIGH"},
+    {"matmul_precision": "fastest"},
+    {"matmul_precision": "highest", "mlp_bf16": False,
+     "use_pallas_mlp": False},
+    {"matmul_precision": "high", "chamfer_mode": "band"},
+])
+def test_check_supported_matmul_precision_matches_jax(tpu):
+    """Both packages' check_supported raise on the same values of
+    tpu.matmul_precision; where the JAX package warns that the knob has no
+    effect, so does the port (where it never has one)."""
+    import warnings
+
+    from nope_nerf_tpu import config as jc
+    from nope_nerf_tpu_torch import config as pc
+
+    def run(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                fn({"tpu": dict(tpu)})
+            except ValueError as e:
+                return "raise", str(e)
+        return "ok", [str(w.message) for w in caught
+                      if "matmul_precision" in str(w.message)]
+
+    (jkind, jmsg), (pkind, pmsg) = run(jc.check_supported), run(
+        pc.check_supported)
+    assert jkind == pkind
+    if pkind == "raise":
+        assert "matmul_precision" in pmsg
+        return
+    if jmsg:
+        assert pmsg
+    non_default = tpu.get("matmul_precision", "default") != "default"
+    assert bool(pmsg) == non_default
+
+
+def test_check_ported_names_profile_dir_and_debug_nans(capsys):
+    """The loop's "not honoured yet" line names tpu.profile_dir and
+    tpu.debug_nans when they are set, and says nothing when neither is."""
+    from nope_nerf_tpu_torch.training.loop import _check_ported
+
+    quiet = {"training": {"visualize_every": 0, "vis_reprojection_every": 0},
+             "tpu": {"profile_dir": None, "debug_nans": False}}
+    _check_ported(quiet)
+    assert capsys.readouterr().out == ""
+    _check_ported(dict(quiet, tpu={"profile_dir": "traces",
+                                   "debug_nans": True}))
+    line = capsys.readouterr().out
+    assert "not honoured yet" in line
+    assert "tpu.profile_dir" in line and "tpu.debug_nans" in line
+    _check_ported(dict(quiet, tpu={"debug_nans": True}))
+    line = capsys.readouterr().out
+    assert "tpu.debug_nans" in line and "tpu.profile_dir" not in line
+
+
 def test_params_from_jax_round_trip():
     from nope_nerf_tpu.models.distortion import init_distortion_params
     from nope_nerf_tpu.models.intrinsics import init_focal_params
