@@ -23,7 +23,9 @@ steps each on an in-memory 8-frame 540x960 scene with random weights and a
 smooth camera trajectory:
 
 * stock ``configs/default.yaml`` (1024 rays x 128 samples, 8 x 256 MLP,
-  pc + rgb_s losses, banded Chamfer): Kernels A and B;
+  pc + rgb_s losses, banded Chamfer): Kernels A and B, and Kernel C's
+  forward for the surface colour of the Phong preview that the stock
+  ``visualize_every`` draws at step 0;
 * stock with ``tpu.fuse_compositing: False, chamfer_mode: exact``: Kernels
   C and D;
 * ``tpu.parity: True`` (f32 unfused MLP on torch.matmul, exact Chamfer,
@@ -43,11 +45,25 @@ Kernel A and through its plain version, holds the input-only backward
 bitwise to the full one, and times the render and a pose-optimisation step
 with each backward.
 
+The synthetic phase then writes the teacher scene of
+``utils/synthetic.py`` to disk with the port's dataset writer, trains the
+stock widths on it through ``train()`` (the scene read back by
+``get_scene``, gt poses fixed) with the visualisation and the
+reprojection-pair dumps on, and requires the last epoch's PSNR to beat the
+first's by SYN_PSNR_GAIN dB; checks the ``rendering/`` tree and the launch
+counts (Kernel A both ways, the Chamfer kernel ``auto`` resolves to, and
+Kernel C's forward, which the Phong preview's surface colour runs as the
+JAX package's fused MLP does); runs the render CLI (interp, SYN_NOVEL
+views, the geo pass: Kernel A's forward once per view at least), the
+``vis_poses`` and ``eval_poses --vis`` CLIs and a short run of the bench
+entry, whose JSON line it parses; and times a ``render_visdata`` call (its
+render and its Phong part) and a novel view.
+
 Prints, in order: the card's name and power limit, the kernel build time,
 one line per kernel check, the two GEMM phases' lines, one line per epoch, the
-eval phase's lines, a JSON line with every kernel's errors, launches,
-times and bound (and the library call's time where one exists), and last
-``{"ok": true, "device": {...}}``. Any failed check raises, and the script
+eval phase's lines, the synthetic phase's lines, a JSON line with every
+kernel's errors, launches, times and bound (and the library call's time
+where one exists), and last ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that last line. It needs a CUDA device and the
 repository beside it; it imports nothing of JAX.
 """
@@ -72,6 +88,15 @@ EPOCHS = 2
 # that is rendered through Kernel A and its plain version
 EVAL_POSE_EPOCHS, EVAL_POINTS = 5, 1024
 SMALL_VIEW = (135, 240)
+# the synthetic phase: the teacher scene (6 frames of 60x80 on disk, of which
+# the loader holds frame 4 out: 5 training views), trained at the stock
+# widths with gt poses fixed for SYN_EPOCHS epochs (200 steps); the
+# visualisation and the pair dumps fire every SYN_VIS_EVERY steps (it 0 and
+# 100); the render CLI renders SYN_NOVEL views; the bench runs short
+SYN_FRAMES, SYN_HW, SYN_EPOCHS, SYN_VIS_EVERY = 6, (60, 80), 40, 100
+SYN_NOVEL = 8
+SYN_PSNR_GAIN = 1.0  # dB, tests/test_training.py::test_vanilla_nerf_converges
+BENCH_SHORT = (16, 1, 2)  # steps per group, warm-up groups, timed groups
 
 # Kernel A's bars against its plain version. tests/test_pallas.py holds the
 # TPU kernel to rgb atol 0.03, density rtol 0.08 / atol 0.05 and gradients
@@ -1027,12 +1052,15 @@ def check_gemm_counts(label, counts, weight_grads=True):
 
 
 # the training runs: (label, tpu overrides, kernels the run must launch;
-# every other kernel must stay idle)
+# every other kernel must stay idle). The stock config visualises at it 0
+# (visualize_every 10000, vis_geo): the Phong preview's surface colour runs
+# Kernel C's forward wherever use_pallas_mlp is on, as the JAX package's
+# fused MLP does
 MLP_GEMMS = ("mlp_gemm_sm90", "mlp_gemm_dgrad", "mlp_gemm_wgrad",
              "mlp_weight_grad_gemm")
 RUNS = (
     ("stock", {}, ("mlp_composite_fwd", "mlp_composite_bwd", "chamfer_band",
-                   *MLP_GEMMS)),
+                   "mlp_point_fwd", *MLP_GEMMS)),
     ("unfused_exact", {"fuse_compositing": False, "chamfer_mode": "exact"},
      ("mlp_point_fwd", "mlp_point_bwd", "chamfer_exact", *MLP_GEMMS)),
     ("parity", {"parity": True}, ("chamfer_exact",)),
@@ -1077,12 +1105,7 @@ def run_training(dev, card, label, overrides, expect):
     bad = [h for h in history for v in h["step_losses"] if not math.isfinite(v)]
     if bad:
         raise AssertionError(f"{label}: non-finite training loss")
-    idle = [n for n in expect if counts[n] == 0]
-    stray = [n for n, v in counts.items() if v and n not in expect]
-    if idle or stray:
-        raise AssertionError(f"{label}: kernels never launched {idle}, "
-                             f"launched off this path {stray}")
-    check_gemm_counts(label, counts)
+    check_launches(label, counts, expect)
     ckpts = sorted(f for f in os.listdir(cfg["training"]["out_dir"])
                    if f.endswith(".npz"))
     if "model.npz" not in ckpts or "model_pose.npz" not in ckpts:
@@ -1338,6 +1361,211 @@ def run_eval(dev, card, cfg, trained):
                     "pose_step_input_only_ms": ms_in}
 
 
+def check_launches(label, counts, expect, weight_grads=True):
+    """Every kernel in ``expect`` launched in ``counts``, no other one, and
+    the GEMM counts of :func:`check_gemm_counts`."""
+    idle = [n for n in expect if counts[n] == 0]
+    stray = [n for n, v in counts.items() if v and n not in expect]
+    if idle or stray:
+        raise AssertionError(f"{label}: kernels never launched {idle}, "
+                             f"launched off this path {stray}")
+    check_gemm_counts(label, counts, weight_grads=weight_grads)
+
+
+def synthetic_cfg(base):
+    """The stock config on the teacher scene under ``base``: the depth range
+    the teacher was rendered in, gt poses fixed, the stock pre-switch loss
+    weights (rgb, depth, pc, rgb_s) throughout, a visualisation and a pair
+    dump every SYN_VIS_EVERY steps, pose metrics every epoch."""
+    cfg = stock_cfg()
+    cfg["dataloading"].update(path=os.path.join(base, "data"),
+                              scene=["scene"], resize_factor=None,
+                              spherify=False)
+    cfg["rendering"]["depth_range"] = [0.5, 6.0]
+    cfg["pose"].update(learn_R=False, learn_t=False, init_pose=True,
+                       init_pose_type="gt")
+    cfg["training"].update(out_dir=os.path.join(base, "out"), seed=SEED,
+                           auto_scheduler=False, print_every=0,
+                           checkpoint_every=0, backup_every=0,
+                           visualize_every=SYN_VIS_EVERY,
+                           vis_reprojection_every=SYN_VIS_EVERY,
+                           eval_pose_every=1, eval_img_every=1)
+    cfg["extract_images"].update(traj_option="interp", N_novel_imgs=SYN_NOVEL,
+                                 output_geo=True)
+    return cfg
+
+
+def reset_counts():
+    counters = kernel_counters()
+    for c in counters:
+        c.reset()
+    return counters
+
+
+def run_synthetic(dev, card):
+    """The synthetic phase (see the module docstring). Returns the launch
+    counts of its main-path runs (training, the render CLI, the bench) and
+    its measured numbers."""
+    import contextlib
+    import io
+
+    import torch
+
+    from nope_nerf_tpu_torch import bench, eval_poses, render, vis_poses
+    from nope_nerf_tpu_torch.geometry.rays import arange_pixels
+    from nope_nerf_tpu_torch.make_synthetic_dataset import write_dataset
+    from nope_nerf_tpu_torch.ops.chamfer import resolve_chamfer_mode
+    from nope_nerf_tpu_torch.ops.phong import phong_render
+    from nope_nerf_tpu_torch.ops.rendering import render_image
+    from nope_nerf_tpu_torch.training.loop import train
+    from nope_nerf_tpu_torch.training.trainer import make_render_cfg
+    from nope_nerf_tpu_torch.training.visualize import (render_visdata,
+                                                        visdata_view)
+    from nope_nerf_tpu_torch.utils.synthetic import SyntheticScene
+
+    base = os.path.join(ROOT, "chiprun_out", "chip_smoke", "synthetic")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    teacher = SyntheticScene(n_frames=SYN_FRAMES, hw=SYN_HW, seed=SEED,
+                             device=dev)
+    write_dataset(teacher, os.path.join(base, "data", "scene"))
+    print(f"synthetic [{card}]: teacher scene of {SYN_FRAMES} frames "
+          f"{SYN_HW[0]}x{SYN_HW[1]} rendered and written in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    cfg = synthetic_cfg(base)
+    torch.cuda.empty_cache()
+    counters = reset_counts()
+    t0 = time.perf_counter()
+    state, _, scene, history = train(cfg, max_epochs=SYN_EPOCHS, device=dev)
+    train_s = time.perf_counter() - t0
+    counts = {c.name: c.count for c in counters}
+    psnrs = [h["psnr"] for h in history]
+    print(f"synthetic training [{card}]: {len(history)} epochs x "
+          f"{history[0]['steps']} steps in {train_s:.1f} s (visualisations "
+          f"and pair dumps included); PSNR per epoch "
+          + " ".join(f"{p:.2f}" for p in psnrs))
+    steps = sum(h["steps"] for h in history)
+    if steps != SYN_EPOCHS * scene.N_imgs or not all(map(math.isfinite,
+                                                         psnrs)):
+        raise AssertionError(f"synthetic: {steps} steps, PSNRs {psnrs}")
+    if not psnrs[-1] >= psnrs[0] + SYN_PSNR_GAIN:
+        raise AssertionError(f"synthetic: PSNR {psnrs[0]:.3f} -> "
+                             f"{psnrs[-1]:.3f} dB, less than a "
+                             f"{SYN_PSNR_GAIN} dB gain")
+    rendering = os.path.join(cfg["training"]["out_dir"], "rendering")
+    fired = [it for it in range(steps) if it % SYN_VIS_EVERY == 0]
+    missing = [os.path.join("%04d_vis" % it, "0000_%s.png" % kind)
+               for it in fired for kind in ("img", "depth", "geo")]
+    pairs = [n for n in sorted(os.listdir(rendering))
+             if n.endswith(("_img1.png", "_img2.png"))]
+    missing = [n for n in missing
+               if not os.path.isfile(os.path.join(rendering, n))]
+    if len(fired) < 2 or missing or len(pairs) != 2 * len(fired):
+        raise AssertionError(f"synthetic: rendering/ lacks {missing}; pair "
+                             f"dumps {pairs} for steps {fired}")
+    ratio = cfg["training"]["pc_ratio"]
+    n_pc = int(SYN_HW[0] / ratio) * int(SYN_HW[1] / ratio)
+    mode = resolve_chamfer_mode(
+        cfg["tpu"]["chamfer_mode"], n_pc, n_pc, n_devices=1,
+        sharded_exact=False, hints_available=True)
+    chamfer = {"band": ("chamfer_band",), "exact": ("chamfer_exact",),
+               "grid": ()}[mode]
+    check_launches("synthetic training", counts,
+                   ("mlp_composite_fwd", "mlp_composite_bwd",
+                    "mlp_point_fwd", *chamfer, *MLP_GEMMS))
+    print(f"synthetic training launches [{card}] (chamfer_mode auto -> "
+          f"{mode} at {n_pc} points): {counts}; rendering/: "
+          f"{len(fired)} visualisations, {len(pairs)} pair images")
+
+    counters = reset_counts()
+    t0 = time.perf_counter()
+    render_dir = render.main(cfg, device=dev)
+    cli_ms = 1e3 * (time.perf_counter() - t0) / SYN_NOVEL
+    render_counts = {c.name: c.count for c in counters}
+    names = [os.path.join(d, f"{i:04d}.png") for i in range(SYN_NOVEL)
+             for d in ("img_out", "depth_out", "geo_out")]
+    names += [os.path.join("depth_out", f"{i}.npy") for i in range(SYN_NOVEL)]
+    names += [os.path.join("video_out", f"{v}.mp4")
+              for v in ("img", "depth", "geo")]
+    missing = [n for n in names if not os.path.isfile(
+        os.path.join(render_dir, n))]
+    if missing or render_counts["mlp_composite_fwd"] < SYN_NOVEL:
+        raise AssertionError(f"render CLI: missing {missing}; Kernel A "
+                             f"forwards {render_counts['mlp_composite_fwd']}"
+                             f" for {SYN_NOVEL} views")
+    check_launches("render CLI", render_counts,
+                   ("mlp_composite_fwd", "mlp_point_fwd", "mlp_gemm_sm90"),
+                   weight_grads=False)
+    print(f"render CLI [{card}]: {SYN_NOVEL} interp views at "
+          f"{SYN_HW[0]}x{SYN_HW[1]} with the geo pass, {cli_ms:.1f} ms per "
+          f"view (render, Phong, PNGs); launches {render_counts}")
+    ply = vis_poses.main(cfg)
+    poses = eval_poses.main(cfg, vis=True)
+    pose_ply = os.path.join(cfg["training"]["out_dir"], "pose_vis.ply")
+    if not (os.path.getsize(ply) and os.path.getsize(pose_ply)
+            and all(math.isfinite(v) for v in poses.values())):
+        raise AssertionError(f"vis_poses / eval_poses: {ply}, {poses}")
+
+    # the time of one render_visdata call at the stock vis_resolution, and
+    # of its two parts; then of one novel view's render
+    render_cfg = make_render_cfg(cfg, dev)
+    init_c2w = torch.as_tensor(scene.c2ws, dtype=torch.float32, device=dev)
+    vis_hw = tuple(cfg["training"]["vis_resolution"])
+    nerf = state.params["nerf"]
+    with torch.no_grad():
+        view = visdata_view(state.params, cfg, init_c2w, scene)
+    _, pixels = arange_pixels(vis_hw, device=dev)
+    vis_dir = os.path.join(base, "timed_vis")
+    ms_vis = host_ms(lambda: render_visdata(
+        state, cfg, render_cfg, init_c2w, scene, vis_hw, 0, vis_dir), iters=3)
+    ms_vis_render = host_ms(lambda: render_image(
+        nerf, vis_hw, *view, render_cfg, chunk=min(vis_hw[0] * vis_hw[1],
+                                                  16384)), iters=3)
+    ms_vis_phong = host_ms(lambda: phong_render(
+        nerf, pixels, *view, render_cfg, rad=cfg["rendering"]["radius"]),
+        iters=3)
+    ms_view = host_ms(lambda: render_image(nerf, SYN_HW, *view, render_cfg),
+                      iters=5)
+    print(f"synthetic timings [{card}]: render_visdata at {vis_hw[0]}x"
+          f"{vis_hw[1]} {ms_vis:.1f} ms (render {ms_vis_render:.1f} ms, "
+          f"Phong {ms_vis_phong:.1f} ms); a {SYN_HW[0]}x{SYN_HW[1]} novel "
+          f"view's render {ms_view:.1f} ms")
+
+    saved = (bench.GROUP_STEPS, bench.WARMUP_GROUPS, bench.MEASURE_GROUPS)
+    bench.GROUP_STEPS, bench.WARMUP_GROUPS, bench.MEASURE_GROUPS = BENCH_SHORT
+    torch.cuda.empty_cache()
+    counters = reset_counts()
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            bench.run(dev)
+    finally:
+        bench.GROUP_STEPS, bench.WARMUP_GROUPS, bench.MEASURE_GROUPS = saved
+    bench_counts = {c.name: c.count for c in counters}
+    lines = out.getvalue().splitlines()
+    rec = json.loads(lines[-1])
+    if len(lines) != 1 or rec["metric"] != "train_rays_per_sec" or not (
+            rec["value"] > 0):
+        raise AssertionError(f"bench: printed {lines}")
+    check_launches("bench", bench_counts,
+                   ("mlp_composite_fwd", "mlp_composite_bwd",
+                    "chamfer_band", *MLP_GEMMS))
+    print(f"bench short [{card}]: {BENCH_SHORT[1]} x {BENCH_SHORT[0]} "
+          f"warm-up steps, {BENCH_SHORT[2]} x {BENCH_SHORT[0]} timed: "
+          f"{json.dumps(rec)}")
+
+    total = {k: counts[k] + render_counts[k] + bench_counts[k]
+             for k in counts}
+    return total, {"psnr_per_epoch": psnrs, "train_s": train_s,
+                   "chamfer_mode": mode, "render_visdata_ms": ms_vis,
+                   "render_visdata_render_ms": ms_vis_render,
+                   "render_visdata_phong_ms": ms_vis_phong,
+                   "novel_view_render_ms": ms_view,
+                   "render_cli_ms_per_view": cli_ms,
+                   "bench_short": rec, "pose_errors": poses}
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "nope_nerf_tpu_torch")):
         print("chip_smoke: nope_nerf_tpu_torch is not beside this script",
@@ -1379,10 +1607,14 @@ def main():
         for rec in records:
             launches[rec["name"]] += counts[rec["name"]]
     eval_counts, eval_rec = run_eval(dev, card, *stock)
+    syn_counts, syn_rec = run_synthetic(dev, card)
     for rec in records:
-        rec["launches"] = launches[rec["name"]] + eval_counts[rec["name"]]
+        rec["launches"] = (launches[rec["name"]] + eval_counts[rec["name"]]
+                           + syn_counts[rec["name"]])
         rec["eval_launches"] = eval_counts[rec["name"]]
+        rec["synthetic_launches"] = syn_counts[rec["name"]]
     print(json.dumps({"eval": eval_rec}))
+    print(json.dumps({"synthetic": syn_rec}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -41,6 +41,14 @@ def params_from_jax(tree, device=None):
                                              device=device))
 
 
+def load_group(checkpoint_io, filename, group, device=None):
+    """One parameter group from a checkpoint stream of a run directory
+    (``training.checkpoints.CheckpointIO``), as the port's tensors on
+    ``device``."""
+    tree, _, _ = checkpoint_io.load(filename)
+    return params_from_jax({group: tree["params"]}, device)[group]
+
+
 def params_to_numpy(params):
     """The port's parameter dict -> the same tree of numpy f32 arrays."""
     return _map(params, lambda t: t.detach().cpu().numpy().astype(np.float32))

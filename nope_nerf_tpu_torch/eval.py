@@ -31,7 +31,7 @@ from .config import (
     check_supported,
     load_config,
 )
-from .convert import params_from_jax
+from .convert import load_group
 from .dataloading.scene import get_scene
 from .evaluation.eval_images import eval_image, resize_like_cv2
 from .evaluation.metrics import median_scaled_depth_errors
@@ -43,11 +43,6 @@ from .training.checkpoints import CheckpointIO
 from .training.loop import MetricsLogger, resolve_device
 from .training.trainer import make_render_cfg
 from .utils.mp4 import write_mjpeg_mp4
-
-
-def _load_group(io, filename, group, device):
-    tree, _, _ = io.load(filename)
-    return params_from_jax({group: tree["params"]}, device)[group]
 
 
 def main(cfg, eval_depth=False, device="cuda", train_scene=None,
@@ -69,12 +64,12 @@ def main(cfg, eval_depth=False, device="cuda", train_scene=None,
 
     io = CheckpointIO(out_dir)
     xcfg, ecfg, pcfg = cfg["extract_images"], cfg["eval_pose"], cfg["pose"]
-    nerf_params = _load_group(io, xcfg["model_file"], "nerf", dev)
+    nerf_params = load_group(io, xcfg["model_file"], "nerf", dev)
     init_method = ecfg["init_method"]
     render_cfg = make_render_cfg(cfg, dev)
 
     if pcfg["learn_focal"]:
-        fparams = _load_group(io, xcfg["model_file_focal"], "focal", dev)
+        fparams = load_group(io, xcfg["model_file_focal"], "focal", dev)
         fxfy = focal_fxfy(fparams, pcfg["fx_only"], pcfg["focal_order"])
         camera_mat = camera_mat_from_fxfy(fxfy).cpu().numpy()
         print(f"learned fx: {float(fxfy[0]):.2f}, fy: {float(fxfy[1]):.2f}")
@@ -85,7 +80,7 @@ def main(cfg, eval_depth=False, device="cuda", train_scene=None,
         torch.as_tensor(train_scene.c2ws, dtype=torch.float32)
         if (pcfg["init_pose"] and train_scene.c2ws is not None) else None)
     if pcfg["learn_pose"]:
-        pose_params = _load_group(io, xcfg["model_file_pose"], "pose", "cpu")
+        pose_params = load_group(io, xcfg["model_file_pose"], "pose", "cpu")
         learned_c2ws_train = all_poses(pose_params, init_c2w_train).numpy()
     else:
         learned_c2ws_train = train_scene.c2ws

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_CONFIG, apply_parity_profile, load_config
-from .convert import params_from_jax
+from .convert import load_group
 from .dataloading.scene import get_scene
 from .geometry.align import align_ate_c2b_use_a2b, compute_ate, compute_rpe
 from .models.pose import all_poses
@@ -34,9 +34,8 @@ def main(cfg, vis=False):
     out_dir = cfg["training"]["out_dir"]
     scene = get_scene(cfg, mode="train")
 
-    tree, _, _ = CheckpointIO(out_dir).load(
-        cfg["extract_images"]["model_file_pose"])
-    pose_params = params_from_jax({"pose": tree["params"]})["pose"]
+    pose_params = load_group(CheckpointIO(out_dir),
+                             cfg["extract_images"]["model_file_pose"], "pose")
     init_c2w = (torch.as_tensor(scene.c2ws, dtype=torch.float32)
                 if (cfg["pose"]["init_pose"] and scene.c2ws is not None)
                 else None)

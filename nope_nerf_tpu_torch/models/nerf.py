@@ -106,24 +106,36 @@ def _trunk(params, pts, L_pos, bf16):
     return x
 
 
-def apply_nerf(params, pts, dirs, cfg_model):
-    """Evaluate the field: pts, dirs (M, 3) -> (rgb (M, 3), density (M, 1)).
+def raw_density(params, pts, L_pos=10, bf16=False):
+    """Pre-activation density head output (the JAX ``raw_density``).
+    Returns (features (M, D), density (M, 1)); the density returns to f32,
+    the features stay in the compute dtype for the rgb head."""
+    x = _trunk(params, pts, L_pos, bf16)
+    return x, _dense(params["fc_density"], x, bf16).to(_F32)
+
+
+def apply_nerf(params, pts, dirs, cfg_model, *, only_occupancy=False):
+    """Evaluate the field: pts, dirs (M, 3) -> (rgb (M, 3), density (M, 1)),
+    or with ``only_occupancy`` the density alone (``dirs`` unused).
 
     Density activation is softplus or relu; without ``dist_alpha`` the field
     emits occupancy alpha = 1 - exp(-density). With ``use_pallas_mlp`` the
-    field runs in Kernel C (:func:`_apply_nerf_fused`).
+    field runs in Kernel C (:func:`_apply_nerf_fused`), except for
+    ``only_occupancy`` queries, which take the plain MLP (with the config's
+    ``mlp_bf16`` rounding) as the JAX package's bypass the Pallas MLP.
     """
-    if cfg_model.get("use_pallas_mlp", False):
+    if cfg_model.get("use_pallas_mlp", False) and not only_occupancy:
         return _apply_nerf_fused(params, pts, dirs, cfg_model)
     bf16 = bool(cfg_model.get("mlp_bf16", False))
-    x = _trunk(params, pts, cfg_model["pos_enc_levels"], bf16)
-    density = _dense(params["fc_density"], x, bf16).to(_F32)
+    x, density = raw_density(params, pts, cfg_model["pos_enc_levels"], bf16)
     if cfg_model["occ_activation"] == "softplus":
         density = torch.nn.functional.softplus(density)
     else:
         density = torch.relu(density)
     if not cfg_model["dist_alpha"]:
         density = 1.0 - torch.exp(-density)
+    if only_occupancy:
+        return density
     dir_enc = encode_position(dirs, cfg_model["dir_enc_levels"])
     if bf16:
         dir_enc = dir_enc.to(_BF)
@@ -151,3 +163,18 @@ def _apply_nerf_fused(params, pts, dirs, cfg_model):
         cfg_model["dir_enc_levels"], cfg_model["occ_activation"],
         not cfg_model["dist_alpha"])
     return rgb[:M], density[:M]
+
+
+def nerf_gradient(params, pts, cfg_model):
+    """-grad_p density(p) (M, 3): outward surface normals of the
+    pre-activation density, in f32 whatever ``mlp_bf16`` says (as the JAX
+    ``nerf_gradient``). Differentiates a detached copy of ``pts`` against
+    detached weights, so it works inside ``torch.no_grad()`` and adds
+    nothing to the caller's graph."""
+    weights = {k: {kk: v.detach() for kk, v in layer.items()}
+               for k, layer in params.items()}
+    with torch.enable_grad():
+        p = pts.detach().requires_grad_(True)
+        density = raw_density(weights, p, cfg_model["pos_enc_levels"])[1]
+        (grad,) = torch.autograd.grad(density.sum(), p)
+    return -grad

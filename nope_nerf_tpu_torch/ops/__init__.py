@@ -1,1 +1,2 @@
-"""Renderer, encoding, interpolation and Chamfer ops of the port."""
+"""Renderer, Phong preview, encoding, interpolation and Chamfer ops of the
+port."""

@@ -1,16 +1,23 @@
 """Training orchestration (port of ``nope_nerf_tpu/training/loop.py``):
 epoch loop, frame shuffling, reference-frame sampling, the schedule state
 machine, the four checkpoint streams with resume, per-epoch metrics and
-pose accuracy (ATE/RPE), and ``scheduling_mode: reset``.
+pose accuracy (ATE/RPE), ``scheduling_mode: reset``, the training
+visualisations and reprojection-pair dumps, ``tpu.debug_nans`` and
+``tpu.profile_dir``.
 
 Same host-side draws as the JAX loop: ``np.random.permutation`` for the
 frame order and ``scene.sample_ref_idx(i, pyrng)`` for the reference
 frames, both seeded with ``training.seed``. The JAX package's ``epoch_scan``
-mode exists to amortise TPU dispatch; the port always runs step by step.
+mode exists to amortise TPU dispatch; the port always runs step by step, so
+its triggers are the JAX loop's non-scan ones: after step ``it``, a pair
+dump when ``it % vis_reprojection_every == 0`` (and the step uses rgb_s),
+a checkpoint when ``it % checkpoint_every == 0``, a backup when
+``it % backup_every == 0`` and a visualisation into
+``rendering/%04d_vis`` when ``it % visualize_every == 0`` -- not the scan
+path's epoch-boundary crossings.
 
-Not ported yet (see ROADMAP.md): visualisation and pair dumps are not
-written (one line says so); ``rays_per_step_multiplier > 1`` and
-``n_devices > 1`` change results and raise ``NotImplementedError``.
+``rays_per_step_multiplier > 1`` and ``n_devices > 1`` are not ported yet
+(see ROADMAP.md): they change results and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import time
 
 import numpy as np
 import torch
+from PIL import Image
 
 from ..config import apply_parity_profile, check_supported
 from ..convert import (
@@ -40,11 +48,13 @@ from ..ops.interp import resize_bilinear, resize_nearest
 from .checkpoints import CheckpointIO
 from .scheduler import Scheduler, ScheduleState
 from .trainer import (
+    compute_loss,
     describe_routes,
     init_train_state,
     make_render_cfg,
     make_train_step,
 )
+from .visualize import render_visdata
 
 
 class MetricsLogger:
@@ -113,20 +123,36 @@ def scene_batch_arrays(scene, cfg, device):
 
 
 def _check_ported(cfg):
-    tcfg, tpu = cfg["training"], cfg.get("tpu", {}) or {}
+    """Raise for the settings the port does not run yet."""
+    tpu = cfg.get("tpu", {}) or {}
     if int(tpu.get("rays_per_step_multiplier", 1) or 1) > 1:
         raise NotImplementedError("tpu.rays_per_step_multiplier > 1 is not "
                                   "ported yet")
     if int(tpu.get("n_devices", 1) or 1) > 1:
         raise NotImplementedError("tpu.n_devices > 1 is not ported yet")
-    skipped = [name for name, on in (
-        ("visualisation", (tcfg.get("visualize_every") or 0) > 0),
-        ("reprojection pair dumps", (tcfg.get("vis_reprojection_every") or 0) > 0),
-        ("tpu.profile_dir", bool(tpu.get("profile_dir"))),
-        ("tpu.debug_nans", bool(tpu.get("debug_nans"))),
-    ) if on]
-    if skipped:
-        print("nope_nerf_tpu_torch: not honoured yet: " + ", ".join(skipped))
+
+
+def dump_pair_images(state, cfg, render_cfg, init_c2w, batch0, idx, ref_idx,
+                     scalars, it, render_path):
+    """Write the rgb_s pair of frames ``idx`` / ``ref_idx`` (view-1 colours
+    and the reprojected view-2 colours) as ``%d_%04d_img1.png`` /
+    ``%d_%04d_img2.png`` % (it, idx): the pc and rgb_s branches of
+    ``compute_loss`` without the render, so the Chamfer argmins run on
+    their kernels on the card."""
+    static = {"pair_images": True, "render_model": False, "use_ref": True,
+              "use_rgb_s": True}
+    with torch.no_grad():
+        _, aux = compute_loss(state.params,
+                              dict(batch0, idx=int(idx), ref_idx=int(ref_idx)),
+                              scalars, cfg=cfg, static=static,
+                              init_c2w=init_c2w, render_cfg=render_cfg)
+    if "rgb_pc1" not in aux:
+        return
+    os.makedirs(render_path, exist_ok=True)
+    for tag, arr in (("img1", aux["rgb_pc1"]), ("img2", aux["rgb_pc1_proj"])):
+        a = np.clip(arr.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+        Image.fromarray(a).convert("RGB").save(
+            os.path.join(render_path, "%d_%04d_%s.png" % (it, idx, tag)))
 
 
 def resolve_device(device="cuda"):
@@ -209,11 +235,34 @@ def train(cfg, max_epochs=None, scene=None, device="cuda"):
     dict per epoch run (epoch, it, steps, loss, step_losses, psnr,
     ms_per_step, rays_per_sec, and ate_trans, rpe_trans, rpe_rot in the
     epochs that score the poses).
+
+    With ``tpu.profile_dir`` the whole run is traced by one
+    ``torch.profiler.profile`` (CPU activity, and CUDA activity on the
+    card), written at the end as ``<profile_dir>/trace.json`` (Chrome
+    trace format). With ``tpu.debug_nans`` a loss or gradient that is not
+    finite raises ``FloatingPointError`` naming the step
+    (:func:`.trainer.make_train_step`).
     """
     check_supported(cfg)
     apply_parity_profile(cfg)
     _check_ported(cfg)
     device = resolve_device(device)
+    profile_dir = (cfg.get("tpu", {}) or {}).get("profile_dir")
+    if not profile_dir:
+        return _train(cfg, max_epochs, scene, device)
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        result = _train(cfg, max_epochs, scene, device)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    return result
+
+
+def _train(cfg, max_epochs, scene, device):
     seed = int(cfg["training"].get("seed", 42) or 42)
     np.random.seed(seed)
     pyrng = pyrandom.Random(seed)
@@ -256,6 +305,9 @@ def train(cfg, max_epochs=None, scene=None, device="cuda"):
     checkpoint_every = tcfg["checkpoint_every"] or 0
     backup_every = tcfg["backup_every"] or 0
     eval_pose_every = tcfg["eval_pose_every"] or 0
+    visualize_every = tcfg["visualize_every"] or 0
+    vis_reproj_every = tcfg.get("vis_reprojection_every", 0) or 0
+    render_path = os.path.join(out_dir, "rendering")
     log_ss_per_view = tcfg.get("log_scale_shift_per_view", False)
     gt_poses = getattr(scene, "c2ws", None)
     n_rays = tcfg["n_training_points"]
@@ -281,12 +333,21 @@ def train(cfg, max_epochs=None, scene=None, device="cuda"):
             sched_state.it += 1
             it = sched_state.it
             batch = dict(batch0, idx=int(idx), ref_idx=int(ref_idx))
-            state, aux = step_fn(state, batch, scalars, static, step_gen)
+            try:
+                state, aux = step_fn(state, batch, scalars, static, step_gen)
+            except FloatingPointError as e:
+                raise FloatingPointError(
+                    f"training step it={it} (epoch {epoch}, frame {idx}): "
+                    f"{e}") from e
             for k in steps:
                 steps[k].append(float(aux[k]))
             if log_ss_per_view:
                 scale_dict["view %02d" % idx] = float(aux["scale"])
                 shift_dict["view %02d" % idx] = float(aux["shift"])
+            if (vis_reproj_every > 0 and static.get("use_rgb_s")
+                    and it % vis_reproj_every == 0):
+                dump_pair_images(state, cfg, render_cfg, init_c2w, batch0,
+                                 idx, ref_idx, scalars, it, render_path)
             if print_every > 0 and it % print_every == 0:
                 print(f"[Epoch {epoch:02d}] it={it:03d}, "
                       f"loss={steps['loss'][-1]:.8f}")
@@ -301,6 +362,10 @@ def train(cfg, max_epochs=None, scene=None, device="cuda"):
             if backup_every > 0 and it % backup_every == 0:
                 save_all(checkpoint_io, state, sched_state, cfg,
                          suffix=f"_{it}")
+            if visualize_every > 0 and it % visualize_every == 0:
+                render_visdata(state, cfg, render_cfg, init_c2w, scene,
+                               tcfg["vis_resolution"], it,
+                               os.path.join(render_path, "%04d_vis" % it))
         dt = time.perf_counter() - t0
         n = len(order)
         psnr = float(mse2psnr(float(np.mean(steps["l2_mean"]))))

@@ -283,6 +283,10 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
     aux.update(loss_dict)
     aux["scale"] = scale_input[0]
     aux["shift"] = shift_input[0]
+    if static.get("pair_images", False) and "rgb_pc1" in loss_kwargs:
+        # the reprojection pair of the vis_reprojection_every dumps
+        aux["rgb_pc1"] = loss_kwargs["rgb_pc1"]
+        aux["rgb_pc1_proj"] = loss_kwargs["rgb_pc1_proj"]
     return loss_dict["loss"], aux
 
 
@@ -294,16 +298,46 @@ def make_train_step(cfg, render_cfg, init_c2w=None):
     it), so Adam's moments and step counts advance for all of them as
     optax's do; weight decay is added to the nerf gradient only, before
     Adam, as torch's ``weight_decay`` would.
+
+    With ``tpu.debug_nans`` the loss and backward run under
+    ``torch.autograd.detect_anomaly(check_nan=True)``, and a loss or
+    gradient that is not finite raises ``FloatingPointError`` before the
+    update.
     """
     wd = cfg["training"].get("weight_decay", 0.0) or 0.0
+    debug_nans = bool((cfg.get("tpu", {}) or {}).get("debug_nans", False))
 
-    def step(state, batch, scalars, static, generator=None):
-        opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
+    def loss_and_grads(state, batch, scalars, static, generator):
         loss, aux = compute_loss(state.params, batch, scalars, cfg=cfg,
                                  static=static, init_c2w=init_c2w,
                                  render_cfg=render_cfg, generator=generator)
         loss.backward()
+        return loss, aux
+
+    def checked_loss_and_grads(state, batch, scalars, static, generator):
+        with torch.autograd.detect_anomaly(check_nan=True):
+            try:
+                loss, aux = loss_and_grads(state, batch, scalars, static,
+                                           generator)
+            except RuntimeError as e:
+                if "nan values" not in str(e):
+                    raise
+                raise FloatingPointError(str(e)) from e
+        bad = [] if torch.isfinite(loss) else ["loss"]
+        for group in state.optimizer.param_groups:
+            bad += [f"{group['name']} gradient" for p in group["params"]
+                    if p.grad is not None and not torch.isfinite(p.grad).all()]
+        if bad:
+            raise FloatingPointError("not finite: " + ", ".join(
+                dict.fromkeys(bad)))
+        return loss, aux
+
+    run = checked_loss_and_grads if debug_nans else loss_and_grads
+
+    def step(state, batch, scalars, static, generator=None):
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        _, aux = run(state, batch, scalars, static, generator)
         with torch.no_grad():
             for group in opt.param_groups:
                 for p in group["params"]:

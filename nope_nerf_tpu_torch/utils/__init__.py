@@ -1,2 +1,3 @@
-"""Host-side output utilities of the port (numpy + PIL): the MJPEG-in-MP4
-video muxer and the camera-frustum PLY exporter."""
+"""Host-side utilities of the port (numpy + PIL): the MJPEG-in-MP4 video
+muxer and video writer, the camera-frustum PLY exporter, and the synthetic
+teacher scene."""

@@ -515,3 +515,125 @@ def test_backward_gemms_reject_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="bf16"):
         mk.gemm_wgrad(a, a.float())
     assert [c.count for c in counters] == n0
+
+
+def _shaped_field(dev):
+    """A width-64 field (4 / 2 encoding levels; Kernel C takes widths of
+    64 and up) with a surface in view of :func:`_view`: first layer x4,
+    density head x60, its bias bisected until ~35% of probe points in
+    [-3, 3]^3 are occupied above tau = 0.5."""
+    from nope_nerf_tpu_torch.models.nerf import apply_nerf, init_nerf_params
+
+    cfg = {"model": {"hidden_dim": 64, "pos_enc_levels": 4,
+                     "dir_enc_levels": 2},
+           "rendering": {"white_background": False}}
+    params = init_nerf_params(torch.Generator().manual_seed(14), cfg, dev)
+    params["trunk0_0"]["w"] = params["trunk0_0"]["w"] * 4.0
+    params["fc_density"]["w"] = params["fc_density"]["w"] * 60.0
+    probe = torch.tensor(np.random.default_rng(0).uniform(-3, 3, (2048, 3)),
+                         dtype=torch.float32, device=dev)
+    rc = {"occ_activation": "softplus", "pos_enc_levels": 4,
+          "dir_enc_levels": 2, "dist_alpha": False}
+    bias = params["fc_density"]["b"].clone()
+    lo, hi = -10.0, 10.0
+    for _ in range(40):
+        mid = 0.5 * (lo + hi)
+        params["fc_density"]["b"] = bias + mid
+        occ = apply_nerf(params, probe, None, rc, only_occupancy=True)
+        lo, hi = (lo, mid) if float((occ > 0.5).float().mean()) > 0.35 else (
+            mid, hi)
+    params["fc_density"]["b"] = bias + hi
+    return params
+
+
+def _render_cfg(stock):
+    """The render config of a width-64 field: ``stock`` routes it as the
+    stock config does on the card (Kernel A, bf16 MLP operands)."""
+    return {"num_points": 32, "outside_steps": 0, "depth_range": [0.5, 6.0],
+            "sample_option": "uniform", "dist_alpha": False,
+            "use_ray_dir": True, "normalise_ray": True,
+            "white_background": False, "normal_loss": False,
+            "occ_activation": "softplus", "pos_enc_levels": 4,
+            "dir_enc_levels": 2, "hidden_dim": 64,
+            "n_max_network_queries": 2 ** 21, "mlp_bf16": stock,
+            "use_pallas_mlp": stock, "fuse_compositing": True}
+
+
+def _view(dev):
+    from nope_nerf_tpu_torch.utils.synthetic import lookat_c2w
+
+    K = torch.tensor([[1.6, 0, 0, 0], [0, -2.0, 0, 0], [0, 0, -1, 0],
+                      [0, 0, 0, 1]], dtype=torch.float32, device=dev)
+    world = torch.tensor(np.linalg.inv(lookat_c2w([0.8, 0.3, 2.4], [0, 0, 0])),
+                         dtype=torch.float32, device=dev)
+    return K, world, torch.eye(4, device=dev)
+
+
+@pytest.mark.parametrize("stock", [False, True])
+def test_phong_render_matches_cpu(dev, stock):
+    """``phong_render`` of 54 x 96 rays (the stock vis_resolution: 2.65 M
+    proposal points, chunked) on the card against the same call on the
+    CPU. f32 (``stock`` False): rgb and rgb_surf to 1e-4 on >= 98% of the
+    rays (the rest may pick another bracket near tau). Stock routing (bf16
+    occupancy queries, the surface colour through Kernel C, one forward
+    counted): the same share to 1e-2."""
+    from nope_nerf_tpu_torch.geometry.rays import arange_pixels
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+    from nope_nerf_tpu_torch.ops.phong import phong_render
+
+    cpu = torch.device("cpu")
+    cfg = _render_cfg(stock)
+    outs = []
+    for d in (dev, cpu):
+        params = _shaped_field(d)
+        _, pix = arange_pixels((54, 96), device=d)
+        c0 = mk.FWD_POINT_LAUNCHES.count
+        out = phong_render(params, pix, *_view(d), cfg, rad=4.0)
+        outs.append({k: v.cpu() for k, v in out.items()})
+        if d.type == "cuda":
+            assert mk.FWD_POINT_LAUNCHES.count - c0 == (1 if stock else 0)
+    bar = 1e-2 if stock else 1e-4
+    rows = torch.ones(54 * 96, dtype=torch.bool)
+    for key in ("rgb", "rgb_surf"):
+        assert torch.isfinite(outs[0][key]).all()
+        rows &= (outs[0][key] - outs[1][key]).abs().amax(-1) <= bar
+    assert float(rows.float().mean()) >= 0.98
+    shaded = (outs[1]["rgb"] != 1.0).any(-1)
+    assert shaded.any() and (~shaded).any()
+
+
+def test_render_visdata_matches_cpu(dev, tmp_path):
+    """``render_visdata`` at 54 x 96 with the stock routing on the card
+    (rgb and depth through Kernel A's forward, one launch; Phong as above)
+    against the same call on the CPU (Kernel A's plain version): the img
+    and depth PNGs within +-1 on >= 99% of the pixels, geo on >= 98%."""
+    import types
+
+    from PIL import Image
+
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+    from nope_nerf_tpu_torch.training.visualize import render_visdata
+
+    cfg = {"pose": {"learn_pose": False, "learn_focal": False},
+           "training": {"vis_geo": True}, "rendering": {"radius": 4.0}}
+    scene = types.SimpleNamespace(
+        K=np.array([[1.6, 0, 0, 0], [0, -2.0, 0, 0], [0, 0, -1, 0],
+                    [0, 0, 0, 1]], np.float32),
+        scale_mat=np.eye(4, dtype=np.float32))
+    for d in (dev, torch.device("cpu")):
+        state = types.SimpleNamespace(params={"nerf": _shaped_field(d)})
+        f0 = mk.FWD_LAUNCHES.count
+        render_visdata(state, cfg, _render_cfg(True), None, scene, (54, 96), 0,
+                       str(tmp_path / d.type))
+        if d.type == "cuda":
+            assert mk.FWD_LAUNCHES.count - f0 == 1
+
+    def png(who, name):
+        return np.asarray(Image.open(tmp_path / who / name)).astype(np.int32)
+
+    for name, share in (("0000_img.png", 0.99), ("0000_depth.png", 0.99),
+                        ("0000_geo.png", 0.98)):
+        diff = np.abs(png("cuda", name) - png("cpu", name))
+        if diff.ndim == 3:
+            diff = diff.max(-1)
+        assert (diff <= 1).mean() >= share, name

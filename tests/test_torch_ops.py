@@ -255,22 +255,25 @@ def test_check_supported_matmul_precision_matches_jax(tpu):
 
 
 def test_check_ported_names_profile_dir_and_debug_nans(capsys):
-    """The loop's "not honoured yet" line names tpu.profile_dir and
-    tpu.debug_nans when they are set, and says nothing when neither is."""
+    """The loop honours tpu.profile_dir, tpu.debug_nans, visualize_every
+    and vis_reprojection_every: ``_check_ported`` prints nothing for any of
+    them, and still raises for rays_per_step_multiplier > 1 and
+    n_devices > 1."""
     from nope_nerf_tpu_torch.training.loop import _check_ported
 
     quiet = {"training": {"visualize_every": 0, "vis_reprojection_every": 0},
              "tpu": {"profile_dir": None, "debug_nans": False}}
     _check_ported(quiet)
+    _check_ported({"training": {"visualize_every": 10000,
+                                "vis_reprojection_every": 5000},
+                   "tpu": {"profile_dir": "traces", "debug_nans": True}})
     assert capsys.readouterr().out == ""
-    _check_ported(dict(quiet, tpu={"profile_dir": "traces",
-                                   "debug_nans": True}))
-    line = capsys.readouterr().out
-    assert "not honoured yet" in line
-    assert "tpu.profile_dir" in line and "tpu.debug_nans" in line
-    _check_ported(dict(quiet, tpu={"debug_nans": True}))
-    line = capsys.readouterr().out
-    assert "tpu.debug_nans" in line and "tpu.profile_dir" not in line
+    for key in ("rays_per_step_multiplier", "n_devices"):
+        with pytest.raises(NotImplementedError, match=key):
+            _check_ported(dict(quiet, tpu={key: 2}))
+    _check_ported(dict(quiet, tpu={"rays_per_step_multiplier": 1,
+                                   "n_devices": 1}))
+    assert capsys.readouterr().out == ""
 
 
 def test_params_from_jax_round_trip():
