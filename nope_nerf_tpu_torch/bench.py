@@ -42,13 +42,9 @@ from .config import (
     check_supported,
     load_config,
 )
+from .device import resolve_device
 from .synthetic import MemoryScene
-from .training.loop import (
-    _check_ported,
-    build_params,
-    resolve_device,
-    scene_batch_arrays,
-)
+from .training.loop import _check_ported, build_params, scene_batch_arrays
 from .training.trainer import (
     init_train_state,
     make_render_cfg,

@@ -33,6 +33,7 @@ from .config import (
 )
 from .convert import load_group
 from .dataloading.scene import get_scene
+from .device import resolve_device
 from .evaluation.eval_images import eval_image, resize_like_cv2
 from .evaluation.metrics import median_scaled_depth_errors
 from .evaluation.pose_opt import init_eval_poses, optimize_eval_poses
@@ -40,7 +41,7 @@ from .geometry.rays import camera_mat_from_fxfy
 from .models.intrinsics import focal_fxfy
 from .models.pose import all_poses
 from .training.checkpoints import CheckpointIO
-from .training.loop import MetricsLogger, resolve_device
+from .training.loop import MetricsLogger
 from .training.trainer import make_render_cfg
 from .utils.mp4 import write_mjpeg_mp4
 

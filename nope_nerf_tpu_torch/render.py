@@ -33,7 +33,8 @@ from .config import (
 )
 from .convert import load_group
 from .dataloading.scene import get_scene
-from .geometry.rays import arange_pixels, camera_mat_from_fxfy
+from .device import resolve_device
+from .geometry.rays import camera_mat_from_fxfy
 from .geometry.trajectory import (
     generate_spiral_nerf,
     interp_poses,
@@ -41,11 +42,10 @@ from .geometry.trajectory import (
 )
 from .models.intrinsics import focal_fxfy
 from .models.pose import all_poses
-from .ops.phong import phong_render
 from .ops.rendering import render_image
 from .training.checkpoints import CheckpointIO
-from .training.loop import resolve_device
 from .training.trainer import make_render_cfg
+from .training.visualize import view_images
 from .utils.video import write_video
 
 
@@ -70,25 +70,19 @@ def render_novel_views(nerf_params, camera_mat, c2ws, render_cfg, resolution,
     for i, c2w in enumerate(np.asarray(c2ws)):
         world_mat = torch.as_tensor(np.linalg.inv(c2w), dtype=torch.float32,
                                     device=dev)
-        rgb, depth = render_image(nerf_params, resolution, cam, world_mat,
-                                  eye, render_cfg)
-        rgb = np.clip(rgb.cpu().numpy(), 0, 1)
-        depth = depth.cpu().numpy()
-        imgs.append((rgb * 255).astype(np.uint8))
-        np.save(os.path.join(depth_out_dir, f"{i}.npy"), depth)
-        dmin, dmax = depth.min(), max(depth.max(), 1e-8)
-        depths.append(
-            np.clip(255.0 / dmax * (depth - dmin), 0, 255).astype(np.uint8))
+        view = (cam, world_mat, eye)
+        rgb, depth = render_image(nerf_params, resolution, *view, render_cfg)
+        np.save(os.path.join(depth_out_dir, f"{i}.npy"), depth.cpu().numpy())
+        img, d_vis, geo = view_images(rgb, depth, nerf_params, view,
+                                      render_cfg,
+                                      geo_rad=rad if output_geo else None)
         name = str(i).zfill(4) + ".png"
-        Image.fromarray(imgs[-1]).save(os.path.join(img_out_dir, name))
-        Image.fromarray(depths[-1]).save(os.path.join(depth_out_dir, name))
-        if output_geo:
-            _, pixels = arange_pixels(resolution, device=dev)
-            geo = phong_render(nerf_params, pixels, cam, world_mat, eye,
-                               render_cfg, rad=rad)["rgb"]
-            geo = np.clip(geo.cpu().numpy().reshape(*resolution, 3), 0, 1)
-            geos.append((geo * 255).astype(np.uint8))
-            Image.fromarray(geos[-1]).save(os.path.join(geo_out_dir, name))
+        for out_dir, image, images in ((img_out_dir, img, imgs),
+                                       (depth_out_dir, d_vis, depths),
+                                       (geo_out_dir, geo, geos)):
+            if image is not None:
+                images.append(image)
+                Image.fromarray(image).save(os.path.join(out_dir, name))
         print(f"rendered novel view {i + 1}/{len(c2ws)}")
     return imgs, depths, geos
 

@@ -38,6 +38,7 @@ from ..convert import (
     params_to_numpy,
 )
 from ..dataloading.scene import get_scene
+from ..device import resolve_device
 from ..geometry.align import align_ate_c2b_use_a2b, compute_ate, compute_rpe
 from ..losses.losses import mse2psnr
 from ..models.distortion import init_distortion_params
@@ -153,18 +154,6 @@ def dump_pair_images(state, cfg, render_cfg, init_c2w, batch0, idx, ref_idx,
         a = np.clip(arr.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
         Image.fromarray(a).convert("RGB").save(
             os.path.join(render_path, "%d_%04d_%s.png" % (it, idx, tag)))
-
-
-def resolve_device(device="cuda"):
-    """``torch.device(device)``; raises when it names CUDA and there is no
-    CUDA device. Nothing falls back to the CPU: ask for ``"cpu"``."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"nope_nerf_tpu_torch: device {str(device)!r} asked for, but no "
-            "CUDA device is available; pass device='cpu' (--device cpu) to "
-            "run on the CPU")
-    return dev
 
 
 def restore(checkpoint_io, cfg, params, device):

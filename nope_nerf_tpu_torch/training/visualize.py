@@ -38,6 +38,28 @@ def visdata_view(params, cfg, init_c2w, scene, img_idx=0):
     return camera_mat, world_mat, scale_mat
 
 
+def view_images(rgb, depth, nerf_params, view, render_cfg, *, geo_rad=None):
+    """The uint8 images of one rendered (h, w) view: the rgb (h, w, 3)
+    clipped to [0, 1], the depth (h, w) normalised by its min and max, and
+    with ``geo_rad`` the Phong preview (h, w, 3) of the field from ``view``
+    = (camera_mat, world_mat, scale_mat) inside that sphere radius, else
+    None."""
+    h, w = depth.shape
+    rgb = np.clip(rgb.cpu().numpy(), 0, 1)
+    depth = depth.cpu().numpy()
+    img = (rgb * 255).astype(np.uint8)
+    d_vis = np.clip(255.0 / max(depth.max(), 1e-8) * (depth - depth.min()),
+                    0, 255).astype(np.uint8)
+    geo = None
+    if geo_rad is not None:
+        _, pixels = arange_pixels((h, w), device=view[0].device)
+        out = phong_render(nerf_params, pixels, *view, render_cfg,
+                           rad=geo_rad)
+        geo = (np.clip(out["rgb"].cpu().numpy().reshape(h, w, 3), 0, 1)
+               * 255).astype(np.uint8)
+    return img, d_vis, geo
+
+
 def render_visdata(state, cfg, render_cfg, init_c2w, scene, resolution, it,
                    out_render_path, img_idx=0):
     """Write ``%04d_img.png`` and ``%04d_depth.png`` (and ``%04d_geo.png``
@@ -49,26 +71,15 @@ def render_visdata(state, cfg, render_cfg, init_c2w, scene, resolution, it,
     h, w = resolution
     params = state.params
     with torch.no_grad():
-        camera_mat, world_mat, scale_mat = visdata_view(params, cfg, init_c2w,
-                                                        scene, img_idx)
-        rgb, depth = render_image(params["nerf"], (h, w), camera_mat,
-                                  world_mat, scale_mat, render_cfg,
+        view = visdata_view(params, cfg, init_c2w, scene, img_idx)
+        rgb, depth = render_image(params["nerf"], (h, w), *view, render_cfg,
                                   chunk=min(h * w, 16384))
-    rgb = np.clip(rgb.cpu().numpy(), 0, 1)
-    depth = depth.cpu().numpy()
-    Image.fromarray((rgb * 255).astype(np.uint8)).save(
-        os.path.join(out_render_path, "%04d_img.png" % img_idx))
-    d_vis = np.clip(255.0 / max(depth.max(), 1e-8) * (depth - depth.min()),
-                    0, 255).astype(np.uint8)
-    Image.fromarray(d_vis).save(
-        os.path.join(out_render_path, "%04d_depth.png" % img_idx))
-
-    if cfg["training"].get("vis_geo", False):
-        _, pixels = arange_pixels((h, w), device=camera_mat.device)
-        out = phong_render(params["nerf"], pixels, camera_mat, world_mat,
-                           scale_mat, render_cfg,
-                           rad=cfg["rendering"]["radius"])
-        geo = np.clip(out["rgb"].cpu().numpy().reshape(h, w, 3), 0, 1)
-        Image.fromarray((geo * 255).astype(np.uint8)).save(
-            os.path.join(out_render_path, "%04d_geo.png" % img_idx))
-    return rgb
+    geo_rad = (cfg["rendering"]["radius"]
+               if cfg["training"].get("vis_geo", False) else None)
+    images = view_images(rgb, depth, params["nerf"], view, render_cfg,
+                         geo_rad=geo_rad)
+    for kind, image in zip(("img", "depth", "geo"), images):
+        if image is not None:
+            Image.fromarray(image).save(os.path.join(
+                out_render_path, "%04d_%s.png" % (img_idx, kind)))
+    return np.clip(rgb.cpu().numpy(), 0, 1)

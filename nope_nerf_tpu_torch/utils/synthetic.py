@@ -16,9 +16,9 @@ import torch
 
 from ..config import DEFAULT_CONFIG, load_config, update_recursive
 from ..convert import params_from_jax
+from ..device import resolve_device
 from ..models.nerf import init_nerf_params
 from ..ops.rendering import render_image
-from ..training.loop import resolve_device
 
 
 def lookat_c2w(eye, target, up=(0.0, 1.0, 0.0)):
@@ -94,6 +94,7 @@ class SyntheticScene:
             teacher["trunk0_0"]["w"] = teacher["trunk0_0"]["w"] * 4.0
         else:
             teacher = params_from_jax({"nerf": teacher}, dev)["nerf"]
+        model = TEACHER_CFG["model"]
         render_cfg = {
             "num_points": num_points,
             "depth_range": list(depth_range),
@@ -101,12 +102,12 @@ class SyntheticScene:
             "dist_alpha": False,
             "use_ray_dir": True,
             "normalise_ray": True,
-            "white_background": False,
+            "white_background": TEACHER_CFG["rendering"]["white_background"],
             "normal_loss": False,
             "outside_steps": 0,
-            "occ_activation": "softplus",
-            "pos_enc_levels": 4,
-            "dir_enc_levels": 2,
+            "occ_activation": model["occ_activation"],
+            "pos_enc_levels": model["pos_enc_levels"],
+            "dir_enc_levels": model["dir_enc_levels"],
         }
         self.teacher = teacher
         self.teacher_render_cfg = render_cfg
