@@ -44,7 +44,22 @@ SSIM, PNGs and video), checks its launch counts (Kernel A both ways, no
 weight-gradient launch, no other kernel), renders a 135x240 view through
 Kernel A and through its plain version, holds the input-only backward
 bitwise to the full one, and times the render and a pose-optimisation step
-with each backward.
+with each backward. The eval scores LPIPS with seeded VGG16 and head
+weights in the published layouts, converted by ``python -m
+nope_nerf_tpu_torch.convert_lpips`` (finite; one 540x960 pair held to
+float64 on the card and timed), and the stock run's parameters, written as
+the reference's four ``.pt`` streams and converted by ``python -m
+nope_nerf_tpu_torch.convert_reference``, must come back bit for bit.
+
+The DPT phase writes a 4-frame 540x960 scene in the LLFF layout, converts
+a seeded checkpoint with the published DPT-hybrid keys and shapes with
+``python -m nope_nerf_tpu_torch.convert_dpt``, runs ``python -m
+nope_nerf_tpu_torch.dpt_depth`` on it (4 priors of 384x672, finite and
+positive, and 4 PNGs), holds frame 0's depth against the same function in
+float64 on the card (relL2 DPT_RELL2, which the same run with TF32 on must
+exceed), times a frame and reads the peak memory, then loads the scene with
+the port's ``get_scene`` (the priors feed it) and trains the stock config
+on it for 2 epochs, checking Kernels A and B launched.
 
 The synthetic phase then writes the teacher scene of
 ``utils/synthetic.py`` to disk with the port's dataset writer, trains the
@@ -67,7 +82,8 @@ part) and a novel view.
 
 Prints, in order: the card's name and power limit, the kernel build time,
 one line per kernel check, the two GEMM phases' lines, one line per epoch, the
-eval phase's lines, the synthetic phase's lines, a JSON line with every
+eval phase's lines, the DPT phase's, the synthetic phase's, the JSON lines
+of the eval, DPT and synthetic phases, a JSON line with every
 kernel's errors, launches, times and bound (and the library call's time
 where one exists), and last ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that last line. It needs a CUDA device and the
@@ -113,6 +129,120 @@ SYN_PSNR_GAIN = 1.0  # dB, tests/test_training.py::test_vanilla_nerf_converges
 # alone, reads 51.48 (50.85-51.84): see PERF.md and ``--gate-control``.
 SYN_TAIL, SYN_PSNR_TAIL = 10, 55.0
 BENCH_SHORT = (16, 1, 2)  # steps per group, warm-up groups, timed groups
+# the DPT phase: a 4-frame 540x960 scene on disk (the transform makes it
+# 384x672), seeded weights with the published checkpoint's keys and shapes
+# (N(0, 0.05), as tests/test_dpt_convert.py draws them, and a head bias of
+# 400 that puts the inverse depth at the published model's magnitude, so
+# every pixel passes the head's ReLU; tests/test_torch_dpt.py), and 2 epochs
+# x 4 steps of the stock training on the priors it writes. DPT_RELL2 holds a
+# frame's depth against the same function in float64 on the card; a run
+# with TF32 on must exceed it, or the bar would not show that the forward
+# ran in full f32.
+DPT_FRAMES, DPT_EPOCHS, DPT_HEAD_BIAS = 4, 2, 400.0
+DPT_OUT_HW = (384, 672)
+DPT_RELL2 = 1e-4
+# LPIPS at 540x960 against float64 on the card: the CPU bar against the JAX
+# metric (tests/test_torch_lpips.py)
+LPIPS_REL = 2e-4
+# where the DPT phase and the reference-checkpoint check put their scene,
+# weights and checkpoints (~1 GB; removed when they end, never returned)
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+
+
+def dpt_checkpoint_shapes():
+    """{key: shape} of every tensor of the published
+    dpt_hybrid-midas-501f0c75.pt (torch layouts); a CPU test holds it equal
+    to tests/test_dpt_convert.py::synth_state_dict."""
+    s = {}
+    bb = "pretrained.model.patch_embed.backbone."
+    s[bb + "stem.conv.weight"] = (64, 3, 7, 7)
+    s[bb + "stem.norm.weight"] = s[bb + "stem.norm.bias"] = (64,)
+    cin = 64
+    for si, (n, cout) in enumerate(zip((3, 4, 9), (256, 512, 1024))):
+        cmid = cout // 4
+        for bi in range(n):
+            pre = f"{bb}stages.{si}.blocks.{bi}."
+            c_in = cin if bi == 0 else cout
+            for c, (o, i, k) in enumerate(((cmid, c_in, 1), (cmid, cmid, 3),
+                                           (cout, cmid, 1)), 1):
+                s[pre + f"conv{c}.weight"] = (o, i, k, k)
+                s[pre + f"norm{c}.weight"] = s[pre + f"norm{c}.bias"] = (o,)
+            if bi == 0:
+                s[pre + "downsample.conv.weight"] = (cout, c_in, 1, 1)
+                s[pre + "downsample.norm.weight"] = (cout,)
+                s[pre + "downsample.norm.bias"] = (cout,)
+        cin = cout
+    vm = "pretrained.model."
+    s[vm + "patch_embed.proj.weight"] = (768, 1024, 1, 1)
+    s[vm + "patch_embed.proj.bias"] = (768,)
+    s[vm + "cls_token"] = (1, 1, 768)
+    s[vm + "pos_embed"] = (1, 577, 768)
+    for i in range(12):
+        pre = f"{vm}blocks.{i}."
+        for name, (o, i_) in (("attn.qkv", (2304, 768)),
+                              ("attn.proj", (768, 768)),
+                              ("mlp.fc1", (3072, 768)),
+                              ("mlp.fc2", (768, 3072))):
+            s[pre + name + ".weight"], s[pre + name + ".bias"] = (o, i_), (o,)
+        for n in ("norm1", "norm2"):
+            s[pre + n + ".weight"] = s[pre + n + ".bias"] = (768,)
+    s[vm + "norm.weight"] = s[vm + "norm.bias"] = (768,)
+    pp = "pretrained.act_postprocess"
+    for h in (3, 4):
+        s[f"{pp}{h}.0.project.0.weight"] = (768, 1536)
+        s[f"{pp}{h}.0.project.0.bias"] = (768,)
+    for name, k in (("3.3", 1), ("4.3", 1), ("4.4", 3)):
+        s[f"{pp}{name}.weight"], s[f"{pp}{name}.bias"] = (768, 768, k, k), (768,)
+    for i, c in enumerate((256, 512, 768, 768), 1):
+        s[f"scratch.layer{i}_rn.weight"] = (256, c, 3, 3)
+    for r in (1, 2, 3, 4):
+        pre = f"scratch.refinenet{r}."
+        for u in (1, 2):
+            for c in (1, 2):
+                s[pre + f"resConfUnit{u}.conv{c}.weight"] = (256, 256, 3, 3)
+                s[pre + f"resConfUnit{u}.conv{c}.bias"] = (256,)
+        s[pre + "out_conv.weight"], s[pre + "out_conv.bias"] = (
+            (256, 256, 1, 1), (256,))
+    for i, (o, c, k) in zip((0, 2, 4), ((128, 256, 3), (32, 128, 3),
+                                        (1, 32, 1))):
+        s[f"scratch.output_conv.{i}.weight"] = (o, c, k, k)
+        s[f"scratch.output_conv.{i}.bias"] = (o,)
+    return s
+
+
+def lpips_checkpoint_shapes():
+    """({key: shape} of torchvision's vgg16().features, of the lpips
+    package's VGG heads); a CPU test holds them equal to
+    tests/test_lpips_convert.py::synth_dicts."""
+    vgg, cin = {}, 3
+    convs = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)
+    for idx, cout in zip((0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28),
+                         convs):
+        vgg[f"{idx}.weight"], vgg[f"{idx}.bias"] = (cout, cin, 3, 3), (cout,)
+        cin = cout
+    lin = {f"lin{i}.model.1.weight": (1, c, 1, 1)
+           for i, c in enumerate((64, 128, 256, 512, 512))}
+    return vgg, lin
+
+
+def seeded_state(shapes, gen, std):
+    """A state dict of N(0, std) f32 tensors of ``shapes`` from ``gen``."""
+    import torch
+
+    return {k: torch.randn(shape, generator=gen) * std
+            for k, shape in shapes.items()}
+
+
+def run_module(*args):
+    """``python -m <args>`` from the repository root, as a user runs a CLI;
+    raises when it fails. Returns its standard output."""
+    out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"python -m {' '.join(args)} exited "
+                           f"{out.returncode}:\n{out.stdout[-2000:]}\n"
+                           f"{out.stderr[-4000:]}")
+    return out.stdout
 
 # Kernel A's bars against its plain version. tests/test_pallas.py holds the
 # TPU kernel to rgb atol 0.03, density rtol 0.08 / atol 0.05 and gradients
@@ -1301,9 +1431,13 @@ def run_eval(dev, card, cfg, trained):
     from nope_nerf_tpu_torch.training.trainer import make_render_cfg
 
     nerf = check_restore(dev, card, cfg, trained)["nerf"]
+    n_reference = check_reference_checkpoints(card, trained)
+    weights = lpips_weights()
     cfg = dict(cfg, eval_pose=dict(cfg["eval_pose"],
                                    opt_pose_epoch=EVAL_POSE_EPOCHS,
-                                   n_points=EVAL_POINTS))
+                                   n_points=EVAL_POINTS),
+               extract_images=dict(cfg["extract_images"],
+                                   lpips_weights=weights))
     train_scene = MemoryScene(N_FRAMES, H, W, SEED)
     eval_scene = MemoryScene(N_FRAMES, H, W, SEED, mode="eval")
     counters = kernel_counters()
@@ -1315,13 +1449,13 @@ def run_eval(dev, card, cfg, trained):
                      eval_scene=eval_scene)
     counts = {c.name: c.count for c in counters}
     peak = torch.cuda.max_memory_allocated(dev)
-    finite = all(math.isfinite(res[k]) for k in ("psnr", "ssim"))
+    finite = all(math.isfinite(res[k]) for k in ("psnr", "ssim", "lpips"))
     print(f"eval [{card}]: {EVAL_POSE_EPOCHS} pose epochs x "
           f"{eval_scene.N_imgs} held-out view at {EVAL_POINTS} rays, then "
           f"{H}x{W} through Kernel A: PSNR {res['psnr']:.4f}, SSIM "
-          f"{res['ssim']:.5f}, {res['ms_per_image'][0]:.1f} ms/image (render"
-          f" + scoring + PNGs), peak memory {peak / 2**30:.3f} GiB; "
-          f"launches {counts}")
+          f"{res['ssim']:.5f}, LPIPS {res['lpips']:.5f}, "
+          f"{res['ms_per_image'][0]:.1f} ms/image (render + scoring + PNGs), "
+          f"peak memory {peak / 2**30:.3f} GiB; launches {counts}")
     stray = [n for n, v in counts.items() if v and n not in (
         "mlp_composite_fwd", "mlp_composite_bwd", *MLP_GEMMS)]
     if not (counts["mlp_composite_fwd"] and counts["mlp_composite_bwd"]) \
@@ -1330,6 +1464,9 @@ def run_eval(dev, card, cfg, trained):
                              f"launched off this path {stray}, or non-finite "
                              f"metrics {res}")
     check_gemm_counts("eval", counts, weight_grads=False)
+    lpips_rec = check_lpips(dev, card, weights, eval_scene.imgs[0],
+                            train_scene.imgs[0])
+    shutil.rmtree(os.path.dirname(weights))
 
     render_cfg = make_render_cfg(cfg, dev)
     cam = torch.as_tensor(train_scene.K, device=dev)
@@ -1365,6 +1502,8 @@ def run_eval(dev, card, cfg, trained):
     print(f"eval pose step [{card}]: {EVAL_POINTS} rays, full backward "
           f"{ms_full:.3f} ms/step, input-only backward {ms_in:.3f} ms/step")
     return counts, {"psnr": res["psnr"], "ssim": res["ssim"],
+                    "lpips": res["lpips"], "lpips_check": lpips_rec,
+                    "reference_tensors_restored": n_reference,
                     "ms_per_image": res["ms_per_image"][0],
                     "render_ms": render_ms, "peak_bytes": peak,
                     "small_view_max_abs_err": err, "small_view_ms": small_ms,
@@ -1375,6 +1514,265 @@ def run_eval(dev, card, cfg, trained):
                     "bwd_input_only_floor_ms": bwd["floor_ms_input_only"],
                     "pose_step_full_ms": ms_full,
                     "pose_step_input_only_ms": ms_in}
+
+
+def lpips_weights():
+    """Seeded VGG16-features and LPIPS-head state dicts with the published
+    keys and shapes, converted by ``python -m
+    nope_nerf_tpu_torch.convert_lpips``; returns the npz path."""
+    import torch
+
+    work = os.path.join(WORK, "lpips")
+    os.makedirs(work, exist_ok=True)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    vgg_shapes, lin_shapes = lpips_checkpoint_shapes()
+    vgg = seeded_state(vgg_shapes, gen, 0.08)
+    vgg.update({k: v * 1.25 for k, v in vgg.items() if k.endswith(".bias")})
+    lin = {k: v.abs() for k, v in seeded_state(lin_shapes, gen, 1.0).items()}
+    paths = [os.path.join(work, n) for n in ("vgg16.pth", "lin.pth",
+                                              "lpips_vgg.npz")]
+    torch.save(vgg, paths[0])
+    torch.save(lin, paths[1])
+    run_module("nope_nerf_tpu_torch.convert_lpips", paths[2], "--vgg",
+               paths[0], "--lin", paths[1])
+    return paths[2]
+
+
+def check_lpips(dev, card, path, img0, img1):
+    """One 540x960 pair's LPIPS against float64 on the card (rel
+    LPIPS_REL), with TF32 on beside it, and the metric's time."""
+    import numpy as np
+    import torch
+
+    from nope_nerf_tpu_torch.convert import lpips_params_from_jax, tree_to
+    from nope_nerf_tpu_torch.models import lpips
+    from nope_nerf_tpu_torch.training.checkpoints import load_pytree
+
+    params = lpips_params_from_jax(load_pytree(path)[0]["params"], dev)
+    a, b = (torch.as_tensor(np.asarray(im), device=dev) for im in (img0, img1))
+    got = float(lpips.lpips_distance(params, a, b))
+    p64 = tree_to(params, torch.float64)
+    want = float(lpips.lpips_distance(p64, a.double(), b.double()))
+    with tf32_on(lpips):
+        tf32 = float(lpips.lpips_distance(params, a, b))
+    rel, rel_tf32 = abs(got - want) / want, abs(tf32 - want) / want
+    ms = cuda_ms(lambda: lpips.lpips_distance(params, a, b), iters=5)
+    print(f"eval LPIPS [{card}]: {a.shape[0]}x{a.shape[1]} pair {got:.6f} "
+          f"vs float64 {want:.6f}: rel {rel:.3e} (bar {LPIPS_REL:.0e}); "
+          f"TF32 on: rel {rel_tf32:.3e}; {ms:.2f} ms per image")
+    if not (math.isfinite(got) and rel <= LPIPS_REL):
+        raise AssertionError(f"LPIPS on the card {got} vs float64 {want}")
+    return {"lpips": got, "lpips_f64": want, "rel": rel,
+            "rel_tf32": rel_tf32, "ms_per_image": ms}
+
+
+@contextlib.contextmanager
+def tf32_on(module):
+    """Run ``module``'s forward with TF32 on: its f32 scope (``no_tf32``,
+    looked up at each call) replaced by one that turns TF32 on."""
+    import torch
+
+    @contextlib.contextmanager
+    def on():
+        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+        prev = cudnn.allow_tf32, matmul.allow_tf32
+        cudnn.allow_tf32 = matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            cudnn.allow_tf32, matmul.allow_tf32 = prev
+
+    real = module.no_tf32
+    module.no_tf32 = on
+    try:
+        yield
+    finally:
+        module.no_tf32 = real
+
+
+def write_llff_scene(scene_dir, n_frames, hw, seed):
+    """``n_frames`` random frames of ``hw`` on a smooth trajectory
+    (``synthetic.MemoryScene``) in the LLFF layout, by the port's dataset
+    writer, without depth priors. Returns the frames."""
+    from nope_nerf_tpu_torch.make_synthetic_dataset import write_dataset
+    from nope_nerf_tpu_torch.synthetic import MemoryScene
+
+    scene = MemoryScene(n_frames, *hw, seed)
+    write_dataset(scene, scene_dir)
+    shutil.rmtree(os.path.join(scene_dir, "dpt"))
+    return scene.imgs
+
+
+def run_dpt(dev, card):
+    """The DPT phase (see the module docstring): seeded checkpoint ->
+    ``convert_dpt`` -> ``dpt_depth`` on a 540x960 scene -> the port's
+    ``get_scene`` with those priors -> 2 epochs of stock training. Returns
+    the training's launch counts and the phase's numbers."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from nope_nerf_tpu_torch.convert import tree_to
+    from nope_nerf_tpu_torch.dataloading.scene import get_scene
+    from nope_nerf_tpu_torch.models import dpt
+    from nope_nerf_tpu_torch.training.loop import train
+
+    work = os.path.join(WORK, "dpt")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "data")
+    write_llff_scene(os.path.join(data, "scene"), DPT_FRAMES, (H, W), SEED)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    state = seeded_state(dpt_checkpoint_shapes(), gen, 0.05)
+    state["scratch.output_conv.4.bias"].fill_(DPT_HEAD_BIAS)
+    pt, npz = os.path.join(work, "dpt.pt"), os.path.join(work, "dpt.npz")
+    torch.save(state, pt)
+    del state
+    t0 = time.perf_counter()
+    run_module("nope_nerf_tpu_torch.convert_dpt", pt, npz)
+    convert_s = time.perf_counter() - t0
+    os.remove(pt)
+    cfg_path = os.path.join(work, "preprocess.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({"depth": {"type": "DPT", "path": npz},
+                        "dataloading": {"path": data, "scene": ["scene"],
+                                        "resize_factor": None},
+                        "training": {"mode": "all"}}, f)
+    t0 = time.perf_counter()
+    run_module("nope_nerf_tpu_torch.dpt_depth", cfg_path)
+    cli_s = time.perf_counter() - t0
+    out_dir = os.path.join(data, "scene", "dpt")
+    files = sorted(os.listdir(out_dir))
+    npzs = [f for f in files if f.startswith("depth_") and f.endswith(".npz")]
+    pngs = [f for f in files if f.endswith(".png")]
+    preds = [np.load(os.path.join(out_dir, f))["pred"] for f in npzs]
+    bad = [f for f, p in zip(npzs, preds) if p.shape != (1, *DPT_OUT_HW)
+           or p.dtype != np.float32 or not np.all(np.isfinite(p))
+           or not np.all(p > 0)]
+    if len(npzs) != DPT_FRAMES or len(pngs) != DPT_FRAMES or bad:
+        raise AssertionError(f"dpt_depth wrote {files}; bad priors {bad}")
+
+    # one frame through the same function in f32, in float64 and with TF32
+    # on, from the scene as the CLI read it
+    from nope_nerf_tpu_torch.config import DEFAULT_CONFIG, load_config
+
+    pre_cfg = load_config(cfg_path, DEFAULT_CONFIG)
+    frames = get_scene(pre_cfg, mode="all").imgs
+    x = torch.as_tensor(np.stack([dpt.dpt_input_transform(f)
+                                  for f in frames]), device=dev)
+    params = dpt.load_dpt(npz, dev)
+    depth = dpt.apply_dpt_batched(params, x[:1])[0]
+    p64 = tree_to(params, torch.float64)
+    depth64 = dpt.apply_dpt_batched(p64, x[:1].double())[0]
+    del p64
+    with tf32_on(dpt):
+        depth_tf32 = dpt.apply_dpt_batched(params, x[:1])[0]
+    err, err_tf32 = rel_l2(depth.double(), depth64), rel_l2(
+        depth_tf32.double(), depth64)
+    cli_err = rel_l2(torch.as_tensor(preds[0][0], device=dev).double(),
+                     depth64)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(lambda: dpt.apply_dpt_batched(params, x), iters=3,
+                 warmup=1) / len(x)
+    peak = torch.cuda.max_memory_allocated(dev)
+    d = depth64.cpu().numpy()
+    print(f"dpt [{card}]: {DPT_FRAMES} frames {H}x{W} -> {DPT_OUT_HW[0]}x"
+          f"{DPT_OUT_HW[1]}; convert_dpt {convert_s:.1f} s, dpt_depth CLI "
+          f"{cli_s:.1f} s (process, weights and 4 frames); depth "
+          f"{d.min():.3f}..{d.max():.3f}; frame 0 relL2 vs float64 {err:.3e}"
+          f" (bar {DPT_RELL2:.0e}), the CLI's prior {cli_err:.3e}, TF32 on "
+          f"{err_tf32:.3e}; {ms:.2f} ms per frame in batches of "
+          f"{len(x)}, peak memory {peak / 2**30:.3f} GiB")
+    if not (err <= DPT_RELL2 and cli_err <= DPT_RELL2 < err_tf32):
+        raise AssertionError(f"dpt: relL2 vs float64 {err} (the CLI's "
+                             f"{cli_err}), TF32 {err_tf32}: the bar "
+                             f"{DPT_RELL2} does not separate them")
+    del params
+
+    cfg = stock_cfg()
+    cfg["dataloading"].update(path=data, scene=["scene"], resize_factor=None)
+    cfg["training"].update(out_dir=os.path.join(work, "out"), seed=SEED)
+    scene = get_scene(cfg, mode="train")
+    want = np.stack([p[0] for p in preds])
+    if scene.dpt_depth is None or not np.array_equal(scene.dpt_depth, want):
+        raise AssertionError("get_scene did not read the priors dpt_depth "
+                             "wrote")
+    torch.cuda.empty_cache()
+    counters = reset_counts()
+    _, _, _, history = train(cfg, max_epochs=DPT_EPOCHS, scene=scene,
+                             device=dev)
+    counts = {c.name: c.count for c in counters}
+    losses = [v for h in history for v in h["step_losses"]]
+    if len(losses) != DPT_EPOCHS * scene.N_imgs or not all(
+            map(math.isfinite, losses)):
+        raise AssertionError(f"dpt training: losses {losses}")
+    check_launches("dpt training", counts, RUNS[0][2])
+    print(f"dpt training [{card}]: {len(losses)} steps on the priors "
+          f"({scene.dpt_depth.shape[1]}x{scene.dpt_depth.shape[2]}), loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches {counts}")
+    shutil.rmtree(work)
+    return counts, {"depth_rel_l2_vs_f64": err, "cli_rel_l2_vs_f64": cli_err,
+                    "tf32_rel_l2_vs_f64": err_tf32, "ms_per_frame": ms,
+                    "batch": len(x), "peak_bytes": peak,
+                    "cli_s": cli_s, "convert_s": convert_s,
+                    "train_losses": losses}
+
+
+def check_reference_checkpoints(card, trained):
+    """The stock run's parameters written as the reference's four ``.pt``
+    streams (torch Linear (out, in) weights under ``renderer.model.``,
+    the resume scalars, an optimizer blob), converted by ``python -m
+    nope_nerf_tpu_torch.convert_reference``, restored equal bit for bit."""
+    import torch
+
+    from nope_nerf_tpu_torch.convert import load_group
+    from nope_nerf_tpu_torch.convert_reference import NERF_LAYER_MAP
+    from nope_nerf_tpu_torch.training.checkpoints import CheckpointIO
+
+    work = os.path.join(WORK, "reference")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    p = {g: {k: v.detach().cpu() for k, v in sub.items()}
+         for g, sub in trained.params.items() if g != "nerf"}
+    nerf = trained.params["nerf"]
+    scal = {"epoch_it": EPOCHS, "it": EPOCHS * N_FRAMES}
+    model = {}
+    for ref, ours in NERF_LAYER_MAP.items():
+        model[f"renderer.model.{ref}.weight"] = nerf[ours]["w"].detach().cpu().T
+        model[f"renderer.model.{ref}.bias"] = nerf[ours]["b"].detach().cpu()
+    streams = {
+        "model": model,
+        "model_pose": {"r": p["pose"]["r"], "t": p["pose"]["t"]},
+        "model_focal": dict(p["focal"]),
+        "model_distortion": {"global_scales": p["distortion"]["scales"],
+                             "global_shifts": p["distortion"]["shifts"]}}
+    for name, sd in streams.items():
+        torch.save({"model": sd, "optimizer": {"state": {},
+                                               "param_groups": []}, **scal},
+                   os.path.join(work, f"{name}.pt"))
+    out = os.path.join(work, "npz")
+    run_module("nope_nerf_tpu_torch.convert_reference", work, out)
+    io = CheckpointIO(out)
+    bad, n = [], 0
+    for g, stream in (("nerf", "model"), ("pose", "model_pose"),
+                      ("focal", "model_focal"),
+                      ("distortion", "model_distortion")):
+        restored = load_group(io, f"{stream}.npz", g, "cpu")
+        if io.load(f"{stream}.npz")[1] != scal:
+            bad.append(f"{stream} scalars")
+        for k, sub in trained.params[g].items():
+            for a, b in ([(restored[k][kk], v) for kk, v in sub.items()]
+                         if isinstance(sub, dict) else [(restored[k], sub)]):
+                n += 1
+                if not torch.equal(a, b.detach().cpu()):
+                    bad.append(f"{g}/{k}")
+    print(f"reference checkpoints [{card}]: the stock run's 4 streams as "
+          f"reference .pt files -> convert_reference -> {n} parameter "
+          f"tensors restored: {len(bad)} differ")
+    shutil.rmtree(work)
+    if bad:
+        raise AssertionError(f"reference checkpoint round trip: {bad}")
+    return n
 
 
 def check_launches(label, counts, expect, weight_grads=True):
@@ -1750,13 +2148,17 @@ def main(argv=None):
         for rec in records:
             launches[rec["name"]] += counts[rec["name"]]
     eval_counts, eval_rec = run_eval(dev, card, *stock)
+    dpt_counts, dpt_rec = run_dpt(dev, card)
     syn_counts, syn_rec = run_synthetic(dev, card)
     for rec in records:
         rec["launches"] = (launches[rec["name"]] + eval_counts[rec["name"]]
+                           + dpt_counts[rec["name"]]
                            + syn_counts[rec["name"]])
         rec["eval_launches"] = eval_counts[rec["name"]]
+        rec["dpt_launches"] = dpt_counts[rec["name"]]
         rec["synthetic_launches"] = syn_counts[rec["name"]]
     print(json.dumps({"eval": eval_rec}))
+    print(json.dumps({"dpt": dpt_rec}))
     print(json.dumps({"synthetic": syn_rec}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

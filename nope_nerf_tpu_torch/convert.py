@@ -8,6 +8,12 @@ conversion is a leaf-wise copy between numpy arrays and f32 tensors. The
 Adam moments map between the port's ``torch.optim.Adam`` and the leaves of
 the JAX ``optax`` state (:func:`adam_state_to_jax_leaves`,
 :func:`adam_state_from_jax_leaves`).
+
+The frozen networks of preprocessing and evaluation (DPT, LPIPS) keep the
+JAX package's tree, which is also their npz format, with PyTorch's
+layouts: :func:`dpt_params_from_jax` and :func:`lpips_params_from_jax`
+turn HWIO conv weights into OIHW and (in, out) linear weights into
+(out, in).
 """
 from __future__ import annotations
 
@@ -27,7 +33,48 @@ GROUP_KEYS = {
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn) for v in tree]
     return fn(tree)
+
+
+def tree_to(tree, to):
+    """Every tensor of a nested dict / list through ``t.to(to)``: a device
+    or a dtype."""
+    return _map(tree, lambda t: t.to(to))
+
+
+def _torch_layout(a, device):
+    """A JAX weight as the port keeps it: 4-D HWIO -> OIHW, 2-D (in, out)
+    -> (out, in); other leaves as they are. f32 tensor on ``device``."""
+    a = np.asarray(a, np.float32)
+    if a.ndim == 4:
+        a = a.transpose(3, 2, 0, 1)
+    elif a.ndim == 2:
+        a = a.T
+    return torch.tensor(np.ascontiguousarray(a), device=device)
+
+
+def dpt_params_from_jax(tree, device=None):
+    """The JAX DPT parameter tree (numpy leaves, as ``convert_dpt`` writes
+    it) -> the port's (:mod:`.models.dpt`). Its only 2-D leaves are
+    linear weights and its only 4-D leaves conv weights."""
+    return _map(tree, lambda a: _torch_layout(a, device))
+
+
+def _as_list(node, n):
+    """The npz round trip restores digit-keyed dicts as lists; accept
+    either."""
+    return node if isinstance(node, list) else [node[str(i)] for i in range(n)]
+
+
+def lpips_params_from_jax(tree, device=None):
+    """The JAX LPIPS tree ``{"convs": 13 x {w, b}, "lins": 5 x {w}}``, lists
+    or digit-keyed dicts -> the port's (:mod:`.models.lpips`): OIHW convs,
+    heads (1, C)."""
+    tree = {"convs": _as_list(tree["convs"], 13),
+            "lins": _as_list(tree["lins"], 5)}
+    return _map(tree, lambda a: _torch_layout(a, device))
 
 
 def params_from_jax(tree, device=None):

@@ -1,5 +1,7 @@
-"""The device an entry point runs on."""
+"""The device an entry point runs on, and the f32 precision scope."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -14,3 +16,17 @@ def resolve_device(device="cuda"):
             "CUDA device is available; pass device='cpu' (--device cpu) to "
             "run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Convolutions and f32 matrix products in full f32 inside the block:
+    ``cudnn.allow_tf32`` (on by default) and ``cuda.matmul.allow_tf32``
+    off, both restored on exit."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = prev

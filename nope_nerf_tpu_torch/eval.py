@@ -10,8 +10,10 @@ renders every view, prints the per-image and mean PSNR / SSIM / LPIPS lines
 (and with ``--depth`` the depth-error table), and writes ``img_out/``,
 ``depth_out/``, ``img_gt_out/`` and ``video_out/img.mp4`` under
 ``<out_dir>/<eval_pose.extraction_dir>/eval/<init_method>`` (or
-``eval_trained``). LPIPS is not ported: it reports nan, and a config that
-names LPIPS weights on disk raises ``NotImplementedError``.
+``eval_trained``). LPIPS (``models.lpips``, on the eval device) reads
+``extract_images.lpips_weights`` (default ``models.lpips.DEFAULT_WEIGHTS``,
+written by ``python -m nope_nerf_tpu_torch.convert_lpips``) and reports nan
+only when that file is missing.
 
 Runs on ``--device`` (default ``cuda``; with no CUDA device it raises
 unless ``--device cpu`` is given). Scenes are read with the port's numpy
@@ -39,6 +41,7 @@ from .evaluation.metrics import median_scaled_depth_errors
 from .evaluation.pose_opt import init_eval_poses, optimize_eval_poses
 from .geometry.rays import camera_mat_from_fxfy
 from .models.intrinsics import focal_fxfy
+from .models.lpips import load_lpips
 from .models.pose import all_poses
 from .training.checkpoints import CheckpointIO
 from .training.loop import MetricsLogger
@@ -103,12 +106,15 @@ def main(cfg, eval_depth=False, device="cuda", train_scene=None,
             ecfg["opt_eval_lr"], ecfg["n_points"], logger=logger)
     os.makedirs(render_dir, exist_ok=True)
 
-    lpips_weights = xcfg.get("lpips_weights")
-    if lpips_weights and os.path.exists(lpips_weights):
-        raise NotImplementedError(
-            f"extract_images.lpips_weights={lpips_weights!r}: LPIPS is not "
-            "ported to nope_nerf_tpu_torch yet")
-    print("LPIPS is not ported to nope_nerf_tpu_torch yet; reporting nan")
+    # LPIPS on the eval device; only a MISSING weights file reports nan, any
+    # other fault of the LPIPS stack surfaces. lpips_weights None reads
+    # models.lpips.DEFAULT_WEIGHTS
+    lpips_fn = None
+    try:
+        lpips_fn = load_lpips(xcfg.get("lpips_weights"), dev)
+    except FileNotFoundError as e:
+        print(f"LPIPS weights not found ({e}); reporting nan — convert them "
+              "once with python -m nope_nerf_tpu_torch.convert_lpips")
 
     resolution = xcfg["resolution"] or (scene.H, scene.W)
     results, ms_per_image = [], []
@@ -124,8 +130,9 @@ def main(cfg, eval_depth=False, device="cuda", train_scene=None,
         t0 = time.perf_counter()
         out = eval_image(
             nerf_params, render_cfg, resolution, camera_mat, world_mat,
-            scene.scale_mat, img_gt, depth_gt=dgt, min_depth=min_depth,
-            max_depth=max_depth, render_dir=render_dir, img_idx=i)
+            scene.scale_mat, img_gt, depth_gt=dgt, lpips_fn=lpips_fn,
+            min_depth=min_depth, max_depth=max_depth, render_dir=render_dir,
+            img_idx=i)
         ms_per_image.append(1e3 * (time.perf_counter() - t0))
         print(f"{i:4d} img: PSNR: {out['psnr']:.2f}, SSIM: {out['ssim']:.2f}, "
               f"LPIPS {out['lpips']:.2f}")

@@ -12,29 +12,19 @@ denominators turn negative and the mean leaves [-1, 1].
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
 
+from ..device import no_tf32
+
 C1, C2 = 0.01**2, 0.03**2
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 def _depthwise(x, kernel, pad):
     """(H, W, C) image convolved per channel with ``kernel`` (k, k)."""
     C = x.shape[-1]
     k = kernel.to(x)[None, None].expand(C, 1, *kernel.shape)
-    with _no_tf32():
+    with no_tf32():
         out = F.conv2d(x.permute(2, 0, 1)[None], k, padding=pad, groups=C)
     return out[0].permute(1, 2, 0)
 

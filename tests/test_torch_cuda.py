@@ -637,3 +637,57 @@ def test_render_visdata_matches_cpu(dev, tmp_path):
         if diff.ndim == 3:
             diff = diff.max(-1)
         assert (diff <= 1).mean() >= share, name
+
+
+def _tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+@pytest.mark.parametrize("net", ["dpt", "lpips"])
+def test_frozen_nets_on_card_match_cpu(dev, net):
+    """DPT (a batch of two 64x96 frames, the published widths) and LPIPS
+    (40x48) on the card against the same call on the CPU, from seeded
+    weights with the published checkpoints' keys and shapes converted by
+    the port's converters: depth relL2 <= 1e-4 (chip_smoke.py's bar against
+    float64), LPIPS rel <= 2e-4. Each call runs in full f32 and leaves the
+    caller's TF32 flags (here both on) as they were."""
+    import chip_smoke
+    from nope_nerf_tpu_torch.convert import (dpt_params_from_jax,
+                                             lpips_params_from_jax, tree_to)
+
+    gen = torch.Generator().manual_seed(0)
+    if net == "dpt":
+        from nope_nerf_tpu_torch.convert_dpt import convert
+        from nope_nerf_tpu_torch.models.dpt import apply_dpt_batched as fn
+
+        state = chip_smoke.seeded_state(chip_smoke.dpt_checkpoint_shapes(),
+                                        gen, 0.05)
+        state["scratch.output_conv.4.bias"].fill_(chip_smoke.DPT_HEAD_BIAS)
+        params = dpt_params_from_jax(convert(state))
+        args = (torch.rand((2, 64, 96, 3), generator=gen) * 2 - 1,)
+    else:
+        from nope_nerf_tpu_torch.convert_lpips import convert
+        from nope_nerf_tpu_torch.models.lpips import lpips_distance as fn
+
+        vgg, lin = (chip_smoke.seeded_state(s, gen, 0.08)
+                    for s in chip_smoke.lpips_checkpoint_shapes())
+        params = lpips_params_from_jax(convert(
+            vgg, {k: v.abs() for k, v in lin.items()}))
+        args = tuple(torch.rand((40, 48, 3), generator=gen) for _ in "ab")
+    want = fn(params, *args)
+    saved = _tf32_flags()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = fn(tree_to(params, dev), *(a.to(dev) for a in args))
+        assert _tf32_flags() == (True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    if net == "dpt":
+        assert got.shape == want.shape == (2, 64, 96)
+        assert _rel_l2(got.cpu(), want) <= 1e-4
+    else:
+        assert float(want) > 1e-3
+        assert float(got) == pytest.approx(float(want), rel=2e-4)

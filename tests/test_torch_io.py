@@ -137,12 +137,17 @@ def test_export_camera_frustums_matches_jax(tmp_path):
     assert a.read_bytes() == b.read_bytes()
 
 
+# what the GPU machine lacks: the JAX package, JAX itself, and cv2 and
+# imageio, which the JAX package uses for images
+FORBIDDEN = ("nope_nerf_tpu", "jax", "jaxlib", "cv2", "imageio")
+
+
 def _jax_package_imports(path):
-    """(line, name) of every import of nope_nerf_tpu in a source file, at
-    any depth (top level, inside functions, importlib calls)."""
+    """(line, name) of every import of a FORBIDDEN package in a source
+    file, at any depth (top level, inside functions, importlib calls)."""
 
     def is_pkg(name):
-        return name == "nope_nerf_tpu" or name.startswith("nope_nerf_tpu.")
+        return any(name == p or name.startswith(p + ".") for p in FORBIDDEN)
 
     with open(path) as f:
         tree = ast.parse(f.read(), path)
@@ -167,7 +172,8 @@ def _jax_package_imports(path):
 
 def test_port_never_imports_jax_package():
     """An AST walk over every .py under nope_nerf_tpu_torch/ and over
-    chip_smoke.py finds no import of nope_nerf_tpu at any depth."""
+    chip_smoke.py finds no import of nope_nerf_tpu, jax, cv2 or imageio at
+    any depth."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "nope_nerf_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
@@ -188,6 +194,52 @@ def test_import_walker_finds_nested_imports(tmp_path):
         "    import importlib\n"
         "    importlib.import_module('nope_nerf_tpu.utils.vis')\n"
         "from nope_nerf_tpu_torch import eval\n"
-        "from . import nope_nerf_tpu\n")
-    assert [n for _, n in _jax_package_imports(str(src))] == [
-        "nope_nerf_tpu.utils.mp4", "nope_nerf_tpu", "nope_nerf_tpu.utils.vis"]
+        "from . import nope_nerf_tpu\n"
+        "def g():\n"
+        "    import jax.numpy as jnp\n"
+        "    import cv2, imageio.v2\n"
+        "    import jaxtyping, cv2x\n")
+    assert [n for _, n in sorted(_jax_package_imports(str(src)))] == [
+        "nope_nerf_tpu.utils.mp4", "nope_nerf_tpu", "nope_nerf_tpu.utils.vis",
+        "jax.numpy", "cv2", "imageio.v2"]
+
+
+def _device_default(path):
+    """The default of the ``--device`` argument a CLI module declares."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and node.args
+                and isinstance(node.args[0], ast.Constant)
+                and node.args[0].value == "--device"):
+            return next(k.value.value for k in node.keywords
+                        if k.arg == "default")
+    return None
+
+
+@pytest.mark.parametrize("name", ["train", "eval", "render", "bench",
+                                  "make_synthetic_dataset", "dpt_depth"])
+def test_cli_defaults_to_cuda_and_raises_without_it(name, tmp_path,
+                                                    monkeypatch):
+    """Every CLI of the port that runs on a device declares ``--device``
+    with the default ``cuda``, and its entry, called as the CLI calls it
+    without ``--device``, raises on a machine with no CUDA device instead
+    of falling back to the CPU."""
+    import importlib
+
+    from nope_nerf_tpu_torch.config import DEFAULT_CONFIG, load_config
+
+    path = os.path.join(ROOT, "nope_nerf_tpu_torch", f"{name}.py")
+    assert _device_default(path) == "cuda"
+    mod = importlib.import_module(f"nope_nerf_tpu_torch.{name}")
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text("depth: {type: DPT}\n")
+    cfg = load_config(str(cfg_path), DEFAULT_CONFIG)
+    cfg["training"]["out_dir"] = str(tmp_path / "out")
+    call = {"train": lambda: mod.main([str(cfg_path)]),
+            "bench": lambda: mod.main([]),
+            "make_synthetic_dataset": lambda: mod.main([str(tmp_path / "d")]),
+            }.get(name, lambda: mod.main(cfg))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
