@@ -47,7 +47,8 @@ bitwise to the full one, and times the render and a pose-optimisation step
 with each backward. The eval scores LPIPS with seeded VGG16 and head
 weights in the published layouts, converted by ``python -m
 nope_nerf_tpu_torch.convert_lpips`` (finite; one 540x960 pair held to
-float64 on the card and timed), and the stock run's parameters, written as
+float64 on the card within LPIPS_REL, which the same pair with TF32 on must
+exceed, and timed), and the stock run's parameters, written as
 the reference's four ``.pt`` streams and converted by ``python -m
 nope_nerf_tpu_torch.convert_reference``, must come back bit for bit.
 
@@ -59,7 +60,9 @@ positive, and 4 PNGs), holds frame 0's depth against the same function in
 float64 on the card (relL2 DPT_RELL2, which the same run with TF32 on must
 exceed), times a frame and reads the peak memory, then loads the scene with
 the port's ``get_scene`` (the priors feed it) and trains the stock config
-on it for 2 epochs, checking Kernels A and B launched.
+on it for 2 epochs, checking Kernels A and B launched and holding Kernel
+B's last two calls (clouds from the 384x672 priors) and Kernel C's forward
+at the it-0 visualisation against their plain versions at those inputs.
 
 The synthetic phase then writes the teacher scene of
 ``utils/synthetic.py`` to disk with the port's dataset writer, trains the
@@ -141,9 +144,10 @@ BENCH_SHORT = (16, 1, 2)  # steps per group, warm-up groups, timed groups
 DPT_FRAMES, DPT_EPOCHS, DPT_HEAD_BIAS = 4, 2, 400.0
 DPT_OUT_HW = (384, 672)
 DPT_RELL2 = 1e-4
-# LPIPS at 540x960 against float64 on the card: the CPU bar against the JAX
-# metric (tests/test_torch_lpips.py)
-LPIPS_REL = 2e-4
+# LPIPS at 540x960 against float64 on the card. A run with TF32 on must
+# exceed the bar, so that it shows the metric ran in full f32: on an H100
+# (700 W) the f32 run reads rel 2.9e-8 and the TF32 run 1.29e-5 (PERF.md).
+LPIPS_REL = 1e-6
 # where the DPT phase and the reference-checkpoint check put their scene,
 # weights and checkpoints (~1 GB; removed when they end, never returned)
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -1553,41 +1557,32 @@ def check_lpips(dev, card, path, img0, img1):
     got = float(lpips.lpips_distance(params, a, b))
     p64 = tree_to(params, torch.float64)
     want = float(lpips.lpips_distance(p64, a.double(), b.double()))
-    with tf32_on(lpips):
-        tf32 = float(lpips.lpips_distance(params, a, b))
+    tf32 = float(with_tf32(lambda: lpips._distance(params, a, b)))
     rel, rel_tf32 = abs(got - want) / want, abs(tf32 - want) / want
     ms = cuda_ms(lambda: lpips.lpips_distance(params, a, b), iters=5)
     print(f"eval LPIPS [{card}]: {a.shape[0]}x{a.shape[1]} pair {got:.6f} "
           f"vs float64 {want:.6f}: rel {rel:.3e} (bar {LPIPS_REL:.0e}); "
           f"TF32 on: rel {rel_tf32:.3e}; {ms:.2f} ms per image")
-    if not (math.isfinite(got) and rel <= LPIPS_REL):
-        raise AssertionError(f"LPIPS on the card {got} vs float64 {want}")
+    if not (math.isfinite(got) and rel <= LPIPS_REL < rel_tf32):
+        raise AssertionError(f"LPIPS on the card {got} vs float64 {want}: "
+                             f"rel {rel}, TF32 {rel_tf32}: the bar "
+                             f"{LPIPS_REL} does not separate them")
     return {"lpips": got, "lpips_f64": want, "rel": rel,
             "rel_tf32": rel_tf32, "ms_per_image": ms}
 
 
-@contextlib.contextmanager
-def tf32_on(module):
-    """Run ``module``'s forward with TF32 on: its f32 scope (``no_tf32``,
-    looked up at each call) replaced by one that turns TF32 on."""
+def with_tf32(fn):
+    """``fn()`` without autograd and with both TF32 flags on; the smoke
+    runs with them off (:func:`main`), and they are off again after."""
     import torch
 
-    @contextlib.contextmanager
-    def on():
-        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-        prev = cudnn.allow_tf32, matmul.allow_tf32
-        cudnn.allow_tf32 = matmul.allow_tf32 = True
-        try:
-            yield
-        finally:
-            cudnn.allow_tf32, matmul.allow_tf32 = prev
-
-    real = module.no_tf32
-    module.no_tf32 = on
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
     try:
-        yield
+        with torch.no_grad():
+            return fn()
     finally:
-        module.no_tf32 = real
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
 
 
 def write_llff_scene(scene_dir, n_frames, hw, seed):
@@ -1615,6 +1610,8 @@ def run_dpt(dev, card):
     from nope_nerf_tpu_torch.convert import tree_to
     from nope_nerf_tpu_torch.dataloading.scene import get_scene
     from nope_nerf_tpu_torch.models import dpt
+    from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
     from nope_nerf_tpu_torch.training.loop import train
 
     work = os.path.join(WORK, "dpt")
@@ -1664,8 +1661,8 @@ def run_dpt(dev, card):
     p64 = tree_to(params, torch.float64)
     depth64 = dpt.apply_dpt_batched(p64, x[:1].double())[0]
     del p64
-    with tf32_on(dpt):
-        depth_tf32 = dpt.apply_dpt_batched(params, x[:1])[0]
+    depth_tf32 = with_tf32(lambda: dpt._apply_dpt_nchw(
+        params, x[:1].permute(0, 3, 1, 2)))[0]
     err, err_tf32 = rel_l2(depth.double(), depth64), rel_l2(
         depth_tf32.double(), depth64)
     cli_err = rel_l2(torch.as_tensor(preds[0][0], device=dev).double(),
@@ -1699,23 +1696,50 @@ def run_dpt(dev, card):
                              "wrote")
     torch.cuda.empty_cache()
     counters = reset_counts()
-    _, _, _, history = train(cfg, max_epochs=DPT_EPOCHS, scene=scene,
-                             device=dev)
+    # Kernel B's last two calls (clouds from the 384x672 priors) and
+    # Kernel C's forward (the it-0 visualisation), held against their
+    # plain versions at these inputs below
+    with recording(cb, "nearest_idx_banded", keep=2) as argmin_calls, \
+            recording(mk, "fused_mlp") as point_calls:
+        _, _, _, history = train(cfg, max_epochs=DPT_EPOCHS, scene=scene,
+                                 device=dev)
     counts = {c.name: c.count for c in counters}
     losses = [v for h in history for v in h["step_losses"]]
     if len(losses) != DPT_EPOCHS * scene.N_imgs or not all(
             map(math.isfinite, losses)):
         raise AssertionError(f"dpt training: losses {losses}")
     check_launches("dpt training", counts, RUNS[0][2])
+    kernel_checks = {
+        "chamfer_band": check_argmin_calls(
+            "dpt training's chamfer_band", cb.nearest_idx_banded,
+            cb.nearest_idx_banded_reference, argmin_calls),
+        "mlp_point_fwd": check_point_mlp_call(
+            "dpt training's visualisation", point_calls)}
     print(f"dpt training [{card}]: {len(losses)} steps on the priors "
           f"({scene.dpt_depth.shape[1]}x{scene.dpt_depth.shape[2]}), loss "
-          f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches {counts}")
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches {counts}; kernel "
+          f"checks at this phase's inputs {json.dumps(kernel_checks)}")
     shutil.rmtree(work)
     return counts, {"depth_rel_l2_vs_f64": err, "cli_rel_l2_vs_f64": cli_err,
                     "tf32_rel_l2_vs_f64": err_tf32, "ms_per_frame": ms,
                     "batch": len(x), "peak_bytes": peak,
                     "cli_s": cli_s, "convert_s": convert_s,
-                    "train_losses": losses}
+                    "train_losses": losses, "kernel_checks": kernel_checks}
+
+
+# the reference NeRF's Linear layers under ``renderer.model.``
+# (model/official_nerf.py: nn.Sequential slots 0, 2, 4, 6 of each trunk half,
+# the layout of tests/test_reference_ckpt_convert.py's fixtures) and the
+# port's parameter each holds; written out here, not taken from the converter
+# under test (tests/test_torch_convert_tools.py holds it to the JAX tool's)
+REF_NERF_LAYERS = (
+    ("layers0.0", "trunk0_0"), ("layers0.2", "trunk0_1"),
+    ("layers0.4", "trunk0_2"), ("layers0.6", "trunk0_3"),
+    ("layers1.0", "trunk1_0"), ("layers1.2", "trunk1_1"),
+    ("layers1.4", "trunk1_2"), ("layers1.6", "trunk1_3"),
+    ("fc_density", "fc_density"), ("fc_feature", "fc_feature"),
+    ("rgb_layers.0", "rgb_layer"), ("fc_rgb", "fc_rgb"),
+)
 
 
 def check_reference_checkpoints(card, trained):
@@ -1726,7 +1750,6 @@ def check_reference_checkpoints(card, trained):
     import torch
 
     from nope_nerf_tpu_torch.convert import load_group
-    from nope_nerf_tpu_torch.convert_reference import NERF_LAYER_MAP
     from nope_nerf_tpu_torch.training.checkpoints import CheckpointIO
 
     work = os.path.join(WORK, "reference")
@@ -1737,7 +1760,7 @@ def check_reference_checkpoints(card, trained):
     nerf = trained.params["nerf"]
     scal = {"epoch_it": EPOCHS, "it": EPOCHS * N_FRAMES}
     model = {}
-    for ref, ours in NERF_LAYER_MAP.items():
+    for ref, ours in REF_NERF_LAYERS:
         model[f"renderer.model.{ref}.weight"] = nerf[ours]["w"].detach().cpu().T
         model[f"renderer.model.{ref}.bias"] = nerf[ours]["b"].detach().cpu()
     streams = {

@@ -189,7 +189,10 @@ def _apply_fusion(p, x, res=None):
     return _conv(x, p["out_conv"]["w"], p["out_conv"]["b"])
 
 
-def _apply_dpt_nchw(params, x, scale, shift, invert, non_negative):
+def _apply_dpt_nchw(params, x, scale=0.000305, shift=0.1378, invert=True,
+                    non_negative=True):
+    """The network on NCHW images under the caller's autograd and TF32
+    settings; :func:`apply_dpt_batched` is the entry point."""
     B, _, H, W = x.shape
     gh, gw = H // 16, W // 16
 
@@ -237,15 +240,14 @@ def _apply_dpt_nchw(params, x, scale, shift, invert, non_negative):
     return inv_depth
 
 
-def apply_dpt_batched(params, imgs, scale=0.000305, shift=0.1378, invert=True,
-                      non_negative=True):
+def apply_dpt_batched(params, imgs, **kw):
     """(B, H, W, 3) DPT-normalised images ((x - 0.5) / 0.5), H and W
     multiples of 32, on the parameters' device -> depth (B, H, W) (the
-    inverse depth with ``invert`` False). Runs with TF32 off and without
-    autograd."""
+    inverse depth with ``invert`` False; ``scale``, ``shift``, ``invert``,
+    ``non_negative`` as in :func:`_apply_dpt_nchw`). Runs with TF32 off and
+    without autograd."""
     with torch.no_grad(), no_tf32():
-        return _apply_dpt_nchw(params, imgs.permute(0, 3, 1, 2), scale, shift,
-                               invert, non_negative)
+        return _apply_dpt_nchw(params, imgs.permute(0, 3, 1, 2), **kw)
 
 
 def apply_dpt(params, img, **kw):

@@ -54,19 +54,25 @@ def vgg_features(params, x):
     return taps
 
 
+def _distance(params, img0, img1):
+    """:func:`lpips_distance` under the caller's autograd and TF32
+    settings."""
+    x = torch.stack([img0, img1]).permute(0, 3, 1, 2) * 2.0 - 1.0
+    total = 0.0
+    for t, lin in zip(vgg_features(params, x), params["lins"]):
+        n = t / torch.sqrt(torch.sum(t**2, dim=1, keepdim=True) + 1e-10)
+        diff = (n[0] - n[1]) ** 2  # (C, h, w)
+        w = torch.clamp_min(lin["w"], 0.0)  # (1, C)
+        total = total + torch.mean(
+            torch.matmul(w, diff.reshape(diff.shape[0], -1)))
+    return total
+
+
 def lpips_distance(params, img0, img1):
     """Scalar LPIPS between (H, W, 3) images in [0, 1] (tensors on the
     parameters' device), in full f32 and without autograd."""
-    x = torch.stack([img0, img1]).permute(0, 3, 1, 2) * 2.0 - 1.0
     with torch.no_grad(), no_tf32():
-        total = 0.0
-        for t, lin in zip(vgg_features(params, x), params["lins"]):
-            n = t / torch.sqrt(torch.sum(t**2, dim=1, keepdim=True) + 1e-10)
-            diff = (n[0] - n[1]) ** 2  # (C, h, w)
-            w = torch.clamp_min(lin["w"], 0.0)  # (1, C)
-            total = total + torch.mean(
-                torch.matmul(w, diff.reshape(diff.shape[0], -1)))
-    return total
+        return _distance(params, img0, img1)
 
 
 def load_lpips(path: str | None = None, device=None):

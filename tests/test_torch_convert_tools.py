@@ -147,3 +147,25 @@ def test_convert_reference_matches_jax_tool(tmp_path, monkeypatch, case):
     assert len(names) == (1 if case == "single_file" else 4)
     for n in names:
         _assert_npz_equal(str(tmp_path / "port" / n), str(tmp_path / "jax" / n))
+
+
+def test_chip_smoke_reference_layers():
+    """chip_smoke.py's own list of the reference NeRF's Linear layers, from
+    which its round trip writes the ``.pt`` fixture, names every layer of
+    the JAX package's fixture once, pairs each with the port's parameter as
+    the JAX tool maps it, and covers every NeRF parameter of the port."""
+    import chip_smoke
+    import convert_reference_ckpt as jtool
+    from test_reference_ckpt_convert import synth_nerf_state
+
+    from nope_nerf_tpu_torch.models.nerf import init_nerf_params
+
+    layers = chip_smoke.REF_NERF_LAYERS
+    keys = {f"renderer.model.{ref}.{kind}" for ref, _ in layers
+            for kind in ("weight", "bias")}
+    assert len(keys) == 2 * len(layers)
+    assert keys == set(synth_nerf_state(np.random.default_rng(0)))
+    assert dict(layers) == jtool._NERF_LAYER_MAP
+    params = init_nerf_params(torch.Generator().manual_seed(0),
+                              chip_smoke.stock_cfg())
+    assert sorted(ours for _, ours in layers) == sorted(params)
