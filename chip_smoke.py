@@ -19,7 +19,7 @@ direction weight gradient, in the same file, at M = 131,072: error against
 the plain versions, bitwise rerun, time beside the WMMA ``gemm_nn`` /
 ``gemm_tn`` they replaced, ``torch.mm`` in bf16 and the memory bound; the
 two narrow heads' weight gradients beside them),
-then trains three configurations at full width for two epochs of eight
+then trains five configurations at full width for two epochs of eight
 steps each on an in-memory 8-frame 540x960 scene with random weights and a
 smooth camera trajectory:
 
@@ -31,11 +31,21 @@ smooth camera trajectory:
   C and D;
 * ``tpu.parity: True`` (f32 unfused MLP on torch.matmul, exact Chamfer,
   randperm ray sampling): Kernel D;
+* stock with ``tpu.rays_per_step_multiplier: 4``: four frames' 4,096 rays
+  per step through one Kernel A launch each way, whose last training call
+  (inputs, and the cotangents the step's loss gave it) is held against
+  the plain version;
+* stock with ``training.with_ssim`` and ``rendering.normal_loss``: then one
+  more step's normal_diff and SSIM-map gradient against float64 on the
+  card, and the step timed without and with the normal term (which no loss
+  reads, so the trainer skips it);
 
 and checks that each run went through every kernel it should reach (the
 forward GEMM 11 times per forward, the input-gradient GEMM 12 times per
 backward, the weight-gradient launches 14 times per backward that needs
-them, the WMMA GEMM never). The
+them, the WMMA GEMM never; Kernel A once each way and Kernel B twice in
+every training step of the runs on Kernel A) and prints the last epoch's
+ms/step and rays/s of stock, multiplier and ssim_normal side by side. The
 stock run writes its checkpoints and per-epoch pose metrics; the eval phase
 then restores them into fresh tensors (bit for bit), runs the eval CLI's
 ``main`` on the held-out view (test-time pose optimisation on Kernel A's
@@ -76,7 +86,8 @@ kernel ``auto`` resolves to, and Kernel C's forward, which the Phong
 preview's surface colour runs as the JAX package's fused MLP does); runs
 the render CLI (interp, SYN_NOVEL views, the geo pass: Kernel A's forward
 once per view at least), the ``vis_poses`` and ``eval_poses --vis`` CLIs
-and a short run of the bench entry, whose JSON line it parses; holds the
+and two short runs of the bench entry (k = 1 and k = 4 frames per
+step), whose JSON lines it parses; holds the
 Chamfer kernel against its plain version at the clouds of the training's
 last step (identical indices), and Kernel C's forward at the surface points
 of the render CLI's last view and of the visualisation's view (at Kernel
@@ -85,8 +96,9 @@ part) and a novel view.
 
 Prints, in order: the card's name and power limit, the kernel build time,
 one line per kernel check, the two GEMM phases' lines, one line per epoch, the
-eval phase's lines, the DPT phase's, the synthetic phase's, the JSON lines
-of the eval, DPT and synthetic phases, a JSON line with every
+training runs' checks, the eval phase's lines, the DPT phase's, the
+synthetic phase's, the JSON lines of the training runs, the eval, DPT and
+synthetic phases, a JSON line with every
 kernel's errors, launches, times and bound (and the library call's time
 where one exists), and last ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that last line. It needs a CUDA device and the
@@ -256,6 +268,15 @@ def run_module(*args):
 # 1.9e-6, alpha 5.7e-5, gradients relL2 <= 4.1e-3 (d_rays). The bars are
 # tightened to leave a margin of 2.4x or more over those.
 RGB_ATOL, DIST_ATOL, ALPHA_ATOL, GRAD_RELL2 = 1e-3, 1e-3, 1e-3, 1e-2
+# rendering.normal_loss's normal_diff against float64 on the card, at the
+# ssim_normal run's 1,024 rays. Its f32 error is set by its few points
+# whose density gradient nearly vanishes, where normalising amplifies the
+# round-off: on the CPU at the stock width, random weights, relL2 1.25e-5
+# over 1,024 random points but 9.5e-4 over 4,096; on an H100 (700 W) this
+# run reads 1.43e-5. The SSIM map's gradient in f32 errs by 7e-7 on the CPU
+# (135x240, float64 reference) and 1.1e-6 on the card; TF32 in its
+# convolutions would give ~1e-3.
+NORMAL_RELL2, SSIM_GRAD_RELL2 = 1e-4, 1e-5
 # Kernel C runs Kernel A's GEMM chain with the same rounding points, so it is
 # held to the same bars (rgb and density max|err| RGB_ATOL / ALPHA_ATOL,
 # gradients relL2 GRAD_RELL2) under the training step's cotangents: those of
@@ -1201,27 +1222,42 @@ def check_gemm_counts(label, counts, weight_grads=True):
                              f"expected {want}")
 
 
-# the training runs: (label, tpu overrides, kernels the run must launch;
-# every other kernel must stay idle). The stock config visualises at it 0
-# (visualize_every 10000, vis_geo): the Phong preview's surface colour runs
-# Kernel C's forward wherever use_pallas_mlp is on, as the JAX package's
-# fused MLP does
+# the training runs: (label, overrides {group: {key: value}}, kernels the
+# run must launch; every other kernel must stay idle). The stock config
+# visualises at it 0 (visualize_every 10000, vis_geo): the Phong preview's
+# surface colour runs Kernel C's forward wherever use_pallas_mlp is on, as
+# the JAX package's fused MLP does. ``multiplier`` renders 4 frames' 4,096
+# rays per step through one Kernel A launch each way; ``ssim_normal`` adds
+# the SSIM map to rgb_s and turns on the normal term, which no loss reads
 MLP_GEMMS = ("mlp_gemm_sm90", "mlp_gemm_dgrad", "mlp_gemm_wgrad",
              "mlp_weight_grad_gemm")
+STOCK_KERNELS = ("mlp_composite_fwd", "mlp_composite_bwd", "chamfer_band",
+                 "mlp_point_fwd", *MLP_GEMMS)
+K_FRAMES = 4
 RUNS = (
-    ("stock", {}, ("mlp_composite_fwd", "mlp_composite_bwd", "chamfer_band",
-                   "mlp_point_fwd", *MLP_GEMMS)),
-    ("unfused_exact", {"fuse_compositing": False, "chamfer_mode": "exact"},
+    ("stock", {}, STOCK_KERNELS),
+    ("unfused_exact", {"tpu": {"fuse_compositing": False,
+                               "chamfer_mode": "exact"}},
      ("mlp_point_fwd", "mlp_point_bwd", "chamfer_exact", *MLP_GEMMS)),
-    ("parity", {"parity": True}, ("chamfer_exact",)),
+    ("parity", {"tpu": {"parity": True}}, ("chamfer_exact",)),
+    ("multiplier", {"tpu": {"rays_per_step_multiplier": K_FRAMES}},
+     STOCK_KERNELS),
+    ("ssim_normal", {"training": {"with_ssim": True},
+                     "rendering": {"normal_loss": True}}, STOCK_KERNELS),
 )
+# the launches of every step of these runs: Kernel A once each way (at k = 4
+# too: the point of rendering the frames as one batch), Kernel B twice (the
+# pc loss's two directions)
+PER_STEP = {"mlp_composite_fwd": 1, "mlp_composite_bwd": 1,
+            "chamfer_band": 2}
 
 
 def run_training(dev, card, label, overrides, expect):
-    """Train the stock configuration with ``overrides`` under ``tpu`` for
-    EPOCHS epochs through the port's ``train`` in a fresh ``out_dir`` (a
-    run there would otherwise resume from the last one's checkpoints);
-    return the launch counts of that run, its state and its config."""
+    """Train the stock configuration with ``overrides`` for EPOCHS epochs
+    through the port's ``train`` in a fresh ``out_dir`` (a run there would
+    otherwise resume from the last one's checkpoints); return the launch
+    counts of that run, its state, its config, its history and each step's
+    launches."""
     import math
 
     import torch
@@ -1230,9 +1266,14 @@ def run_training(dev, card, label, overrides, expect):
     from nope_nerf_tpu_torch.training.loop import train
 
     cfg = stock_cfg()
-    cfg["tpu"].update(overrides)
-    cfg["training"]["out_dir"] = os.path.join(ROOT, "chiprun_out",
-                                              "chip_smoke", label)
+    for group, values in overrides.items():
+        cfg[group].update(values)
+    # the stock run's directory comes back (the eval phase reads it); the
+    # others stay under build/ and go when their checks pass, so that what
+    # the run returns stays small
+    cfg["training"]["out_dir"] = (
+        os.path.join(ROOT, "chiprun_out", "chip_smoke", label)
+        if label == "stock" else os.path.join(WORK, "runs", label))
     cfg["training"]["seed"] = SEED
     shutil.rmtree(cfg["training"]["out_dir"], ignore_errors=True)
     scene = MemoryScene(N_FRAMES, H, W, SEED)
@@ -1240,8 +1281,9 @@ def run_training(dev, card, label, overrides, expect):
     torch.cuda.empty_cache()  # every run starts from the same allocator state
     for c in counters:
         c.reset()
-    state, _, _, history = train(cfg, max_epochs=EPOCHS, scene=scene,
-                                 device=dev)
+    with per_step_launches() as step_counts:
+        state, _, _, history = train(cfg, max_epochs=EPOCHS, scene=scene,
+                                     device=dev)
     counts = {c.name: c.count for c in counters}
     for h in history:
         print(f"{label} epoch {h['epoch']} [{card}]: {h['steps']} steps, "
@@ -1261,7 +1303,47 @@ def run_training(dev, card, label, overrides, expect):
     if "model.npz" not in ckpts or "model_pose.npz" not in ckpts:
         raise AssertionError(f"{label}: checkpoints not written: {ckpts}")
     print(f"{label} training launches: {counts}; checkpoints {ckpts}")
-    return counts, state, cfg
+    if label != "stock":
+        shutil.rmtree(cfg["training"]["out_dir"])
+    return counts, state, cfg, history, step_counts
+
+
+@contextlib.contextmanager
+def per_step_launches(module=None):
+    """Inside the block, every step made by ``module.make_train_step`` (the
+    training loop's by default) appends its kernels' launch counts to the
+    yielded list."""
+    if module is None:
+        from nope_nerf_tpu_torch.training import loop as module
+    real = module.make_train_step
+    steps = []
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def counted(*step_args, **step_kwargs):
+            counters = kernel_counters()
+            before = [c.count for c in counters]
+            out = step(*step_args, **step_kwargs)
+            steps.append({c.name: c.count - b
+                          for c, b in zip(counters, before)})
+            return out
+        return counted
+
+    module.make_train_step = make
+    try:
+        yield steps
+    finally:
+        module.make_train_step = real
+
+
+def check_per_step(label, step_counts):
+    """Each step launched the kernels of PER_STEP exactly that often."""
+    bad = [(i, {n: c[n] for n in PER_STEP}) for i, c in enumerate(step_counts)
+           if any(c[n] != v for n, v in PER_STEP.items())]
+    if not step_counts or bad:
+        raise AssertionError(f"{label}: per-step launches {bad[:3]} of "
+                             f"{len(step_counts)} steps, expected {PER_STEP}")
 
 
 @contextlib.contextmanager
@@ -1839,16 +1921,32 @@ def reset_counts():
     return counters
 
 
+def snapshot(x):
+    """A detached copy of the tensors in ``x`` (nested lists, tuples and
+    dicts), the rest as it is."""
+    import torch
+
+    if torch.is_tensor(x):
+        return x.detach().clone()
+    if isinstance(x, dict):
+        return {k: snapshot(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(snapshot(v) for v in x)
+    return x
+
+
 @contextlib.contextmanager
-def recording(module, name, keep=1):
+def recording(module, name, keep=1, copy=False):
     """Wrap ``module.name`` inside the block; yields a list of the (args,
-    kwargs) of its last ``keep`` calls, so a kernel's wrapper can be held
-    against its plain version at the inputs a path gave it."""
+    kwargs) of its last ``keep`` calls (with ``copy``, a :func:`snapshot`
+    of them, for inputs that change in place later, as the weights do), so
+    a kernel's wrapper can be held against its plain version at the inputs
+    a path gave it."""
     fn = getattr(module, name)
     calls = collections.deque(maxlen=keep)
 
     def wrapper(*args, **kwargs):
-        calls.append((args, kwargs))
+        calls.append(snapshot((args, kwargs)) if copy else (args, kwargs))
         return fn(*args, **kwargs)
 
     setattr(module, name, wrapper)
@@ -1856,6 +1954,174 @@ def recording(module, name, keep=1):
         yield calls
     finally:
         setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def kernel_a_training_call():
+    """Inside the block, record Kernel A's last call that builds a graph:
+    a copy of its inputs and, once the step's backward has run, the
+    cotangents that reached its three outputs (None where none did)."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    real = mk.fused_mlp_composite
+    last = {}
+
+    def wrapper(*args):
+        outs = real(*args)
+        if any(o.requires_grad for o in outs):
+            cots = [None] * len(outs)
+            for i, o in enumerate(outs):
+                o.register_hook(lambda g, i=i: cots.__setitem__(
+                    i, None if g is None else g.detach().clone()))
+            last.update(args=snapshot(args), cots=cots)
+        return outs
+
+    mk.fused_mlp_composite = wrapper
+    try:
+        yield last
+    finally:
+        mk.fused_mlp_composite = real
+
+
+def check_kernel_a_call(label, call):
+    """Rerun a recorded Kernel A training call (:func:`kernel_a_training_
+    call`) forward and backward through the kernel and its plain version,
+    under the step's own cotangents of rgb and depth (none on alpha, which
+    no loss reads), at check_kernel_a's bars (outputs
+    max|err| RGB_ATOL / DIST_ATOL / ALPHA_ATOL, gradients relL2
+    GRAD_RELL2)."""
+    import torch
+
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    weights, geo, rest = call["args"][0], call["args"][1:4], call["args"][4:]
+    results, times = [], []
+    for fn in (mk.fused_mlp_composite, mk.fused_mlp_composite_reference):
+        w = [x.clone().requires_grad_() for x in weights]
+        g = [x.clone().requires_grad_() for x in geo]
+        outs = fn(w, *g, *rest)
+        # the loss reads rgb and depth; alpha only feeds them
+        cots = [torch.zeros_like(o) if c is None or i == 2 else c
+                for i, (o, c) in enumerate(zip(outs, call["cots"]))]
+
+        def bwd(outs=outs, g=g, w=w, cots=cots):
+            return torch.autograd.grad(outs, g + w, cots, retain_graph=True)
+
+        results.append(([o.detach() for o in outs], bwd()))
+        times.append((cuda_ms(lambda fn=fn, w=w, g=g: fn(w, *g, *rest),
+                              iters=5), cuda_ms(bwd, iters=5)))
+    (o_k, g_k), (o_r, g_r) = results
+    err = {n: float(torch.max(torch.abs(a - b)))
+           for n, a, b in zip(("rgb", "dist", "alpha"), o_k, o_r)}
+    names = ["d_origins", "d_rays", "d_dirs"] + [
+        f"{n}/{k}" for n in mk.W_NAMES for k in ("w", "b")]
+    rels = {n: rel_l2(a, b) for n, a, b in zip(names, g_k, g_r)}
+    worst = max(rels, key=rels.get)
+    finite = all(bool(torch.isfinite(x).all()) for x in (*o_k, *g_k))
+    rays, S = geo[0].shape[0], rest[-1]
+    (b_fwd, _), (b_bwd, _) = mlp_bounds(weights, rays * S,
+                                        nbytes(*geo, *rest[:2], *o_k))
+    print(f"{label}: Kernel A's last training call ({rays} rays x {S} "
+          f"samples) against its plain version: max|err| {err}; gradients "
+          f"relL2 max {rels[worst]:.3e} ({worst}); fwd {times[0][0]:.3f} ms "
+          f"(plain {times[1][0]:.3f}, bound {b_fwd:.3f}), bwd "
+          f"{times[0][1]:.3f} ms (plain {times[1][1]:.3f}, bound "
+          f"{b_bwd:.3f})")
+    if not (finite and err["rgb"] <= RGB_ATOL and err["dist"] <= DIST_ATOL
+            and err["alpha"] <= ALPHA_ATOL and rels[worst] < GRAD_RELL2):
+        raise AssertionError(f"{label}: Kernel A against its plain version "
+                             f"at the run's inputs: {err}, {rels}, finite "
+                             f"{finite}")
+    return {"rays": rays, "max_abs_err": err, "max_rel_l2": rels[worst],
+            "fwd_ms": times[0][0], "fwd_plain_ms": times[1][0],
+            "fwd_bound_ms": b_fwd, "bwd_ms": times[0][1],
+            "bwd_plain_ms": times[1][1], "bwd_bound_ms": b_bwd}
+
+
+def to_f64(x):
+    """The floating tensors of ``x`` (nested dicts) in float64."""
+    if isinstance(x, dict):
+        return {k: to_f64(v) for k, v in x.items()}
+    return x.double()
+
+
+def check_ssim_normal(dev, card, cfg, state):
+    """One more step of the ssim_normal run's state with ``static
+    ['normal_diff']`` asking for the normal term: its normal_diff held to
+    the same function in float64 on the card (relL2 NORMAL_RELL2) and its
+    rgb_s loss's gradient (the SSIM map's) to float64 (relL2
+    SSIM_GRAD_RELL2); then the step's wall time without and with the term
+    (in turns: off, on, on, off), the term being what the trainer skips."""
+    import torch
+
+    from nope_nerf_tpu_torch.losses import losses
+    from nope_nerf_tpu_torch.ops import rendering
+    from nope_nerf_tpu_torch.synthetic import MemoryScene
+    from nope_nerf_tpu_torch.training.loop import (build_params,
+                                                   scene_batch_arrays)
+    from nope_nerf_tpu_torch.training.scheduler import Scheduler
+    from nope_nerf_tpu_torch.training.trainer import (make_render_cfg,
+                                                      make_train_step)
+
+    cfg = dict(cfg, _num_cams=N_FRAMES)
+    scene = MemoryScene(N_FRAMES, H, W, SEED)
+    batch = dict(scene_batch_arrays(scene, cfg, dev), idx=2, ref_idx=3)
+    _, init_c2w = build_params(cfg, scene, torch.Generator().manual_seed(SEED),
+                               dev)
+    sched = Scheduler(cfg)
+    w_l1, w_l2 = sched.rgb_loss_switch(0)
+    scalars = {"weights": sched.weights(0), "w_l1": w_l1, "w_l2": w_l2,
+               "lrs": sched.applied_lrs(0)}
+    static = sched.static_flags(0)
+    step = make_train_step(cfg, make_render_cfg(cfg, dev), init_c2w)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with recording(rendering, "normal_diff", copy=True) as nd_calls, \
+            recording(losses, "rgb_s_loss", copy=True) as rgbs_calls:
+        _, aux = step(state, batch, scalars, dict(static, normal_diff=True),
+                      gen)
+    (params, points, jitter, rcfg), _ = nd_calls[0]
+    with torch.no_grad():
+        nd32 = rendering.normal_diff(params, points, jitter, rcfg)
+        nd64 = rendering.normal_diff(to_f64(params), points.double(),
+                                     jitter.double(), rcfg)
+    nd_rel = rel_l2(nd32.double(), nd64)
+    same = torch.equal(nd32, aux["normal_diff"])
+    (rgb1, rgb2, valid, with_ssim), kw = rgbs_calls[0]
+    grads = []
+    for dt in (torch.float32, torch.float64):
+        y = rgb2.to(dt).requires_grad_()
+        loss = losses.rgb_s_loss(rgb1.to(dt), y, valid.to(dt), with_ssim,
+                                 **{k: v.to(dt) for k, v in kw.items()
+                                    if v is not None})
+        grads.append((float(loss.detach()),
+                      torch.autograd.grad(loss, y)[0]))
+    ssim_rel = rel_l2(grads[0][1].double(), grads[1][1])
+    loss_rel = abs(grads[0][0] - grads[1][0]) / abs(grads[1][0])
+    print(f"ssim_normal checks [{card}]: normal_diff of {points.shape[0]} "
+          f"rays (mean {float(nd64.mean()):.4f}) against float64 relL2 "
+          f"{nd_rel:.3e} (the step's own equal to the rerun: {same}); "
+          f"rgb_s with the SSIM map ({tuple(rgb2.shape)}): value rel "
+          f"{loss_rel:.3e}, d/d(reprojected colours) relL2 {ssim_rel:.3e} "
+          "against float64")
+    if not (with_ssim and same and nd_rel <= NORMAL_RELL2
+            and ssim_rel <= SSIM_GRAD_RELL2):
+        raise AssertionError(f"ssim_normal: normal_diff relL2 {nd_rel} "
+                             f"(bar {NORMAL_RELL2}, step's equal {same}), "
+                             f"SSIM gradient relL2 {ssim_rel} (bar "
+                             f"{SSIM_GRAD_RELL2}), with_ssim {with_ssim}")
+
+    def timed(normal):
+        flags = dict(static, normal_diff=normal)
+        return host_ms(lambda: step(state, batch, scalars, flags, gen),
+                       iters=10, warmup=2)
+
+    off1, on1, on2, off2 = timed(False), timed(True), timed(True), timed(False)
+    print(f"ssim_normal step [{card}]: {off1:.3f}, {off2:.3f} ms without the "
+          f"normal term (the trainer's choice: no loss reads it), {on1:.3f}, "
+          f"{on2:.3f} ms with it")
+    return {"normal_diff_rel_l2": nd_rel, "ssim_grad_rel_l2": ssim_rel,
+            "ssim_loss_rel": loss_rel, "step_ms_without_normal": [off1, off2],
+            "step_ms_with_normal": [on1, on2]}
 
 
 def check_argmin_calls(label, kernel, plain, calls):
@@ -1902,11 +2168,9 @@ def run_synthetic(dev, card):
     """The synthetic phase (see the module docstring). Returns the launch
     counts of its main-path runs (training, the render CLI, the bench) and
     its measured numbers."""
-    import io
-
     import torch
 
-    from nope_nerf_tpu_torch import bench, eval_poses, render, vis_poses
+    from nope_nerf_tpu_torch import eval_poses, render, vis_poses
     from nope_nerf_tpu_torch.geometry.rays import arange_pixels
     from nope_nerf_tpu_torch.make_synthetic_dataset import write_dataset
     from nope_nerf_tpu_torch.ops.chamfer import resolve_chamfer_mode
@@ -2057,31 +2321,15 @@ def run_synthetic(dev, card):
           f"Phong {ms_vis_phong:.1f} ms); a {SYN_HW[0]}x{SYN_HW[1]} novel "
           f"view's render {ms_view:.1f} ms")
 
-    saved = (bench.GROUP_STEPS, bench.WARMUP_GROUPS, bench.MEASURE_GROUPS)
-    bench.GROUP_STEPS, bench.WARMUP_GROUPS, bench.MEASURE_GROUPS = BENCH_SHORT
-    torch.cuda.empty_cache()
-    counters = reset_counts()
-    out = io.StringIO()
-    try:
-        with contextlib.redirect_stdout(out):
-            bench.run(dev)
-    finally:
-        bench.GROUP_STEPS, bench.WARMUP_GROUPS, bench.MEASURE_GROUPS = saved
-    bench_counts = {c.name: c.count for c in counters}
-    lines = out.getvalue().splitlines()
-    rec = json.loads(lines[-1])
-    if len(lines) != 1 or rec["metric"] != "train_rays_per_sec" or not (
-            rec["value"] > 0):
-        raise AssertionError(f"bench: printed {lines}")
-    check_launches("bench", bench_counts,
-                   ("mlp_composite_fwd", "mlp_composite_bwd",
-                    "chamfer_band", *MLP_GEMMS))
-    print(f"bench short [{card}]: {BENCH_SHORT[1]} x {BENCH_SHORT[0]} "
-          f"warm-up steps, {BENCH_SHORT[2]} x {BENCH_SHORT[0]} timed: "
-          f"{json.dumps(rec)}")
+    rec, bench_counts = short_bench(dev, card, {})
+    rec_k, bench_k_counts = short_bench(
+        dev, card, {"rays_per_step_multiplier": K_FRAMES})
+    print(f"bench short [{card}]: k = 1 {rec['value']:.1f} rays/s, "
+          f"k = {K_FRAMES} {rec_k['value']:.1f} rays/s "
+          f"({rec_k['value'] / rec['value']:.3f}x)")
 
     total = {k: counts[k] + render_counts[k] + bench_counts[k]
-             for k in counts}
+             + bench_k_counts[k] for k in counts}
     return total, {"psnr_per_epoch": psnrs, "psnr_tail_mean": tail,
                    "train_s": train_s,
                    "chamfer_mode": mode, "render_visdata_ms": ms_vis,
@@ -2090,7 +2338,52 @@ def run_synthetic(dev, card):
                    "novel_view_render_ms": ms_view,
                    "render_cli_ms_per_view": cli_ms,
                    "kernel_checks": kernel_checks,
-                   "bench_short": rec, "pose_errors": poses}
+                   "bench_short": rec, f"bench_short_k{K_FRAMES}": rec_k,
+                   "pose_errors": poses}
+
+
+def short_bench(dev, card, overrides):
+    """A BENCH_SHORT run of the bench entry with ``overrides`` as its
+    BENCH_TPU_OVERRIDES: its JSON line, its launches (Kernels A and B, the
+    layer GEMMs) and each step's (:data:`PER_STEP`)."""
+    import io
+
+    import torch
+
+    from nope_nerf_tpu_torch import bench
+
+    saved = (bench.GROUP_STEPS, bench.WARMUP_GROUPS, bench.MEASURE_GROUPS,
+             os.environ.get("BENCH_TPU_OVERRIDES"))
+    bench.GROUP_STEPS, bench.WARMUP_GROUPS, bench.MEASURE_GROUPS = BENCH_SHORT
+    os.environ["BENCH_TPU_OVERRIDES"] = json.dumps(overrides)
+    torch.cuda.empty_cache()
+    counters = reset_counts()
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), \
+                per_step_launches(bench) as step_counts:
+            bench.run(dev)
+    finally:
+        bench.GROUP_STEPS, bench.WARMUP_GROUPS, bench.MEASURE_GROUPS = \
+            saved[:3]
+        if saved[3] is None:
+            os.environ.pop("BENCH_TPU_OVERRIDES")
+        else:
+            os.environ["BENCH_TPU_OVERRIDES"] = saved[3]
+    counts = {c.name: c.count for c in counters}
+    lines = out.getvalue().splitlines()
+    rec = json.loads(lines[-1])
+    if len(lines) != 1 or rec["metric"] != "train_rays_per_sec" or not (
+            rec["value"] > 0):
+        raise AssertionError(f"bench {overrides}: printed {lines}")
+    label = f"bench {json.dumps(overrides)}"
+    check_launches(label, counts, ("mlp_composite_fwd", "mlp_composite_bwd",
+                                   "chamfer_band", *MLP_GEMMS))
+    check_per_step(label, step_counts)
+    print(f"bench short {json.dumps(overrides)} [{card}]: {BENCH_SHORT[1]} "
+          f"x {BENCH_SHORT[0]} warm-up steps, {BENCH_SHORT[2]} x "
+          f"{BENCH_SHORT[0]} timed: {json.dumps(rec)}")
+    return rec, counts
 
 
 def gate_control(dev, card):
@@ -2164,12 +2457,36 @@ def main(argv=None):
     gemm_bwd = check_gemm_bwd(dev, card)
     records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d, gemm, *gemm_bwd]
     launches = {rec["name"]: 0 for rec in records}
+    runs = {}
     for label, overrides, expect in RUNS:
-        counts, state, cfg = run_training(dev, card, label, overrides, expect)
-        if label == "stock":
-            stock = (cfg, state)
+        with (kernel_a_training_call() if label == "multiplier"
+              else contextlib.nullcontext()) as a_call:
+            counts, state, cfg, history, step_counts = run_training(
+                dev, card, label, overrides, expect)
+        runs[label] = (cfg, state, history)
+        if "mlp_composite_fwd" in expect:
+            check_per_step(label, step_counts)
+        if label == "multiplier":
+            runs["multiplier_kernel_a"] = check_kernel_a_call(
+                f"multiplier [{card}]", a_call)
         for rec in records:
             launches[rec["name"]] += counts[rec["name"]]
+    steps = {}
+    for label in ("stock", "multiplier", "ssim_normal"):
+        last = runs[label][2][-1]
+        steps[label] = {"ms_per_step": last["ms_per_step"],
+                        "rays_per_sec": last["rays_per_sec"]}
+    print(f"training steps [{card}], last epoch: " + "; ".join(
+        f"{k} {v['ms_per_step']:.3f} ms/step, {v['rays_per_sec']:.1f} rays/s"
+        for k, v in steps.items()) + f"; k = {K_FRAMES} / stock rays/s "
+        f"{steps['multiplier']['rays_per_sec'] / steps['stock']['rays_per_sec']:.3f}")
+    k4 = runs["multiplier_kernel_a"]
+    for rec, key in ((a_fwd, "fwd"), (a_bwd, "bwd")):
+        rec[f"k{K_FRAMES}"] = {"rays": k4["rays"], "ms": k4[f"{key}_ms"],
+                               "plain_ms": k4[f"{key}_plain_ms"],
+                               "bound_ms": k4[f"{key}_bound_ms"]}
+    ssim_normal = check_ssim_normal(dev, card, *runs["ssim_normal"][:2])
+    stock = runs["stock"][:2]
     eval_counts, eval_rec = run_eval(dev, card, *stock)
     dpt_counts, dpt_rec = run_dpt(dev, card)
     syn_counts, syn_rec = run_synthetic(dev, card)
@@ -2180,6 +2497,9 @@ def main(argv=None):
         rec["eval_launches"] = eval_counts[rec["name"]]
         rec["dpt_launches"] = dpt_counts[rec["name"]]
         rec["synthetic_launches"] = syn_counts[rec["name"]]
+    print(json.dumps({"training": {
+        "steps": steps, "multiplier_kernel_a": runs["multiplier_kernel_a"],
+        "ssim_normal": ssim_normal}}))
     print(json.dumps({"eval": eval_rec}))
     print(json.dumps({"dpt": dpt_rec}))
     print(json.dumps({"synthetic": syn_rec}))

@@ -11,7 +11,10 @@ in-memory frames of 540x960 (``synthetic.MemoryScene``), run step by step:
 groups timed by the host clock. Each group ends by reading the previous
 group's loss, and the timed run by reading the last one and a device
 synchronise. ``BENCH_TPU_OVERRIDES`` (a JSON dict) is merged into the
-config's ``tpu`` group for variant runs.
+config's ``tpu`` group for variant runs; with
+``{"rays_per_step_multiplier": k}`` each step takes k frames (frame 0 in
+the group's order, which owns the reference pair, then the k - 1 frames
+after it) and rays/s counts k * 1024 rays per step, as ``bench.py`` does.
 
 Prints ONE JSON line, ``bench.py``'s:
   {"metric": "train_rays_per_sec", "value": N, "unit": "rays/s",
@@ -80,7 +83,7 @@ def run(device):
     cfg = bench_config()
     check_supported(cfg)
     apply_parity_profile(cfg)
-    _check_ported(cfg)  # rays_per_step_multiplier > 1 raises, as in train()
+    _check_ported(cfg)  # n_devices > 1 raises, as in train()
     cfg["_num_cams"] = N_FRAMES
     scene = MemoryScene(N_FRAMES, H, W, SEED)
     batch0 = scene_batch_arrays(scene, cfg, dev)
@@ -99,15 +102,19 @@ def run(device):
     }
     static = {"render_model": True, "use_ref": True, "use_rgb_s": True}
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    n_rays = cfg["training"]["n_training_points"]
+    k = max(int(cfg["tpu"].get("rays_per_step_multiplier", 1) or 1), 1)
+    n_rays = cfg["training"]["n_training_points"] * k  # per step
 
     def group():
         """GROUP_STEPS steps over the frames in order, each paired with the
-        next; returns the last step's loss, still on the device."""
+        next (and with k > 1 taking the k - 1 frames after it, bench.py's
+        (steps, k) layout); returns the last step's loss, still on the
+        device."""
         aux = None
         for s in range(GROUP_STEPS):
             i = s % N_FRAMES
-            batch = dict(batch0, idx=i, ref_idx=(i + 1) % N_FRAMES)
+            batch = dict(batch0, idx=[(i + j) % N_FRAMES for j in range(k)],
+                         ref_idx=(i + 1) % N_FRAMES)
             _, aux = step_fn(state, batch, scalars, static, gen)
         return aux["loss"]
 

@@ -10,6 +10,7 @@ from ..ops.chamfer import (
     chamfer_loss_window,
     resolve_chamfer_mode,
 )
+from ..ops.ssim import ssim_loss_map
 
 
 def mse2psnr(mse):
@@ -67,14 +68,16 @@ def mean_on_mask(diff, valid_mask):
 
 def rgb_s_loss(rgb1, rgb2, valid_points, with_ssim=False, rgb2_ori=None):
     """Surface photometric loss on (h, w, 3) colours with an (h, w, 1) mask;
-    ``rgb2_ori`` turns on the reference's auto-mask."""
-    if with_ssim:
-        raise NotImplementedError("training.with_ssim is not ported yet")
+    ``rgb2_ori`` turns on the reference's auto-mask, which reads the raw
+    diff before ``with_ssim`` blends it with the 3x3 SSIM loss map
+    (0.15 diff + 0.85 map)."""
     diff = torch.clamp(torch.abs(rgb1 - rgb2), 0.0, 1.0)
     if rgb2_ori is not None:
         auto = (torch.mean(diff, dim=-1, keepdim=True)
                 < torch.mean(torch.abs(rgb1 - rgb2_ori), dim=-1, keepdim=True))
         valid_points = auto.to(valid_points.dtype) * valid_points
+    if with_ssim:
+        diff = 0.15 * diff + 0.85 * ssim_loss_map(rgb1, rgb2)
     return mean_on_mask(diff, valid_points)
 
 

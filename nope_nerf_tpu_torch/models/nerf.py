@@ -165,16 +165,27 @@ def _apply_nerf_fused(params, pts, dirs, cfg_model):
     return rgb[:M], density[:M]
 
 
+def density_gradient(params, pts, L_pos=10):
+    """-grad_p density(p) (M, 3) of the pre-activation density on the plain
+    f32 MLP, whatever ``mlp_bf16`` says (the JAX ``nerf_gradient``). Under
+    grad mode the result keeps its graph (``create_graph``) to the weights
+    and to ``pts``, so a loss of it differentiates twice through the MLP;
+    outside grad mode it is a plain tensor."""
+    keep_graph = torch.is_grad_enabled()
+    with torch.enable_grad():
+        p = pts if pts.requires_grad else pts.detach().requires_grad_(True)
+        density = raw_density(params, p, L_pos)[1]
+        (grad,) = torch.autograd.grad(density.sum(), p,
+                                      create_graph=keep_graph)
+    return -grad
+
+
 def nerf_gradient(params, pts, cfg_model):
-    """-grad_p density(p) (M, 3): outward surface normals of the
-    pre-activation density, in f32 whatever ``mlp_bf16`` says (as the JAX
-    ``nerf_gradient``). Differentiates a detached copy of ``pts`` against
-    detached weights, so it works inside ``torch.no_grad()`` and adds
-    nothing to the caller's graph."""
+    """:func:`density_gradient` (outward surface normals) of a detached
+    copy of ``pts`` against detached weights: it works inside
+    ``torch.no_grad()`` and adds nothing to the caller's graph (Phong)."""
     weights = {k: {kk: v.detach() for kk, v in layer.items()}
                for k, layer in params.items()}
-    with torch.enable_grad():
-        p = pts.detach().requires_grad_(True)
-        density = raw_density(weights, p, cfg_model["pos_enc_levels"])[1]
-        (grad,) = torch.autograd.grad(density.sum(), p)
-    return -grad
+    with torch.no_grad():
+        return density_gradient(weights, pts.detach(),
+                                cfg_model["pos_enc_levels"])

@@ -68,25 +68,22 @@ def dist_to_alpha(density, z_val):
     return torch.cat([alpha[..., :-1], torch.ones_like(alpha[..., -1:])], -1)
 
 
-def render_rays(nerf_params, pixels, depth_prior, camera_mat, world_mat,
-                scale_mat, cfg, *, generator=None, add_noise=False,
-                eval_mode=False):
-    """Render a batch of rays.
+def ray_setup(pixels, depth_prior, camera_mat, world_mat, scale_mat, cfg, *,
+              generator=None, add_noise=False):
+    """The per-frame half of :func:`render_rays`: one frame's rays in world
+    space, their prior depths and their z values.
 
-    pixels (N, 2) in [-1, 1]; depth_prior (N,); camera/world/scale (4, 4);
-    ``cfg`` is the merged render config (:func:`..training.trainer.
-    make_render_cfg`). ``generator`` (on the tensors' device) draws the
-    stratified jitter when ``add_noise``. Returns a dict with rgb (N, 3),
-    depth_pred, depth_gt, valid_mask (N,), z_vals, alpha (N, S),
-    normal_diff (None) and points_surface (N, 3).
+    pixels (N, 2) in [-1, 1]; depth_prior (N,); camera/world/scale (4, 4).
+    ``generator`` draws the stratified jitter when ``add_noise``. Returns a
+    dict of per-ray tensors, each with N rows: origins, rays_in, dirs (the
+    field's inputs), z_vals (N, S), valid_mask, dists, camera_world,
+    ray_vector, ray_norm, d_i_gt. Several frames' dicts concatenate row by
+    row (:func:`concat_rays`) into one batch for :func:`render_ray_batch`.
     """
-    if cfg.get("normal_loss", False) and not eval_mode:
-        raise NotImplementedError("rendering.normal_loss is not ported yet")
     S = cfg["num_points"] - cfg.get("outside_steps", 0)
     N = pixels.shape[0]
     dev = pixels.device
     near, far = cfg["depth_range"]
-    sample_option = cfg["sample_option"]
 
     transform = to_world_transform(camera_mat, world_mat, scale_mat)
     camera_world = origin_to_world(camera_mat, world_mat, scale_mat,
@@ -110,26 +107,65 @@ def render_rays(nerf_params, pixels, depth_prior, camera_mat, world_mat,
     valid_mask = (torch.isfinite(d_i_gt) & (d_sq > 0.0)).to(torch.float32)
     dists = torch.where(valid_mask > 0, d_i_gt, torch.zeros_like(d_i_gt))
 
+    camera_world = camera_world[None].expand(N, 3)
     z_val = torch.linspace(0.0, 1.0, S, dtype=torch.float32,
                            device=dev).expand(N, S)
-    if sample_option == "ndc":
+    if cfg["sample_option"] == "ndc":
         focal = torch.stack([camera_mat[0, 0], camera_mat[1, 1]])
-        ndc_o, ndc_d = get_ndc_rays_fxfy(focal, 1.0,
-                                         camera_world[None].expand(N, 3),
-                                         ray_vector)
-        origins, rays_in = ndc_o, ndc_d
+        origins, rays_in = get_ndc_rays_fxfy(focal, 1.0, camera_world,
+                                             ray_vector)
     else:
         z_val = near * (1.0 - z_val) + far * z_val
         if add_noise:
             noise = torch.rand(z_val.shape, generator=generator,
                                dtype=torch.float32, device=dev)
             z_val = stratified_zvals(z_val, noise)
-        origins, rays_in = camera_world[None].expand(N, 3), ray_vector
+        origins, rays_in = camera_world, ray_vector
 
-    dir_per_ray = -ray_vector
+    dirs = -ray_vector
     if not cfg["use_ray_dir"]:
-        dir_per_ray = torch.ones_like(dir_per_ray)
+        dirs = torch.ones_like(dirs)
+    return {"origins": origins, "rays_in": rays_in, "dirs": dirs,
+            "z_vals": z_val, "valid_mask": valid_mask, "dists": dists,
+            "camera_world": camera_world, "ray_vector": ray_vector,
+            "ray_norm": ray_norm, "d_i_gt": d_i_gt}
 
+
+def concat_rays(setups):
+    """Several :func:`ray_setup` dicts as one ray batch, row by row."""
+    return {k: torch.cat([s[k] for s in setups]) for k in setups[0]}
+
+
+def render_rays(nerf_params, pixels, depth_prior, camera_mat, world_mat,
+                scale_mat, cfg, *, generator=None, add_noise=False,
+                eval_mode=False):
+    """Render a batch of rays of one frame: :func:`ray_setup`, then
+    :func:`render_ray_batch`.
+
+    pixels (N, 2) in [-1, 1]; depth_prior (N,); camera/world/scale (4, 4);
+    ``cfg`` is the merged render config (:func:`..training.trainer.
+    make_render_cfg`). ``generator`` (on the tensors' device) draws the
+    stratified jitter when ``add_noise`` and the normal term's neighbours.
+    Returns a dict with rgb (N, 3), depth_pred, depth_gt, valid_mask (N,),
+    z_vals, alpha (N, S), normal_diff ((N,) with ``normal_loss`` outside
+    eval, else None) and points_surface (N, 3).
+    """
+    rays = ray_setup(pixels, depth_prior, camera_mat, world_mat, scale_mat,
+                     cfg, generator=generator, add_noise=add_noise)
+    return render_ray_batch(nerf_params, rays, cfg, generator=generator,
+                            eval_mode=eval_mode)
+
+
+def render_ray_batch(nerf_params, rays, cfg, *, generator=None,
+                     eval_mode=False):
+    """Render a ray batch of :func:`ray_setup` or :func:`concat_rays`. Each
+    ray carries its own origin, so the rays of several frames go through
+    one field evaluation: one Kernel A launch on the fused path, up to
+    ``n_max_network_queries`` points."""
+    S = cfg["num_points"] - cfg.get("outside_steps", 0)
+    origins, rays_in, dirs = rays["origins"], rays["rays_in"], rays["dirs"]
+    z_val = rays["z_vals"]
+    N = origins.shape[0]
     n_max = cfg.get("n_max_network_queries") or N * S
     if cfg.get("use_pallas_mlp", False) and cfg.get("fuse_compositing", False):
         # fused path, chunked over RAYS to honour n_max_network_queries
@@ -137,7 +173,7 @@ def render_rays(nerf_params, pixels, depth_prior, camera_mat, world_mat,
         outs = [
             _render_fused_composite(
                 nerf_params, origins[i:i + rays_chunk],
-                rays_in[i:i + rays_chunk], dir_per_ray[i:i + rays_chunk],
+                rays_in[i:i + rays_chunk], dirs[i:i + rays_chunk],
                 z_val[i:i + rays_chunk], cfg, S)
             for i in range(0, N, rays_chunk)
         ]
@@ -147,7 +183,7 @@ def render_rays(nerf_params, pixels, depth_prior, camera_mat, world_mat,
 
         pts = (origins[:, None, :] + rays_in[:, None, :] * z_val[..., None])
         pts = pts.reshape(-1, 3)
-        dirs = dir_per_ray[:, None, :].expand(N, S, 3).reshape(-1, 3)
+        dirs = dirs[:, None, :].expand(N, S, 3).reshape(-1, 3)
         if cfg.get("use_pallas_mlp", False):
             # Kernel C pads each chunk to a multiple of BM points: chunks
             # of whole BMs keep the padded batch within the bound (or at
@@ -164,9 +200,8 @@ def render_rays(nerf_params, pixels, depth_prior, camera_mat, world_mat,
             alpha = dist_to_alpha(alpha, z_val)
         rgb_values, dist_pred, _ = composite(rgb, alpha, z_val,
                                              cfg["white_background"])
-    return _render_outputs(cfg, eval_mode, valid_mask, dists, z_val, alpha,
-                           rgb_values, dist_pred, camera_world, ray_vector,
-                           ray_norm, d_i_gt, sample_option)
+    return _render_outputs(nerf_params, cfg, eval_mode, rays, alpha,
+                           rgb_values, dist_pred, generator)
 
 
 def render_image(nerf_params, resolution, camera_mat, world_mat, scale_mat,
@@ -229,16 +264,49 @@ def _render_fused_composite(nerf_params, origins, rays_in, dir_per_ray,
     return rgb_values[:N], dist_pred[:N, 0], alpha[:N]
 
 
-def _render_outputs(cfg, eval_mode, valid_mask, dists, z_val, alpha,
-                    rgb_values, dist_pred, camera_world, ray_vector, ray_norm,
-                    d_i_gt, sample_option):
-    """Shared tail: eval-time dist -> depth, NDC prior depth, output dict."""
-    points_surface = camera_world[None] + ray_vector * dists[..., None]
+def normal_jitter(shape, generator, device):
+    """U[0, 1) draws of the normal term's neighbour offsets."""
+    return torch.rand(shape, generator=generator, dtype=torch.float32,
+                      device=device)
+
+
+def normal_diff(nerf_params, points_surface, jitter, cfg):
+    """||n(p) - n(p + (jitter - 0.5) * 0.01)|| per point, n the density
+    gradient of :func:`..models.nerf.density_gradient` normalised with
+    + 1e-5. Both point sets go through one gradient call, which keeps the
+    graph to the weights and to ``points_surface`` under grad mode."""
+    from ..models.nerf import density_gradient
+
+    N = points_surface.shape[0]
+    neigh = points_surface + (jitter - 0.5) * 0.01
+    g = density_gradient(nerf_params,
+                         torch.cat([points_surface, neigh], dim=0),
+                         cfg["pos_enc_levels"])
+    normals = g / (torch.linalg.vector_norm(g, dim=-1, keepdim=True) + 1e-5)
+    return torch.linalg.vector_norm(normals[:N] - normals[N:], dim=-1)
+
+
+def _render_outputs(nerf_params, cfg, eval_mode, rays, alpha, rgb_values,
+                    dist_pred, generator):
+    """Shared tail: the normal term, eval-time dist -> depth, NDC prior
+    depth, output dict."""
+    valid_mask, ray_norm = rays["valid_mask"], rays["ray_norm"]
+    d_i_gt = rays["d_i_gt"]
+    points_surface = (rays["camera_world"]
+                      + rays["ray_vector"] * rays["dists"][..., None])
+    n_diff = None
+    if cfg.get("normal_loss", False) and not eval_mode:
+        # surface-normal smoothness at the prior-depth surface points and
+        # neighbours jittered in a 0.01 cube; invalid rays are the caller's
+        # to mask with valid_mask
+        n_diff = normal_diff(nerf_params, points_surface,
+                             normal_jitter(points_surface.shape, generator,
+                                           points_surface.device), cfg)
     if eval_mode and cfg["normalise_ray"]:
         dist_pred = dist_pred / ray_norm
         d_i_gt = d_i_gt / ray_norm
     depth_gt = d_i_gt
-    if sample_option == "ndc":
+    if cfg["sample_option"] == "ndc":
         depth_gt = 1.0 - 1.0 / torch.where(depth_gt == 0,
                                            torch.ones_like(depth_gt), depth_gt)
         depth_gt = torch.where(valid_mask > 0, depth_gt,
@@ -248,8 +316,8 @@ def _render_outputs(cfg, eval_mode, valid_mask, dists, z_val, alpha,
         "depth_pred": dist_pred,
         "depth_gt": depth_gt,
         "valid_mask": valid_mask,
-        "z_vals": z_val,
+        "z_vals": rays["z_vals"],
         "alpha": alpha,
-        "normal_diff": None,
+        "normal_diff": n_diff,
         "points_surface": points_surface,
     }

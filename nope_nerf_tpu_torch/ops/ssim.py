@@ -6,9 +6,10 @@
   reflection pad 1, elementwise clamp((1 - SSIM) / 2, 0, 1).
 
 Images are (H, W, C) f32 in [0, 1], as in the JAX package. The
-convolutions run with TF32 off: in reduced precision E[x^2] - mu^2 errs by
-about 1e-3, more than C2 = 9e-4, so on near-constant images the window
-denominators turn negative and the mean leaves [-1, 1].
+convolutions and their input gradients run with TF32 off: in reduced
+precision E[x^2] - mu^2 errs by about 1e-3, more than C2 = 9e-4, so on
+near-constant images the window denominators turn negative and the mean
+leaves [-1, 1].
 """
 from __future__ import annotations
 
@@ -20,12 +21,33 @@ from ..device import no_tf32
 C1, C2 = 0.01**2, 0.03**2
 
 
+class _DepthwiseConv(torch.autograd.Function):
+    """Grouped ``F.conv2d`` of an NCHW image with a constant (C, 1, k, k)
+    kernel, forward and input gradient both in full f32: the backward runs
+    after the caller's ``no_tf32`` block has closed, so it scopes TF32 off
+    itself (a training loss with ``with_ssim`` differentiates the map)."""
+
+    @staticmethod
+    def forward(ctx, x, k, pad):
+        ctx.save_for_backward(k)
+        ctx.shape, ctx.pad = x.shape, pad
+        with no_tf32():
+            return F.conv2d(x, k, padding=pad, groups=x.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        (k,) = ctx.saved_tensors
+        with no_tf32():
+            gx = torch.nn.grad.conv2d_input(ctx.shape, k, g, padding=ctx.pad,
+                                            groups=ctx.shape[1])
+        return gx, None, None
+
+
 def _depthwise(x, kernel, pad):
     """(H, W, C) image convolved per channel with ``kernel`` (k, k)."""
     C = x.shape[-1]
-    k = kernel.to(x)[None, None].expand(C, 1, *kernel.shape)
-    with no_tf32():
-        out = F.conv2d(x.permute(2, 0, 1)[None], k, padding=pad, groups=C)
+    k = kernel.to(x)[None, None].expand(C, 1, *kernel.shape).contiguous()
+    out = _DepthwiseConv.apply(x.permute(2, 0, 1)[None], k, pad)
     return out[0].permute(1, 2, 0)
 
 

@@ -3,11 +3,13 @@
     python -m nope_nerf_tpu_torch.profile_step [--steps 8] [--out DIR]
         [--set KEY=VALUE ...] [--render]
 
-Trains the stock configuration (``configs/default.yaml``, each ``--set``
-applied to its ``tpu:`` group, e.g. ``--set parity=True``) on the in-memory
-8-frame 540x960 scene: a few warm-up steps, then ``--steps`` steps timed on
-the host clock around a device synchronise, then the same number under
-``torch.profiler``. Prints ms per step, rays/s, the device's busy share of
+Trains the stock configuration (``configs/default.yaml`` with each
+``--set``: a bare key sets the ``tpu:`` group, e.g. ``--set parity=True``,
+a dotted one its group, e.g. ``--set tpu.rays_per_step_multiplier=4`` or
+``--set training.with_ssim=True``) on the in-memory 8-frame 540x960 scene
+(k > 1 frames per step in the bench entry's layout): a few warm-up steps,
+then ``--steps`` steps timed on the host clock around a device
+synchronise, then the same number under ``torch.profiler``. Prints ms per step, rays/s, the device's busy share of
 the profiled window and the device time per kernel, and writes the table
 and a Chrome trace under ``--out``. ``--sync-debug`` first lists where one
 step synchronises the host with the device. ``--render`` profiles
@@ -27,7 +29,7 @@ import yaml
 
 from .config import DEFAULT_CONFIG, apply_parity_profile, load_config
 from .synthetic import MemoryScene
-from .training.loop import build_params, scene_batch_arrays
+from .training.loop import _check_ported, build_params, scene_batch_arrays
 from .training.scheduler import Scheduler
 from .training.trainer import (
     describe_routes,
@@ -42,7 +44,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", default="chiprun_out/profile_step")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
-                    help="override a tpu: key (the value is read as YAML)")
+                    help="override a tpu: key, or GROUP.KEY (the value is "
+                         "read as YAML)")
     ap.add_argument("--sync-debug", action="store_true",
                     help="list the operations that synchronise with the "
                          "device during one step")
@@ -58,8 +61,10 @@ def main(argv=None):
     cfg = load_config(DEFAULT_CONFIG)
     for item in args.set:
         key, _, value = item.partition("=")
-        cfg["tpu"][key] = yaml.safe_load(value)
+        group, _, key = key.rpartition(".")
+        cfg[group or "tpu"][key] = yaml.safe_load(value)
     apply_parity_profile(cfg)
+    _check_ported(cfg)
     scene = MemoryScene()
     if args.render:
         return profile_render(cfg, scene, dev, args)
@@ -80,11 +85,13 @@ def main(argv=None):
     static = sched.static_flags(0)
     gen = torch.Generator(device=dev).manual_seed(0)
     n = scene.N_imgs
+    k = max(int(cfg["tpu"].get("rays_per_step_multiplier", 1) or 1), 1)
 
-    def run(k):
+    def run(steps):
         losses = []
-        for i in range(k):
-            batch = dict(batch0, idx=i % n, ref_idx=scene.sample_ref_idx(i % n))
+        for i in range(steps):
+            batch = dict(batch0, idx=[(i + j) % n for j in range(k)],
+                         ref_idx=scene.sample_ref_idx(i % n))
             _, aux = step(state, batch, scalars, static, gen)
             losses.append(aux["loss"])
         return losses
@@ -111,7 +118,7 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     assert all(np.isfinite(float(x)) for x in losses)
     ms = 1e3 * dt / args.steps
-    rays = cfg["training"]["n_training_points"]
+    rays = cfg["training"]["n_training_points"] * k
     print(f"steps without a per-step sync: {ms:.3f} ms/step, "
           f"{rays * 1e3 / ms:.1f} rays/s")
 

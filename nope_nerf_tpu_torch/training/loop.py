@@ -16,8 +16,13 @@ a checkpoint when ``it % checkpoint_every == 0``, a backup when
 ``rendering/%04d_vis`` when ``it % visualize_every == 0`` -- not the scan
 path's epoch-boundary crossings.
 
-``rays_per_step_multiplier > 1`` and ``n_devices > 1`` are not ported yet
-(see ROADMAP.md): they change results and raise ``NotImplementedError``.
+With ``tpu.rays_per_step_multiplier`` k > 1 every step takes k frames,
+drawn in the JAX loop's order: the epoch's permutation (frame 0 of each
+step, which owns the reference pair and drives the per-view logging and
+the pair dumps), the reference draws, then ``np.random.randint(0,
+n_views, (n_views, k - 1))`` for the extra frames; rays/s counts k *
+``n_training_points`` rays per step. ``n_devices > 1`` is not ported yet
+(see ROADMAP.md) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -126,9 +131,6 @@ def scene_batch_arrays(scene, cfg, device):
 def _check_ported(cfg):
     """Raise for the settings the port does not run yet."""
     tpu = cfg.get("tpu", {}) or {}
-    if int(tpu.get("rays_per_step_multiplier", 1) or 1) > 1:
-        raise NotImplementedError("tpu.rays_per_step_multiplier > 1 is not "
-                                  "ported yet")
     if int(tpu.get("n_devices", 1) or 1) > 1:
         raise NotImplementedError("tpu.n_devices > 1 is not ported yet")
 
@@ -299,7 +301,9 @@ def _train(cfg, max_epochs, scene, device):
     render_path = os.path.join(out_dir, "rendering")
     log_ss_per_view = tcfg.get("log_scale_shift_per_view", False)
     gt_poses = getattr(scene, "c2ws", None)
-    n_rays = tcfg["n_training_points"]
+    mult = max(int((cfg.get("tpu", {}) or {}).get(
+        "rays_per_step_multiplier", 1) or 1), 1)
+    n_rays = tcfg["n_training_points"] * mult  # per step
     scale_dict, shift_dict = {}, {}
     history = []
 
@@ -314,14 +318,22 @@ def _train(cfg, max_epochs, scene, device):
         static = sched.static_flags(epoch)
         order = np.random.permutation(n_views)
         ref_order = [scene.sample_ref_idx(int(i), pyrng) for i in order]
+        frames = order[:, None]
+        if mult > 1:
+            # the extra k - 1 frames of each step, drawn uniformly; frame 0
+            # keeps the epoch order and owns the reference pair
+            frames = np.concatenate([frames, np.random.randint(
+                0, n_views, size=(n_views, mult - 1))], axis=1)
         steps = {"loss": [], "l2_mean": [], "loss_pc": [], "loss_rgb_s": []}
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        for idx, ref_idx in zip(order, ref_order):
+        for step_frames, ref_idx in zip(frames, ref_order):
             sched_state.it += 1
             it = sched_state.it
-            batch = dict(batch0, idx=int(idx), ref_idx=int(ref_idx))
+            idx = int(step_frames[0])
+            batch = dict(batch0, idx=step_frames.tolist(),
+                         ref_idx=int(ref_idx))
             try:
                 state, aux = step_fn(state, batch, scalars, static, step_gen)
             except FloatingPointError as e:

@@ -11,6 +11,7 @@ the tensors' device.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..geometry.rays import (
@@ -26,7 +27,7 @@ from ..models.distortion import distortion_scale_shift
 from ..models.intrinsics import focal_fxfy
 from ..models.pose import pose_c2w
 from ..ops.interp import grid_sample, resize_bilinear, resize_nearest
-from ..ops.rendering import render_rays
+from ..ops.rendering import concat_rays, ray_setup, render_ray_batch
 
 GROUPS = ("nerf", "pose", "focal", "distortion")
 
@@ -90,15 +91,21 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
     """The loss of one step and its aux dict (the JAX ``compute_loss``).
 
     batch: imgs (N, H, W, 3), dpts (N, Hd, Wd), optional dpts_small /
-    imgs_small, camera_mat_gt, scale_mat (4, 4) on the device; idx and
-    ref_idx host ints; optional ray_idx (n,). scalars: weights (7 floats),
-    w_l1, w_l2. static: render_model / use_ref / use_rgb_s booleans.
+    imgs_small, camera_mat_gt, scale_mat (4, 4) on the device; idx a host
+    int, or k host ints with ``tpu.rays_per_step_multiplier`` k (a list or
+    an array); ref_idx a host int; optional ray_idx (n,). scalars: weights
+    (7 floats), w_l1, w_l2. static: render_model / use_ref / use_rgb_s
+    booleans, and ``normal_diff``, which asks for ``rendering.normal_loss``'s
+    output (aux ``normal_diff``): no loss reads it, so without the flag the
+    render skips it, as XLA drops it from the JAX step.
+
+    With k frames, each frame draws its own rays, pose, distortion and
+    prior depths, and the k * n rays go through one render (one Kernel A
+    launch on the fused path); frame 0 alone carries the reference-pair
+    branch (pc, rgb_s), exactly as at k = 1.
     """
-    idx = batch["idx"]
-    if not isinstance(idx, int):
-        raise NotImplementedError(
-            "several frames per step (tpu.rays_per_step_multiplier > 1) are "
-            "not ported yet")
+    frames = [int(i) for i in np.ravel(batch["idx"])]
+    idx = frames[0]
     ref_idx = batch["ref_idx"]
     img = batch["imgs"][idx]
     depth_raw = batch["dpts"][idx]
@@ -145,31 +152,55 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
     else:
         camera_mat = camera_mat_gt
 
-    # ---- ray sampling + render ------------------------------------------
+    # ---- ray sampling + render (per frame) ------------------------------
     out = {}
     rgb_gt = None
     if static["render_model"]:
-        r_idx = _sample_ray_idx(batch, n_points, H, W,
-                                tpu.get("fast_ray_sampling", True), generator)
-        rgb_gt = img.reshape(-1, 3)[r_idx]
-        p, rr, rc = pixels_from_flat_idx(r_idx, (H, W))
-        if (hd, wd) == (H, W):
-            didx = r_idx
-        else:
-            # resize_nearest's f32 index math, gathered at the sampled rays
-            drr = torch.floor(rr.to(torch.float32)
-                              * torch.tensor(hd / H, dtype=torch.float32)).long()
-            drc = torch.floor(rc.to(torch.float32)
-                              * torch.tensor(wd / W, dtype=torch.float32)).long()
-            didx = drr * wd + drc
-        d_rays = depth_raw.reshape(-1)[didx]
-        if learn_dist:
-            d_rays = _apply_distortion(d_rays, scale_input, shift_input,
-                                       tcfg["shift_first"])
-        out = render_rays(params["nerf"], p, d_rays, camera_mat, world_mat,
-                          scale_mat, render_cfg, generator=generator,
-                          add_noise=tpu.get("render_add_noise", True),
-                          eval_mode=False)
+        fast = tpu.get("fast_ray_sampling", True)
+        add_noise = tpu.get("render_add_noise", True)
+        rgb_gts, setups = [], []
+        for j, f in enumerate(frames):
+            # an injected ray_idx serves every frame (the JAX step closes
+            # over it instead of vmapping it)
+            r_idx = _sample_ray_idx(batch, n_points, H, W, fast, generator)
+            rgb_gts.append(batch["imgs"][f].reshape(-1, 3)[r_idx])
+            p, rr, rc = pixels_from_flat_idx(r_idx, (H, W))
+            if (hd, wd) == (H, W):
+                didx = r_idx
+            else:
+                # resize_nearest's f32 index math, gathered at the sampled
+                # rays
+                drr = torch.floor(rr.to(torch.float32) * torch.tensor(
+                    hd / H, dtype=torch.float32)).long()
+                drc = torch.floor(rc.to(torch.float32) * torch.tensor(
+                    wd / W, dtype=torch.float32)).long()
+                didx = drr * wd + drc
+            d_rays = batch["dpts"][f].reshape(-1)[didx]
+            if j == 0:
+                world_f, sc_f, sh_f = world_mat, scale_input, shift_input
+            else:
+                world_f = rigid_inv(c2w_of(f)) if pcfg["learn_pose"] else eye
+                sc_f, sh_f = scale_shift(f)
+            if learn_dist:
+                d_rays = _apply_distortion(d_rays, sc_f, sh_f,
+                                           tcfg["shift_first"])
+            setups.append(ray_setup(p, d_rays, camera_mat, world_f,
+                                    scale_mat, render_cfg, generator=generator,
+                                    add_noise=add_noise))
+        # k frames' rays render as one batch: one Kernel A launch while
+        # k * n * S <= n_max_network_queries (2**21 points by default, so
+        # k <= 16 at the stock 1024 rays x 128 samples), chunks of that
+        # size above it. The kernels count rows in 32-bit ints and address
+        # them with 64-bit offsets, so what bounds k is memory: Kernel A's
+        # forward saves ~5 KB per point (eight 256-wide bf16 activations,
+        # the features, the encodings; 2.6 GB at k = 4).
+        rgb_gt = torch.cat(rgb_gts)
+        rays = setups[0] if len(setups) == 1 else concat_rays(setups)
+        rcfg = render_cfg
+        if rcfg.get("normal_loss", False) and not static.get("normal_diff"):
+            rcfg = dict(rcfg, normal_loss=False)
+        out = render_ray_batch(params["nerf"], rays, rcfg,
+                               generator=generator, eval_mode=False)
 
     # ---- reference-image branch -------------------------------------------
     loss_kwargs = {}
@@ -283,6 +314,8 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
     aux.update(loss_dict)
     aux["scale"] = scale_input[0]
     aux["shift"] = shift_input[0]
+    if out.get("normal_diff") is not None:
+        aux["normal_diff"] = out["normal_diff"]
     if static.get("pair_images", False) and "rgb_pc1" in loss_kwargs:
         # the reprojection pair of the vis_reprojection_every dumps
         aux["rgb_pc1"] = loss_kwargs["rgb_pc1"]

@@ -82,6 +82,44 @@ def test_kernel_a_matches_plain(dev, act, dist_alpha, white_bg, alpha_cot):
         assert _rel_l2(a, b) < 0.02, i
 
 
+def test_kernel_a_two_frames_in_one_launch(dev):
+    """Two frames' 1024 rays x 128 samples at the stock width (the batch of
+    ``tpu.rays_per_step_multiplier`` 2: each frame's rays from its own
+    camera centre) through ONE forward and ONE backward launch, against
+    the plain version under the training step's cotangents (rgb and depth,
+    none on alpha) at chip_smoke.py's bars: outputs max|err| 1e-3,
+    gradients relL2 1e-2."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    N, S = 1024, 128
+    frames = [_kernel_a_inputs(dev, N, S, 256, seed) for seed in (5, 6)]
+    ws = frames[0][0]
+    geo = [torch.cat([f[1][i] for f in frames]) for i in range(3)]
+    z = torch.cat([f[2] for f in frames])
+    deltas = torch.cat([f[3] for f in frames])
+    cots = [torch.cat([f[4][0] for f in frames]),
+            torch.cat([f[4][1] for f in frames]),
+            torch.zeros((2 * N, S), device=dev)]
+    static = (10, 4, "softplus", True, False, False, S)
+    results = []
+    for fn in (mk.fused_mlp_composite, mk.fused_mlp_composite_reference):
+        w = [x.clone().requires_grad_() for x in ws]
+        g = [x.clone().requires_grad_() for x in geo]
+        f0, b0 = mk.FWD_LAUNCHES.count, mk.BWD_LAUNCHES.count
+        out = fn(w, *g, z, deltas, *static)
+        grads = torch.autograd.grad(out, w + g, cots)
+        launches = (mk.FWD_LAUNCHES.count - f0, mk.BWD_LAUNCHES.count - b0)
+        results.append(([o.detach() for o in out], grads, launches))
+    (ok, gk, lk), (orf, gr, lr) = results
+    assert lk == (1, 1) and lr == (0, 0)
+    assert ok[0].shape == (2 * N, 3) and ok[2].shape == (2 * N, S)
+    for a, b in zip(ok, orf):
+        assert float(torch.max(torch.abs(a - b))) < 1e-3
+    for i, (a, b) in enumerate(zip(gk, gr)):
+        assert torch.isfinite(a).all()
+        assert _rel_l2(a, b) < 1e-2, i
+
+
 def test_kernel_a_backward_is_deterministic(dev):
     """Split-K partial sums reduced in a fixed order: two backward passes
     give bitwise equal gradients."""

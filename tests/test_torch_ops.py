@@ -257,7 +257,7 @@ def test_check_supported_matmul_precision_matches_jax(tpu):
 def test_check_ported_names_profile_dir_and_debug_nans(capsys):
     """The loop honours tpu.profile_dir, tpu.debug_nans, visualize_every
     and vis_reprojection_every: ``_check_ported`` prints nothing for any of
-    them, and still raises for rays_per_step_multiplier > 1 and
+    them, nor for rays_per_step_multiplier > 1, and still raises for
     n_devices > 1."""
     from nope_nerf_tpu_torch.training.loop import _check_ported
 
@@ -268,11 +268,14 @@ def test_check_ported_names_profile_dir_and_debug_nans(capsys):
                                 "vis_reprojection_every": 5000},
                    "tpu": {"profile_dir": "traces", "debug_nans": True}})
     assert capsys.readouterr().out == ""
-    for key in ("rays_per_step_multiplier", "n_devices"):
-        with pytest.raises(NotImplementedError, match=key):
-            _check_ported(dict(quiet, tpu={key: 2}))
-    _check_ported(dict(quiet, tpu={"rays_per_step_multiplier": 1,
-                                   "n_devices": 1}))
+    with pytest.raises(NotImplementedError, match="n_devices"):
+        _check_ported(dict(quiet, tpu={"n_devices": 2}))
+    with pytest.raises(NotImplementedError, match="n_devices"):
+        _check_ported(dict(quiet, tpu={"rays_per_step_multiplier": 4,
+                                       "n_devices": 2}))
+    for k in (1, 2, 4):
+        _check_ported(dict(quiet, tpu={"rays_per_step_multiplier": k,
+                                       "n_devices": 1}))
     assert capsys.readouterr().out == ""
 
 

@@ -330,3 +330,109 @@ def test_total_loss_terms(depth_type, auto_mask):
     np.testing.assert_allclose(float(mse2psnr(0.01)), float(jpsnr(0.01)),
                                rtol=1e-6)
     assert cb.QB == 1024
+
+
+@pytest.mark.parametrize("auto_mask", [False, True])
+def test_rgb_s_loss_with_ssim(auto_mask):
+    """``training.with_ssim``: 0.15 |d| + 0.85 SSIM-map on the mask, the
+    auto-mask read from the raw diff before the blend. Value at rtol 1e-5
+    and both colour gradients at relL2 1e-5 against ``jax.grad``: the same
+    f32 arithmetic, the 3x3 box sums in another order."""
+    from nope_nerf_tpu.losses.losses import rgb_s_loss as jloss
+    from nope_nerf_tpu_torch.losses.losses import rgb_s_loss
+
+    rng = np.random.default_rng(12)
+    hs, ws = 20, 28
+    rgb1 = rng.uniform(size=(hs, ws, 3)).astype(np.float32)
+    rgb2 = np.clip(rgb1 + 0.2 * rng.normal(size=(hs, ws, 3)), 0, 1).astype(
+        np.float32)
+    ori = rng.uniform(size=(hs, ws, 3)).astype(np.float32)
+    valid = (rng.uniform(size=(hs, ws, 1)) > 0.2).astype(np.float32)
+
+    def jf(a, b):
+        return jloss(a, b, jnp.asarray(valid), True,
+                     rgb2_ori=jnp.asarray(ori) if auto_mask else None)
+
+    jval, jgrads = jax.value_and_grad(jf, argnums=(0, 1))(
+        jnp.asarray(rgb1), jnp.asarray(rgb2))
+    a, b = _t(rgb1, True), _t(rgb2, True)
+    val = rgb_s_loss(a, b, _t(valid), True,
+                     rgb2_ori=_t(ori) if auto_mask else None)
+    val.backward()
+    np.testing.assert_allclose(float(val.detach()), float(jval), rtol=1e-5)
+    plain = rgb_s_loss(a, b, _t(valid), False,
+                       rgb2_ori=_t(ori) if auto_mask else None)
+    assert abs(float(plain) - float(val)) > 1e-3  # the map moved the loss
+    for got, want in zip((a.grad, b.grad), jgrads):
+        assert _rel_l2(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("levels,nd_atol,grad_rel", [(4, 1e-5, 1e-4),
+                                                   (10, 2e-3, 2e-2)])
+def test_render_rays_normal_diff(levels, nd_atol, grad_rel):
+    """``rendering.normal_loss``: normal_diff at the prior-depth surface
+    points and their jittered neighbours, against the JAX renderer given
+    the same jitter (the port's draw replaced by JAX's uniform of the same
+    key), and d sum(normal_diff) / d weights against ``jax.grad`` through
+    the double backward of the f32 MLP. At 4 position levels: value atol
+    1e-5, weight gradients relL2 1e-4. At the stock 10 the top band's
+    derivative is 2^9 times its value, and where the density gradient
+    nearly vanishes its normal amplifies f32 round-off (at the stock width,
+    relL2 against float64 reaches 9.5e-4 over 4,096 random points); the
+    two packages sum in other orders: atol 2e-3 and relL2 2e-2."""
+    import nope_nerf_tpu_torch.ops.rendering as prender
+    from nope_nerf_tpu.geometry.so3 import make_c2w
+    from nope_nerf_tpu.ops.rendering import render_rays as jrender
+
+    from nope_nerf_tpu.models.nerf import init_nerf_params
+    from nope_nerf_tpu_torch.convert import params_from_jax
+
+    tree = jax.device_get(init_nerf_params(jax.random.PRNGKey(3),
+                                           _cfg(pos_enc_levels=levels)))
+    rng = np.random.default_rng(14)
+    cfg = dict(_render_cfg("uniform", False, False), normal_loss=True,
+               pos_enc_levels=levels)
+    pix = rng.uniform(-1, 1, size=(N_RAYS, 2)).astype(np.float32)
+    dep = rng.uniform(0.5, 3.0, size=N_RAYS).astype(np.float32)
+    dep[:2] = 0.0  # invalid rays: points_surface is the camera centre
+    cam = np.array([[1.6, 0, 0, 0], [0, -1.8, 0, 0], [0, 0, -1, 0],
+                    [0, 0, 0, 1]], np.float32)
+    c2w = np.asarray(make_c2w(jnp.asarray([0.05, -0.1, 0.02]),
+                              jnp.asarray([0.1, 0.2, -0.3])))
+    world = np.linalg.inv(c2w).astype(np.float32)
+    mats = [cam, world, np.eye(4, dtype=np.float32)]
+    key = jax.random.PRNGKey(5)
+    jitter = np.asarray(jax.random.uniform(jax.random.fold_in(key, 1),
+                                           (N_RAYS, 3)))
+
+    def jsum(params):
+        out = jrender(params, jnp.asarray(pix), jnp.asarray(dep),
+                      *map(jnp.asarray, mats), cfg, rng=key, add_noise=False)
+        return out["normal_diff"].sum(), out["normal_diff"]
+
+    (_, jnd), jg = jax.value_and_grad(jsum, has_aux=True)(
+        jax.tree.map(jnp.asarray, tree))
+    params = params_from_jax({"nerf": tree})["nerf"]
+    for layer in params.values():
+        for v in layer.values():
+            v.requires_grad_(True)
+    real = prender.normal_jitter
+    prender.normal_jitter = lambda shape, gen, dev: _t(jitter)
+    try:
+        out = prender.render_rays(params, _t(pix), _t(dep), *map(_t, mats),
+                                  cfg)
+    finally:
+        prender.normal_jitter = real
+    nd = out["normal_diff"]
+    np.testing.assert_allclose(_np(nd), np.asarray(jnd), atol=nd_atol)
+    assert float(nd.min()) > 0 and nd.shape == (N_RAYS,)
+    nd.sum().backward()
+    for name, layer in params.items():
+        for k, v in layer.items():
+            if v.grad is None:  # the rgb head: no path from the density
+                assert not np.any(np.asarray(jg[name][k])), (name, k)
+            else:
+                assert _rel_l2(v.grad, jg[name][k]) < grad_rel, (name, k)
+    # eval renders and the frozen-weight Phong gradient keep no such term
+    assert prender.render_rays(params, _t(pix), _t(dep), *map(_t, mats), cfg,
+                               eval_mode=True)["normal_diff"] is None

@@ -9,6 +9,7 @@ import io
 import json
 import os
 import sys
+import types
 
 import jax
 import numpy as np
@@ -286,8 +287,9 @@ def test_bench_prints_one_json_line(tiny_bench):
 
 def test_bench_refuses(tiny_bench, monkeypatch):
     """No CUDA device: ``main`` raises before starting a child (unless
-    ``--device cpu``); ``rays_per_step_multiplier > 1`` raises as the loop
-    does."""
+    ``--device cpu``). ``rays_per_step_multiplier`` 2 runs on the CPU:
+    each step takes frame i and the frame after it (``bench.py``'s (steps,
+    k) layout), and rays/s is steps * n * k over the timed window."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     started = []
     monkeypatch.setattr(tiny_bench, "_supervise",
@@ -298,5 +300,27 @@ def test_bench_refuses(tiny_bench, monkeypatch):
     assert started == [["--device", "cpu"]]
     monkeypatch.setenv("BENCH_TPU_OVERRIDES",
                        json.dumps({"rays_per_step_multiplier": 2}))
-    with pytest.raises(NotImplementedError, match="rays_per_step_multiplier"):
+    frames = []
+    real_step = tiny_bench.make_train_step
+
+    def recording_step(*args, **kwargs):
+        step = real_step(*args, **kwargs)
+
+        def run(state, batch, *rest):
+            frames.append((batch["idx"], batch["ref_idx"]))
+            return step(state, batch, *rest)
+        return run
+
+    clock = iter([100.0, 102.5])  # the timed window: 2.5 s
+    monkeypatch.setattr(tiny_bench, "make_train_step", recording_step)
+    monkeypatch.setattr(tiny_bench, "time", types.SimpleNamespace(
+        perf_counter=lambda: next(clock)))
+    with contextlib.redirect_stdout(io.StringIO()):
+        rate = tiny_bench.run("cpu")
+    steps = (1 + 2) * 3
+    assert frames == [([s % 8, (s + 1) % 8], (s + 1) % 8)
+                      for s in range(3)] * 3 and len(frames) == steps
+    assert rate == pytest.approx(2 * 3 * 32 * 2 / 2.5, rel=1e-12)
+    monkeypatch.setenv("BENCH_TPU_OVERRIDES", json.dumps({"n_devices": 2}))
+    with pytest.raises(NotImplementedError, match="n_devices"):
         tiny_bench.run("cpu")

@@ -250,9 +250,130 @@ def test_slice_step_kernel_path():
         assert _rel_l2(leaf.grad, jgl[k]) < 0.02, k
 
 
+# k = 2 frames per step: (frames, ref_idx); frame 3 takes the swap
+FRAMES_K2 = [([0, 2], 1), ([3, 1], 2)]
+
+
+def _rel_l2_but_one_unit(a, b):
+    """relL2 of a field layer's gradient with its worst output unit (last
+    axis) left out: a ReLU whose pre-activation lies within f32 round-off
+    of 0 at one sample point masks it on one side only, which moves that
+    unit's column and bias alone (seen at FRAMES_K2 step 1: unit 27 of
+    trunk0_0, relL2 1.5e-3 there, the rest of the layer 1e-5)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d = (a - b).reshape(-1, a.shape[-1])
+    per_unit = np.linalg.norm(d, axis=0)
+    keep = np.arange(d.shape[1]) != np.argmax(per_unit)
+    return float(np.linalg.norm(d[:, keep]) / max(np.linalg.norm(b), 1e-30))
+
+
+def _k2_batches(jbatch, pbatch, i, ray_idx):
+    """Step i of FRAMES_K2 for both sides, one injected ray_idx serving
+    both frames (the JAX step closes over it)."""
+    frames, ref = FRAMES_K2[i]
+    jb = dict(jbatch, idx=jnp.asarray(frames, jnp.int32),
+              ref_idx=jnp.int32(ref), ray_idx=jnp.asarray(ray_idx, jnp.int32))
+    pb = dict(pbatch, idx=frames, ref_idx=ref, ray_idx=torch.tensor(ray_idx))
+    return jb, pb
+
+
+def _jscalars(scalars):
+    return {"weights": {k: np.float32(v) for k, v in
+                        scalars["weights"].items()},
+            "w_l1": np.float32(1.0), "w_l2": np.float32(0.0)}
+
+
+@pytest.mark.parametrize("kernel_path,loss_rtol,grad_rel", [
+    (False, 1e-4, 1e-4), (True, 1e-3, 0.02)])
+def test_step_two_frames(kernel_path, loss_rtol, grad_rel):
+    """One step at rays_per_step_multiplier 2 (two frames' 64 rays each
+    through one render) against JAX's ``compute_loss`` with idx of shape
+    (2,), for both FRAMES_K2 steps: the loss and every parameter group's
+    gradient. The f32 path at the bars of test_slice_trajectory_f32, a
+    field layer's worst unit left out (:func:`_rel_l2_but_one_unit`); the
+    kernel path (Kernel A's plain version against the Pallas kernel in
+    interpret mode) at those of test_slice_step_kernel_path."""
+    import nope_nerf_tpu.ops.pallas.mlp_kernel as jmk
+
+    cfg, jparams, jbatch, pparams, pbatch, ray_idx = _setup(kernel_path)
+    cfg["tpu"]["rays_per_step_multiplier"] = 2
+    scalars = _scalars()
+    for i in range(len(FRAMES_K2)):
+        jb, pb = _k2_batches(jbatch, pbatch, i, ray_idx[i])
+        jmk.INTERPRET = kernel_path
+        try:
+            (jl, _), jg = _jloss_and_grad(cfg)(jparams, jb,
+                                               _jscalars(scalars))
+        finally:
+            jmk.INTERPRET = False
+        for leaf in _leaves(pparams).values():
+            leaf.grad = None
+        pl, aux = _pgrads(cfg, pparams, pb, scalars)
+        np.testing.assert_allclose(pl, float(jl), rtol=loss_rtol)
+        jgl = _leaves(jax.device_get(jg))
+        for k, leaf in _leaves(pparams).items():
+            rel = _rel_l2(leaf.grad, jgl[k])
+            if k.startswith("nerf/") and not kernel_path:
+                rel = _rel_l2_but_one_unit(leaf.grad, jgl[k])
+            assert rel < grad_rel, (i, k, rel)
+        # frame 1's pose and distortion carry gradient only through its rays
+        f1 = FRAMES_K2[i][0][1]
+        assert float(pparams["pose"]["r"].grad[f1].abs().sum()) > 0
+
+
+def test_step_ssim_and_normal_loss():
+    """One two-frame step with ``training.with_ssim`` and
+    ``rendering.normal_loss`` on: the loss and gradients match JAX's (whose
+    jitted step drops the unread normal term) at the f32 bars, and equal
+    the port's own with ``normal_loss`` off bit for bit, both when the
+    trainer skips the term and when ``static['normal_diff']`` makes it
+    compute it (aux ``normal_diff``, one finite value per ray of the two
+    frames)."""
+    cfg, jparams, jbatch, pparams, pbatch, ray_idx = _setup(False)
+    cfg["tpu"]["rays_per_step_multiplier"] = 2
+    cfg["training"]["with_ssim"] = True
+    scalars = _scalars()
+    jb, pb = _k2_batches(jbatch, pbatch, 0, ray_idx[0])
+
+    def port(normal_loss, static):
+        c = dict(cfg, rendering=dict(cfg["rendering"],
+                                     normal_loss=normal_loss))
+        for leaf in _leaves(pparams).values():
+            leaf.grad = None
+        from nope_nerf_tpu_torch.training.trainer import (compute_loss,
+                                                          init_train_state,
+                                                          make_render_cfg)
+
+        init_train_state(pparams)
+        loss, aux = compute_loss(pparams, pb, scalars, cfg=c, static=static,
+                                 render_cfg=make_render_cfg(c, "cpu"))
+        loss.backward()
+        return (float(loss.detach()), aux,
+                {k: v.grad.clone() for k, v in _leaves(pparams).items()})
+
+    jcfg = dict(cfg, rendering=dict(cfg["rendering"], normal_loss=True))
+    (jl, _), jg = _jloss_and_grad(jcfg)(jparams, jb, _jscalars(scalars))
+    off = port(False, STATIC)
+    skipped = port(True, STATIC)
+    computed = port(True, dict(STATIC, normal_diff=True))
+    np.testing.assert_allclose(off[0], float(jl), rtol=1e-4)
+    jgl = _leaves(jax.device_get(jg))
+    for k, g in off[2].items():
+        assert _rel_l2(g, jgl[k]) < 1e-4, k
+    assert "normal_diff" not in skipped[1]
+    nd = computed[1]["normal_diff"]
+    assert nd.shape == (2 * 64,) and bool(torch.isfinite(nd).all())
+    for other in (skipped, computed):
+        assert other[0] == off[0]
+        for k, g in off[2].items():
+            assert torch.equal(other[2][k], g), k
+
+
 def test_train_loop_runs_on_cpu(tmp_path):
     """``train`` end to end on the CPU for 2 epochs: finite losses, the
-    per-epoch history and the event log."""
+    per-epoch history and the event log; then one epoch at
+    rays_per_step_multiplier 2 (rays/s counting 2 x 64 rays per step),
+    and n_devices 2 raises."""
     from nope_nerf_tpu_torch.training.loop import train
 
     cfg = _cfg(False)
@@ -268,8 +389,14 @@ def test_train_loop_runs_on_cpu(tmp_path):
     assert all(np.isfinite(h["step_losses"]).all() and h["steps"] == 4
                for h in hist)
     assert (tmp_path / "logs" / "events.jsonl").stat().st_size > 0
-    with pytest.raises(NotImplementedError):
-        train(dict(cfg, tpu=dict(cfg["tpu"], rays_per_step_multiplier=2)),
+    cfg2 = dict(cfg, tpu=dict(cfg["tpu"], rays_per_step_multiplier=2),
+                training=dict(cfg["training"], out_dir=str(tmp_path / "k2")))
+    _, _, _, (rec,) = train(cfg2, max_epochs=1, scene=scene, device="cpu")
+    assert np.isfinite(rec["step_losses"]).all() and rec["steps"] == 4
+    assert rec["rays_per_sec"] * rec["ms_per_step"] / 1e3 == pytest.approx(
+        2 * 64, rel=1e-9)
+    with pytest.raises(NotImplementedError, match="n_devices"):
+        train(dict(cfg, tpu=dict(cfg["tpu"], n_devices=2)),
               max_epochs=1, scene=scene, device="cpu")
 
 
