@@ -74,6 +74,21 @@ on it for 2 epochs, checking Kernels A and B launched and holding Kernel
 B's last two calls (clouds from the 384x672 priors) and Kernel C's forward
 at the it-0 visualisation against their plain versions at those inputs.
 
+The multigpu phase (``tpu.n_devices > 1``, ``nope_nerf_tpu_torch/parallel``)
+runs the stock step under a mesh of one rank over NCCL, which must equal the
+unsharded step bit for bit, then two ranks in two worker processes (NCCL on
+two cards when there are two, else both on card 0 over gloo): each rank's
+rgb and depth rows, its loss and its averaged gradients against the
+one-process step at the same global batch, the ranks' parameters bitwise
+equal after MG_STEPS steps, Kernel A once each way on 512 rays and Kernel B
+twice per step on each rank, both held against their plain versions at each
+rank's inputs; one step on the route of Kernels C and D (MG_UNFUSED) held
+to the one-process step likewise, C once each way and D twice per rank, C's
+forward and D's sweeps against their plain versions; a two-rank
+``train()`` (rank 0 writing the visualisation, the pair dump and the
+checkpoints) and ``dpt_depth`` on two ranks against one device (the DPT
+phase's converted weights, on MG_DPT_FRAMES frames).
+
 The synthetic phase then writes the teacher scene of
 ``utils/synthetic.py`` to disk with the port's dataset writer, trains the
 stock widths on it through ``train()`` (the scene read back by
@@ -97,9 +112,10 @@ part) and a novel view.
 Prints, in order: the card's name and power limit, the kernel build time,
 one line per kernel check, the two GEMM phases' lines, one line per epoch, the
 training runs' checks, the eval phase's lines, the DPT phase's, the
-synthetic phase's, the JSON lines of the training runs, the eval, DPT and
-synthetic phases, a JSON line with every
-kernel's errors, launches, times and bound (and the library call's time
+multigpu phase's, the synthetic phase's, the JSON lines of the training
+runs, the eval, DPT, multigpu and synthetic phases, a JSON line with every
+kernel's errors, launches (each phase's share too), times and bound (and
+the library call's time
 where one exists), and last ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that last line. It needs a CUDA device and the
 repository beside it; it imports nothing of JAX. With ``--gate-control``
@@ -336,16 +352,19 @@ def device_ms(fn, iters=10, warmup=2):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / iters / 1e3
+    # CUPTI now and then hands the profiler no device events for a window
+    # (seen once in a smoke run on torch.mm); profile the window again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3
+    raise RuntimeError("torch.profiler recorded no device time")
 
 
 def bound(flops=0.0, nbytes=0.0, instr=0.0):
@@ -1801,7 +1820,13 @@ def run_dpt(dev, card):
           f"({scene.dpt_depth.shape[1]}x{scene.dpt_depth.shape[2]}), loss "
           f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches {counts}; kernel "
           f"checks at this phase's inputs {json.dumps(kernel_checks)}")
-    shutil.rmtree(work)
+    # the converted weights stay for the multigpu phase's dpt_depth runs
+    for name in os.listdir(work):
+        path = os.path.join(work, name)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        elif name != "dpt.npz":
+            os.remove(path)
     return counts, {"depth_rel_l2_vs_f64": err, "cli_rel_l2_vs_f64": cli_err,
                     "tf32_rel_l2_vs_f64": err_tf32, "ms_per_frame": ms,
                     "batch": len(x), "peak_bytes": peak,
@@ -2342,6 +2367,473 @@ def run_synthetic(dev, card):
                    "pose_errors": poses}
 
 
+# The multigpu phase (tpu.n_devices > 1, nope_nerf_tpu_torch/parallel) at
+# the stock shapes: one process per rank under torch.distributed. W = 1 runs
+# under NCCL in this process through make_ray_mesh(1) and must equal the
+# unsharded step bit for bit. W = 2 runs two worker processes: over NCCL on
+# two cards when the machine has them, else both on card 0 over gloo
+# (NCCL refuses two ranks on one card; allow_shared_device). Against the
+# one-process step at the same global batch: Kernel A's rows are per ray, so
+# each rank's rgb and depth rows are expected bitwise (bar MG_OUT_ATOL); the
+# loss sums the ranks' parts in another order (MG_LOSS_RTOL); the gradient
+# is the mean of two partial gradients (relL2 MG_GRAD_RELL2 per group).
+# After MG_STEPS steps the ranks' parameters must be bitwise equal. A
+# step with fuse_compositing False and chamfer_mode exact (MG_UNFUSED) runs
+# Kernels C and D per rank, held to the one-process step likewise. Each
+# rank then trains 2 epochs x MG_FRAMES steps through train() (it-0
+# visualisation and pair dump, rank 0 writing) and runs dpt_depth on
+# MG_DPT_FRAMES frames, whose priors are held to a one-device run's.
+MG_STEPS, MG_FRAMES, MG_DPT_FRAMES, MG_JOIN_S = 8, 4, 3, 420
+# one more step per rank on the route of Kernels C and D, held to the
+# one-process step at the same bars; per step Kernel C once each way (the
+# rank's 512 rays x 128 samples in one launch) and Kernel D twice, A and B
+# idle
+MG_UNFUSED = {"fuse_compositing": False, "chamfer_mode": "exact"}
+MG_UNFUSED_STEP = {"mlp_point_fwd": 1, "mlp_point_bwd": 1, "chamfer_exact": 2,
+                   "mlp_composite_fwd": 0, "mlp_composite_bwd": 0,
+                   "chamfer_band": 0}
+MG_OUT_ATOL, MG_LOSS_RTOL, MG_GRAD_RELL2 = 1e-6, 1e-5, 1e-3
+# dpt_depth on two ranks against one device: the ranks' batches of 2 frames
+# and the one device's batch of 3 take different cuDNN algorithms. On an
+# H100 (700 W) they differ by relL2 1.4e-6 per frame, the size of the
+# network's own f32 error against float64 (1.55e-6, PERF.md §6); the bar
+# is a tenth of DPT_RELL2
+MG_DPT_RELL2 = 1e-5
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mg_setup(dev, tpu=None):
+    """The stock step at full width from seeds, with the ``tpu`` overrides:
+    (cfg, scene, batch0, render_cfg, scalars, static, fresh) where
+    ``fresh()`` builds the same (TrainState, init_c2w) every call."""
+    import torch
+
+    from nope_nerf_tpu_torch.synthetic import MemoryScene
+    from nope_nerf_tpu_torch.training.loop import (build_params,
+                                                   scene_batch_arrays)
+    from nope_nerf_tpu_torch.training.scheduler import Scheduler
+    from nope_nerf_tpu_torch.training.trainer import (init_train_state,
+                                                      make_render_cfg)
+
+    cfg = stock_cfg()
+    cfg["tpu"].update(tpu or {})
+    scene = MemoryScene(N_FRAMES, H, W, SEED)
+    cfg["_num_cams"] = scene.N_imgs
+    batch0 = scene_batch_arrays(scene, cfg, dev)
+    sched = Scheduler(cfg)
+    w_l1, w_l2 = sched.rgb_loss_switch(0)
+    scalars = {"weights": sched.weights(0), "w_l1": w_l1, "w_l2": w_l2,
+               "lrs": sched.applied_lrs(0)}
+
+    def fresh():
+        params, init_c2w = build_params(
+            cfg, scene, torch.Generator().manual_seed(SEED), dev)
+        return init_train_state(params), init_c2w
+
+    return (cfg, scene, batch0, make_render_cfg(cfg, dev), scalars,
+            sched.static_flags(0), fresh)
+
+
+def mg_batch(batch0, scene, i):
+    n = scene.N_imgs
+    return dict(batch0, idx=[i % n], ref_idx=scene.sample_ref_idx(i % n))
+
+
+@contextlib.contextmanager
+def captured_render():
+    """Inside the block, the rgb and depth_pred of each training render."""
+    from nope_nerf_tpu_torch.training import trainer
+
+    real = trainer.render_ray_batch
+    outs = []
+
+    def wrapper(*args, **kwargs):
+        out = real(*args, **kwargs)
+        outs.append((out["rgb"].detach().clone(),
+                     out["depth_pred"].detach().clone()))
+        return out
+
+    trainer.render_ray_batch = wrapper
+    try:
+        yield outs
+    finally:
+        trainer.render_ray_batch = real
+
+
+def mg_step(step, state, batch, scalars, static, dev, seed):
+    """One step from a generator seeded ``seed``: (loss, the render's (rgb,
+    depth) rows, the gradients Adam read by group, this step's launches)."""
+    import torch
+
+    counters = kernel_counters()
+    before = [c.count for c in counters]
+    with captured_render() as outs:
+        _, aux = step(state, batch, scalars, static,
+                      torch.Generator(device=dev).manual_seed(seed))
+    grads = {g["name"]: torch.cat([p.grad.reshape(-1) for p in g["params"]])
+             for g in state.optimizer.param_groups}
+    return (aux["loss"].clone(), outs[-1], grads,
+            {c.name: c.count - b for c, b in zip(counters, before)})
+
+
+def flat_params(state):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1)
+                      for g in state.optimizer.param_groups
+                      for p in g["params"]])
+
+
+def check_mg_launches(label, counts, want=None):
+    """A step launched the kernels of ``want`` (default PER_STEP: Kernel A
+    once each way and Kernel B twice) that often."""
+    want = PER_STEP if want is None else want
+    bad = {n: counts[n] for n in want if counts[n] != want[n]}
+    if bad:
+        raise AssertionError(f"{label}: launches {bad}, expected {want}")
+
+
+def mg_one_rank(dev, card):
+    """W = 1 under NCCL through make_ray_mesh(1): the sharded step against
+    the unsharded one, bitwise (loss, gradients, parameters after Adam),
+    for two steps; each step's launches; then both steps timed in turns.
+    Returns the launch counts of the sharded steps and the numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from nope_nerf_tpu_torch.parallel.mesh import make_ray_mesh
+    from nope_nerf_tpu_torch.training.trainer import make_train_step
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_ray_mesh(1)
+        if mesh.backend != "nccl":
+            raise AssertionError(f"W = 1 mesh on {mesh.backend}")
+        cfg, scene, batch0, rcfg, scalars, static, fresh = mg_setup(dev)
+        (plain_state, init_c2w), (mesh_state, _) = fresh(), fresh()
+        plain = make_train_step(cfg, rcfg, init_c2w)
+        sharded = make_train_step(cfg, rcfg, init_c2w, mesh=mesh)
+        reset_counts()
+        counts = collections.Counter()
+        for i in range(2):
+            batch = mg_batch(batch0, scene, i)
+            a = mg_step(plain, plain_state, batch, scalars, static, dev, i)
+            b = mg_step(sharded, mesh_state, batch, scalars, static, dev, i)
+            check_mg_launches(f"multigpu W = 1 step {i}", b[3])
+            counts.update(b[3])
+            same = {"loss": bool(torch.equal(a[0], b[0])),
+                    "rgb": bool(torch.equal(a[1][0], b[1][0])),
+                    "depth": bool(torch.equal(a[1][1], b[1][1])),
+                    "grads": all(torch.equal(a[2][g], b[2][g]) for g in a[2]),
+                    "params": bool(torch.equal(flat_params(plain_state),
+                                               flat_params(mesh_state)))}
+            if not all(same.values()):
+                raise AssertionError(f"multigpu W = 1 step {i}: bitwise "
+                                     f"equal to the unsharded step {same}")
+        counts = {c.name: counts[c.name] for c in kernel_counters()}
+        times = {}
+        for label, step, state in (("plain", plain, plain_state),
+                                   ("mesh", sharded, mesh_state),
+                                   ("mesh", sharded, mesh_state),
+                                   ("plain", plain, plain_state)):
+            it = iter(range(2, 100))
+            ms = host_ms(lambda: step(state, mg_batch(batch0, scene, next(it)),
+                                      scalars, static), iters=8)
+            times.setdefault(label, []).append(ms)
+        print(f"multigpu W = 1 [{card}]: NCCL mesh of 1, the sharded step "
+              f"bitwise equal to the unsharded one over 2 steps (loss, rgb, "
+              f"depth, gradients, parameters after Adam); ms/step plain "
+              f"{times['plain']}, mesh {times['mesh']}; launches {counts}")
+        return counts, {"backend": mesh.backend, "bitwise_steps": 2,
+                        "ms_per_step": times}
+    finally:
+        dist.destroy_process_group()
+
+
+def mg_worker(rank, port, out, dpt_cfg_path):
+    """One rank of the W = 2 run (see the block comment above): writes its
+    results to ``out/rank<rank>.json`` and its tensors to ``.pt``."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from nope_nerf_tpu_torch import dpt_depth
+    from nope_nerf_tpu_torch.config import DEFAULT_CONFIG, load_config
+    from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
+    from nope_nerf_tpu_torch.ops.kernels import chamfer_kernel as ck
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+    from nope_nerf_tpu_torch.parallel.mesh import (make_ray_mesh,
+                                                   shard_train_step)
+    from nope_nerf_tpu_torch.synthetic import MemoryScene
+    from nope_nerf_tpu_torch.training.loop import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n_cards = torch.cuda.device_count()
+    torch.cuda.set_device(rank % n_cards)
+    dist.init_process_group("nccl" if n_cards >= 2 else "gloo",
+                            init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    try:
+        card = card_line()
+        mesh = make_ray_mesh(2, allow_shared_device=True)
+        dev = mesh.device
+        label = f"multigpu W = 2 rank {rank} ({mesh.backend}, {dev})"
+        cfg, scene, batch0, rcfg, scalars, static, fresh = mg_setup(dev)
+        state, init_c2w = fresh()
+        step = shard_train_step(cfg, rcfg, init_c2w, mesh)
+        counters = reset_counts()
+        with kernel_a_training_call() as a_call, \
+                recording(cb, "nearest_idx_banded", keep=2) as b_calls:
+            first = mg_step(step, state, mg_batch(batch0, scene, 0), scalars,
+                            static, dev, 0)
+            per_step = [first[3]]
+            for i in range(1, MG_STEPS):
+                per_step.append(mg_step(step, state, mg_batch(batch0, scene, i),
+                                        scalars, static, dev, i)[3])
+        counts = {c.name: c.count for c in counters}
+        for i, c in enumerate(per_step):
+            check_mg_launches(f"{label} step {i}", c)
+        a_check = check_kernel_a_call(f"{label} [{card}]", a_call)
+        if a_check["rays"] != N_RAYS // 2:
+            raise AssertionError(f"{label}: Kernel A ran on "
+                                 f"{a_check['rays']} rays, not {N_RAYS // 2}")
+        b_check = check_argmin_calls(f"{label} chamfer_band",
+                                     cb.nearest_idx_banded,
+                                     cb.nearest_idx_banded_reference, b_calls)
+        it = iter(range(MG_STEPS, MG_STEPS + 100))
+        ms = host_ms(lambda: step(state, mg_batch(batch0, scene, next(it)),
+                                  scalars, static), iters=5)
+        dev_ms = device_ms(lambda: step(
+            state, mg_batch(batch0, scene, next(it)), scalars, static),
+            iters=3, warmup=1)
+
+        # the route of Kernels C and D, one step
+        ucfg, uscene, ubatch0, urcfg, uscalars, ustatic, ufresh = mg_setup(
+            dev, MG_UNFUSED)
+        ustate, uc2w = ufresh()
+        reset_counts()
+        with recording(mk, "fused_mlp", copy=True) as c_calls, \
+                recording(ck, "nearest_idx_exact", keep=2) as d_calls:
+            unfused = mg_step(shard_train_step(ucfg, urcfg, uc2w, mesh),
+                              ustate, mg_batch(ubatch0, uscene, 0), uscalars,
+                              ustatic, dev, 0)
+        unfused_counts = {c.name: c.count for c in counters}
+        check_mg_launches(f"{label} unfused step", unfused[3],
+                          MG_UNFUSED_STEP)
+        c_check = check_point_mlp_call(f"{label} Kernel C fwd", c_calls)
+        if c_check["points"] != N_RAYS // 2 * ucfg["rendering"]["num_points"]:
+            raise AssertionError(f"{label}: Kernel C ran on "
+                                 f"{c_check['points']} points")
+        d_check = check_argmin_calls(f"{label} chamfer_exact",
+                                     ck.nearest_idx_exact,
+                                     ck.nearest_idx_exact_reference, d_calls)
+
+        def result(r, st=None):
+            return {"loss": r[0].cpu(), "rgb": r[1][0].cpu(),
+                    "depth": r[1][1].cpu(),
+                    "grads": {k: v.cpu() for k, v in r[2].items()},
+                    "params": None if st is None else flat_params(st).cpu()}
+
+        torch.save({"stock": result(first, state), "unfused": result(unfused)},
+                   os.path.join(out, f"rank{rank}.pt"))
+
+        tcfg = stock_cfg()
+        tcfg["training"].update(out_dir=os.path.join(out, "train"),
+                                seed=SEED, vis_reprojection_every=10000)
+        tcfg["tpu"]["n_devices"] = 2
+        reset_counts()
+        _, _, _, hist = train(tcfg, max_epochs=EPOCHS,
+                              scene=MemoryScene(MG_FRAMES, H, W, SEED + 1),
+                              device=dev, mesh=mesh)
+        train_counts = {c.name: c.count for c in counters}
+        losses = [v for h in hist for v in h["step_losses"]]
+        if len(losses) != EPOCHS * MG_FRAMES or not all(
+                map(math.isfinite, losses)):
+            raise AssertionError(f"{label}: train() losses {losses}")
+        dpt_dir = dpt_depth.main(load_config(dpt_cfg_path, DEFAULT_CONFIG),
+                                 device=dev, mesh=mesh)
+        rec = {"rank": rank, "backend": mesh.backend, "device": str(dev),
+               "counts": counts, "train_counts": train_counts,
+               "unfused_counts": unfused_counts, "kernel_a": a_check,
+               "chamfer_band": b_check, "kernel_c_fwd": c_check,
+               "chamfer_exact": d_check,
+               "ms_per_step": ms, "device_ms_per_step": dev_ms,
+               "train_losses": losses, "dpt_dir": dpt_dir}
+        print(f"{label} [{card}]: {MG_STEPS} steps, launches {counts}; "
+              f"{ms:.3f} ms/step, device {dev_ms:.3f} ms/step; unfused step "
+              f"launches {unfused_counts}; train() "
+              f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, launches "
+              f"{train_counts}")
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mg_two_ranks(dev, card):
+    """W = 2 (see the block comment above): two worker processes, joined
+    with a timeout; their results against the one-process step and a
+    one-device dpt_depth run. Returns the ranks' launch counts summed, and
+    the numbers."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from nope_nerf_tpu_torch import dpt_depth
+    from nope_nerf_tpu_torch.config import DEFAULT_CONFIG, load_config
+    from nope_nerf_tpu_torch.training.trainer import make_train_step
+
+    out = os.path.join(WORK, "multigpu")
+    shutil.rmtree(out, ignore_errors=True)
+    data = os.path.join(out, "data")
+    write_llff_scene(os.path.join(data, "scene"), MG_DPT_FRAMES, (H, W),
+                     SEED + 2)
+    npz = os.path.join(WORK, "dpt", "dpt.npz")
+    cfgs = {}
+    for name, n_dev in (("dpt_two", 2), ("dpt_one", 1)):
+        cfgs[name] = os.path.join(out, f"{name}.yaml")
+        with open(cfgs[name], "w") as f:
+            yaml.safe_dump({"depth": {"type": "DPT", "path": npz},
+                            "dataloading": {"path": data, "scene": ["scene"],
+                                            "resize_factor": None,
+                                            "depth_net": name},
+                            "training": {"mode": "all"},
+                            "tpu": {"n_devices": n_dev}}, f)
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=mg_worker, args=(r, port, out,
+                                                 cfgs["dpt_two"]))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    # the one-process step and the one-device priors, while the ranks run
+    cfg, scene, batch0, rcfg, scalars, static, fresh = mg_setup(dev)
+    state, init_c2w = fresh()
+    ref = mg_step(make_train_step(cfg, rcfg, init_c2w), state,
+                  mg_batch(batch0, scene, 0), scalars, static, dev, 0)
+    ucfg, uscene, ubatch0, urcfg, uscalars, ustatic, ufresh = mg_setup(
+        dev, MG_UNFUSED)
+    ustate, uc2w = ufresh()
+    uref = mg_step(make_train_step(ucfg, urcfg, uc2w), ustate,
+                   mg_batch(ubatch0, uscene, 0), uscalars, ustatic, dev, 0)
+    one_dir = dpt_depth.main(load_config(cfgs["dpt_one"], DEFAULT_CONFIG),
+                             device=dev)
+    for p in procs:
+        p.join(timeout=max(MG_JOIN_S - (time.perf_counter() - t0), 1))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    codes = [p.exitcode for p in procs]
+    if hung or any(codes):
+        raise AssertionError(f"multigpu W = 2 workers: exit codes {codes}, "
+                             f"{len(hung)} killed after {MG_JOIN_S} s")
+    wall_s = time.perf_counter() - t0
+    recs = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    saved = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(2)]
+    n = N_RAYS // 2
+    rows = [slice(0, n), slice(n, N_RAYS)]
+
+    def against(got, ref):
+        """Each rank's rows, loss and gradients against the one-process
+        step: (rgb/depth max|err|, loss rel, gradient relL2 by group)."""
+        out_err = max(float(torch.max(torch.abs(g[k].to(dev) - ref[1][i][s])))
+                      for g, s in zip(got, rows)
+                      for i, k in enumerate(("rgb", "depth")))
+        loss_rel = max(abs(float(g["loss"]) - float(ref[0]))
+                       / abs(float(ref[0])) for g in got)
+        grad_rel = {k: max(rel_l2(g["grads"][k].to(dev), v) for g in got)
+                    for k, v in ref[2].items()}
+        return out_err, loss_rel, grad_rel
+
+    out_err, loss_rel, grad_rel = against([g["stock"] for g in saved], ref)
+    u_err, u_loss_rel, u_grad_rel = against([g["unfused"] for g in saved],
+                                            uref)
+    params_equal = bool(torch.equal(saved[0]["stock"]["params"],
+                                    saved[1]["stock"]["params"]))
+    two_dir = recs[0]["dpt_dir"]
+    names = sorted(f for f in os.listdir(one_dir) if f.endswith(".npz"))
+    dpt_rel = {}
+    for f in names:
+        a = np.load(os.path.join(two_dir, f))["pred"]
+        b = np.load(os.path.join(one_dir, f))["pred"]
+        dpt_rel[f] = float(np.linalg.norm(a.astype(np.float64) - b)
+                           / np.linalg.norm(b))
+    files_two = sorted(os.listdir(two_dir))
+    train_out = os.path.join(out, "train")
+    written = sorted(os.listdir(os.path.join(train_out, "rendering")))
+    print(f"multigpu W = 2 [{card}]: {recs[0]['backend']} on "
+          f"{[r['device'] for r in recs]}; against the one-process step at "
+          f"1024 rays: rgb/depth max|err| {out_err:.3e} (bar {MG_OUT_ATOL}),"
+          f" loss rel {loss_rel:.3e} (bar {MG_LOSS_RTOL}), gradients relL2 "
+          f"{grad_rel} (bar {MG_GRAD_RELL2}); parameters after {MG_STEPS} "
+          f"steps bitwise equal across ranks: {params_equal}; the step on "
+          f"Kernels C and D: rgb/depth max|err| {u_err:.3e}, loss rel "
+          f"{u_loss_rel:.3e}, gradients relL2 {u_grad_rel}; train() "
+          f"rendering/ {written}; dpt_depth 2 ranks vs 1 device relL2 "
+          f"{dpt_rel} (bar {MG_DPT_RELL2}); workers {wall_s:.1f} s")
+    ok = (out_err <= MG_OUT_ATOL and loss_rel <= MG_LOSS_RTOL
+          and max(grad_rel.values()) <= MG_GRAD_RELL2 and params_equal
+          and u_err <= MG_OUT_ATOL and u_loss_rel <= MG_LOSS_RTOL
+          and max(u_grad_rel.values()) <= MG_GRAD_RELL2
+          and len(names) == MG_DPT_FRAMES and files_two == sorted(
+              os.listdir(one_dir))
+          and max(dpt_rel.values()) <= MG_DPT_RELL2
+          and "0000_vis" in written
+          and any(f.endswith("_img1.png") for f in written)
+          and os.path.isfile(os.path.join(train_out, "model.npz")))
+    if not ok:
+        raise AssertionError("multigpu W = 2: a check failed (line above)")
+    counts = {k: sum(r["counts"][k] + r["unfused_counts"][k]
+                     + r["train_counts"][k] for r in recs)
+              for k in recs[0]["counts"]}
+    shutil.rmtree(out)
+    return counts, {"backend": recs[0]["backend"],
+                    "devices": [r["device"] for r in recs],
+                    "rgb_depth_max_abs_err": out_err, "loss_rel": loss_rel,
+                    "grad_rel_l2": grad_rel, "params_bitwise": params_equal,
+                    "unfused": {"rgb_depth_max_abs_err": u_err,
+                                "loss_rel": u_loss_rel,
+                                "grad_rel_l2": u_grad_rel},
+                    "dpt_rel_l2": dpt_rel, "workers_s": wall_s,
+                    "ranks": recs}
+
+
+def run_multigpu(dev, card):
+    """The multigpu phase: W = 1 under NCCL, then W = 2. Returns the launch
+    counts of both and their numbers."""
+    t0 = time.perf_counter()
+    c1, rec1 = mg_one_rank(dev, card)
+    c2, rec2 = mg_two_ranks(dev, card)
+    counts = {k: c1[k] + c2[k] for k in c1}
+    for name in ("mlp_composite_fwd", "mlp_composite_bwd", "chamfer_band"):
+        if not (c1[name] and c2[name]):
+            raise AssertionError(f"multigpu: {name} launched {c1[name]} "
+                                 f"times at W = 1, {c2[name]} at W = 2")
+    for name in ("mlp_point_fwd", "mlp_point_bwd", "chamfer_exact"):
+        if not c2[name]:
+            raise AssertionError(f"multigpu: {name} never launched at W = 2")
+    secs = time.perf_counter() - t0
+    print(f"multigpu phase [{card}]: {secs:.1f} s; launches {counts}")
+    return counts, {"w1": rec1, "w2": rec2, "seconds": secs}
+
+
 def short_bench(dev, card, overrides):
     """A BENCH_SHORT run of the bench entry with ``overrides`` as its
     BENCH_TPU_OVERRIDES: its JSON line, its launches (Kernels A and B, the
@@ -2489,19 +2981,23 @@ def main(argv=None):
     stock = runs["stock"][:2]
     eval_counts, eval_rec = run_eval(dev, card, *stock)
     dpt_counts, dpt_rec = run_dpt(dev, card)
+    mg_counts, mg_rec = run_multigpu(dev, card)
+    shutil.rmtree(os.path.join(WORK, "dpt"))
     syn_counts, syn_rec = run_synthetic(dev, card)
     for rec in records:
         rec["launches"] = (launches[rec["name"]] + eval_counts[rec["name"]]
-                           + dpt_counts[rec["name"]]
+                           + dpt_counts[rec["name"]] + mg_counts[rec["name"]]
                            + syn_counts[rec["name"]])
         rec["eval_launches"] = eval_counts[rec["name"]]
         rec["dpt_launches"] = dpt_counts[rec["name"]]
+        rec["multigpu_launches"] = mg_counts[rec["name"]]
         rec["synthetic_launches"] = syn_counts[rec["name"]]
     print(json.dumps({"training": {
         "steps": steps, "multiplier_kernel_a": runs["multiplier_kernel_a"],
         "ssim_normal": ssim_normal}}))
     print(json.dumps({"eval": eval_rec}))
     print(json.dumps({"dpt": dpt_rec}))
+    print(json.dumps({"multigpu": mg_rec}))
     print(json.dumps({"synthetic": syn_rec}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

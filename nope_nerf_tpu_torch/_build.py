@@ -5,13 +5,16 @@ all at once in parallel, and the objects are linked into one shared library
 with a plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so
 a build takes seconds, not minutes). The library is built at first use,
 keyed by a hash of the sources and flags, under ``build/`` at the
-repository root (listed in ``.gitignore``). ``--use_fast_math`` is
-deliberately absent: the positional encoding needs full-precision
+repository root (listed in ``.gitignore``). Processes that start together
+(the ranks of a ``torch.distributed.run`` launch) build it once: a file lock
+in ``build/`` makes the others wait for the first build and load its
+result. ``--use_fast_math`` is deliberately absent: the positional encoding needs full-precision
 ``sinf``/``cosf`` at arguments up to 2^9 * |x|.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -78,11 +81,21 @@ def _run_all(cmds, verbose):
 
 def build(verbose=False):
     """Compile the sources unless a library for this exact source hash
-    exists; returns its path. Writes atomically (temp dir + rename)."""
+    exists; returns its path. Writes atomically (temp dir + rename), under
+    an exclusive lock on ``build/torch_kernels/.lock`` held across
+    processes (the OS releases it if a holder dies)."""
     path = library_path()
     if os.path.isfile(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.isfile(path):
+            _compile(path, verbose)
+    return path
+
+
+def _compile(path, verbose):
     nvcc = _nvcc()
     ptxas = ["-Xptxas", "-v"] if verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -93,7 +106,6 @@ def build(verbose=False):
         lib = os.path.join(tmp, "lib.so")
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]], verbose)
         os.replace(lib, path)
-    return path
 
 
 def load_library(verbose=False):

@@ -47,7 +47,8 @@ from .config import (
 )
 from .device import resolve_device
 from .synthetic import MemoryScene
-from .training.loop import _check_ported, build_params, scene_batch_arrays
+from .training.loop import (build_params, check_one_device,
+                            scene_batch_arrays)
 from .training.trainer import (
     init_train_state,
     make_render_cfg,
@@ -83,7 +84,7 @@ def run(device):
     cfg = bench_config()
     check_supported(cfg)
     apply_parity_profile(cfg)
-    _check_ported(cfg)  # n_devices > 1 raises, as in train()
+    check_one_device(cfg, "bench")
     cfg["_num_cams"] = N_FRAMES
     scene = MemoryScene(N_FRAMES, H, W, SEED)
     batch0 = scene_batch_arrays(scene, cfg, dev)

@@ -12,7 +12,11 @@ preview: the priors training reads. ``depth.type`` must be ``DPT`` and
 
 Runs on ``--device`` (default ``cuda``; with no CUDA device it raises
 unless ``--device cpu`` is given), in full f32 (TF32 off around the
-forward). ``tpu.n_devices > 1`` raises: multiple GPUs are not ported.
+forward). With ``tpu.n_devices`` N > 1 it is one of N processes of
+``python -m torch.distributed.run --nproc-per-node N -m
+nope_nerf_tpu_torch.dpt_depth <cfg>``: each batch's frames are sharded
+over the ranks (batches of 4 * max(N // 4, 1), at least N, the last one
+padded) and rank 0 writes the files, as the JAX CLI does.
 """
 import argparse
 import os
@@ -30,18 +34,26 @@ from .config import (
 from .dataloading.scene import get_scene
 from .device import resolve_device
 from .models.dpt import apply_dpt_batched, dpt_input_transform, load_dpt
+from .parallel.mesh import barrier
+from .training.loop import mesh_for
 
 BATCH = 4
 
 
-def main(cfg, device="cuda"):
-    """Write the priors; returns the output directory."""
+def main(cfg, device="cuda", mesh=None):
+    """Write the priors; returns the output directory. ``mesh`` (of
+    ``tpu.n_devices`` ranks) defaults to :func:`..training.loop.mesh_for`'s."""
     apply_parity_profile(cfg)
     if cfg["depth"]["type"] != "DPT":
         raise AssertionError("set depth.type: DPT for preprocessing")
-    if int((cfg.get("tpu", {}) or {}).get("n_devices", 1) or 1) > 1:
-        raise NotImplementedError("tpu.n_devices > 1 is not ported yet")
     dev = resolve_device(device)
+    if mesh is None:
+        mesh = mesh_for(cfg, dev)
+    if mesh is not None:
+        dev = mesh.device
+    lead = mesh is None or mesh.rank == 0
+    n_dev = mesh.size if mesh is not None else 1
+    batch_size = max(BATCH * max(n_dev // 4, 1), n_dev)
     weights_path = cfg["depth"]["path"]
     if not os.path.exists(weights_path):
         raise FileNotFoundError(
@@ -58,13 +70,17 @@ def main(cfg, device="cuda"):
     os.makedirs(out_dir, exist_ok=True)
 
     names = [n.split(".")[0] for n in scene.img_list]
-    for start in range(0, scene.N_imgs, BATCH):
+    for start in range(0, scene.N_imgs, batch_size):
         batch = np.stack([dpt_input_transform(scene.imgs[i]) for i in
-                          range(start, min(start + BATCH, scene.N_imgs))])
+                          range(start, min(start + batch_size,
+                                           scene.N_imgs))])
         depths = apply_dpt_batched(
-            params, torch.as_tensor(batch, device=dev), scale=depth["scale"],
-            shift=depth["shift"], invert=depth["invert"],
+            params, torch.as_tensor(batch, device=dev), mesh=mesh,
+            scale=depth["scale"], shift=depth["shift"],
+            invert=depth["invert"],
             non_negative=depth["non_negative"]).cpu().numpy()
+        if not lead:
+            continue
         for d, name in zip(depths, names[start:]):
             np.savez(os.path.join(out_dir, f"depth_{name}.npz"),
                      pred=d.astype(np.float32)[None])
@@ -74,6 +90,7 @@ def main(cfg, device="cuda"):
             Image.fromarray(vis.astype(np.uint8)).save(
                 os.path.join(out_dir, f"{name}.png"))
             print(f"depth_{name}.npz written")
+    barrier(mesh)  # no rank leaves before rank 0's files are written
     return out_dir
 
 

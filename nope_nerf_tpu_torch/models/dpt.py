@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ..convert import dpt_params_from_jax, tree_to
 from ..device import no_tf32
 from ..ops.interp import resize_bilinear
+from ..parallel.mesh import gather_rays, shard_rays
 from ..training.checkpoints import load_pytree
 
 RESNET_LAYERS = (3, 4, 9)
@@ -240,14 +241,27 @@ def _apply_dpt_nchw(params, x, scale=0.000305, shift=0.1378, invert=True,
     return inv_depth
 
 
-def apply_dpt_batched(params, imgs, **kw):
+def apply_dpt_batched(params, imgs, mesh=None, **kw):
     """(B, H, W, 3) DPT-normalised images ((x - 0.5) / 0.5), H and W
     multiples of 32, on the parameters' device -> depth (B, H, W) (the
     inverse depth with ``invert`` False; ``scale``, ``shift``, ``invert``,
     ``non_negative`` as in :func:`_apply_dpt_nchw`). Runs with TF32 off and
-    without autograd."""
+    without autograd.
+
+    With ``mesh`` (``parallel/mesh.py``) the frames are sharded: the batch
+    is padded to a multiple of the mesh size with copies of its last frame,
+    each rank runs its block of frames, and every rank gets all B depths
+    back (frames are independent, so they are the unsharded ones)."""
+    B = imgs.shape[0]
+    if mesh is not None:
+        pad = (-B) % mesh.size
+        if pad:
+            imgs = torch.cat([imgs, imgs[-1:].expand(pad, *imgs.shape[1:])])
+    n = imgs.shape[0]
     with torch.no_grad(), no_tf32():
-        return _apply_dpt_nchw(params, imgs.permute(0, 3, 1, 2), **kw)
+        out = _apply_dpt_nchw(params, shard_rays(imgs, mesh).permute(
+            0, 3, 1, 2), **kw)
+        return gather_rays(out, n, mesh)[:B]
 
 
 def apply_dpt(params, img, **kw):

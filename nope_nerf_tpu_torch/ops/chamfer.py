@@ -13,6 +13,8 @@ import warnings
 
 import torch
 
+from ..parallel.mesh import mesh_mean, mesh_sums
+
 # Cost laws of ``tpu.chamfer_mode: auto``: exact (Kernel D) grows with S*D,
 # grid with S+D. Each constant is the mean of its law over two equal-cloud
 # sizes measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W:
@@ -108,18 +110,28 @@ def _safe_dist(v):
     return torch.sqrt(torch.clamp_min(torch.sum(v * v, dim=-1), 1e-24))
 
 
-def gather_loss(X, Y, idx_x, idx_y, x_valid=None, y_valid=None):
+def gather_loss(X, Y, idx_x, idx_y, x_valid=None, y_valid=None, mesh=None,
+                rows=(slice(None), slice(None))):
     """The differentiable half of every Chamfer mode: (masked) mean
-    distance to the gathered neighbour, both directions summed."""
-    dx = _safe_dist(X - Y[idx_x.long()])
-    dy = _safe_dist(Y - X[idx_y.long()])
+    distance to the gathered neighbour, both directions summed.
 
-    def mean(d, valid):
+    Under a ray mesh (``parallel/mesh.py``) X and Y are whole on every rank,
+    ``idx_x`` / ``idx_y`` are the neighbours of this rank's rows ``rows =
+    (slice of X, slice of Y)``, and the means are global: one all-reduce of
+    the rank's parts, whose gradient is this rank's share."""
+    rx, ry = rows
+    dx = _safe_dist(X[rx] - Y[idx_x.long()])
+    dy = _safe_dist(Y[ry] - X[idx_y.long()])
+
+    def mean(d, valid, r, n):
         if valid is None:
-            return torch.mean(d)
-        return torch.sum(d * valid) / torch.clamp_min(torch.sum(valid), 1.0)
+            return mesh_mean(d, mesh, n)
+        num, den = mesh_sums((torch.sum(d * valid[r]), torch.sum(valid[r])),
+                             mesh)
+        return num / torch.clamp_min(den, 1.0)
 
-    return mean(dx, x_valid) + mean(dy, y_valid)
+    return (mean(dx, x_valid, rx, X.shape[0])
+            + mean(dy, y_valid, ry, Y.shape[0]))
 
 
 def chamfer_loss(X, Y, x_valid=None, y_valid=None):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..._build import c_function, check
+from ...parallel.mesh import rank_rows
 from ..chamfer import gather_loss
 from . import LaunchCounter
 
@@ -153,3 +154,33 @@ def chamfer_loss_banded(X, Y, starts_x, starts_y, k_tiles=8,
                else nearest_idx_banded_reference)
     return gather_loss(X, Y, nearest(X, Y, starts_x, k_tiles),
                        nearest(Y, X, starts_y, k_tiles))
+
+
+def nearest_idx_banded_sharded(X, Y, starts, mesh, k_tiles=8,
+                               use_kernel=True):
+    """Kernel B under a ray mesh (the JAX ``chamfer_loss_banded_sharded``'s
+    sweeps): this rank's block of whole query groups of X, each with its
+    own start, against the whole Y. X and Y are whole on every rank, so Y
+    keeps its tile count and the indices are those of the unsharded sweep.
+    Returns (the rank's rows of X, their int32 indices into Y)."""
+    S = X.shape[0]
+    groups = rank_rows(-(-S // QB), mesh)
+    rows = slice(groups.start * QB, min(groups.stop * QB, S))
+    if rows.stop <= rows.start:
+        return rows, torch.empty(0, dtype=torch.int32, device=X.device)
+    nearest = (nearest_idx_banded if use_kernel
+               else nearest_idx_banded_reference)
+    return rows, nearest(X[rows], Y, starts[groups], k_tiles)
+
+
+def chamfer_loss_banded_sharded(X, Y, starts_x, starts_y, mesh, k_tiles=8,
+                                use_kernel=True):
+    """:func:`chamfer_loss_banded` under a ray mesh: each direction's
+    rank-local sweep of :func:`nearest_idx_banded_sharded`, then the
+    global means of :func:`..chamfer.gather_loss`. Every rank gets the
+    global loss; its gradient is the rank's share (``parallel/mesh.py``)."""
+    rx, idx_x = nearest_idx_banded_sharded(X, Y, starts_x, mesh, k_tiles,
+                                           use_kernel)
+    ry, idx_y = nearest_idx_banded_sharded(Y, X, starts_y, mesh, k_tiles,
+                                           use_kernel)
+    return gather_loss(X, Y, idx_x, idx_y, mesh=mesh, rows=(rx, ry))

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..._build import c_function, check
+from ...parallel.mesh import rank_rows
 from ..chamfer import (
     SENTINEL,
     gather_loss,
@@ -103,3 +104,36 @@ def chamfer_loss_exact(X, Y, x_valid=None, y_valid=None):
     (validity-masked means when masks are given)."""
     idx_x, idx_y = nearest_idx_exact(X, Y, x_valid, y_valid)
     return gather_loss(X, Y, idx_x, idx_y, x_valid, y_valid)
+
+
+def nearest_idx_exact_sharded(X, Y, mesh, x_valid=None, y_valid=None,
+                              use_kernel=True):
+    """Kernel D under a ray mesh (the JAX ``chamfer_loss_pallas_sharded``'s
+    sweeps): :func:`nearest_idx_exact` (its plain version with
+    ``use_kernel=False``) on this rank's contiguous rows of X against the
+    whole Y, and on its rows of Y against the whole X. X and Y are whole on
+    every rank, so no cloud is gathered and the indices at valid rows are
+    those of the unsharded sweep. Returns (rows of X, their idx into Y,
+    rows of Y, their idx into X)."""
+    nearest = nearest_idx_exact if use_kernel else nearest_idx_exact_reference
+
+    def one(Q, R, q_valid, r_valid):
+        rows = rank_rows(Q.shape[0], mesh)
+        if rows.stop == rows.start:
+            return rows, torch.empty(0, dtype=torch.int32, device=Q.device)
+        return rows, nearest(Q[rows], R, None if q_valid is None
+                             else q_valid[rows], r_valid, two_dir=False)
+
+    return (*one(X, Y, x_valid, y_valid), *one(Y, X, y_valid, x_valid))
+
+
+def chamfer_loss_exact_sharded(X, Y, mesh, x_valid=None, y_valid=None,
+                               use_kernel=True):
+    """:func:`chamfer_loss_exact` under a ray mesh: the sweeps of
+    :func:`nearest_idx_exact_sharded`, then the global (masked) means of
+    :func:`..chamfer.gather_loss`. Every rank gets the global loss; its
+    gradient is the rank's share (``parallel/mesh.py``)."""
+    rx, idx_x, ry, idx_y = nearest_idx_exact_sharded(X, Y, mesh, x_valid,
+                                                     y_valid, use_kernel)
+    return gather_loss(X, Y, idx_x, idx_y, x_valid, y_valid, mesh=mesh,
+                       rows=(rx, ry))

@@ -15,6 +15,11 @@ delta_far 1e10 and alpha[:, -1] = 1 in dist_alpha mode, white-background
 compositing, the NDC ``1 - 1/d`` prior-depth conversion and the eval-time
 dist -> depth division. Invalid rays (zero or non-finite prior depth) stay in
 the batch and are masked by ``valid_mask``.
+
+Under a ray mesh (``cfg["mesh"]``, ``parallel/mesh.py``) a ray batch is
+whole on every rank and each rank renders its contiguous block of it through
+the same kernels; :func:`render_image` gathers the ranks' blocks into the
+whole image.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from ..geometry.rays import (
     to_world_transform,
     transform_to_world,
 )
+from ..parallel.mesh import gather_rays, shard_rays
 
 EPS = 1e-6
 
@@ -161,8 +167,19 @@ def render_ray_batch(nerf_params, rays, cfg, *, generator=None,
     """Render a ray batch of :func:`ray_setup` or :func:`concat_rays`. Each
     ray carries its own origin, so the rays of several frames go through
     one field evaluation: one Kernel A launch on the fused path, up to
-    ``n_max_network_queries`` points."""
+    ``n_max_network_queries`` points. Under ``cfg["mesh"]`` each rank
+    renders its block of the rays (:func:`..parallel.mesh.shard_rays`), and
+    every output holds those rows."""
     S = cfg["num_points"] - cfg.get("outside_steps", 0)
+    mesh, jitter = cfg.get("mesh"), None
+    if mesh is not None:
+        if cfg.get("normal_loss", False) and not eval_mode:
+            # drawn for the whole batch, so every rank's generator stays in
+            # step
+            jitter = shard_rays(normal_jitter(
+                (rays["origins"].shape[0], 3), generator,
+                rays["origins"].device), mesh)
+        rays = {k: shard_rays(v, mesh) for k, v in rays.items()}
     origins, rays_in, dirs = rays["origins"], rays["rays_in"], rays["dirs"]
     z_val = rays["z_vals"]
     N = origins.shape[0]
@@ -201,11 +218,11 @@ def render_ray_batch(nerf_params, rays, cfg, *, generator=None,
         rgb_values, dist_pred, _ = composite(rgb, alpha, z_val,
                                              cfg["white_background"])
     return _render_outputs(nerf_params, cfg, eval_mode, rays, alpha,
-                           rgb_values, dist_pred, generator)
+                           rgb_values, dist_pred, generator, jitter)
 
 
 def render_image(nerf_params, resolution, camera_mat, world_mat, scale_mat,
-                 cfg, chunk: int = 16384):
+                 cfg, chunk: int = 16384, mesh=None):
     """Full-image eval render: the (h * w) pixels in chunks of ``chunk``
     rays (the last one padded), each through ``render_rays(eval_mode=True,
     add_noise=False)`` without autograd. Returns (rgb (h, w, 3), depth
@@ -214,10 +231,18 @@ def render_image(nerf_params, resolution, camera_mat, world_mat, scale_mat,
     Routing as in the JAX package: a fused config renders through Kernel A's
     forward; ``use_pallas_mlp`` without ``fuse_compositing`` drops to the
     plain MLP, since Kernel C pays off only in the backward.
+
+    With ``mesh`` (``chunk`` a multiple of its size) each rank renders its
+    block of every chunk, and the blocks are gathered, so every rank
+    returns the whole image.
     """
     h, w = resolution
     n = h * w
     chunk = min(chunk, n)
+    if mesh is not None:
+        if chunk % mesh.size:
+            raise ValueError("chunk must divide evenly over mesh devices")
+        cfg = dict(cfg, mesh=mesh)
     if cfg.get("use_pallas_mlp", False) and not cfg.get("fuse_compositing",
                                                         False):
         cfg = dict(cfg, use_pallas_mlp=False)
@@ -231,8 +256,8 @@ def render_image(nerf_params, resolution, camera_mat, world_mat, scale_mat,
             out = render_rays(nerf_params, pixels[i:i + chunk],
                               depth[i:i + chunk], camera_mat, world_mat,
                               scale_mat, cfg, add_noise=False, eval_mode=True)
-            rgbs.append(out["rgb"])
-            depths.append(out["depth_pred"])
+            rgbs.append(gather_rays(out["rgb"], chunk, mesh))
+            depths.append(gather_rays(out["depth_pred"], chunk, mesh))
     rgb = torch.cat(rgbs)[:n].reshape(h, w, 3)
     return rgb, torch.cat(depths)[:n].reshape(h, w)
 
@@ -287,9 +312,10 @@ def normal_diff(nerf_params, points_surface, jitter, cfg):
 
 
 def _render_outputs(nerf_params, cfg, eval_mode, rays, alpha, rgb_values,
-                    dist_pred, generator):
-    """Shared tail: the normal term, eval-time dist -> depth, NDC prior
-    depth, output dict."""
+                    dist_pred, generator, jitter=None):
+    """Shared tail: the normal term (its neighbour ``jitter`` drawn here
+    unless given), eval-time dist -> depth, NDC prior depth, output
+    dict."""
     valid_mask, ray_norm = rays["valid_mask"], rays["ray_norm"]
     d_i_gt = rays["d_i_gt"]
     points_surface = (rays["camera_world"]
@@ -299,9 +325,10 @@ def _render_outputs(nerf_params, cfg, eval_mode, rays, alpha, rgb_values,
         # surface-normal smoothness at the prior-depth surface points and
         # neighbours jittered in a 0.01 cube; invalid rays are the caller's
         # to mask with valid_mask
-        n_diff = normal_diff(nerf_params, points_surface,
-                             normal_jitter(points_surface.shape, generator,
-                                           points_surface.device), cfg)
+        if jitter is None:
+            jitter = normal_jitter(points_surface.shape, generator,
+                                   points_surface.device)
+        n_diff = normal_diff(nerf_params, points_surface, jitter, cfg)
     if eval_mode and cfg["normalise_ray"]:
         dist_pred = dist_pred / ray_norm
         d_i_gt = d_i_gt / ray_norm

@@ -29,7 +29,8 @@ import yaml
 
 from .config import DEFAULT_CONFIG, apply_parity_profile, load_config
 from .synthetic import MemoryScene
-from .training.loop import _check_ported, build_params, scene_batch_arrays
+from .training.loop import (build_params, check_one_device,
+                            scene_batch_arrays)
 from .training.scheduler import Scheduler
 from .training.trainer import (
     describe_routes,
@@ -64,7 +65,7 @@ def main(argv=None):
         group, _, key = key.rpartition(".")
         cfg[group or "tpu"][key] = yaml.safe_load(value)
     apply_parity_profile(cfg)
-    _check_ported(cfg)
+    check_one_device(cfg, "profile_step")
     scene = MemoryScene()
     if args.render:
         return profile_render(cfg, scene, dev, args)

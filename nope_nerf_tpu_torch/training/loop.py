@@ -21,8 +21,16 @@ drawn in the JAX loop's order: the epoch's permutation (frame 0 of each
 step, which owns the reference pair and drives the per-view logging and
 the pair dumps), the reference draws, then ``np.random.randint(0,
 n_views, (n_views, k - 1))`` for the extra frames; rays/s counts k *
-``n_training_points`` rays per step. ``n_devices > 1`` is not ported yet
-(see ROADMAP.md) and raises ``NotImplementedError``.
+``n_training_points`` rays per step.
+
+With ``tpu.n_devices`` N > 1 the run is one of N processes of
+``python -m torch.distributed.run --nproc-per-node N`` (``parallel/mesh.py``):
+every rank holds the parameters and the Adam state (broadcast from rank 0
+after the build and the restore), draws the same frames, rays and jitter,
+renders its rows of each step's rays and reads the same global losses, so
+every rank takes the same branches. Rank 0 alone writes the event log,
+checkpoints, visualisations and pair dumps and prints; every rank restores
+from the same files.
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ from ..models.intrinsics import init_focal_params
 from ..models.nerf import init_nerf_params
 from ..models.pose import all_poses, init_pose_params
 from ..ops.interp import resize_bilinear, resize_nearest
+from ..parallel.mesh import RAY_AXIS, barrier, make_ray_mesh, replicate
 from .checkpoints import CheckpointIO
 from .scheduler import Scheduler, ScheduleState
 from .trainer import (
@@ -128,28 +137,72 @@ def scene_batch_arrays(scene, cfg, device):
     return out
 
 
-def _check_ported(cfg):
-    """Raise for the settings the port does not run yet."""
-    tpu = cfg.get("tpu", {}) or {}
-    if int(tpu.get("n_devices", 1) or 1) > 1:
-        raise NotImplementedError("tpu.n_devices > 1 is not ported yet")
+def _n_devices(cfg):
+    return int((cfg.get("tpu", {}) or {}).get("n_devices", 1) or 1)
+
+
+def mesh_for(cfg, device):
+    """The ray mesh of ``tpu.n_devices`` on ``device``'s type (None for one
+    device, with no ``torch.distributed`` call). Production never shares
+    a card between ranks (``allow_shared_device`` stays False)."""
+    n = _n_devices(cfg)
+    if n <= 1:
+        return None
+    axis = (cfg.get("tpu", {}) or {}).get("mesh_axis") or RAY_AXIS
+    return make_ray_mesh(n, axis, device=torch.device(device).type)
+
+
+def check_one_device(cfg, entry):
+    """Raise for ``tpu.n_devices > 1`` in an entry point that times one
+    device (``bench``, ``profile_step``): the JAX bench has no mesh path,
+    and a step split over ranks that each keep the whole host work is no
+    faster per step."""
+    if _n_devices(cfg) > 1:
+        raise NotImplementedError(
+            f"{entry} runs on one device: tpu.n_devices > 1 trains with "
+            "python -m torch.distributed.run (nope_nerf_tpu_torch.train)")
+
+
+class _NoLogger:
+    """The event log of ranks other than 0."""
+
+    def add_scalar(self, tag, value, step):
+        pass
+
+    def close(self):
+        pass
+
+
+def replicate_state(state, mesh):
+    """Broadcast the parameters and the Adam moments on the mesh's device
+    from rank 0 (no-op without a mesh). Adam's host-side step counts come
+    from the same files on every rank."""
+    if mesh is None:
+        return
+    tensors = [p for g in state.optimizer.param_groups for p in g["params"]]
+    for p in tensors[:]:
+        tensors += [t for t in state.optimizer.state.get(p, {}).values()
+                    if torch.is_tensor(t) and t.device == mesh.device]
+    replicate(tensors, mesh)
 
 
 def dump_pair_images(state, cfg, render_cfg, init_c2w, batch0, idx, ref_idx,
-                     scalars, it, render_path):
+                     scalars, it, render_path, mesh=None):
     """Write the rgb_s pair of frames ``idx`` / ``ref_idx`` (view-1 colours
     and the reprojected view-2 colours) as ``%d_%04d_img1.png`` /
     ``%d_%04d_img2.png`` % (it, idx): the pc and rgb_s branches of
     ``compute_loss`` without the render, so the Chamfer argmins run on
-    their kernels on the card."""
+    their kernels on the card (on every rank's query rows under ``mesh``,
+    rank 0 writing)."""
     static = {"pair_images": True, "render_model": False, "use_ref": True,
               "use_rgb_s": True}
     with torch.no_grad():
         _, aux = compute_loss(state.params,
                               dict(batch0, idx=int(idx), ref_idx=int(ref_idx)),
                               scalars, cfg=cfg, static=static,
-                              init_c2w=init_c2w, render_cfg=render_cfg)
-    if "rgb_pc1" not in aux:
+                              init_c2w=init_c2w, render_cfg=render_cfg,
+                              mesh=mesh)
+    if "rgb_pc1" not in aux or (mesh is not None and mesh.rank != 0):
         return
     os.makedirs(render_path, exist_ok=True)
     for tag, arr in (("img1", aux["rgb_pc1"]), ("img2", aux["rgb_pc1_proj"])):
@@ -211,7 +264,7 @@ def pose_metrics(pose_params, init_c2w, gt_poses, pcfg):
     return compute_ate(gt_poses, aligned), rpe_t * 100, float(np.rad2deg(rpe_r))
 
 
-def train(cfg, max_epochs=None, scene=None, device="cuda"):
+def train(cfg, max_epochs=None, scene=None, device="cuda", mesh=None):
     """Run training; ``max_epochs`` caps the loop.
 
     ``scene`` is any object with N_imgs, K, scale_mat, imgs (N, H, W, 3),
@@ -219,6 +272,10 @@ def train(cfg, max_epochs=None, scene=None, device="cuda"):
     ``sample_ref_idx(i, rng)``; when None it is loaded from ``dataloading``
     with the port's numpy loader (``dataloading.scene``, numpy + PIL). ``device`` is a CUDA device unless "cpu" is asked for
     (:func:`resolve_device`).
+
+    With ``tpu.n_devices`` > 1 the rays are sharded over a ray mesh
+    (:func:`mesh_for`, or the ``mesh`` given, whose size must match) and
+    the run takes the mesh's device.
 
     Resumes from the checkpoints in ``training.out_dir`` when there are
     any, saves every ``checkpoint_every`` / ``backup_every`` steps and at
@@ -236,24 +293,30 @@ def train(cfg, max_epochs=None, scene=None, device="cuda"):
     """
     check_supported(cfg)
     apply_parity_profile(cfg)
-    _check_ported(cfg)
     device = resolve_device(device)
+    if mesh is None:
+        mesh = mesh_for(cfg, device)
+    elif mesh.size != _n_devices(cfg):
+        raise ValueError(f"mesh of {mesh.size} ranks for tpu.n_devices "
+                         f"{_n_devices(cfg)}")
+    if mesh is not None:
+        device = mesh.device
     profile_dir = (cfg.get("tpu", {}) or {}).get("profile_dir")
-    if not profile_dir:
-        return _train(cfg, max_epochs, scene, device)
+    if not profile_dir or (mesh is not None and mesh.rank != 0):
+        return _train(cfg, max_epochs, scene, device, mesh)
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        result = _train(cfg, max_epochs, scene, device)
+        result = _train(cfg, max_epochs, scene, device, mesh)
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
     return result
 
 
-def _train(cfg, max_epochs, scene, device):
+def _train(cfg, max_epochs, scene, device, mesh):
     seed = int(cfg["training"].get("seed", 42) or 42)
     np.random.seed(seed)
     pyrng = pyrandom.Random(seed)
@@ -261,8 +324,11 @@ def _train(cfg, max_epochs, scene, device):
     step_gen = torch.Generator(device=device).manual_seed(seed)
 
     out_dir = cfg["training"]["out_dir"]
+    lead = mesh is None or mesh.rank == 0
     os.makedirs(out_dir, exist_ok=True)
-    logger = MetricsLogger(os.path.join(out_dir, "logs"))
+    logger = (MetricsLogger(os.path.join(out_dir, "logs")) if lead
+              else _NoLogger())
+    say = print if lead else (lambda *a, **k: None)
     if scene is None:
         scene = get_scene(cfg, mode=cfg["training"]["mode"])
     batch0 = scene_batch_arrays(scene, cfg, device)
@@ -273,8 +339,8 @@ def _train(cfg, max_epochs, scene, device):
     ratio = cfg["training"]["pc_ratio"]
     n_pc = (int(batch0["dpts"].shape[1] / ratio)
             * int(batch0["dpts"].shape[2] / ratio))
-    print("nope_nerf_tpu_torch: "
-          + describe_routes(cfg, render_cfg, device, n_pc))
+    say("nope_nerf_tpu_torch: "
+        + describe_routes(cfg, render_cfg, device, n_pc, mesh))
     params, init_c2w = build_params(cfg, scene, init_gen, device)
     tcfg = cfg["training"]
     checkpoint_io = CheckpointIO(out_dir)
@@ -287,11 +353,12 @@ def _train(cfg, max_epochs, scene, device):
         except ValueError as e:
             # e.g. a scene of another size: the params load, the moments
             # start fresh (the JAX loop's semantics)
-            print(f"nope_nerf_tpu_torch: Adam moments start fresh ({e})")
+            say(f"nope_nerf_tpu_torch: Adam moments start fresh ({e})")
+    replicate_state(state, mesh)
     sched_state = ScheduleState.from_dict(ck_scalars,
                                           tcfg["scheduling_start"])
     sched = Scheduler(cfg, sched_state)
-    step_fn = make_train_step(cfg, render_cfg, init_c2w)
+    step_fn = make_train_step(cfg, render_cfg, init_c2w, mesh=mesh)
     print_every = tcfg["print_every"]
     checkpoint_every = tcfg["checkpoint_every"] or 0
     backup_every = tcfg["backup_every"] or 0
@@ -348,25 +415,26 @@ def _train(cfg, max_epochs, scene, device):
             if (vis_reproj_every > 0 and static.get("use_rgb_s")
                     and it % vis_reproj_every == 0):
                 dump_pair_images(state, cfg, render_cfg, init_c2w, batch0,
-                                 idx, ref_idx, scalars, it, render_path)
+                                 idx, ref_idx, scalars, it, render_path, mesh)
             if print_every > 0 and it % print_every == 0:
-                print(f"[Epoch {epoch:02d}] it={it:03d}, "
-                      f"loss={steps['loss'][-1]:.8f}")
+                say(f"[Epoch {epoch:02d}] it={it:03d}, "
+                    f"loss={steps['loss'][-1]:.8f}")
                 for tag, v in aux.items():
                     logger.add_scalar(f"train/{tag}", float(v), it)
                 for vname, v in scale_dict.items():
                     logger.add_scalar(f"train/scale{vname}", v, it)
                 for vname, v in shift_dict.items():
                     logger.add_scalar(f"train/shift{vname}", v, it)
-            if checkpoint_every > 0 and it % checkpoint_every == 0:
+            if lead and checkpoint_every > 0 and it % checkpoint_every == 0:
                 save_all(checkpoint_io, state, sched_state, cfg)
-            if backup_every > 0 and it % backup_every == 0:
+            if lead and backup_every > 0 and it % backup_every == 0:
                 save_all(checkpoint_io, state, sched_state, cfg,
                          suffix=f"_{it}")
             if visualize_every > 0 and it % visualize_every == 0:
                 render_visdata(state, cfg, render_cfg, init_c2w, scene,
                                tcfg["vis_resolution"], it,
-                               os.path.join(render_path, "%04d_vis" % it))
+                               os.path.join(render_path, "%04d_vis" % it),
+                               mesh=mesh)
         dt = time.perf_counter() - t0
         n = len(order)
         psnr = float(mse2psnr(float(np.mean(steps["l2_mean"]))))
@@ -375,10 +443,10 @@ def _train(cfg, max_epochs, scene, device):
                "step_losses": steps["loss"], "psnr": psnr,
                "ms_per_step": 1e3 * dt / n,
                "rays_per_sec": n * n_rays / dt}
-        print(f"[Epoch {epoch:02d}] it={sched_state.it:03d}, "
-              f"loss={rec['loss']:.8f}, psnr={psnr:.4f}, "
-              f"ms/step={rec['ms_per_step']:.3f}, "
-              f"rays/s={rec['rays_per_sec']:.0f}")
+        say(f"[Epoch {epoch:02d}] it={sched_state.it:03d}, "
+            f"loss={rec['loss']:.8f}, psnr={psnr:.4f}, "
+            f"ms/step={rec['ms_per_step']:.3f}, "
+            f"rays/s={rec['rays_per_sec']:.0f}")
         logger.add_scalar("train/loss_pc_epoch", np.mean(steps["loss_pc"]),
                           sched_state.it)
         logger.add_scalar("train/loss_rgbs_epoch",
@@ -406,8 +474,12 @@ def _train(cfg, max_epochs, scene, device):
                 for name, layer in state.params["nerf"].items():
                     for k, t in layer.items():
                         t.copy_(fresh[name][k])
+            replicate([t for layer in state.params["nerf"].values()
+                       for t in layer.values()], mesh)
         for g, v in sched.lrs(epoch).items():
             logger.add_scalar(f"train/lr_{g}", v, sched_state.it)
-    save_all(checkpoint_io, state, sched_state, cfg)
+    if lead:
+        save_all(checkpoint_io, state, sched_state, cfg)
     logger.close()
+    barrier(mesh)  # no rank leaves before rank 0's files are written
     return state, sched, scene, history

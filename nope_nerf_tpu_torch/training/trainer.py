@@ -8,6 +8,11 @@ step selected with ``jnp.where`` on traced scalars (the frame-order swap,
 the pinned last scale), the port branches on host ints. Random draws (ray
 indices, stratified jitter) come from an explicit ``torch.Generator`` on
 the tensors' device.
+
+Under a ray mesh (``parallel/mesh.py``) every rank draws and sets up the
+whole batch, renders its block of the rays, and reads global loss values; the
+step averages the ranks' gradients in one all-reduce before Adam, so the
+parameters stay identical on every rank.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from ..models.intrinsics import focal_fxfy
 from ..models.pose import pose_c2w
 from ..ops.interp import grid_sample, resize_bilinear, resize_nearest
 from ..ops.rendering import concat_rays, ray_setup, render_ray_batch
+from ..parallel.mesh import all_reduce_grads, shard_rays
 
 GROUPS = ("nerf", "pose", "focal", "distortion")
 
@@ -87,7 +93,7 @@ def _sample_ray_idx(batch, n_points, H, W, fast_sampling, generator):
 
 
 def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
-                 render_cfg, generator=None):
+                 render_cfg, generator=None, mesh=None):
     """The loss of one step and its aux dict (the JAX ``compute_loss``).
 
     batch: imgs (N, H, W, 3), dpts (N, Hd, Wd), optional dpts_small /
@@ -103,6 +109,11 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
     prior depths, and the k * n rays go through one render (one Kernel A
     launch on the fused path); frame 0 alone carries the reference-pair
     branch (pc, rgb_s), exactly as at k = 1.
+
+    With ``mesh`` every rank draws the whole batch from its generator (all
+    ranks' generators seeded alike), renders its block of the rays
+    (:func:`..parallel.mesh.shard_rays`) and runs the Chamfer argmins on its
+    query rows; the loss and aux values are global on every rank.
     """
     frames = [int(i) for i in np.ravel(batch["idx"])]
     idx = frames[0]
@@ -154,7 +165,7 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
 
     # ---- ray sampling + render (per frame) ------------------------------
     out = {}
-    rgb_gt = None
+    rgb_gt = n_rays = None
     if static["render_model"]:
         fast = tpu.get("fast_ray_sampling", True)
         add_noise = tpu.get("render_add_noise", True)
@@ -199,6 +210,10 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
         rcfg = render_cfg
         if rcfg.get("normal_loss", False) and not static.get("normal_diff"):
             rcfg = dict(rcfg, normal_loss=False)
+        n_rays = rgb_gt.shape[0]
+        if mesh is not None:
+            rcfg = dict(rcfg, mesh=mesh)
+            rgb_gt = shard_rays(rgb_gt, mesh)
         out = render_ray_batch(params["nerf"], rays, rcfg,
                                generator=generator, eval_mode=False)
 
@@ -309,6 +324,8 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
         chamfer_auto_costs=(tpu.get("chamfer_auto_exact_ms_per_pair"),
                             tpu.get("chamfer_auto_grid_ms_per_point")),
         with_auto_mask=tcfg.get("with_auto_mask", False),
+        mesh=mesh,
+        n_rays=n_rays,
         **loss_kwargs,
     )
     aux.update(loss_dict)
@@ -323,19 +340,26 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
     return loss_dict["loss"], aux
 
 
-def make_train_step(cfg, render_cfg, init_c2w=None):
+def make_train_step(cfg, render_cfg, init_c2w=None, mesh=None):
     """step(state, batch, scalars, static, generator) -> (state, aux): one
     loss + backward + Adam update, in place on ``state``.
 
     Every parameter gets a gradient (zeros where the loss does not reach
     it), so Adam's moments and step counts advance for all of them as
     optax's do; weight decay is added to the nerf gradient only, before
-    Adam, as torch's ``weight_decay`` would.
+    Adam, as torch's ``weight_decay`` would, and only on steps that render
+    (``static["render_model"]``), the steps where the nerf parameters have
+    a gradient.
+
+    With ``mesh`` (``parallel/mesh.py``) each rank computes the loss on its
+    rows and the ranks' gradients are averaged in one all-reduce before
+    weight decay and Adam, which then leave the parameters identical on
+    every rank.
 
     With ``tpu.debug_nans`` the loss and backward run under
     ``torch.autograd.detect_anomaly(check_nan=True)``, and a loss or
-    gradient that is not finite raises ``FloatingPointError`` before the
-    update.
+    gradient (after the all-reduce) that is not finite raises
+    ``FloatingPointError`` before the update.
     """
     wd = cfg["training"].get("weight_decay", 0.0) or 0.0
     debug_nans = bool((cfg.get("tpu", {}) or {}).get("debug_nans", False))
@@ -343,40 +367,52 @@ def make_train_step(cfg, render_cfg, init_c2w=None):
     def loss_and_grads(state, batch, scalars, static, generator):
         loss, aux = compute_loss(state.params, batch, scalars, cfg=cfg,
                                  static=static, init_c2w=init_c2w,
-                                 render_cfg=render_cfg, generator=generator)
+                                 render_cfg=render_cfg, generator=generator,
+                                 mesh=mesh)
         loss.backward()
         return loss, aux
 
     def checked_loss_and_grads(state, batch, scalars, static, generator):
         with torch.autograd.detect_anomaly(check_nan=True):
             try:
-                loss, aux = loss_and_grads(state, batch, scalars, static,
-                                           generator)
+                return loss_and_grads(state, batch, scalars, static,
+                                      generator)
             except RuntimeError as e:
                 if "nan values" not in str(e):
                     raise
                 raise FloatingPointError(str(e)) from e
+
+    def check_finite(loss, opt):
         bad = [] if torch.isfinite(loss) else ["loss"]
-        for group in state.optimizer.param_groups:
+        for group in opt.param_groups:
             bad += [f"{group['name']} gradient" for p in group["params"]
-                    if p.grad is not None and not torch.isfinite(p.grad).all()]
+                    if not torch.isfinite(p.grad).all()]
         if bad:
             raise FloatingPointError("not finite: " + ", ".join(
                 dict.fromkeys(bad)))
-        return loss, aux
 
     run = checked_loss_and_grads if debug_nans else loss_and_grads
 
     def step(state, batch, scalars, static, generator=None):
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        _, aux = run(state, batch, scalars, static, generator)
+        loss, aux = run(state, batch, scalars, static, generator)
+        # the render is the only term that reaches the nerf parameters, so
+        # they have a gradient to decay exactly when it runs: a flag every
+        # rank shares
+        decay = wd > 0.0 and static["render_model"]
         with torch.no_grad():
             for group in opt.param_groups:
                 for p in group["params"]:
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
-                    elif wd > 0.0 and group["name"] == "nerf":
+            all_reduce_grads([p.grad for g in opt.param_groups
+                              for p in g["params"]], mesh)
+            if debug_nans:
+                check_finite(loss, opt)
+            for group in opt.param_groups:
+                if decay and group["name"] == "nerf":
+                    for p in group["params"]:
                         p.grad.add_(p, alpha=wd)
                 group["lr"] = float(scalars["lrs"][group["name"]])
         opt.step()
@@ -393,16 +429,18 @@ def use_chamfer_kernels(cfg, device):
             and torch.device(device).type == "cuda")
 
 
-def describe_routes(cfg, render_cfg, device, n_pc):
+def describe_routes(cfg, render_cfg, device, n_pc, mesh=None):
     """One line naming the Chamfer mode and the MLP route a run resolves
-    to, for clouds of ``n_pc`` points each."""
+    to, for clouds of ``n_pc`` points each, and the mesh when there is
+    one."""
     from ..ops.chamfer import resolve_chamfer_mode
 
     tpu = cfg.get("tpu", {}) or {}
     on_cuda = torch.device(device).type == "cuda"
     asked = tpu.get("chamfer_mode", "exact")
     mode = resolve_chamfer_mode(
-        asked, n_pc, n_pc, n_devices=1, sharded_exact=False,
+        asked, n_pc, n_pc, n_devices=mesh.size if mesh is not None else 1,
+        sharded_exact=use_chamfer_kernels(cfg, device) and mesh is not None,
         hints_available=asked in ("band", "auto"),
         exact_ms_per_pair=tpu.get("chamfer_auto_exact_ms_per_pair"),
         grid_ms_per_point=tpu.get("chamfer_auto_grid_ms_per_point"))
@@ -421,8 +459,12 @@ def describe_routes(cfg, render_cfg, device, n_pc):
     else:
         mlp = ("plain torch.matmul MLP, "
                + ("bf16 operands" if render_cfg.get("mlp_bf16") else "f32"))
-    return (f"chamfer_mode {asked} -> {mode} on {n_pc}-point clouds: "
+    line = (f"chamfer_mode {asked} -> {mode} on {n_pc}-point clouds: "
             f"{chamfer}; MLP: {mlp}")
+    if mesh is not None:
+        line += (f"; rays sharded over {mesh.size} ranks ({mesh.backend}, "
+                 f"axis {mesh.axis_name!r})")
+    return line
 
 
 def make_render_cfg(cfg, device):

@@ -61,19 +61,28 @@ def view_images(rgb, depth, nerf_params, view, render_cfg, *, geo_rad=None):
 
 
 def render_visdata(state, cfg, render_cfg, init_c2w, scene, resolution, it,
-                   out_render_path, img_idx=0):
+                   out_render_path, img_idx=0, mesh=None):
     """Write ``%04d_img.png`` and ``%04d_depth.png`` (and ``%04d_geo.png``
     with ``vis_geo``) of frame ``img_idx`` into ``out_render_path``. The rgb
     and depth come from ``render_image`` (Kernel A's forward under the stock
     config on the card), the geometry from ``phong_render``. ``it`` is
-    unused, as in the JAX package. Returns the rgb (h, w, 3) in [0, 1]."""
-    os.makedirs(out_render_path, exist_ok=True)
+    unused, as in the JAX package. Returns the rgb (h, w, 3) in [0, 1].
+
+    With ``mesh`` every rank renders its rows of each chunk (the chunk
+    rounded down to a multiple of the mesh size); rank 0 alone draws the
+    Phong preview and writes the files."""
     h, w = resolution
     params = state.params
+    chunk = min(h * w, 16384)
+    if mesh is not None:
+        chunk = max(chunk // mesh.size * mesh.size, mesh.size)
     with torch.no_grad():
         view = visdata_view(params, cfg, init_c2w, scene, img_idx)
         rgb, depth = render_image(params["nerf"], (h, w), *view, render_cfg,
-                                  chunk=min(h * w, 16384))
+                                  chunk=chunk, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        return np.clip(rgb.cpu().numpy(), 0, 1)
+    os.makedirs(out_render_path, exist_ok=True)
     geo_rad = (cfg["rendering"]["radius"]
                if cfg["training"].get("vis_geo", False) else None)
     images = view_images(rgb, depth, params["nerf"], view, render_cfg,

@@ -254,28 +254,35 @@ def test_check_supported_matmul_precision_matches_jax(tpu):
     assert bool(pmsg) == non_default
 
 
-def test_check_ported_names_profile_dir_and_debug_nans(capsys):
-    """The loop honours tpu.profile_dir, tpu.debug_nans, visualize_every
-    and vis_reprojection_every: ``_check_ported`` prints nothing for any of
-    them, nor for rays_per_step_multiplier > 1, and still raises for
-    n_devices > 1."""
-    from nope_nerf_tpu_torch.training.loop import _check_ported
+def test_check_ported_names_profile_dir_and_debug_nans(capsys, monkeypatch):
+    """The loop honours tpu.profile_dir, tpu.debug_nans, visualize_every,
+    vis_reprojection_every and rays_per_step_multiplier > 1: the loop's
+    mesh lookup ``mesh_for`` prints nothing for any of them and gives no
+    mesh for n_devices 1, and for n_devices > 1 (no longer refused) it
+    asks ``make_ray_mesh`` for a mesh of that size on the run's device."""
+    from nope_nerf_tpu_torch.training import loop
 
+    asked = []
+    monkeypatch.setattr(loop, "make_ray_mesh",
+                        lambda n, axis, device: asked.append((n, axis,
+                                                              device)))
     quiet = {"training": {"visualize_every": 0, "vis_reprojection_every": 0},
              "tpu": {"profile_dir": None, "debug_nans": False}}
-    _check_ported(quiet)
-    _check_ported({"training": {"visualize_every": 10000,
-                                "vis_reprojection_every": 5000},
-                   "tpu": {"profile_dir": "traces", "debug_nans": True}})
+    assert loop.mesh_for(quiet, "cpu") is None
+    assert loop.mesh_for({"training": {"visualize_every": 10000,
+                                       "vis_reprojection_every": 5000},
+                          "tpu": {"profile_dir": "traces",
+                                  "debug_nans": True}}, "cpu") is None
     assert capsys.readouterr().out == ""
-    with pytest.raises(NotImplementedError, match="n_devices"):
-        _check_ported(dict(quiet, tpu={"n_devices": 2}))
-    with pytest.raises(NotImplementedError, match="n_devices"):
-        _check_ported(dict(quiet, tpu={"rays_per_step_multiplier": 4,
-                                       "n_devices": 2}))
+    loop.mesh_for(dict(quiet, tpu={"n_devices": 2}), "cpu")
+    loop.mesh_for(dict(quiet, tpu={"rays_per_step_multiplier": 4,
+                                   "n_devices": 2, "mesh_axis": "x"}),
+                  "cuda")
+    assert asked == [(2, "rays", "cpu"), (2, "x", "cuda")]
     for k in (1, 2, 4):
-        _check_ported(dict(quiet, tpu={"rays_per_step_multiplier": k,
-                                       "n_devices": 1}))
+        assert loop.mesh_for(dict(quiet, tpu={"rays_per_step_multiplier": k,
+                                              "n_devices": 1}), "cpu") is None
+    assert len(asked) == 2
     assert capsys.readouterr().out == ""
 
 

@@ -373,7 +373,9 @@ def test_train_loop_runs_on_cpu(tmp_path):
     """``train`` end to end on the CPU for 2 epochs: finite losses, the
     per-epoch history and the event log; then one epoch at
     rays_per_step_multiplier 2 (rays/s counting 2 x 64 rays per step),
-    and n_devices 2 raises."""
+    and n_devices 2 is accepted and asks for a mesh of 2 ranks (which,
+    with no process group or torch.distributed.run environment here,
+    raises)."""
     from nope_nerf_tpu_torch.training.loop import train
 
     cfg = _cfg(False)
@@ -395,7 +397,8 @@ def test_train_loop_runs_on_cpu(tmp_path):
     assert np.isfinite(rec["step_losses"]).all() and rec["steps"] == 4
     assert rec["rays_per_sec"] * rec["ms_per_step"] / 1e3 == pytest.approx(
         2 * 64, rel=1e-9)
-    with pytest.raises(NotImplementedError, match="n_devices"):
+    with pytest.raises(RuntimeError,
+                       match="tpu.n_devices 2 runs one process per GPU"):
         train(dict(cfg, tpu=dict(cfg["tpu"], n_devices=2)),
               max_epochs=1, scene=scene, device="cpu")
 
