@@ -44,8 +44,8 @@ from .models.intrinsics import focal_fxfy
 from .models.lpips import load_lpips
 from .models.pose import all_poses
 from .training.checkpoints import CheckpointIO
-from .training.loop import MetricsLogger
 from .training.trainer import make_render_cfg
+from .utils.logging import MetricsLogger
 from .utils.mp4 import write_mjpeg_mp4
 
 

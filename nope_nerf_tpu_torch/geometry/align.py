@@ -32,7 +32,15 @@ def align_umeyama(model, data, known_scale=False, yaw_only=False):
     else:
         rot = (u * flip) @ vt
 
-    scale = 1.0 if known_scale else float((sv * flip).sum()) / data_var
+    if known_scale:
+        scale = 1.0
+    elif data_var > 0.0:
+        scale = float((sv * flip).sum()) / data_var
+    else:
+        # every data point at one place (e.g. poses that never moved from
+        # their start): s = 0 is the least-squares optimum, which maps them
+        # onto the model's mean; the JAX package divides by zero here
+        scale = 0.0
     shift = model_mean - scale * (rot @ data_mean)
     return scale, rot, shift
 

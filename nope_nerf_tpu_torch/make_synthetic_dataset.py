@@ -2,6 +2,7 @@
 
     python -m nope_nerf_tpu_torch.make_synthetic_dataset <out_dir> [--frames 6]
         [--height 60] [--width 80] [--seed 0] [--gt-depth] [--device cuda]
+        [--teacher tests/fixtures/teacher_seed3.npz]
 
 Renders the teacher scene of ``utils.synthetic.SyntheticScene`` on
 ``--device`` (default ``cuda``; with no CUDA device it raises unless
@@ -9,6 +10,11 @@ Renders the teacher scene of ``utils.synthetic.SyntheticScene`` on
 reads: ``images/NNN.png``, ``dpt/depth_NNN.npz`` (key ``pred``),
 ``poses_bounds.npy`` and, with ``--gt-depth``, ``depth/NNN.png`` (16-bit
 millimetres).
+
+With ``--teacher`` the teacher field is read from that file (the nerf group
+in the checkpoint format, ``training.checkpoints``), e.g. the JAX package's
+teacher at a seed written by ``tools/torch_teacher_fixture.py``: the frames
+are then those of ``tools/make_synthetic_dataset.py`` at that seed.
 """
 import argparse
 import os
@@ -16,6 +22,7 @@ import os
 import numpy as np
 from PIL import Image
 
+from .training.checkpoints import load_pytree
 from .utils.synthetic import SyntheticScene
 
 
@@ -72,10 +79,14 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device of the teacher render (default: "
                          "cuda).")
+    ap.add_argument("--teacher", type=str, default=None,
+                    help="npz of the teacher's nerf parameters (default: "
+                         "the port's own teacher at --seed)")
     args = ap.parse_args(argv)
+    teacher = None if args.teacher is None else load_pytree(args.teacher)[0]
     scene = SyntheticScene(n_frames=args.frames,
                            hw=(args.height, args.width), seed=args.seed,
-                           num_points=32, device=args.device)
+                           num_points=32, teacher=teacher, device=args.device)
     write_dataset(scene, args.out_dir, gt_depth=args.gt_depth)
     print(f"wrote {args.frames} frames to {args.out_dir}")
 

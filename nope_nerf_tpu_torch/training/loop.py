@@ -34,7 +34,6 @@ from the same files.
 """
 from __future__ import annotations
 
-import json
 import os
 import random as pyrandom
 import time
@@ -60,6 +59,7 @@ from ..models.nerf import init_nerf_params
 from ..models.pose import all_poses, init_pose_params
 from ..ops.interp import resize_bilinear, resize_nearest
 from ..parallel.mesh import RAY_AXIS, barrier, make_ray_mesh, replicate
+from ..utils.logging import MetricsLogger, Throughput
 from .checkpoints import CheckpointIO
 from .scheduler import Scheduler, ScheduleState
 from .trainer import (
@@ -70,22 +70,6 @@ from .trainer import (
     make_train_step,
 )
 from .visualize import render_visdata
-
-
-class MetricsLogger:
-    """Appends {tag, value, step, t} lines to ``<log_dir>/events.jsonl``
-    (the JAX package's event-log format)."""
-
-    def __init__(self, log_dir):
-        os.makedirs(log_dir, exist_ok=True)
-        self._f = open(os.path.join(log_dir, "events.jsonl"), "a")
-
-    def add_scalar(self, tag, value, step):
-        self._f.write(json.dumps({"tag": tag, "value": float(value),
-                                  "step": int(step), "t": time.time()}) + "\n")
-
-    def close(self):
-        self._f.close()
 
 
 def build_params(cfg, scene, generator, device):
@@ -373,6 +357,9 @@ def _train(cfg, max_epochs, scene, device, mesh):
     n_rays = tcfg["n_training_points"] * mult  # per step
     scale_dict, shift_dict = {}, {}
     history = []
+    # rays/s between two print_every steps, logged at them as
+    # perf/rays_per_sec (the JAX loop's counter)
+    throughput = Throughput(n_rays)
 
     while sched_state.epoch_it < sched.total_epochs:
         sched_state.epoch_it += 1
@@ -409,6 +396,7 @@ def _train(cfg, max_epochs, scene, device, mesh):
                     f"{e}") from e
             for k in steps:
                 steps[k].append(float(aux[k]))
+            throughput.tick()
             if log_ss_per_view:
                 scale_dict["view %02d" % idx] = float(aux["scale"])
                 shift_dict["view %02d" % idx] = float(aux["shift"])
@@ -417,10 +405,13 @@ def _train(cfg, max_epochs, scene, device, mesh):
                 dump_pair_images(state, cfg, render_cfg, init_c2w, batch0,
                                  idx, ref_idx, scalars, it, render_path, mesh)
             if print_every > 0 and it % print_every == 0:
+                rate = throughput.rate()
                 say(f"[Epoch {epoch:02d}] it={it:03d}, "
-                    f"loss={steps['loss'][-1]:.8f}")
+                    f"loss={steps['loss'][-1]:.8f}, rays/s={rate:.0f}")
+                throughput.reset()
                 for tag, v in aux.items():
                     logger.add_scalar(f"train/{tag}", float(v), it)
+                logger.add_scalar("perf/rays_per_sec", rate, it)
                 for vname, v in scale_dict.items():
                     logger.add_scalar(f"train/scale{vname}", v, it)
                 for vname, v in shift_dict.items():
@@ -451,8 +442,6 @@ def _train(cfg, max_epochs, scene, device, mesh):
                           sched_state.it)
         logger.add_scalar("train/loss_rgbs_epoch",
                           np.mean(steps["loss_rgb_s"]), sched_state.it)
-        logger.add_scalar("perf/rays_per_sec", rec["rays_per_sec"],
-                          sched_state.it)
         if (eval_pose_every > 0 and epoch % eval_pose_every == 0
                 and gt_poses is not None and cfg["pose"]["learn_pose"]):
             ate, rpe_t, rpe_r = pose_metrics(state.params["pose"], init_c2w,

@@ -329,8 +329,11 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
         **loss_kwargs,
     )
     aux.update(loss_dict)
-    aux["scale"] = scale_input[0]
-    aux["shift"] = shift_input[0]
+    # copies: a view of the distortion parameters would read the values
+    # after the optimiser step, where the JAX step reports the ones that
+    # the loss used
+    aux["scale"] = scale_input[0].clone()
+    aux["shift"] = shift_input[0].clone()
     if out.get("normal_diff") is not None:
         aux["normal_diff"] = out["normal_diff"]
     if static.get("pair_images", False) and "rgb_pc1" in loss_kwargs:
@@ -347,9 +350,10 @@ def make_train_step(cfg, render_cfg, init_c2w=None, mesh=None):
     Every parameter gets a gradient (zeros where the loss does not reach
     it), so Adam's moments and step counts advance for all of them as
     optax's do; weight decay is added to the nerf gradient only, before
-    Adam, as torch's ``weight_decay`` would, and only on steps that render
-    (``static["render_model"]``), the steps where the nerf parameters have
-    a gradient.
+    Adam, as torch's ``weight_decay`` would, on every step when
+    ``training.weight_decay`` > 0, as the JAX step does: on a step that does
+    not render (``static["render_model"]`` False) the nerf gradient is
+    zero and the decay alone moves the nerf parameters.
 
     With ``mesh`` (``parallel/mesh.py``) each rank computes the loss on its
     rows and the ranks' gradients are averaged in one all-reduce before
@@ -397,10 +401,6 @@ def make_train_step(cfg, render_cfg, init_c2w=None, mesh=None):
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         loss, aux = run(state, batch, scalars, static, generator)
-        # the render is the only term that reaches the nerf parameters, so
-        # they have a gradient to decay exactly when it runs: a flag every
-        # rank shares
-        decay = wd > 0.0 and static["render_model"]
         with torch.no_grad():
             for group in opt.param_groups:
                 for p in group["params"]:
@@ -411,7 +411,9 @@ def make_train_step(cfg, render_cfg, init_c2w=None, mesh=None):
             if debug_nans:
                 check_finite(loss, opt)
             for group in opt.param_groups:
-                if decay and group["name"] == "nerf":
+                if wd > 0.0 and group["name"] == "nerf":
+                    # wd is a config value every rank shares, so the ranks
+                    # stay equal
                     for p in group["params"]:
                         p.grad.add_(p, alpha=wd)
                 group["lr"] = float(scalars["lrs"][group["name"]])

@@ -1,3 +1,3 @@
 """Host-side utilities of the port (numpy + PIL): the MJPEG-in-MP4 video
-muxer and video writer, the camera-frustum PLY exporter, and the synthetic
-teacher scene."""
+muxer and video writer, the camera-frustum PLY exporter, the synthetic
+teacher scene, and the metrics logger and rays/s counter."""

@@ -726,3 +726,27 @@ def test_cli_chain_train_eval_eval_poses(tmp_path, capsys):
     assert capsys.readouterr().out.strip().splitlines()[-1] == line
     for k in ("rpe_trans", "rpe_rot_deg", "ate"):
         np.testing.assert_allclose(mine[k], theirs[k], rtol=1e-4, atol=1e-6)
+
+
+def test_ate_of_a_trajectory_that_never_moved():
+    """Learned poses all at one place (poses that never left their
+    identity start): the JAX package's Sim(3) alignment divides by zero;
+    the port's takes the least-squares limit, scale 0, which maps them onto
+    the gt trajectory's mean, so the ATE is the RMS spread of the gt
+    positions about their mean (1e-12)."""
+    from nope_nerf_tpu.geometry import align as ja
+    from nope_nerf_tpu_torch.geometry import align as pa
+
+    rng = np.random.default_rng(2)
+    gt = _trajectory(rng, 10)
+    still = np.tile(np.eye(4), (10, 1, 1))
+    with pytest.raises(ZeroDivisionError):
+        ja.align_ate_c2b_use_a2b(still, gt)
+    aligned = pa.align_ate_c2b_use_a2b(still, gt)
+    spread = np.sqrt(np.mean(np.sum(
+        (gt[:, :3, 3] - gt[:, :3, 3].mean(0)) ** 2, axis=1)))
+    np.testing.assert_allclose(pa.compute_ate(gt, aligned), spread,
+                               rtol=1e-12)
+    np.testing.assert_allclose(aligned[:, :3, 3],
+                               np.tile(gt[:, :3, 3].mean(0), (10, 1)),
+                               atol=1e-12)
