@@ -20,34 +20,57 @@ direction weight gradient, in the same file, at M = 131,072: error against
 the plain versions, bitwise rerun, time beside the WMMA ``gemm_nn`` /
 ``gemm_tn`` they replaced, ``torch.mm`` in bf16 and the memory bound; the
 two narrow heads' weight gradients beside them),
-then trains five configurations at full width for two epochs of eight
+then trains six configurations at full width for two epochs of eight
 steps each on an in-memory 8-frame 540x960 scene with random weights and a
-smooth camera trajectory:
+smooth camera trajectory, through ``train()``, the first five on the stock
+config's scan path (``tpu.epoch_scan``: each epoch's steps replays of one
+captured CUDA graph of the step after its eager warm-up step):
 
 * stock ``configs/default.yaml`` (1024 rays x 128 samples, 8 x 256 MLP,
   pc + rgb_s losses, banded Chamfer): Kernels A and B, and Kernel C's
   forward for the surface colour of the Phong preview that the stock
-  ``visualize_every`` draws at step 0;
+  ``visualize_every`` draws at the end of the first epoch;
 * stock with ``tpu.fuse_compositing: False, chamfer_mode: exact``: Kernels
   C and D;
 * ``tpu.parity: True`` (f32 unfused MLP on torch.matmul, exact Chamfer,
   randperm ray sampling): Kernel D;
 * stock with ``tpu.rays_per_step_multiplier: 4``: four frames' 4,096 rays
-  per step through one Kernel A launch each way, whose last training call
-  (inputs, and the cotangents the step's loss gave it) is held against
-  the plain version;
+  per step through one Kernel A launch each way, whose last eager
+  training call (the warm-up step's inputs, and the cotangents its loss
+  gave it) is held against the plain version;
 * stock with ``training.with_ssim`` and ``rendering.normal_loss``: then one
   more step's normal_diff and SSIM-map gradient against float64 on the
   card, and the step timed without and with the normal term (which no loss
   reads, so the trainer skips it);
+* the multiplier run with ``tpu.epoch_scan: False``: the loop's per-step
+  path (host-int frame indices, per-step triggers), Kernel A's last
+  training call held against the plain version likewise;
 
-and checks that each run went through every kernel it should reach (the
+and checks that each run went through every kernel it should reach
+(launches run: eager calls plus each captured graph's launches times its
+replays; the
 forward GEMM 11 times per forward, the input-gradient GEMM 12 times per
 backward, the weight-gradient launches 14 times per backward that needs
 them, the WMMA GEMM never; Kernel A once each way and Kernel B twice in
 every training step of the runs on Kernel A) and prints the last epoch's
-ms/step and rays/s of stock, multiplier and ssim_normal side by side. The
-stock run writes its checkpoints and per-epoch pose metrics; the eval phase
+ms/step (wall on the host clock, and device) and rays/s of stock,
+multiplier, ssim_normal and multiplier_per_step side by side.
+
+The scan phase (:func:`run_scan`) holds ``make_epoch_step``'s captured
+route to its eager route (the same step body, step by step) in the five
+training configurations: 2 epochs of 8 steps each from the same
+parameters, Adam state and generator state, the per-step losses, the
+parameters and Adam's moments after them bit for bit (else, when an eager
+rerun differs too, within the multigpu bars, and the line says which),
+one graph per run with Kernel A once each way and B twice (C once each way
+and D twice; D twice under parity) per replay; the multigpu phase adds the
+stock run under a one-rank NCCL mesh, its all-reduces captured. It times
+each route's wall and device ms per
+step; holds the pose-optimisation block captured against eager over 5 pose
+epochs and times a 50-step block by each route; and runs the bench entry
+at ``bench.py``'s layout (2 + 3 dispatches of 192 steps) for k = 1 and 4.
+
+The stock run writes its checkpoints and per-epoch pose metrics; the eval phase
 then restores them into fresh tensors (bit for bit), runs the eval CLI's
 ``main`` on the held-out view (test-time pose optimisation on Kernel A's
 input-only backward, the 540x960 render through Kernel A's forward, PSNR /
@@ -72,8 +95,9 @@ float64 on the card (relL2 DPT_RELL2, which the same run with TF32 on must
 exceed), times a frame and reads the peak memory, then loads the scene with
 the port's ``get_scene`` (the priors feed it) and trains the stock config
 on it for 2 epochs, checking Kernels A and B launched and holding Kernel
-B's last two calls (clouds from the 384x672 priors) and Kernel C's forward
-at the it-0 visualisation against their plain versions at those inputs.
+B's last two eager calls (clouds from the 384x672 priors) and Kernel C's
+forward at the first epoch's visualisation against their plain versions at
+those inputs.
 
 The multigpu phase (``tpu.n_devices > 1``, ``nope_nerf_tpu_torch/parallel``)
 runs the stock step under a mesh of one rank over NCCL, which must equal the
@@ -121,10 +145,10 @@ against their plain versions at the last step's inputs.
 
 Prints, in order: the card's name and power limit, the kernel build time,
 one line per kernel check, the two GEMM phases' lines, one line per epoch, the
-training runs' checks, the eval phase's lines, the DPT phase's, the
-multigpu phase's, the synthetic phase's, the recovery phase's, the JSON
-lines of the training runs, the eval, DPT, multigpu, synthetic and recovery
-phases, a JSON line with every
+training runs' checks, the scan phase's lines, the eval phase's, the DPT
+phase's, the multigpu phase's, the synthetic phase's, the recovery phase's,
+the JSON lines of the training runs, the scan, eval, DPT, multigpu,
+synthetic and recovery phases, a JSON line with every
 kernel's errors, launches (each phase's share too), times and bound (and
 the library call's time
 where one exists), and last ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -161,8 +185,9 @@ SMALL_VIEW = (135, 240)
 # the synthetic phase: the teacher scene (6 frames of 60x80 on disk, of which
 # the loader holds frame 4 out: 5 training views), trained at the stock
 # widths with gt poses fixed for SYN_EPOCHS epochs (200 steps); the
-# visualisation and the pair dumps fire every SYN_VIS_EVERY steps (it 0 and
-# 100); the render CLI renders SYN_NOVEL views; the bench runs short
+# visualisation and the pair dumps fire at the ends of the epochs that cross
+# a multiple of SYN_VIS_EVERY steps (it 4 and 104: fired_steps); the render
+# CLI renders SYN_NOVEL views; the bench runs short
 SYN_FRAMES, SYN_HW, SYN_EPOCHS, SYN_VIS_EVERY = 6, (60, 80), 40, 100
 SYN_NOVEL = 8
 SYN_PSNR_GAIN = 1.0  # dB, tests/test_training.py::test_vanilla_nerf_converges
@@ -173,7 +198,7 @@ SYN_PSNR_GAIN = 1.0  # dB, tests/test_training.py::test_vanilla_nerf_converges
 # with the field's weight-matrix gradients zeroed, which fits the biases
 # alone, reads 51.48 (50.85-51.84): see PERF.md and ``--gate-control``.
 SYN_TAIL, SYN_PSNR_TAIL = 10, 55.0
-BENCH_SHORT = (16, 1, 2)  # steps per group, warm-up groups, timed groups
+BENCH_SHORT = (16, 1, 2)  # steps per dispatch, warm-up and timed dispatches
 # the DPT phase: a 4-frame 540x960 scene on disk (the transform makes it
 # 384x672), seeded weights with the published checkpoint's keys and shapes
 # (N(0, 0.05), as tests/test_dpt_convert.py draws them, and a head bias of
@@ -1261,7 +1286,8 @@ def check_gemm_counts(label, counts, weight_grads=True):
 
 # the training runs: (label, overrides {group: {key: value}}, kernels the
 # run must launch; every other kernel must stay idle). The stock config
-# visualises at it 0 (visualize_every 10000, vis_geo): the Phong preview's
+# visualises at the first epoch's end (it crosses visualize_every 10000;
+# vis_geo): the Phong preview's
 # surface colour runs Kernel C's forward wherever use_pallas_mlp is on, as
 # the JAX package's fused MLP does. ``multiplier`` renders 4 frames' 4,096
 # rays per step through one Kernel A launch each way; ``ssim_normal`` adds
@@ -1281,7 +1307,12 @@ RUNS = (
      STOCK_KERNELS),
     ("ssim_normal", {"training": {"with_ssim": True},
                      "rendering": {"normal_loss": True}}, STOCK_KERNELS),
+    ("multiplier_per_step", {"tpu": {"rays_per_step_multiplier": K_FRAMES,
+                                     "epoch_scan": False}}, STOCK_KERNELS),
 )
+# the runs whose Kernel A training call is held against its plain version:
+# the scan path's (its warm-up step) and the per-step path's, both at k = 4
+KERNEL_A_RUNS = ("multiplier", "multiplier_per_step")
 # the launches of every step of these runs: Kernel A once each way (at k = 4
 # too: the point of rendering the frames as one batch), Kernel B twice (the
 # pc loss's two directions)
@@ -1314,17 +1345,16 @@ def run_training(dev, card, label, overrides, expect):
     cfg["training"]["seed"] = SEED
     shutil.rmtree(cfg["training"]["out_dir"], ignore_errors=True)
     scene = MemoryScene(N_FRAMES, H, W, SEED)
-    counters = kernel_counters()
     torch.cuda.empty_cache()  # every run starts from the same allocator state
-    for c in counters:
-        c.reset()
+    counters = reset_counts()
     with per_step_launches() as step_counts:
         state, _, _, history = train(cfg, max_epochs=EPOCHS, scene=scene,
                                      device=dev)
-    counts = {c.name: c.count for c in counters}
+    counts = executed(counters)
     for h in history:
         print(f"{label} epoch {h['epoch']} [{card}]: {h['steps']} steps, "
-              f"loss {h['loss']:.6f}, {h['ms_per_step']:.3f} ms/step, "
+              f"loss {h['loss']:.6f}, {h['ms_per_step']:.3f} ms/step wall "
+              f"({h['device_ms_per_step']:.3f} device), "
               f"{h['rays_per_sec']:.1f} rays/s; ATE {h['ate_trans']:.5f}, "
               f"RPE trans {h['rpe_trans']:.5f}, rot {h['rpe_rot']:.5f} deg")
     steps = sum(h["steps"] for h in history)
@@ -1346,32 +1376,34 @@ def run_training(dev, card, label, overrides, expect):
 
 
 @contextlib.contextmanager
-def per_step_launches(module=None):
-    """Inside the block, every step made by ``module.make_train_step`` (the
-    training loop's by default) appends its kernels' launch counts to the
-    yielded list."""
-    if module is None:
-        from nope_nerf_tpu_torch.training import loop as module
-    real = module.make_train_step
+def per_step_launches():
+    """Inside the block, each call of a step body that
+    ``training.trainer.make_step_body`` makes (the per-step path's and the
+    epoch step's) appends its kernels' launch counts to the yielded list:
+    an eager step's launches, or those a capture records into its graph,
+    which every replay of the graph runs again."""
+    from nope_nerf_tpu_torch.training import trainer as module
+
+    real = module.make_step_body
     steps = []
 
     def make(*args, **kwargs):
-        step = real(*args, **kwargs)
+        body = real(*args, **kwargs)
 
         def counted(*step_args, **step_kwargs):
             counters = kernel_counters()
-            before = [c.count for c in counters]
-            out = step(*step_args, **step_kwargs)
-            steps.append({c.name: c.count - b
+            before = [c.count + c.captured for c in counters]
+            out = body(*step_args, **step_kwargs)
+            steps.append({c.name: c.count + c.captured - b
                           for c, b in zip(counters, before)})
             return out
         return counted
 
-    module.make_train_step = make
+    module.make_step_body = make
     try:
         yield steps
     finally:
-        module.make_train_step = real
+        module.make_step_body = real
 
 
 def check_per_step(label, step_counts):
@@ -1381,6 +1413,272 @@ def check_per_step(label, step_counts):
     if not step_counts or bad:
         raise AssertionError(f"{label}: per-step launches {bad[:3]} of "
                              f"{len(step_counts)} steps, expected {PER_STEP}")
+
+
+# the scan phase: training.trainer.make_epoch_step's captured route (each
+# step a replay of one CUDA graph of the step) against its eager route (the
+# same step body run step by step), from the same parameters, Adam state and
+# generator state, at the stock scene and widths, in each training config
+# (label, overrides, the kernel launches of one replay): EPOCHS epochs compared,
+# then SCAN_TIMED_EPOCHS more timed on each route; the pose-optimisation
+# block likewise over SCAN_POSE_EPOCHS pose epochs and timed over a block
+# of SCAN_POSE_STEPS steps; the bench entry at bench.py's layout
+SCAN_RUNS = (("stock", {}, PER_STEP),
+             ("multiplier", {"tpu": {"rays_per_step_multiplier": K_FRAMES}},
+              PER_STEP),
+             ("unfused_exact", {"tpu": {"fuse_compositing": False,
+                                        "chamfer_mode": "exact"}},
+              {"mlp_point_fwd": 1, "mlp_point_bwd": 1, "chamfer_exact": 2}),
+             ("parity", {"tpu": {"parity": True}}, {"chamfer_exact": 2}),
+             ("ssim_normal", {"training": {"with_ssim": True},
+                              "rendering": {"normal_loss": True}}, PER_STEP))
+SCAN_TIMED_EPOCHS = 2
+SCAN_POSE_EPOCHS, SCAN_POSE_VIEWS, SCAN_POSE_STEPS = 5, 2, 50
+BENCH_FULL = (192, 2, 3)
+
+
+def scan_setup(dev, overrides):
+    """The stock step with ``overrides`` ({group: {key: value}}, the parity
+    profile expanded) on the stock scene, its epoch-0 schedule, and the
+    frame orders of EPOCHS + SCAN_TIMED_EPOCHS epochs drawn from SEED, the
+    loop's layout at k > 1."""
+    import numpy as np
+
+    from nope_nerf_tpu_torch.config import apply_parity_profile
+    from nope_nerf_tpu_torch.synthetic import MemoryScene
+    from nope_nerf_tpu_torch.training.loop import scene_batch_arrays
+    from nope_nerf_tpu_torch.training.scheduler import Scheduler
+    from nope_nerf_tpu_torch.training.trainer import make_render_cfg
+
+    cfg = stock_cfg()
+    for group, values in overrides.items():
+        cfg[group].update(values)
+    apply_parity_profile(cfg)
+    scene = MemoryScene(N_FRAMES, H, W, SEED)
+    cfg["_num_cams"] = scene.N_imgs
+    batch0 = scene_batch_arrays(scene, cfg, dev)
+    sched = Scheduler(cfg)
+    w_l1, w_l2 = sched.rgb_loss_switch(0)
+    scalars = {"weights": sched.weights(0), "w_l1": w_l1, "w_l2": w_l2,
+               "lrs": sched.applied_lrs(0)}
+    static = sched.static_flags(0)
+    rcfg = make_render_cfg(cfg, dev)
+    n = scene.N_imgs
+    k = max(int(cfg["tpu"].get("rays_per_step_multiplier", 1) or 1), 1)
+    rng = np.random.default_rng(SEED)
+    epochs = []
+    for _ in range(EPOCHS + SCAN_TIMED_EPOCHS):
+        order = rng.permutation(n)
+        frames = order if k == 1 else np.concatenate(
+            [order[:, None], rng.integers(0, n, (n, k - 1))], axis=1)
+        epochs.append((frames, [scene.sample_ref_idx(int(i)) for i in order]))
+    return cfg, scene, batch0, rcfg, scalars, static, epochs
+
+
+def scan_route(dev, setup, capture_it, mesh=None, timed=True):
+    """EPOCHS epochs of the setup on one route from seeds (their per-step
+    losses, then the parameters and Adam moments), under ``mesh`` if given;
+    with ``timed`` then one epoch timed on the host clock (wall ms per
+    step) and one by the device's kernel time (:func:`device_ms`); returns
+    them with the epoch step."""
+    import torch
+
+    from nope_nerf_tpu_torch.training.loop import build_params
+    from nope_nerf_tpu_torch.training.trainer import (init_train_state,
+                                                      make_epoch_step)
+
+    cfg, scene, batch0, rcfg, scalars, static, epochs = setup
+    params, init_c2w = build_params(cfg, scene,
+                                    torch.Generator().manual_seed(SEED), dev)
+    state = init_train_state(params, capturable=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    run = make_epoch_step(cfg, rcfg, init_c2w, mesh=mesh, device=dev,
+                          eager=not capture_it)
+    if run.route != ("cuda graph" if capture_it else "eager"):
+        raise AssertionError(f"epoch step on the {run.route} route "
+                             f"({run.why}), capture {capture_it}")
+
+    def epoch(i):
+        frames, refs = epochs[i]
+        run(state, batch0, frames, refs, scalars, gen, static)
+
+    losses = []
+    for i in range(EPOCHS):
+        epoch(i)
+        losses.append(run.steps["loss"].clone())
+    opt = state.optimizer
+    tensors = [p for g in opt.param_groups for p in g["params"]]
+    out = {"run": run, "losses": torch.cat(losses),
+           "params": [p.detach().clone() for p in tensors],
+           "moments": [opt.state[p][m].clone() for p in tensors
+                       for m in ("exp_avg", "exp_avg_sq")]}
+    if not timed:
+        return out
+    n = scene.N_imgs
+    out["wall_ms"] = host_ms(lambda: epoch(EPOCHS), iters=1, warmup=0) / n
+    out["device_ms"] = device_ms(lambda: epoch(EPOCHS + 1), iters=1,
+                                 warmup=0) / n
+    return out
+
+
+def compare_routes(label, eager, graph, rerun):
+    """'bitwise' when the captured route's losses, parameters and Adam
+    moments equal the eager route's bit for bit; else, when an eager rerun
+    (``rerun()``) is not bitwise either, 'tolerance' within the multigpu
+    phase's bars (loss rtol MG_LOSS_RTOL, relL2 MG_GRAD_RELL2); raises
+    otherwise. Returns (held, numbers)."""
+    import torch
+
+    def diff(a, b):
+        loss_rel = float(torch.max(torch.abs(a["losses"] - b["losses"])
+                                   / torch.abs(b["losses"])))
+        rels = [rel_l2(x, y) for key in ("params", "moments")
+                for x, y in zip(a[key], b[key])]
+        bit = (torch.equal(a["losses"], b["losses"]) and all(
+            torch.equal(x, y) for key in ("params", "moments")
+            for x, y in zip(a[key], b[key])))
+        return bit, {"loss_max_rel": loss_rel, "state_max_rel_l2": max(rels)}
+
+    bit, numbers = diff(graph, eager)
+    if bit:
+        return "bitwise", numbers
+    rerun_bit, _ = diff(rerun(), eager)
+    if (rerun_bit or numbers["loss_max_rel"] > MG_LOSS_RTOL
+            or numbers["state_max_rel_l2"] > MG_GRAD_RELL2):
+        raise AssertionError(f"{label}: the captured epochs differ from the "
+                             f"eager ones {numbers} (an eager rerun bitwise "
+                             f"equal: {rerun_bit})")
+    return "tolerance", numbers
+
+
+def scan_pose(dev, card):
+    """The pose-optimisation block (:class:`PoseOptBlock`) captured against
+    eager: ``optimize_eval_poses`` over SCAN_POSE_EPOCHS epochs of
+    SCAN_POSE_VIEWS views at EVAL_POINTS rays from seed-0 weights, the
+    poses compared; then a block of SCAN_POSE_STEPS steps timed on each
+    route after its first (wall and device ms per step)."""
+    import numpy as np
+    import torch
+
+    from nope_nerf_tpu_torch.evaluation.pose_opt import (PoseOptBlock,
+                                                         optimize_eval_poses,
+                                                         pose_optimizer)
+    from nope_nerf_tpu_torch.models.nerf import init_nerf_params
+    from nope_nerf_tpu_torch.models.pose import init_pose_params
+    from nope_nerf_tpu_torch.synthetic import MemoryScene
+    from nope_nerf_tpu_torch.training.trainer import make_render_cfg
+
+    cfg = stock_cfg()
+    rcfg = make_render_cfg(cfg, dev)
+    scene = MemoryScene(N_FRAMES, H, W, SEED)
+    nerf = init_nerf_params(torch.Generator().manual_seed(SEED), cfg, dev)
+    imgs = torch.as_tensor(np.asarray(scene.imgs[:SCAN_POSE_VIEWS]),
+                           device=dev)
+    init = np.asarray(scene.c2ws[:SCAN_POSE_VIEWS], np.float32)
+    eye = np.eye(4, dtype=np.float32)
+    poses, times = {}, {}
+    for cap in (False, True):
+        c2w, pose = optimize_eval_poses(nerf, scene.K, cfg, rcfg, imgs, eye,
+                                        init, SCAN_POSE_EPOCHS, 1e-3,
+                                        EVAL_POINTS, seed=SEED, eager=not cap)
+        poses[cap] = (c2w, torch.cat([pose["r"], pose["t"]]).detach())
+        frozen = {k: {kk: t.detach() for kk, t in layer.items()}
+                  for k, layer in nerf.items()}
+        p = init_pose_params(SCAN_POSE_VIEWS, dev)
+        for t in p.values():
+            t.requires_grad_(True)
+        block = PoseOptBlock(cfg, rcfg, torch.as_tensor(init, device=dev),
+                             EVAL_POINTS, imgs.shape[1:3], dev, eager=not cap)
+        if block.route != ("cuda graph" if cap else "eager"):
+            raise AssertionError(f"pose block on the {block.route} route, "
+                                 f"capture {cap}")
+        opt = pose_optimizer(p, True)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        lrs = np.full(SCAN_POSE_STEPS, 1e-3, np.float32)
+        frames = np.arange(SCAN_POSE_STEPS) % SCAN_POSE_VIEWS
+        cam, scale = (torch.as_tensor(a, device=dev) for a in (scene.K, eye))
+
+        def one(block=block, p=p, opt=opt, gen=gen, cam=cam, scale=scale):
+            return block(frozen, p, opt, imgs, cam, scale, lrs, frames, gen)
+
+        one()  # the warm-up step and the capture
+        times[block.route] = (
+            host_ms(one, iters=1, warmup=0) / SCAN_POSE_STEPS,
+            device_ms(one, iters=1, warmup=0) / SCAN_POSE_STEPS)
+    bitwise = (np.array_equal(poses[False][0], poses[True][0])
+               and torch.equal(poses[False][1], poses[True][1]))
+    rel = rel_l2(poses[True][1], poses[False][1])
+    print(f"scan pose block [{card}]: {SCAN_POSE_EPOCHS} pose epochs x "
+          f"{SCAN_POSE_VIEWS} views at {EVAL_POINTS} rays, captured against "
+          f"eager: bitwise {bitwise} (pose relL2 {rel:.3e}); ms per pose "
+          "step wall / device: " + "; ".join(
+              f"{r} {w:.3f} / {d:.3f}" for r, (w, d) in times.items()))
+    if not (bitwise or rel <= MG_GRAD_RELL2):
+        raise AssertionError(f"scan pose block: captured against eager "
+                             f"relL2 {rel}")
+    return {"bitwise": bitwise, "pose_rel_l2": rel,
+            "ms_per_step": {r: {"wall": w, "device": d}
+                            for r, (w, d) in times.items()}}
+
+
+def run_scan(dev, card):
+    """The scan phase (see SCAN_RUNS). Returns the launch counts of its
+    runs (both routes, the pose blocks and the benches) and its record."""
+    import torch
+
+    from nope_nerf_tpu_torch.training import capture
+
+    torch.cuda.empty_cache()
+    counters = reset_counts()
+    runs = {}
+    for label, overrides, want in SCAN_RUNS:
+        setup = scan_setup(dev, overrides)
+        eager = scan_route(dev, setup, False)
+        graph = scan_route(dev, setup, True)
+        held, numbers = compare_routes(
+            f"scan {label}", eager, graph,
+            lambda: scan_route(dev, setup, False))
+        run = graph["run"]
+        graphs = list(run.graphs.graphs.values())
+        per_replay = [g.record.launches for g in graphs]
+        bad = [c for c in per_replay
+               if any(c.get(k, 0) != v for k, v in want.items())]
+        if len(graphs) != 1 or bad:
+            raise AssertionError(f"scan {label}: {len(graphs)} graphs, "
+                                 f"launches per replay {per_replay}, "
+                                 f"expected {want}")
+        replays = graphs[0].record.replays
+        runs[label] = dict(numbers, held=held, graphs=len(graphs),
+                           warmups=run.graphs.warmups, replays=replays,
+                           launches_per_replay=per_replay[0],
+                           ms_per_step={
+                               "eager": {"wall": eager["wall_ms"],
+                                         "device": eager["device_ms"]},
+                               "cuda graph": {"wall": graph["wall_ms"],
+                                              "device": graph["device_ms"]}})
+        print(f"scan {label} [{card}]: {EPOCHS} epochs x {N_FRAMES} steps "
+              f"captured against eager: {held} ({numbers}); "
+              f"{len(graphs)} graph, {run.graphs.warmups} warm-up step, "
+              f"{replays} replays; ms/step wall / device: eager "
+              f"{eager['wall_ms']:.3f} / {eager['device_ms']:.3f}, cuda "
+              f"graph {graph['wall_ms']:.3f} / {graph['device_ms']:.3f}; "
+              f"launches per replay {per_replay[0]}")
+        del eager, graph
+        torch.cuda.empty_cache()
+    pose = scan_pose(dev, card)
+    counts = collections.Counter(executed(counters))
+    benches = {}
+    for k in (1, K_FRAMES):
+        over = {} if k == 1 else {"rays_per_step_multiplier": k}
+        rec, bench_counts = short_bench(dev, card, over, layout=BENCH_FULL)
+        benches[f"k{k}"] = rec["value"]
+        counts.update(bench_counts)  # short_bench counts from 0
+    counts = {c.name: counts[c.name] for c in counters}
+    print(f"scan phase [{card}]: bench.py's layout {BENCH_FULL}: rays/s "
+          f"{benches}; launches {counts}; {len(capture.records())} graphs "
+          "captured so far in this process")
+    return counts, {"runs": runs, "pose_block": pose,
+                    "bench_rays_per_sec": benches}
 
 
 @contextlib.contextmanager
@@ -1563,14 +1861,12 @@ def run_eval(dev, card, cfg, trained):
                                    lpips_weights=weights))
     train_scene = MemoryScene(N_FRAMES, H, W, SEED)
     eval_scene = MemoryScene(N_FRAMES, H, W, SEED, mode="eval")
-    counters = kernel_counters()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    for c in counters:
-        c.reset()
+    counters = reset_counts()
     res = peval.main(cfg, device=dev, train_scene=train_scene,
                      eval_scene=eval_scene)
-    counts = {c.name: c.count for c in counters}
+    counts = executed(counters)
     peak = torch.cuda.max_memory_allocated(dev)
     finite = all(math.isfinite(res[k]) for k in ("psnr", "ssim", "lpips"))
     print(f"eval [{card}]: {EVAL_POSE_EPOCHS} pose epochs x "
@@ -1595,10 +1891,10 @@ def run_eval(dev, card, cfg, trained):
     cam = torch.as_tensor(train_scene.K, device=dev)
     world = torch.linalg.inv(torch.as_tensor(train_scene.c2ws[0], device=dev))
     eye = torch.eye(4, device=dev)
-    before = {c.name: c.count for c in counters}
+    before = executed(counters)
     render_ms = host_ms(lambda: render_image(nerf, (H, W), cam, world, eye,
                                              render_cfg, chunk=65536), iters=3)
-    during = {c.name: c.count - before[c.name] for c in counters}
+    during = {k: v - before[k] for k, v in executed(counters).items()}
     check_gemm_counts("eval render", during, weight_grads=False)
     print(f"eval render launches [{card}]: {during}")
     small = render_image(nerf, SMALL_VIEW, cam, world, eye, render_cfg)
@@ -1815,14 +2111,14 @@ def run_dpt(dev, card):
                              "wrote")
     torch.cuda.empty_cache()
     counters = reset_counts()
-    # Kernel B's last two calls (clouds from the 384x672 priors) and
-    # Kernel C's forward (the it-0 visualisation), held against their
+    # Kernel B's last two eager calls (clouds from the 384x672 priors) and
+    # Kernel C's forward (the first epoch's visualisation), held against their
     # plain versions at these inputs below
     with recording(cb, "nearest_idx_banded", keep=2) as argmin_calls, \
             recording(mk, "fused_mlp") as point_calls:
         _, _, _, history = train(cfg, max_epochs=DPT_EPOCHS, scene=scene,
                                  device=dev)
-    counts = {c.name: c.count for c in counters}
+    counts = executed(counters)
     losses = [v for h in history for v in h["step_losses"]]
     if len(losses) != DPT_EPOCHS * scene.N_imgs or not all(
             map(math.isfinite, losses)):
@@ -1957,11 +2253,33 @@ def synthetic_cfg(base):
     return cfg
 
 
+def fired_steps(epochs, n, every):
+    """The steps after which a trigger of period ``every`` fires in
+    ``epochs`` scanned epochs of ``n`` steps (the stock config's path): the
+    last step of each epoch that crosses a multiple of ``every``."""
+    return [e * n + n - 1 for e in range(epochs)
+            if (e * n - 1) // every != (e * n + n - 1) // every]
+
+
 def reset_counts():
+    """Every kernel counter and every captured graph's replays at 0."""
+    from nope_nerf_tpu_torch.training import capture
+
     counters = kernel_counters()
     for c in counters:
         c.reset()
+    capture.reset_replays()
     return counters
+
+
+def executed(counters):
+    """{name: launches run} of ``counters`` since :func:`reset_counts`: the
+    launches of eager calls, plus each captured graph's launches times its
+    replays (``training/capture.py``)."""
+    from nope_nerf_tpu_torch.training import capture
+
+    run = capture.executed_launches()
+    return {c.name: run[c.name] for c in counters}
 
 
 def snapshot(x):
@@ -1985,11 +2303,16 @@ def recording(module, name, keep=1, copy=False):
     of them, for inputs that change in place later, as the weights do), so
     a kernel's wrapper can be held against its plain version at the inputs
     a path gave it."""
+    import torch
+
     fn = getattr(module, name)
     calls = collections.deque(maxlen=keep)
 
     def wrapper(*args, **kwargs):
-        calls.append(snapshot((args, kwargs)) if copy else (args, kwargs))
+        # a call made while a CUDA graph captures sees placeholders, which
+        # later work overwrites: only eager calls are kept
+        if not torch.cuda.is_current_stream_capturing():
+            calls.append(snapshot((args, kwargs)) if copy else (args, kwargs))
         return fn(*args, **kwargs)
 
     setattr(module, name, wrapper)
@@ -2001,9 +2324,12 @@ def recording(module, name, keep=1, copy=False):
 
 @contextlib.contextmanager
 def kernel_a_training_call():
-    """Inside the block, record Kernel A's last call that builds a graph:
+    """Inside the block, record Kernel A's last eager call that builds an
+    autograd graph (on the scan path the warm-up step of a captured step):
     a copy of its inputs and, once the step's backward has run, the
     cotangents that reached its three outputs (None where none did)."""
+    import torch
+
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     real = mk.fused_mlp_composite
@@ -2011,7 +2337,8 @@ def kernel_a_training_call():
 
     def wrapper(*args):
         outs = real(*args)
-        if any(o.requires_grad for o in outs):
+        if (any(o.requires_grad for o in outs)
+                and not torch.cuda.is_current_stream_capturing()):
             cots = [None] * len(outs)
             for i, o in enumerate(outs):
                 o.register_hook(lambda g, i=i: cots.__setitem__(
@@ -2258,7 +2585,7 @@ def run_synthetic(dev, card):
         state, _, scene, history = train(cfg, max_epochs=SYN_EPOCHS,
                                          device=dev)
     train_s = time.perf_counter() - t0
-    counts = {c.name: c.count for c in counters}
+    counts = executed(counters)
     psnrs = [h["psnr"] for h in history]
     print(f"synthetic training [{card}]: {len(history)} epochs x "
           f"{history[0]['steps']} steps in {train_s:.1f} s (visualisations "
@@ -2276,7 +2603,7 @@ def run_synthetic(dev, card):
                              f"{SYN_PSNR_GAIN} dB gain or below "
                              f"{SYN_PSNR_TAIL} dB")
     rendering = os.path.join(cfg["training"]["out_dir"], "rendering")
-    fired = [it for it in range(steps) if it % SYN_VIS_EVERY == 0]
+    fired = fired_steps(SYN_EPOCHS, scene.N_imgs, SYN_VIS_EVERY)
     missing = [os.path.join("%04d_vis" % it, "0000_%s.png" % kind)
                for it in fired for kind in ("img", "depth", "geo")]
     pairs = [n for n in sorted(os.listdir(rendering))
@@ -2304,7 +2631,7 @@ def run_synthetic(dev, card):
     with recording(mk, "fused_mlp") as cli_calls:
         render_dir = render.main(cfg, device=dev)
     cli_ms = 1e3 * (time.perf_counter() - t0) / SYN_NOVEL
-    render_counts = {c.name: c.count for c in counters}
+    render_counts = executed(counters)
     names = [os.path.join(d, f"{i:04d}.png") for i in range(SYN_NOVEL)
              for d in ("img_out", "depth_out", "geo_out")]
     names += [os.path.join("depth_out", f"{i}.npy") for i in range(SYN_NOVEL)]
@@ -2461,13 +2788,13 @@ def run_recovery(dev, card, pose_lr=None):
             per_step_launches() as step_counts:
         _, _, scene, history = train(cfg, max_epochs=REC_EPOCHS, device=dev)
     train_s = time.perf_counter() - t0
-    counts = {c.name: c.count for c in counters}
+    counts = executed(counters)
     ate = [h["ate_trans"] for h in history]
     psnr = [h["psnr"] for h in history]
     ms = sorted(h["ms_per_step"] for h in history)
     print(f"recovery [{card}]: {len(history)} epochs x {history[0]['steps']}"
           f" steps from identity poses in {train_s:.1f} s (scene "
-          f"{gen_s:.1f} s, median {ms[len(ms) // 2]:.3f} ms/step); ATE "
+          f"{gen_s:.1f} s, median {ms[len(ms) // 2]:.3f} ms/step wall); ATE "
           f"every 10th epoch " + " ".join(f"{a:.4f}" for a in ate[::10])
           + f" -> {ate[-1]:.4f}; PSNR {psnr[0]:.2f} -> {psnr[-1]:.2f} dB")
     steps = sum(h["steps"] for h in history)
@@ -2532,8 +2859,9 @@ def recovery_control(dev, card):
 # After MG_STEPS steps the ranks' parameters must be bitwise equal. A
 # step with fuse_compositing False and chamfer_mode exact (MG_UNFUSED) runs
 # Kernels C and D per rank, held to the one-process step likewise. Each
-# rank then trains 2 epochs x MG_FRAMES steps through train() (it-0
-# visualisation and pair dump, rank 0 writing) and runs dpt_depth on
+# rank then trains 2 epochs x MG_FRAMES steps through train() (the first
+# epoch's visualisation and pair dump, rank 0 writing; eager steps over
+# gloo) and runs dpt_depth on
 # MG_DPT_FRAMES frames, whose priors are held to a one-device run's.
 MG_STEPS, MG_FRAMES, MG_DPT_FRAMES, MG_JOIN_S = 8, 4, 3, 420
 # one more step per rank on the route of Kernels C and D, held to the
@@ -2692,6 +3020,14 @@ def mg_one_rank(dev, card):
                 raise AssertionError(f"multigpu W = 1 step {i}: bitwise "
                                      f"equal to the unsharded step {same}")
         counts = {c.name: counts[c.name] for c in kernel_counters()}
+        # the scan path under the mesh: its all-reduces captured into the
+        # graph (NCCL), against the same epochs eager
+        setup = scan_setup(dev, {})
+        scan_held, scan_numbers = compare_routes(
+            "multigpu W = 1 scan",
+            scan_route(dev, setup, False, mesh=mesh, timed=False),
+            scan_route(dev, setup, True, mesh=mesh, timed=False),
+            lambda: scan_route(dev, setup, False, mesh=mesh, timed=False))
         times = {}
         for label, step, state in (("plain", plain, plain_state),
                                    ("mesh", sharded, mesh_state),
@@ -2703,9 +3039,12 @@ def mg_one_rank(dev, card):
             times.setdefault(label, []).append(ms)
         print(f"multigpu W = 1 [{card}]: NCCL mesh of 1, the sharded step "
               f"bitwise equal to the unsharded one over 2 steps (loss, rgb, "
-              f"depth, gradients, parameters after Adam); ms/step plain "
+              f"depth, gradients, parameters after Adam); the scan path "
+              f"under the mesh, {EPOCHS} epochs captured against eager: "
+              f"{scan_held} ({scan_numbers}); ms/step plain "
               f"{times['plain']}, mesh {times['mesh']}; launches {counts}")
         return counts, {"backend": mesh.backend, "bitwise_steps": 2,
+                        "scan_captured_vs_eager": scan_held,
                         "ms_per_step": times}
     finally:
         dist.destroy_process_group()
@@ -2752,7 +3091,7 @@ def mg_worker(rank, port, out, dpt_cfg_path):
             for i in range(1, MG_STEPS):
                 per_step.append(mg_step(step, state, mg_batch(batch0, scene, i),
                                         scalars, static, dev, i)[3])
-        counts = {c.name: c.count for c in counters}
+        counts = executed(counters)
         for i, c in enumerate(per_step):
             check_mg_launches(f"{label} step {i}", c)
         a_check = check_kernel_a_call(f"{label} [{card}]", a_call)
@@ -2779,7 +3118,7 @@ def mg_worker(rank, port, out, dpt_cfg_path):
             unfused = mg_step(shard_train_step(ucfg, urcfg, uc2w, mesh),
                               ustate, mg_batch(ubatch0, uscene, 0), uscalars,
                               ustatic, dev, 0)
-        unfused_counts = {c.name: c.count for c in counters}
+        unfused_counts = executed(counters)
         check_mg_launches(f"{label} unfused step", unfused[3],
                           MG_UNFUSED_STEP)
         c_check = check_point_mlp_call(f"{label} Kernel C fwd", c_calls)
@@ -2807,7 +3146,7 @@ def mg_worker(rank, port, out, dpt_cfg_path):
         _, _, _, hist = train(tcfg, max_epochs=EPOCHS,
                               scene=MemoryScene(MG_FRAMES, H, W, SEED + 1),
                               device=dev, mesh=mesh)
-        train_counts = {c.name: c.count for c in counters}
+        train_counts = executed(counters)
         losses = [v for h in hist for v in h["step_losses"]]
         if len(losses) != EPOCHS * MG_FRAMES or not all(
                 map(math.isfinite, losses)):
@@ -2947,7 +3286,10 @@ def mg_two_ranks(dev, card):
           and len(names) == MG_DPT_FRAMES and files_two == sorted(
               os.listdir(one_dir))
           and max(dpt_rel.values()) <= MG_DPT_RELL2
-          and "0000_vis" in written
+          and "%04d_vis" % fired_steps(
+              EPOCHS, MG_FRAMES,
+              stock_cfg()["training"]["visualize_every"])[0]
+          in written
           and any(f.endswith("_img1.png") for f in written)
           and os.path.isfile(os.path.join(train_out, "model.npz")))
     if not ok:
@@ -2986,35 +3328,37 @@ def run_multigpu(dev, card):
     return counts, {"w1": rec1, "w2": rec2, "seconds": secs}
 
 
-def short_bench(dev, card, overrides):
-    """A BENCH_SHORT run of the bench entry with ``overrides`` as its
-    BENCH_TPU_OVERRIDES: its JSON line, its launches (Kernels A and B, the
-    layer GEMMs) and each step's (:data:`PER_STEP`)."""
+def short_bench(dev, card, overrides, layout=BENCH_SHORT):
+    """A run of the bench entry (the scan path) with ``overrides`` as its
+    BENCH_TPU_OVERRIDES and ``layout`` as its (steps per dispatch, warm-up
+    dispatches, timed dispatches): its JSON line, its launches (Kernels A
+    and B, the layer GEMMs) and each step's (:data:`PER_STEP`)."""
     import io
 
     import torch
 
     from nope_nerf_tpu_torch import bench
 
-    saved = (bench.GROUP_STEPS, bench.WARMUP_GROUPS, bench.MEASURE_GROUPS,
-             os.environ.get("BENCH_TPU_OVERRIDES"))
-    bench.GROUP_STEPS, bench.WARMUP_GROUPS, bench.MEASURE_GROUPS = BENCH_SHORT
+    saved = (bench.SCAN_STEPS, bench.WARMUP_DISPATCHES,
+             bench.MEASURE_DISPATCHES, os.environ.get("BENCH_TPU_OVERRIDES"))
+    bench.SCAN_STEPS, bench.WARMUP_DISPATCHES, bench.MEASURE_DISPATCHES = \
+        layout
     os.environ["BENCH_TPU_OVERRIDES"] = json.dumps(overrides)
     torch.cuda.empty_cache()
     counters = reset_counts()
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out), \
-                per_step_launches(bench) as step_counts:
+                per_step_launches() as step_counts:
             bench.run(dev)
     finally:
-        bench.GROUP_STEPS, bench.WARMUP_GROUPS, bench.MEASURE_GROUPS = \
-            saved[:3]
+        (bench.SCAN_STEPS, bench.WARMUP_DISPATCHES,
+         bench.MEASURE_DISPATCHES) = saved[:3]
         if saved[3] is None:
             os.environ.pop("BENCH_TPU_OVERRIDES")
         else:
             os.environ["BENCH_TPU_OVERRIDES"] = saved[3]
-    counts = {c.name: c.count for c in counters}
+    counts = executed(counters)
     lines = out.getvalue().splitlines()
     rec = json.loads(lines[-1])
     if len(lines) != 1 or rec["metric"] != "train_rays_per_sec" or not (
@@ -3024,9 +3368,9 @@ def short_bench(dev, card, overrides):
     check_launches(label, counts, ("mlp_composite_fwd", "mlp_composite_bwd",
                                    "chamfer_band", *MLP_GEMMS))
     check_per_step(label, step_counts)
-    print(f"bench short {json.dumps(overrides)} [{card}]: {BENCH_SHORT[1]} "
-          f"x {BENCH_SHORT[0]} warm-up steps, {BENCH_SHORT[2]} x "
-          f"{BENCH_SHORT[0]} timed: {json.dumps(rec)}")
+    print(f"bench {json.dumps(overrides)} [{card}]: {layout[1]} x "
+          f"{layout[0]} warm-up steps, {layout[2]} x {layout[0]} timed: "
+          f"{json.dumps(rec)}")
     return rec, counts
 
 
@@ -3106,27 +3450,33 @@ def main(argv=None):
     launches = {rec["name"]: 0 for rec in records}
     runs = {}
     for label, overrides, expect in RUNS:
-        with (kernel_a_training_call() if label == "multiplier"
+        with (kernel_a_training_call() if label in KERNEL_A_RUNS
               else contextlib.nullcontext()) as a_call:
             counts, state, cfg, history, step_counts = run_training(
                 dev, card, label, overrides, expect)
         runs[label] = (cfg, state, history)
         if "mlp_composite_fwd" in expect:
             check_per_step(label, step_counts)
-        if label == "multiplier":
-            runs["multiplier_kernel_a"] = check_kernel_a_call(
-                f"multiplier [{card}]", a_call)
+        if label in KERNEL_A_RUNS:
+            runs[f"{label}_kernel_a"] = check_kernel_a_call(
+                f"{label} [{card}]", a_call)
         for rec in records:
             launches[rec["name"]] += counts[rec["name"]]
+    scan_counts, scan_rec = run_scan(dev, card)
     steps = {}
-    for label in ("stock", "multiplier", "ssim_normal"):
+    for label in ("stock", "multiplier", "ssim_normal",
+                  "multiplier_per_step"):
         last = runs[label][2][-1]
-        steps[label] = {"ms_per_step": last["ms_per_step"],
-                        "rays_per_sec": last["rays_per_sec"]}
-    print(f"training steps [{card}], last epoch: " + "; ".join(
-        f"{k} {v['ms_per_step']:.3f} ms/step, {v['rays_per_sec']:.1f} rays/s"
-        for k, v in steps.items()) + f"; k = {K_FRAMES} / stock rays/s "
-        f"{steps['multiplier']['rays_per_sec'] / steps['stock']['rays_per_sec']:.3f}")
+        steps[label] = {k: last[k] for k in ("ms_per_step", "rays_per_sec",
+                                             "device_ms_per_step")}
+    print(f"training steps [{card}], last epoch (ms/step wall on the host "
+          "clock / device by CUDA events, rays/s on the wall time): "
+          + "; ".join(f"{k} {v['ms_per_step']:.3f} / "
+                      f"{v['device_ms_per_step']:.3f} ms/step, "
+                      f"{v['rays_per_sec']:.1f} rays/s"
+                      for k, v in steps.items())
+          + f"; k = {K_FRAMES} / stock rays/s "
+          f"{steps['multiplier']['rays_per_sec'] / steps['stock']['rays_per_sec']:.3f}")
     k4 = runs["multiplier_kernel_a"]
     for rec, key in ((a_fwd, "fwd"), (a_bwd, "bwd")):
         rec[f"k{K_FRAMES}"] = {"rays": k4["rays"], "ms": k4[f"{key}_ms"],
@@ -3141,10 +3491,12 @@ def main(argv=None):
     syn_counts, syn_rec = run_synthetic(dev, card)
     rec_counts, rec_rec = run_recovery(dev, card)
     for rec in records:
-        rec["launches"] = (launches[rec["name"]] + eval_counts[rec["name"]]
+        rec["launches"] = (launches[rec["name"]] + scan_counts[rec["name"]]
+                           + eval_counts[rec["name"]]
                            + dpt_counts[rec["name"]] + mg_counts[rec["name"]]
                            + syn_counts[rec["name"]]
                            + rec_counts[rec["name"]])
+        rec["scan_launches"] = scan_counts[rec["name"]]
         rec["eval_launches"] = eval_counts[rec["name"]]
         rec["dpt_launches"] = dpt_counts[rec["name"]]
         rec["multigpu_launches"] = mg_counts[rec["name"]]
@@ -3152,7 +3504,9 @@ def main(argv=None):
         rec["recovery_launches"] = rec_counts[rec["name"]]
     print(json.dumps({"training": {
         "steps": steps, "multiplier_kernel_a": runs["multiplier_kernel_a"],
+        "multiplier_per_step_kernel_a": runs["multiplier_per_step_kernel_a"],
         "ssim_normal": ssim_normal}}))
+    print(json.dumps({"scan": scan_rec}))
     print(json.dumps({"eval": eval_rec}))
     print(json.dumps({"dpt": dpt_rec}))
     print(json.dumps({"multigpu": mg_rec}))

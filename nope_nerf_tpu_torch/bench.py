@@ -6,15 +6,18 @@ of the repository's ``bench.py``:
 The stock ``configs/default.yaml`` (1024 rays x 128 samples through the
 256-wide MLP, the reference-pair losses with their Chamfer argmins over two
 32,400-point clouds and the rgb_s reprojection, the four-group Adam) on 8
-in-memory frames of 540x960 (``synthetic.MemoryScene``), run step by step:
-``WARMUP_GROUPS`` groups of ``GROUP_STEPS`` steps, then ``MEASURE_GROUPS``
-groups timed by the host clock. Each group ends by reading the previous
-group's loss, and the timed run by reading the last one and a device
-synchronise. ``BENCH_TPU_OVERRIDES`` (a JSON dict) is merged into the
-config's ``tpu`` group for variant runs; with
-``{"rays_per_step_multiplier": k}`` each step takes k frames (frame 0 in
-the group's order, which owns the reference pair, then the k - 1 frames
-after it) and rays/s counts k * 1024 rays per step, as ``bench.py`` does.
+in-memory frames of 540x960 (``synthetic.MemoryScene``), on the scan path
+as ``bench.py`` times it: ``WARMUP_DISPATCHES`` dispatches of
+``SCAN_STEPS`` steps of ``training.trainer.make_epoch_step`` (on the card,
+replays of one captured CUDA graph of the step), then
+``MEASURE_DISPATCHES`` timed by the host clock, each followed by the read
+of the previous dispatch's loss (pipelined: the read waits for that
+dispatch alone, the next one already queued), and the last read.
+``BENCH_TPU_OVERRIDES`` (a JSON dict) is merged into the config's ``tpu``
+group for variant runs; with ``{"rays_per_step_multiplier": k}`` each step
+takes k frames (:func:`bench_indices`: frame 0 in the dispatch's order,
+which owns the reference pair, then the k - 1 frames after it) and rays/s
+counts k * 1024 rays per step, as ``bench.py`` does.
 
 Prints ONE JSON line, ``bench.py``'s:
   {"metric": "train_rays_per_sec", "value": N, "unit": "rays/s",
@@ -37,6 +40,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from .config import (
@@ -47,12 +51,12 @@ from .config import (
 )
 from .device import resolve_device
 from .synthetic import MemoryScene
-from .training.loop import (build_params, check_one_device,
+from .training.loop import (HostCopy, build_params, check_one_device,
                             scene_batch_arrays)
 from .training.trainer import (
     init_train_state,
+    make_epoch_step,
     make_render_cfg,
-    make_train_step,
 )
 
 BASELINE_RAYS_PER_SEC = 10240.0
@@ -61,9 +65,9 @@ BENCH_RETRY_BACKOFF_S = 60.0
 
 H, W = 540, 960
 N_FRAMES = 8
-GROUP_STEPS = 192
-WARMUP_GROUPS = 2
-MEASURE_GROUPS = 3  # 576 steps timed
+SCAN_STEPS = 192        # steps per dispatch, bench.py's
+WARMUP_DISPATCHES = 2
+MEASURE_DISPATCHES = 3  # 576 steps timed
 SEED = 0
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,6 +82,18 @@ def bench_config():
     return cfg
 
 
+def bench_indices(k=1):
+    """(idxs, refs) of one dispatch, ``bench.py``'s layout: frame
+    ``s % N_FRAMES`` at step s, paired with the next frame; with k > 1
+    the (SCAN_STEPS, k) indices add the k - 1 frames after it."""
+    idxs = np.arange(SCAN_STEPS) % N_FRAMES
+    if k > 1:
+        extra = (idxs[:, None] + 1 + np.arange(k - 1)[None]) % N_FRAMES
+        idxs = np.concatenate([idxs[:, None], extra], axis=1)
+    refs = (np.arange(SCAN_STEPS) + 1) % N_FRAMES
+    return idxs.astype(np.int32), refs.astype(np.int32)
+
+
 def run(device):
     """Measure and print the JSON line; returns rays/s."""
     dev = resolve_device(device)
@@ -90,8 +106,9 @@ def run(device):
     batch0 = scene_batch_arrays(scene, cfg, dev)
     params, init_c2w = build_params(cfg, scene,
                                     torch.Generator().manual_seed(SEED), dev)
-    state = init_train_state(params)
-    step_fn = make_train_step(cfg, make_render_cfg(cfg, dev), init_c2w)
+    state = init_train_state(params, capturable=dev.type == "cuda")
+    epoch_fn = make_epoch_step(cfg, make_render_cfg(cfg, dev), init_c2w,
+                               device=dev)
     groups = ("nerf", "pose", "focal", "distortion")
     scalars = {
         "weights": {"rgb_weight": 1.0, "depth_weight": 0.04,
@@ -105,36 +122,27 @@ def run(device):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     k = max(int(cfg["tpu"].get("rays_per_step_multiplier", 1) or 1), 1)
     n_rays = cfg["training"]["n_training_points"] * k  # per step
+    idxs, refs = bench_indices(k)
 
-    def group():
-        """GROUP_STEPS steps over the frames in order, each paired with the
-        next (and with k > 1 taking the k - 1 frames after it, bench.py's
-        (steps, k) layout); returns the last step's loss, still on the
-        device."""
-        aux = None
-        for s in range(GROUP_STEPS):
-            i = s % N_FRAMES
-            batch = dict(batch0, idx=[(i + j) % N_FRAMES for j in range(k)],
-                         ref_idx=(i + 1) % N_FRAMES)
-            _, aux = step_fn(state, batch, scalars, static, gen)
-        return aux["loss"]
+    def dispatch():
+        """One dispatch of SCAN_STEPS steps; a copy of its mean loss on its
+        way to the host."""
+        _, aux, _ = epoch_fn(state, batch0, idxs, refs, scalars, gen, static)
+        return HostCopy({"loss": aux["loss"]})
 
-    for _ in range(WARMUP_GROUPS):
-        float(group())
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    for _ in range(WARMUP_DISPATCHES):
+        last = dispatch()
+    float(last.wait()["loss"])
     t0 = time.perf_counter()
     prev = None
-    for _ in range(MEASURE_GROUPS):
-        loss = group()
+    for _ in range(MEASURE_DISPATCHES):
+        copy = dispatch()
         if prev is not None:
-            float(prev)
-        prev = loss
-    float(prev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+            float(prev.wait()["loss"])
+        prev = copy
+    float(prev.wait()["loss"])
     dt = time.perf_counter() - t0
-    rays_per_sec = MEASURE_GROUPS * GROUP_STEPS * n_rays / dt
+    rays_per_sec = MEASURE_DISPATCHES * SCAN_STEPS * n_rays / dt
     print(json.dumps({
         "metric": "train_rays_per_sec",
         "value": round(rays_per_sec, 1),

@@ -157,9 +157,14 @@ def adam_state_from_jax_leaves(optimizer, leaves):
     if i != len(leaves):
         raise ValueError(f"optimizer-state mismatch: {len(leaves)} leaves for "
                          f"{i} expected")
+    capturable = {id(p): bool(g.get("capturable", False))
+                  for g in optimizer.param_groups for p in g["params"]}
     for p, count, mu, nu in plan:
+        # a capturable Adam keeps its step count on the parameter's device
         optimizer.state[p] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
+            "step": torch.tensor(float(count), dtype=torch.float32,
+                                 device=p.device if capturable[id(p)]
+                                 else "cpu"),
             "exp_avg": torch.tensor(np.asarray(mu, np.float32),
                                     device=p.device),
             "exp_avg_sq": torch.tensor(np.asarray(nu, np.float32),

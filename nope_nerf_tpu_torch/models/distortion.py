@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from .pose import take_rows
+
 
 def init_distortion_params(num_cams: int, device=None) -> dict:
     """scales init 1, shifts init 0."""
@@ -15,15 +17,19 @@ def init_distortion_params(num_cams: int, device=None) -> dict:
     }
 
 
-def distortion_scale_shift(params, idx: int, num_cams: int,
+def distortion_scale_shift(params, idx, num_cams: int,
                            fix_scaleN: bool = True, learn_scale: bool = True,
                            learn_shift: bool = True):
-    """-> (scale (1,), shift (1,)) for camera ``idx`` (a host int). The
-    floor has zero gradient where it clamps; a pinned scale is the
-    constant 1."""
+    """-> (scale (1,), shift (1,)) for camera ``idx`` (a host int, or a
+    0-d int tensor on the parameters' device, read only there). The floor
+    has zero gradient where it clamps; a pinned scale is the constant 1."""
     scales = params["scales"] if learn_scale else params["scales"].detach()
     shifts = params["shifts"] if learn_shift else params["shifts"].detach()
-    scale = torch.clamp_min(scales[idx], 0.01)
-    if fix_scaleN and idx == num_cams - 1:
-        scale = torch.ones_like(scale)
-    return scale, shifts[idx]
+    scale = torch.clamp_min(take_rows(scales, idx), 0.01)
+    if fix_scaleN:
+        if torch.is_tensor(idx):
+            scale = torch.where(idx == num_cams - 1, torch.ones_like(scale),
+                                scale)
+        elif idx == num_cams - 1:
+            scale = torch.ones_like(scale)
+    return scale, take_rows(shifts, idx)

@@ -20,15 +20,25 @@ def _maybe_stop(x, learn: bool):
     return x if learn else x.detach()
 
 
+def take_rows(table, idx):
+    """``table[idx]`` for a host int or an int tensor of any shape on the
+    table's device (a 0-d one gives one row): a gather that reads no index
+    on the host, so a captured step can select its frame on the device."""
+    if not torch.is_tensor(idx):
+        return table[idx]
+    rows = torch.index_select(table, 0, idx.reshape(-1))
+    return rows.reshape(tuple(idx.shape) + tuple(table.shape[1:]))
+
+
 def pose_c2w(params, idx, init_c2w=None, learn_R=True, learn_t=True):
-    """c2w (4, 4) for camera ``idx`` (an int, or (B,) -> (B, 4, 4)):
-    ``make_c2w(r, t) @ init_c2w[idx]`` in delta-pose mode; ``learn_R`` /
-    ``learn_t`` False stop the gradient."""
-    r = _maybe_stop(params["r"], learn_R)[idx]
-    t = _maybe_stop(params["t"], learn_t)[idx]
+    """c2w (4, 4) for camera ``idx`` (an int or a 0-d int tensor, or (B,)
+    -> (B, 4, 4)): ``make_c2w(r, t) @ init_c2w[idx]`` in delta-pose mode;
+    ``learn_R`` / ``learn_t`` False stop the gradient."""
+    r = take_rows(_maybe_stop(params["r"], learn_R), idx)
+    t = take_rows(_maybe_stop(params["t"], learn_t), idx)
     c2w = make_c2w(r, t)
     if init_c2w is not None:
-        c2w = c2w @ init_c2w[idx]
+        c2w = c2w @ take_rows(init_c2w, idx)
     return c2w
 
 

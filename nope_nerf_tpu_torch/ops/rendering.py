@@ -47,13 +47,33 @@ def stratified_zvals(z_val, noise):
     return lo + (hi - lo) * noise
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of a tensor with no zero entry.
+    torch's backward first asks the host whether the input holds a zero, a
+    synchronisation that a CUDA graph of the step cannot capture; this one
+    runs torch's formula for that case (the reversed cumulative sum of
+    output * grad over the input) without asking."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return (y * g).flip(-1).cumsum(-1).flip(-1) / x
+
+
 def composite(rgb, alpha, z_val, white_background=False):
     """rgb (N, S, 3), alpha (N, S), z (N, S) -> (rgb_values (N, 3),
     dist_pred (N,), weights (N, S)); weights = alpha * exclusive cumprod of
-    (1 - alpha + 1e-6)."""
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + EPS], -1),
-        dim=-1)[..., :-1]
+    (1 - alpha + 1e-6), whose factors are at least 1e-6 for alpha in
+    [0, 1]."""
+    trans = _CumprodNonzero.apply(
+        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + EPS],
+                  -1))[..., :-1]
     weights = alpha * trans
     rgb_values = torch.sum(weights[..., None] * rgb, dim=-2)
     dist_pred = torch.sum(weights * z_val, dim=-1)

@@ -82,7 +82,9 @@ def ssim_loss_map(x, y, c1=C1, c2=C2):
         return F.pad(a.permute(2, 0, 1)[None], (1, 1, 1, 1),
                      mode="reflect")[0].permute(1, 2, 0)
 
-    box = torch.full((3, 3), 1.0 / 9.0)
+    # made on the images' device: a copy from host memory cannot be
+    # captured into a CUDA graph of the step
+    box = torch.full((3, 3), 1.0 / 9.0, device=x.device)
 
     def pool(a):
         return _depthwise(a, box, 0)

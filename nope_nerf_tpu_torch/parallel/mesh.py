@@ -220,6 +220,14 @@ def all_reduce_grads(grads, mesh: RayMesh | None):
         off += g.numel()
 
 
+def warm_up_collectives(mesh: RayMesh | None):
+    """One all-reduce on the mesh's device (no-op without a mesh), so that
+    the communicator exists before a CUDA graph of the step captures the
+    step's all-reduces (NCCL; gloo's cannot be captured)."""
+    if mesh is not None:
+        dist.all_reduce(torch.zeros(1, device=mesh.device))
+
+
 def shard_train_step(cfg, render_cfg, init_c2w, mesh: RayMesh):
     """The training step under ``mesh`` (the JAX ``shard_train_step``):
     :func:`..training.trainer.make_train_step` with the mesh."""

@@ -7,12 +7,19 @@ Trains the stock configuration (``configs/default.yaml`` with each
 ``--set``: a bare key sets the ``tpu:`` group, e.g. ``--set parity=True``,
 a dotted one its group, e.g. ``--set tpu.rays_per_step_multiplier=4`` or
 ``--set training.with_ssim=True``) on the in-memory 8-frame 540x960 scene
-(k > 1 frames per step in the bench entry's layout): a few warm-up steps,
-then ``--steps`` steps timed on the host clock around a device
-synchronise, then the same number under ``torch.profiler``. Prints ms per step, rays/s, the device's busy share of
-the profiled window and the device time per kernel, and writes the table
-and a Chrome trace under ``--out``. ``--sync-debug`` first lists where one
-step synchronises the host with the device. ``--render`` profiles
+(k > 1 frames per step in the bench entry's layout). With the stock
+``tpu.epoch_scan: True`` it runs the scan path, as
+``tools/profile_train_step.py`` does: each run is one call of
+``training.trainer.make_epoch_step`` over ``--steps`` steps (on the card,
+replays of one captured CUDA graph of the step); ``--set epoch_scan=False``
+runs the per-step path. One warm-up run (on the scan path it captures the
+graph), then ``--steps`` steps timed on the host clock around a device
+synchronise, then the same number under ``torch.profiler``. Prints the wall
+ms per step, rays/s, the device's busy ms per step (the replays' kernels on
+the scan path) and its share of the profiled window, and the device time
+per kernel, and writes the table and a Chrome trace under ``--out``.
+``--sync-debug`` first lists where one run synchronises the host with the
+device. ``--render`` profiles
 ``--steps`` full 540x960 renders of the scene's first view through
 ``render_image`` (the eval render: Kernel A's no-save forward) with random
 weights (seed 0) instead of training steps.
@@ -35,6 +42,7 @@ from .training.scheduler import Scheduler
 from .training.trainer import (
     describe_routes,
     init_train_state,
+    make_epoch_step,
     make_render_cfg,
     make_train_step,
 )
@@ -49,7 +57,7 @@ def main(argv=None):
                          "read as YAML)")
     ap.add_argument("--sync-debug", action="store_true",
                     help="list the operations that synchronise with the "
-                         "device during one step")
+                         "device during one run of --steps steps")
     ap.add_argument("--render", action="store_true",
                     help="profile full-image renders instead of steps")
     args = ap.parse_args(argv)
@@ -73,12 +81,12 @@ def main(argv=None):
     batch0 = scene_batch_arrays(scene, cfg, dev)
     params, init_c2w = build_params(cfg, scene, torch.Generator().manual_seed(0),
                                     dev)
-    state = init_train_state(params)
+    scan = bool(cfg["tpu"].get("epoch_scan", True))
+    state = init_train_state(params, capturable=scan)
     render_cfg = make_render_cfg(cfg, dev)
     n_pc = (int(batch0["dpts"].shape[1] / cfg["training"]["pc_ratio"])
             * int(batch0["dpts"].shape[2] / cfg["training"]["pc_ratio"]))
     print(describe_routes(cfg, render_cfg, dev, n_pc))
-    step = make_train_step(cfg, render_cfg, init_c2w)
     sched = Scheduler(cfg)
     w_l1, w_l2 = sched.rgb_loss_switch(0)
     scalars = {"weights": sched.weights(0), "w_l1": w_l1, "w_l2": w_l2,
@@ -87,17 +95,31 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     n = scene.N_imgs
     k = max(int(cfg["tpu"].get("rays_per_step_multiplier", 1) or 1), 1)
+    frames = [[(i + j) % n for j in range(k)] if k > 1 else i % n
+              for i in range(args.steps)]
+    refs = [scene.sample_ref_idx(i % n) for i in range(args.steps)]
+    if scan:
+        epoch_fn = make_epoch_step(cfg, render_cfg, init_c2w, device=dev)
+        print(f"epoch_scan: {epoch_fn.route}, {args.steps} steps per call")
 
-    def run(steps):
-        losses = []
-        for i in range(steps):
-            batch = dict(batch0, idx=[(i + j) % n for j in range(k)],
-                         ref_idx=scene.sample_ref_idx(i % n))
-            _, aux = step(state, batch, scalars, static, gen)
-            losses.append(aux["loss"])
-        return losses
+        def run(steps):
+            assert steps == args.steps  # one captured graph's epoch
+            epoch_fn(state, batch0, frames, refs, scalars, gen, static)
+            return list(epoch_fn.steps["loss"])
+    else:
+        step = make_train_step(cfg, render_cfg, init_c2w)
 
-    run(3)  # warm-up: allocator pools, cuBLAS handles, the kernel build
+        def run(steps):
+            losses = []
+            for i in range(steps):
+                batch = dict(batch0, idx=frames[i], ref_idx=refs[i])
+                _, aux = step(state, batch, scalars, static, gen)
+                losses.append(aux["loss"])
+            return losses
+
+    # warm-up: allocator pools, cuBLAS handles, the kernel build (and on
+    # the scan path the warm-up step and the capture)
+    run(args.steps)
     if args.sync_debug:
         import warnings
 
@@ -105,23 +127,29 @@ def main(argv=None):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
-            run(1)
+            run(args.steps)
             torch.cuda.set_sync_debug_mode("default")
         sites = sorted({f"{w.filename}:{w.lineno}" for w in caught})
-        print(f"synchronising operations in one step: {len(caught)} at "
+        print(f"synchronising operations in {args.steps} steps: "
+              f"{len(caught)} at "
               f"{len(sites)} sites")
         for site in sites:
             print("  " + site)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    events[0].record()
     losses = run(args.steps)
+    events[1].record()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     assert all(np.isfinite(float(x)) for x in losses)
     ms = 1e3 * dt / args.steps
     rays = cfg["training"]["n_training_points"] * k
-    print(f"steps without a per-step sync: {ms:.3f} ms/step, "
-          f"{rays * 1e3 / ms:.1f} rays/s")
+    print(f"steps without a per-step sync: {ms:.3f} ms/step wall, "
+          f"{rays * 1e3 / ms:.1f} rays/s; "
+          f"{events[0].elapsed_time(events[1]) / args.steps:.3f} ms/step "
+          "on the device's timeline (CUDA events)")
 
     _profile(run, args.steps, args.out, "step")
 

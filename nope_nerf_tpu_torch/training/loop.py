@@ -7,14 +7,32 @@ visualisations and reprojection-pair dumps, ``tpu.debug_nans`` and
 
 Same host-side draws as the JAX loop: ``np.random.permutation`` for the
 frame order and ``scene.sample_ref_idx(i, pyrng)`` for the reference
-frames, both seeded with ``training.seed``. The JAX package's ``epoch_scan``
-mode exists to amortise TPU dispatch; the port always runs step by step, so
-its triggers are the JAX loop's non-scan ones: after step ``it``, a pair
-dump when ``it % vis_reprojection_every == 0`` (and the step uses rgb_s),
-a checkpoint when ``it % checkpoint_every == 0``, a backup when
-``it % backup_every == 0`` and a visualisation into
-``rendering/%04d_vis`` when ``it % visualize_every == 0`` -- not the scan
-path's epoch-boundary crossings.
+frames, both seeded with ``training.seed``.
+
+``tpu.epoch_scan`` (True in the stock config) picks the JAX loop's scan
+branch: each epoch is one call of :func:`.trainer.make_epoch_step` (on the
+card, n replays of one captured CUDA graph of the step; eager steps on the
+CPU, under ``tpu.debug_nans`` and over gloo, the loop's first lines saying
+which and why). Its metrics come back as one device-to-host copy per epoch
+and are processed one epoch late, as the JAX loop's
+``_process_epoch_metrics`` does: epoch e's means, print line and
+``train/*`` scalars at the JAX scan loop's print condition, its pose
+accuracy (from epoch e's pose table), ``train/psnr``, the plateau update
+and the learning rates are handled while epoch e + 1 runs, so the plateau
+detector sees each PSNR one epoch late; under ``scheduling_mode: reset``
+or ``tpu.eager_metrics`` each epoch is processed before the next is
+queued. After an epoch ending at step ``it`` that began at ``it0``, a
+pair dump (of the epoch's last frame and its reference), a checkpoint, a
+backup and a visualisation fire when the epoch crossed a multiple of
+their period: ``(it0 - 1) // every != it // every``. The last epoch's
+metrics are drained after the loop.
+
+``tpu.epoch_scan: False`` runs step by step with the JAX loop's non-scan
+triggers: after step ``it``, a pair dump when ``it % vis_reprojection_every
+== 0`` (and the step uses rgb_s), a checkpoint when ``it %
+checkpoint_every == 0``, a backup when ``it % backup_every == 0`` and a
+visualisation into ``rendering/%04d_vis`` when ``it % visualize_every ==
+0``.
 
 With ``tpu.rays_per_step_multiplier`` k > 1 every step takes k frames,
 drawn in the JAX loop's order: the epoch's permutation (frame 0 of each
@@ -66,6 +84,7 @@ from .trainer import (
     compute_loss,
     describe_routes,
     init_train_state,
+    make_epoch_step,
     make_render_cfg,
     make_train_step,
 )
@@ -238,9 +257,83 @@ def save_all(checkpoint_io, state, sched_state, cfg, suffix=""):
                                epoch_it=sc["epoch_it"], it=sc["it"])
 
 
+class HostCopy:
+    """Device tensors copied to the host without waiting for the device
+    (pinned buffers on CUDA and an event after the copies); :meth:`wait`
+    waits for the copies alone, not for work queued after them."""
+
+    def __init__(self, tensors):
+        self.host, self.event = {}, None
+        for k, t in tensors.items():
+            if t.is_cuda:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                self.host[k] = h.copy_(t, non_blocking=True)
+                self.event = self.event or torch.cuda.Event()
+            else:
+                self.host[k] = t.detach().clone()
+        if self.event is not None:
+            self.event.record()
+
+    def wait(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host
+
+
+class DeviceTimer:
+    """Seconds on the device's timeline from :meth:`__init__` to
+    :meth:`stop`: the span between two CUDA events, read once the work
+    queued between them is done, idle time between kernels included (so
+    near the kernels' time on the scan path, where the host queues ahead,
+    and near the wall time on the per-step path, which waits for each
+    step); None off CUDA, where no device time is measured."""
+
+    def __init__(self, device):
+        self.events = None
+        if device.type == "cuda":
+            self.events = [torch.cuda.Event(enable_timing=True)
+                           for _ in range(2)]
+            self.events[0].record()
+
+    def stop(self):
+        if self.events is not None:
+            self.events[1].record()
+
+    def seconds(self):
+        if self.events is None:
+            return None
+        self.events[1].synchronize()
+        return self.events[0].elapsed_time(self.events[1]) / 1e3
+
+
+def epoch_record(epoch, it, n, loss, step_losses, psnr, wall, device,
+                 n_rays):
+    """One epoch's history entry: ``ms_per_step`` and ``rays_per_sec`` from
+    the host clock's ``wall`` seconds, ``device_ms_per_step`` from the
+    :class:`DeviceTimer` span ``device`` (None when not measured)."""
+    return {"epoch": epoch, "it": it, "steps": n, "loss": loss,
+            "step_losses": step_losses, "psnr": psnr,
+            "ms_per_step": 1e3 * wall / n, "rays_per_sec": n * n_rays / wall,
+            "device_ms_per_step": None if device is None
+            else 1e3 * device / n}
+
+
+def epoch_line(rec):
+    """The print line of one epoch's history entry."""
+    dev = rec["device_ms_per_step"]
+    return (f"[Epoch {rec['epoch']:02d}] it={rec['it']:03d}, "
+            f"loss={rec['loss']:.8f}, psnr={rec['psnr']:.4f}, "
+            f"ms/step={rec['ms_per_step']:.3f}"
+            + ("" if dev is None else f" (device {dev:.3f})")
+            + f", rays/s={rec['rays_per_sec']:.0f}")
+
+
 def pose_metrics(pose_params, init_c2w, gt_poses, pcfg):
     """(ATE, RPE translation x100, RPE rotation in degrees) of the learned
-    poses after their Sim(3) alignment to ``gt_poses``."""
+    poses after their Sim(3) alignment to ``gt_poses``; computed on the
+    pose table's device (the host for a :class:`HostCopy` of it)."""
+    if init_c2w is not None:
+        init_c2w = init_c2w.to(pose_params["r"].device)
     learned = all_poses(pose_params, init_c2w, pcfg["learn_R"],
                         pcfg["learn_t"]).detach().cpu().numpy()
     aligned = align_ate_c2b_use_a2b(learned, gt_poses)
@@ -265,7 +358,8 @@ def train(cfg, max_epochs=None, scene=None, device="cuda", mesh=None):
     any, saves every ``checkpoint_every`` / ``backup_every`` steps and at
     the end. Returns (state, scheduler, scene, history): history has one
     dict per epoch run (epoch, it, steps, loss, step_losses, psnr,
-    ms_per_step, rays_per_sec, and ate_trans, rpe_trans, rpe_rot in the
+    ms_per_step and rays_per_sec on the host clock, device_ms_per_step on
+    the device's (None off CUDA), and ate_trans, rpe_trans, rpe_rot in the
     epochs that score the poses).
 
     With ``tpu.profile_dir`` the whole run is traced by one
@@ -330,7 +424,12 @@ def _train(cfg, max_epochs, scene, device, mesh):
     checkpoint_io = CheckpointIO(out_dir)
     params, ck_scalars, opt_leaves = restore(checkpoint_io, cfg, params,
                                              device)
-    state = init_train_state(params)
+    tpu = cfg.get("tpu", {}) or {}
+    epoch_scan = bool(tpu.get("epoch_scan", True))
+    # the scan path's graphs replay a capturable Adam; the eager scan route
+    # on the card keeps the same optimiser, so both routes are one step
+    state = init_train_state(params, capturable=epoch_scan
+                             and device.type == "cuda")
     if opt_leaves is not None:
         try:
             adam_state_from_jax_leaves(state.optimizer, opt_leaves)
@@ -342,24 +441,116 @@ def _train(cfg, max_epochs, scene, device, mesh):
     sched_state = ScheduleState.from_dict(ck_scalars,
                                           tcfg["scheduling_start"])
     sched = Scheduler(cfg, sched_state)
-    step_fn = make_train_step(cfg, render_cfg, init_c2w, mesh=mesh)
+    if epoch_scan:
+        epoch_fn = make_epoch_step(cfg, render_cfg, init_c2w, mesh=mesh,
+                                   device=device)
+        say("nope_nerf_tpu_torch: epoch_scan: " + (
+            "cuda graph (training/capture.py::StepGraphs: one captured step "
+            "per static flags, n, k, replayed n times per epoch)"
+            if epoch_fn.route == "cuda graph" else
+            f"eager ({epoch_fn.why})"))
+    else:
+        step_fn = make_train_step(cfg, render_cfg, init_c2w, mesh=mesh)
     print_every = tcfg["print_every"]
     checkpoint_every = tcfg["checkpoint_every"] or 0
     backup_every = tcfg["backup_every"] or 0
     eval_pose_every = tcfg["eval_pose_every"] or 0
+    eval_img_every = tcfg["eval_img_every"] or 0
     visualize_every = tcfg["visualize_every"] or 0
     vis_reproj_every = tcfg.get("vis_reprojection_every", 0) or 0
     render_path = os.path.join(out_dir, "rendering")
     log_ss_per_view = tcfg.get("log_scale_shift_per_view", False)
     gt_poses = getattr(scene, "c2ws", None)
-    mult = max(int((cfg.get("tpu", {}) or {}).get(
-        "rays_per_step_multiplier", 1) or 1), 1)
+    mult = max(int(tpu.get("rays_per_step_multiplier", 1) or 1), 1)
     n_rays = tcfg["n_training_points"] * mult  # per step
     scale_dict, shift_dict = {}, {}
     history = []
     # rays/s between two print_every steps, logged at them as
     # perf/rays_per_sec (the JAX loop's counter)
     throughput = Throughput(n_rays)
+    pose_eval_on = (eval_pose_every > 0 and gt_poses is not None
+                    and cfg["pose"]["learn_pose"])
+
+    def end_of_epoch(epoch, it, psnr, pose_params):
+        """The per-epoch metrics that follow the epoch's losses: pose
+        accuracy, ``train/psnr``, the plateau update (with the 'reset'
+        mode's field re-init) and the learning rates; returns the pose
+        metrics, if any."""
+        out = {}
+        if pose_eval_on and epoch % eval_pose_every == 0:
+            ate, rpe_t, rpe_r = pose_metrics(pose_params, init_c2w, gt_poses,
+                                             cfg["pose"])
+            out = {"ate_trans": ate, "rpe_trans": rpe_t, "rpe_rot": rpe_r}
+            for k, v in out.items():
+                logger.add_scalar(f"eval/{k}", v, it)
+        if eval_img_every > 0 and epoch % eval_img_every == 0:
+            logger.add_scalar("train/psnr", psnr, it)
+        switched = sched.update_plateau(epoch, psnr)
+        if switched and tcfg.get("scheduling_mode") == "reset":
+            # a fresh field in the same tensors, so Adam keeps its moments
+            # (the JAX loop keeps opt_state across the re-init) and a
+            # captured step reads the new values
+            fresh = init_nerf_params(init_gen, cfg, device)
+            with torch.no_grad():
+                for name, layer in state.params["nerf"].items():
+                    for k, t in layer.items():
+                        t.copy_(fresh[name][k])
+            replicate([t for layer in state.params["nerf"].values()
+                       for t in layer.values()], mesh)
+        for g, v in sched.lrs(epoch).items():
+            logger.add_scalar(f"train/lr_{g}", v, it)
+        return out
+
+    def process_epoch(pending, t_next=None):
+        """The host's share of one scanned epoch (the JAX loop's
+        ``_process_epoch_metrics``): its epoch means, the print line and
+        the ``train/*`` scalars at the JAX scan loop's print condition,
+        the per-view distortion, then :func:`end_of_epoch`. Pipelined, it
+        runs one epoch behind the device. The epoch's wall time runs on
+        the host clock from its start to ``t_next``, the next epoch's start
+        (all of its host work included), or else to the moment its metrics
+        reached the host."""
+        p_epoch, p_it, keys, copy, p_order, timing, t_start = pending
+        host = copy.wait()
+        aux_mean, steps = host["mean"], host["steps"]
+        mean = {k: float(aux_mean[j]) for j, k in enumerate(keys)}
+        col = {k: j for j, k in enumerate(keys)}
+        logger.add_scalar("train/loss_pc_epoch", mean["loss_pc"], p_it)
+        logger.add_scalar("train/loss_rgbs_epoch", mean["loss_rgb_s"], p_it)
+        if log_ss_per_view:
+            for v_idx, sc, sh in zip(p_order, steps[:, col["scale"]],
+                                     steps[:, col["shift"]]):
+                scale_dict["view %02d" % v_idx] = float(sc)
+                shift_dict["view %02d" % v_idx] = float(sh)
+        if print_every > 0 and (p_it // n_views) % max(
+                print_every // max(n_views, 1), 1) == 0:
+            rate = throughput.rate()
+            say(f"[Epoch {p_epoch:02d}] it={p_it:03d}, "
+                f"loss={mean['loss']:.8f}, rays/s={rate:.0f}")
+            throughput.reset()
+            for tag, v in mean.items():
+                logger.add_scalar(f"train/{tag}", v, p_it)
+            logger.add_scalar("perf/rays_per_sec", rate, p_it)
+            for vname, v in scale_dict.items():
+                logger.add_scalar(f"train/scale{vname}", v, p_it)
+            for vname, v in shift_dict.items():
+                logger.add_scalar(f"train/shift{vname}", v, p_it)
+        psnr = float(mse2psnr(mean["l2_mean"]))
+        wall = (time.perf_counter() if t_next is None else t_next) - t_start
+        rec = epoch_record(p_epoch, p_it, steps.shape[0], mean["loss"],
+                           [float(x) for x in steps[:, col["loss"]]], psnr,
+                           wall, timing.seconds(), n_rays)
+        say(epoch_line(rec))
+        pose = {k: host[f"pose_{k}"] for k in ("r", "t")}
+        rec.update(end_of_epoch(p_epoch, p_it, psnr, pose))
+        history.append(rec)
+
+    # the scan path's epoch metrics lag the device by one epoch unless the
+    # JAX loop syncs eagerly: under scheduling_mode reset (a lagged re-init
+    # would discard one trained epoch) or tpu.eager_metrics
+    eager_metrics = (tcfg.get("scheduling_mode") == "reset"
+                     or bool(tpu.get("eager_metrics", False)))
+    pending_prev = None
 
     while sched_state.epoch_it < sched.total_epochs:
         sched_state.epoch_it += 1
@@ -378,10 +569,62 @@ def _train(cfg, max_epochs, scene, device, mesh):
             # keeps the epoch order and owns the reference pair
             frames = np.concatenate([frames, np.random.randint(
                 0, n_views, size=(n_views, mult - 1))], axis=1)
+        if epoch_scan:
+            # the whole epoch queued on the device (on the card: n replays
+            # of the captured step); its metrics come back as one copy
+            it0 = sched_state.it + 1
+            t_start = time.perf_counter()
+            timing = DeviceTimer(device)
+            try:
+                state, aux_mean, _ = epoch_fn(
+                    state, batch0, frames if mult > 1 else order,
+                    ref_order, scalars, step_gen, static)
+            except FloatingPointError as e:
+                raise FloatingPointError(
+                    f"training epoch {epoch} (steps it={it0}.."
+                    f"{it0 + n_views - 1}): {e}") from e
+            timing.stop()
+            sched_state.it += n_views
+            it = sched_state.it
+            throughput.tick(n_views)
+            keys = list(epoch_fn.steps)
+            # epoch e's pose table, copied before epoch e+1 can move it
+            copy = HostCopy({
+                "mean": torch.stack([aux_mean[k] for k in keys]),
+                "steps": torch.stack([epoch_fn.steps[k] for k in keys], 1),
+                "pose_r": state.params["pose"]["r"].detach(),
+                "pose_t": state.params["pose"]["t"].detach()})
+            pending = (epoch, it, keys, copy, order, timing, t_start)
+            if eager_metrics:
+                process_epoch(pending)
+            else:
+                if pending_prev is not None:
+                    process_epoch(pending_prev, t_next=t_start)
+                pending_prev = pending
+
+            def crossed(every):
+                return every > 0 and (it0 - 1) // every != it // every
+
+            if crossed(vis_reproj_every) and static.get("use_rgb_s"):
+                dump_pair_images(state, cfg, render_cfg, init_c2w, batch0,
+                                 int(order[-1]), int(ref_order[-1]), scalars,
+                                 it, render_path, mesh)
+            if lead and crossed(checkpoint_every):
+                save_all(checkpoint_io, state, sched_state, cfg)
+            if lead and crossed(backup_every):
+                save_all(checkpoint_io, state, sched_state, cfg,
+                         suffix=f"_{it}")
+            if crossed(visualize_every):
+                render_visdata(state, cfg, render_cfg, init_c2w, scene,
+                               tcfg["vis_resolution"], it,
+                               os.path.join(render_path, "%04d_vis" % it),
+                               mesh=mesh)
+            continue
         steps = {"loss": [], "l2_mean": [], "loss_pc": [], "loss_rgb_s": []}
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
+        timing = DeviceTimer(device)
         for step_frames, ref_idx in zip(frames, ref_order):
             sched_state.it += 1
             it = sched_state.it
@@ -426,47 +669,23 @@ def _train(cfg, max_epochs, scene, device, mesh):
                                tcfg["vis_resolution"], it,
                                os.path.join(render_path, "%04d_vis" % it),
                                mesh=mesh)
+        timing.stop()
         dt = time.perf_counter() - t0
-        n = len(order)
         psnr = float(mse2psnr(float(np.mean(steps["l2_mean"]))))
-        rec = {"epoch": epoch, "it": sched_state.it, "steps": n,
-               "loss": float(np.mean(steps["loss"])),
-               "step_losses": steps["loss"], "psnr": psnr,
-               "ms_per_step": 1e3 * dt / n,
-               "rays_per_sec": n * n_rays / dt}
-        say(f"[Epoch {epoch:02d}] it={sched_state.it:03d}, "
-            f"loss={rec['loss']:.8f}, psnr={psnr:.4f}, "
-            f"ms/step={rec['ms_per_step']:.3f}, "
-            f"rays/s={rec['rays_per_sec']:.0f}")
+        rec = epoch_record(epoch, sched_state.it, len(order),
+                           float(np.mean(steps["loss"])), steps["loss"], psnr,
+                           dt, timing.seconds(), n_rays)
+        say(epoch_line(rec))
         logger.add_scalar("train/loss_pc_epoch", np.mean(steps["loss_pc"]),
                           sched_state.it)
         logger.add_scalar("train/loss_rgbs_epoch",
                           np.mean(steps["loss_rgb_s"]), sched_state.it)
-        if (eval_pose_every > 0 and epoch % eval_pose_every == 0
-                and gt_poses is not None and cfg["pose"]["learn_pose"]):
-            ate, rpe_t, rpe_r = pose_metrics(state.params["pose"], init_c2w,
-                                             gt_poses, cfg["pose"])
-            rec.update(ate_trans=ate, rpe_trans=rpe_t, rpe_rot=rpe_r)
-            logger.add_scalar("eval/ate_trans", ate, sched_state.it)
-            logger.add_scalar("eval/rpe_trans", rpe_t, sched_state.it)
-            logger.add_scalar("eval/rpe_rot", rpe_r, sched_state.it)
+        rec.update(end_of_epoch(epoch, sched_state.it, psnr,
+                                state.params["pose"]))
         history.append(rec)
-        if (tcfg["eval_img_every"] or 0) > 0 and (
-                epoch % tcfg["eval_img_every"]) == 0:
-            logger.add_scalar("train/psnr", psnr, sched_state.it)
-        switched = sched.update_plateau(epoch, psnr)
-        if switched and tcfg.get("scheduling_mode") == "reset":
-            # a fresh field in the same tensors, so Adam keeps its moments
-            # (the JAX loop keeps opt_state across the re-init)
-            fresh = init_nerf_params(init_gen, cfg, device)
-            with torch.no_grad():
-                for name, layer in state.params["nerf"].items():
-                    for k, t in layer.items():
-                        t.copy_(fresh[name][k])
-            replicate([t for layer in state.params["nerf"].values()
-                       for t in layer.values()], mesh)
-        for g, v in sched.lrs(epoch).items():
-            logger.add_scalar(f"train/lr_{g}", v, sched_state.it)
+    if pending_prev is not None:
+        # drain the pipeline: the last epoch's metrics are still pending
+        process_epoch(pending_prev)
     if lead:
         save_all(checkpoint_io, state, sched_state, cfg)
     logger.close()

@@ -3,11 +3,17 @@
 
 The parameters are one dict {'nerf', 'pose', 'focal', 'distortion'} of leaf
 tensors, differentiated by one backward pass and updated by one
-``torch.optim.Adam`` with a param group per top-level key. Where the JAX
-step selected with ``jnp.where`` on traced scalars (the frame-order swap,
-the pinned last scale), the port branches on host ints. Random draws (ray
+``torch.optim.Adam`` with a param group per top-level key. The frame
+indices are host ints (the step-by-step path, which branches on them) or
+int tensors on the device (:func:`make_epoch_step`, which selects the
+frames by gathers and the frame-order swap and the pinned last scale by
+``torch.where``, as the JAX step does on traced scalars). Random draws (ray
 indices, stratified jitter) come from an explicit ``torch.Generator`` on
 the tensors' device.
+
+:func:`make_epoch_step` is the twin of the JAX ``make_epoch_step``: one
+epoch of steps, which on the card are replays of one captured CUDA graph
+of the step (``training/capture.py``).
 
 Under a ray mesh (``parallel/mesh.py``) every rank draws and sets up the
 whole batch, renders its block of the rays, and reads global loss values; the
@@ -30,10 +36,12 @@ from ..geometry.rays import (
 from ..losses.losses import total_loss
 from ..models.distortion import distortion_scale_shift
 from ..models.intrinsics import focal_fxfy
-from ..models.pose import pose_c2w
+from ..models.pose import pose_c2w, take_rows
 from ..ops.interp import grid_sample, resize_bilinear, resize_nearest
 from ..ops.rendering import concat_rays, ray_setup, render_ray_batch
-from ..parallel.mesh import all_reduce_grads, shard_rays
+from ..parallel.mesh import (all_reduce_grads, shard_rays,
+                             warm_up_collectives)
+from .capture import StepGraphs, bound_tensors
 
 GROUPS = ("nerf", "pose", "focal", "distortion")
 
@@ -48,23 +56,44 @@ def group_tensors(group_params):
 
 class TrainState:
     """Parameters and their Adam optimiser (betas 0.9 / 0.999, eps 1e-8,
-    one param group per top-level key; learning rates are set every step
-    from the schedule)."""
+    one param group per top-level key; learning rates are set from the
+    schedule by :func:`set_lrs`).
 
-    def __init__(self, params):
+    With ``capturable`` (CUDA parameters only) the optimiser is
+    ``Adam(capturable=True)``: its step counts live on the device and each
+    group's learning rate is a 0-d device tensor, so that a CUDA graph of
+    the step replays the update at the rates :func:`set_lrs` writes.
+    """
+
+    def __init__(self, params, capturable=False):
         self.params = params
         groups = []
         for g in GROUPS:
             ts = group_tensors(params[g])
             for t in ts:
                 t.requires_grad_(True)
-            groups.append({"params": ts, "name": g, "lr": 0.0})
+            lr = (torch.zeros((), dtype=torch.float32, device=ts[0].device)
+                  if capturable else 0.0)
+            groups.append({"params": ts, "name": g, "lr": lr})
+        extra = {"capturable": True, "foreach": True} if capturable else {}
         self.optimizer = torch.optim.Adam(groups, betas=(0.9, 0.999),
-                                          eps=1e-8)
+                                          eps=1e-8, **extra)
 
 
-def init_train_state(params):
-    return TrainState(params)
+def init_train_state(params, capturable=False):
+    return TrainState(params, capturable=capturable)
+
+
+def set_lrs(optimizer, lrs):
+    """Each param group's learning rate from ``lrs`` {group name: float},
+    written into the group's tensor when it has one (a capturable Adam,
+    whose graphs read that storage), else set as a float."""
+    for group in optimizer.param_groups:
+        lr = float(lrs[group["name"]])
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def _apply_distortion(depth, scale, shift, shift_first):
@@ -92,6 +121,15 @@ def _sample_ray_idx(batch, n_points, H, W, fast_sampling, generator):
     return sample_ray_idx(n_points, (H, W), fast_sampling, generator, dev)
 
 
+def frame_rows(frames, f, flat_idx):
+    """Rows ``flat_idx`` of frame ``f`` (a host int or a 0-d int tensor)
+    of an (N, H, W[, C]) array, as one gather of ``frames`` viewed as
+    (N * H * W[, C]): no frame is copied and no index read on the host."""
+    n, h, w = frames.shape[:3]
+    flat = frames.reshape((n * h * w,) + tuple(frames.shape[3:]))
+    return flat[f * (h * w) + flat_idx]
+
+
 def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
                  render_cfg, generator=None, mesh=None):
     """The loss of one step and its aux dict (the JAX ``compute_loss``).
@@ -115,16 +153,20 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
     (:func:`..parallel.mesh.shard_rays`) and runs the Chamfer argmins on its
     query rows; the loss and aux values are global on every rank.
     """
-    frames = [int(i) for i in np.ravel(batch["idx"])]
+    if torch.is_tensor(batch["idx"]):
+        # device indices (the epoch step's): every frame is selected by a
+        # gather on the device, and the frame order's swap by torch.where
+        frames = batch["idx"].reshape(-1)
+    else:
+        frames = [int(i) for i in np.ravel(batch["idx"])]
     idx = frames[0]
     ref_idx = batch["ref_idx"]
-    img = batch["imgs"][idx]
-    depth_raw = batch["dpts"][idx]
+    imgs, dpts = batch["imgs"], batch["dpts"]
     camera_mat_gt = batch["camera_mat_gt"]
     scale_mat = batch["scale_mat"]
-    dev = img.device
-    H, W, _ = img.shape
-    hd, wd = depth_raw.shape
+    dev = imgs.device
+    H, W = imgs.shape[1:3]
+    hd, wd = dpts.shape[1:3]
 
     tcfg, pcfg, dcfg = cfg["training"], cfg["pose"], cfg["distortion"]
     tpu = cfg.get("tpu", {}) or {}
@@ -174,7 +216,7 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
             # an injected ray_idx serves every frame (the JAX step closes
             # over it instead of vmapping it)
             r_idx = _sample_ray_idx(batch, n_points, H, W, fast, generator)
-            rgb_gts.append(batch["imgs"][f].reshape(-1, 3)[r_idx])
+            rgb_gts.append(frame_rows(imgs, f, r_idx))
             p, rr, rc = pixels_from_flat_idx(r_idx, (H, W))
             if (hd, wd) == (H, W):
                 didx = r_idx
@@ -186,7 +228,7 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
                 drc = torch.floor(rc.to(torch.float32) * torch.tensor(
                     wd / W, dtype=torch.float32)).long()
                 didx = drr * wd + drc
-            d_rays = batch["dpts"][f].reshape(-1)[didx]
+            d_rays = frame_rows(dpts, f, didx)
             if j == 0:
                 world_f, sc_f, sh_f = world_mat, scale_input, shift_input
             else:
@@ -228,25 +270,32 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
         ref_Rt = rigid_inv(c2w_ref)
         # frame ordering: the pair is (earlier=1, later=2)
         swap = idx >= num_cams - 1
-        Rt_rel_12 = world_mat @ c2w_ref if swap else ref_Rt @ c2w
+
+        def pick(a, b):
+            """``a`` where the pair swaps, else ``b``."""
+            if torch.is_tensor(swap):
+                return torch.where(swap, a, b)
+            return a if swap else b
+
+        Rt_rel_12 = pick(world_mat @ c2w_ref, ref_Rt @ c2w)
         R_rel_12 = Rt_rel_12[:3, :3]
         t_rel_12 = Rt_rel_12[:3, 3]
-        scale2 = scale_input if swap else scale_ref
+        scale2 = pick(scale_input, scale_ref)
 
         ratio = tcfg["pc_ratio"]
         sres = (int(hd / ratio), int(wd / ratio))
         _, p_pc = arange_pixels(sres, device=dev)
         if "dpts_small" in batch:
-            dsm_cur = batch["dpts_small"][idx]
-            dsm_ref = batch["dpts_small"][ref_idx]
+            dsm_cur = take_rows(batch["dpts_small"], idx)
+            dsm_ref = take_rows(batch["dpts_small"], ref_idx)
         else:
-            dsm_cur = resize_nearest(depth_raw, sres)
-            dsm_ref = resize_nearest(batch["dpts"][ref_idx], sres)
-        d1s, d2s = (dsm_ref, dsm_cur) if swap else (dsm_cur, dsm_ref)
+            dsm_cur = resize_nearest(take_rows(dpts, idx), sres)
+            dsm_ref = resize_nearest(take_rows(dpts, ref_idx), sres)
+        d1s, d2s = pick(dsm_ref, dsm_cur), pick(dsm_cur, dsm_ref)
         if learn_dist:
-            scale1, shift1, shift2 = ((scale_ref, shift_ref, shift_input)
-                                      if swap else
-                                      (scale_input, shift_input, shift_ref))
+            scale1 = pick(scale_ref, scale_input)
+            shift1 = pick(shift_ref, shift_input)
+            shift2 = pick(shift_input, shift_ref)
             d1s = _apply_distortion(d1s, scale1, shift1, tcfg["shift_first"])
             d2s = _apply_distortion(d2s, scale2, shift2, tcfg["shift_first"])
         d1s = torch.clamp_min(d1s, nl)
@@ -256,12 +305,12 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
 
         if static["use_rgb_s"]:
             if "imgs_small" in batch:
-                ism_cur = batch["imgs_small"][idx]
-                ism_ref = batch["imgs_small"][ref_idx]
+                ism_cur = take_rows(batch["imgs_small"], idx)
+                ism_ref = take_rows(batch["imgs_small"], ref_idx)
             else:
-                ism_cur = resize_bilinear(img, sres)
-                ism_ref = resize_bilinear(batch["imgs"][ref_idx], sres)
-            img1s, img2s = (ism_ref, ism_cur) if swap else (ism_cur, ism_ref)
+                ism_cur = resize_bilinear(take_rows(imgs, idx), sres)
+                ism_ref = resize_bilinear(take_rows(imgs, ref_idx), sres)
+            img1s, img2s = pick(ism_ref, ism_cur), pick(ism_cur, ism_ref)
             pc1_for_rgb = pc1.detach() if tcfg["detach_rgbs_scale"] else pc1
             pc1_rot = pc1_for_rgb @ R_rel_12.t() + t_rel_12
             # clamp points behind the near limit (all 3 coordinates)
@@ -343,9 +392,11 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
     return loss_dict["loss"], aux
 
 
-def make_train_step(cfg, render_cfg, init_c2w=None, mesh=None):
-    """step(state, batch, scalars, static, generator) -> (state, aux): one
-    loss + backward + Adam update, in place on ``state``.
+def make_step_body(cfg, render_cfg, init_c2w=None, mesh=None):
+    """body(state, batch, scalars, static, generator) -> (loss, aux): one
+    loss + backward + Adam update, in place on ``state``, at the learning
+    rates the optimiser holds (:func:`set_lrs`). The step of
+    :func:`make_train_step` and of :func:`make_epoch_step`.
 
     Every parameter gets a gradient (zeros where the loss does not reach
     it), so Adam's moments and step counts advance for all of them as
@@ -397,7 +448,7 @@ def make_train_step(cfg, render_cfg, init_c2w=None, mesh=None):
 
     run = checked_loss_and_grads if debug_nans else loss_and_grads
 
-    def step(state, batch, scalars, static, generator=None):
+    def body(state, batch, scalars, static, generator=None):
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         loss, aux = run(state, batch, scalars, static, generator)
@@ -410,18 +461,200 @@ def make_train_step(cfg, render_cfg, init_c2w=None, mesh=None):
                               for p in g["params"]], mesh)
             if debug_nans:
                 check_finite(loss, opt)
-            for group in opt.param_groups:
-                if wd > 0.0 and group["name"] == "nerf":
-                    # wd is a config value every rank shares, so the ranks
-                    # stay equal
-                    for p in group["params"]:
-                        p.grad.add_(p, alpha=wd)
-                group["lr"] = float(scalars["lrs"][group["name"]])
+            if wd > 0.0:
+                # wd is a config value every rank shares, so the ranks
+                # stay equal
+                for group in opt.param_groups:
+                    if group["name"] == "nerf":
+                        for p in group["params"]:
+                            p.grad.add_(p, alpha=wd)
         opt.step()
-        return state, {k: v.detach() if torch.is_tensor(v) else v
-                       for k, v in aux.items()}
+        return loss, {k: v.detach() if torch.is_tensor(v) else v
+                      for k, v in aux.items()}
+
+    return body
+
+
+def make_train_step(cfg, render_cfg, init_c2w=None, mesh=None):
+    """step(state, batch, scalars, static, generator) -> (state, aux): the
+    learning rates of ``scalars["lrs"]``, then one step of
+    :func:`make_step_body`."""
+    body = make_step_body(cfg, render_cfg, init_c2w, mesh)
+
+    def step(state, batch, scalars, static, generator=None):
+        set_lrs(state.optimizer, scalars["lrs"])
+        _, aux = body(state, batch, scalars, static, generator)
+        return state, aux
 
     return step
+
+
+def scan_route(cfg, device, mesh=None):
+    """(route, why) of :func:`make_epoch_step` on ``device``: ("cuda
+    graph", None), or ("eager", the reason no graph is captured)."""
+    if torch.device(device).type != "cuda":
+        return "eager", "CPU tensors"
+    if (cfg.get("tpu", {}) or {}).get("debug_nans", False):
+        return "eager", "tpu.debug_nans: anomaly mode cannot be captured"
+    if mesh is not None and mesh.backend != "nccl":
+        return "eager", f"{mesh.backend} collectives cannot be captured"
+    return "cuda graph", None
+
+
+def upload_ints(dst, array):
+    """Copy the host int ``array`` into the int64 buffer ``dst`` without
+    waiting for the device (a pinned staging copy on CUDA)."""
+    src = torch.from_numpy(np.ascontiguousarray(array, dtype=np.int64))
+    if dst.device.type == "cuda":
+        dst.copy_(src.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(src)
+
+
+class EpochStep:
+    """One epoch of steps of :func:`make_step_body` (the JAX
+    ``make_epoch_step``'s ``lax.scan``); made by :func:`make_epoch_step`.
+
+    ``route`` is "cuda graph" (each step of the epoch is a replay of the
+    step captured for its key by :class:`.capture.StepGraphs`, the key's
+    first step being its eager warm-up) or "eager" (the same body run
+    ``n`` times; ``why`` says why). The step reads its frames, reference
+    frames, loss weights and rgb weights from device buffers filled once
+    per epoch, outside the graph, and its learning rates from the
+    optimiser's tensors (:func:`set_lrs`); a device counter, which the step
+    advances, selects row i of the epoch's (n, k) frame indices and writes
+    the step's aux scalars into row i of an (n, n_aux) buffer. One buffer
+    set per (static flags, n, k), as the JAX package traces per ``static``.
+    ``steps`` holds the last epoch's per-step aux values. A graph replays
+    on the state, scene arrays and generator of its capture: a call with
+    others raises.
+    """
+
+    def __init__(self, cfg, render_cfg, init_c2w, mesh, device, eager):
+        self.body = make_step_body(cfg, render_cfg, init_c2w, mesh)
+        self.device = torch.device(device)
+        self.route, self.why = scan_route(cfg, self.device, mesh)
+        if eager and self.route != "eager":
+            self.route, self.why = "eager", "eager=True"
+        if self.route == "cuda graph":
+            warm_up_collectives(mesh)
+        self.graphs = StepGraphs(self.device, eager=self.route == "eager")
+        self.bufs = {}
+        self.scalars = None
+        self.counter = None
+        self.steps = None
+
+    def _fill_scalars(self, scalars, dev):
+        """The loss weights and rgb weights as 0-d device tensors (made once,
+        then written in place)."""
+        if self.scalars is None:
+            def zero():
+                return torch.zeros((), dtype=torch.float32, device=dev)
+
+            self.scalars = {"weights": {k: zero() for k in scalars["weights"]},
+                            "w_l1": zero(), "w_l2": zero()}
+            self.counter = torch.zeros((), dtype=torch.long, device=dev)
+        for k, t in self.scalars["weights"].items():
+            t.fill_(float(scalars["weights"][k]))
+        self.scalars["w_l1"].fill_(float(scalars["w_l1"]))
+        self.scalars["w_l2"].fill_(float(scalars["w_l2"]))
+        return self.scalars
+
+    def __call__(self, state, scene_arrays, idxs, ref_idxs, scalars,
+                 generator, static):
+        idxs, ref_idxs = np.asarray(idxs), np.asarray(ref_idxs)
+        n = idxs.shape[0]
+        k = 1 if idxs.ndim == 1 else idxs.shape[1]
+        dev = scene_arrays["imgs"].device
+        if not same_device(dev, self.device):
+            raise ValueError(f"an epoch step made for {self.device} given "
+                             f"scene arrays on {dev}")
+        key = (tuple(sorted(static.items())), n, k)
+        buf = self.bufs.get(key)
+        if buf is None:
+            buf = self.bufs[key] = {
+                "idxs": torch.zeros(idxs.shape, dtype=torch.long, device=dev),
+                "refs": torch.zeros((n,), dtype=torch.long, device=dev)}
+        upload_ints(buf["idxs"], idxs)
+        upload_ints(buf["refs"], ref_idxs)
+        sc = self._fill_scalars(scalars, dev)
+        set_lrs(state.optimizer, scalars["lrs"])
+        counter = self.counter
+        counter.zero_()
+
+        def one():
+            i = counter.reshape(1)
+            batch = dict(scene_arrays,
+                         idx=buf["idxs"].index_select(0, i)[0],
+                         ref_idx=buf["refs"].index_select(0, i)[0])
+            _, aux = self.body(state, batch, sc, static, generator)
+            if "aux" not in buf:  # the key's first step, never captured
+                buf["keys"] = [a for a in sorted(aux) if torch.is_tensor(
+                    aux[a]) and aux[a].dim() == 0]
+                buf["aux"] = torch.zeros((n, len(buf["keys"])),
+                                         dtype=torch.float32, device=dev)
+            row = torch.stack([aux[a].float() for a in buf["keys"]])
+            buf["aux"].index_copy_(0, i, row[None])
+            counter.add_(1)
+
+        self.graphs.run(
+            key, one, n, () if generator is None else (generator,),
+            lambda: bound_tensors(state.params, state.optimizer,
+                                  scene_arrays))
+        # copies made on the device after the epoch's steps and before any
+        # later epoch's: a caller may read them while the next epoch runs
+        snap = buf["aux"].clone()
+        cols = {a: j for j, a in enumerate(buf["keys"])}
+        mean = snap.mean(0)
+        aux_mean = {a: mean[j] for a, j in cols.items()}
+        aux_last = {a: snap[-1, j] for a, j in cols.items()}
+        aux_last["scale_steps"] = snap[:, cols["scale"]]
+        aux_last["shift_steps"] = snap[:, cols["shift"]]
+        self.steps = {a: snap[:, j] for a, j in cols.items()}
+        return state, aux_mean, aux_last
+
+
+def same_device(a, b):
+    """Whether devices ``a`` and ``b`` are one (a CUDA device without an
+    index is the current one)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return a.index == b.index
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (
+        cur if b.index is None else b.index)
+
+
+def make_epoch_step(cfg, render_cfg, init_c2w=None, mesh=None, device=None,
+                    eager=False):
+    """The twin of the JAX ``make_epoch_step``: run(state, scene_arrays,
+    idxs, ref_idxs, scalars, generator, static) -> (state, aux_mean,
+    aux_last), one epoch of steps in place on ``state``.
+
+    idxs (n,) or (n, k) and ref_idxs (n,) are the epoch's frame order and
+    reference frames (host arrays); scalars the epoch's weights, w_l1, w_l2
+    and lrs. aux_mean holds the mean over the epoch of each scalar aux
+    value, aux_last the last step's and ``scale_steps`` / ``shift_steps``
+    (n,). All are device tensors computed after the epoch's steps, so they
+    can be read while the next epoch runs. Weight decay applies on every
+    step, as in :func:`make_train_step`.
+
+    ``device`` is the device of the scene arrays and the state (the mesh's
+    when there is one; a call on another raises). On a CUDA device each
+    step is a replay of one captured graph of the step
+    (:class:`EpochStep`), unless ``tpu.debug_nans`` or a gloo mesh asks for
+    eager steps (:func:`scan_route`) or ``eager`` does (the reference
+    route); ``.route`` says which. The state must then have a capturable
+    Adam (``init_train_state(params, capturable=True)``).
+    """
+    if device is None:
+        if mesh is None:
+            raise ValueError("make_epoch_step needs the device of the scene "
+                             "arrays and the state")
+        device = mesh.device
+    return EpochStep(cfg, render_cfg, init_c2w, mesh, device, eager)
 
 
 def use_chamfer_kernels(cfg, device):

@@ -729,3 +729,77 @@ def test_frozen_nets_on_card_match_cpu(dev, net):
     else:
         assert float(want) > 1e-3
         assert float(got) == pytest.approx(float(want), rel=2e-4)
+
+
+def test_captured_epoch_equals_eager_epoch(dev):
+    """``make_epoch_step`` on the card: two epochs of 4 steps replayed from
+    one captured CUDA graph of the step against the same two epochs run
+    eagerly, from the same parameters, Adam state and generator state (a
+    small stock-route model: Kernels A and B). The per-step losses, the
+    parameters and Adam's moments are equal bit for bit; each replay runs
+    Kernel A once each way and Kernel B twice; a call on another state or
+    generator than the capture's raises."""
+    from nope_nerf_tpu_torch.config import DEFAULT_CONFIG, load_config
+    from nope_nerf_tpu_torch.synthetic import MemoryScene
+    from nope_nerf_tpu_torch.training import capture
+    from nope_nerf_tpu_torch.training.loop import (build_params,
+                                                   scene_batch_arrays)
+    from nope_nerf_tpu_torch.training.scheduler import Scheduler
+    from nope_nerf_tpu_torch.training.trainer import (init_train_state,
+                                                      make_epoch_step,
+                                                      make_render_cfg)
+
+    cfg = load_config(DEFAULT_CONFIG)
+    cfg["model"]["hidden_dim"] = 64
+    cfg["rendering"]["num_points"] = 32
+    cfg["training"]["n_training_points"] = 256
+    scene = MemoryScene(4, 96, 128, 0)
+    cfg["_num_cams"] = 4
+    batch0 = scene_batch_arrays(scene, cfg, dev)
+    sched = Scheduler(cfg)
+    w_l1, w_l2 = sched.rgb_loss_switch(0)
+    scalars = {"weights": sched.weights(0), "w_l1": w_l1, "w_l2": w_l2,
+               "lrs": sched.applied_lrs(0)}
+    static = sched.static_flags(0)
+    orders = [np.array([2, 0, 3, 1]), np.array([1, 3, 0, 2])]
+    results = []
+    for capture_it in (False, True):
+        params, init_c2w = build_params(cfg, scene,
+                                        torch.Generator().manual_seed(0), dev)
+        state = init_train_state(params, capturable=True)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        run = make_epoch_step(cfg, make_render_cfg(cfg, dev), init_c2w,
+                              device=dev, eager=not capture_it)
+        assert run.route == ("cuda graph" if capture_it else "eager")
+        losses = []
+        for order in orders:
+            run(state, batch0, order, (order + 1) % 4, scalars, gen, static)
+            losses.append(run.steps["loss"].clone())
+        opt = state.optimizer
+        results.append((torch.cat(losses),
+                        [p.detach().clone() for g in opt.param_groups
+                         for p in g["params"]],
+                        [opt.state[p][m].clone() for g in opt.param_groups
+                         for p in g["params"] for m in ("exp_avg",
+                                                        "exp_avg_sq")]))
+        if capture_it:
+            (graph,) = run.graphs.graphs.values()
+            assert graph.record.replays == 7  # 8 steps, the first eager
+            launches = graph.record.launches
+            assert (launches["mlp_composite_fwd"], launches[
+                "mlp_composite_bwd"], launches["chamfer_band"]) == (1, 1, 2)
+            assert capture.replayed_launches()["chamfer_band"] >= 14
+            # a replay writes the storage of its capture: another state or
+            # generator is refused, not silently left untouched
+            other, _ = build_params(cfg, scene,
+                                    torch.Generator().manual_seed(0), dev)
+            for args in ((init_train_state(other, capturable=True), gen),
+                         (state, torch.Generator(device=dev))):
+                with pytest.raises(ValueError, match="captured on other"):
+                    run(args[0], batch0, orders[0], (orders[0] + 1) % 4,
+                        scalars, args[1], static)
+    (le, pe, me), (lg, pg, mg) = results
+    assert torch.isfinite(le).all()
+    assert torch.equal(le, lg)
+    assert all(torch.equal(a, b) for a, b in zip(pe, pg))
+    assert all(torch.equal(a, b) for a, b in zip(me, mg))

@@ -250,10 +250,13 @@ def test_train_resumes_and_scores_poses(tmp_path):
 
     cfg = _train_cfg(tmp_path)
     cfg["training"].update(log_scale_shift_per_view=True, print_every=4)
+    # step by step: the JAX non-scan loop's triggers (the scan path's are
+    # tests/test_torch_scan.py's)
+    cfg["tpu"]["epoch_scan"] = False
     scene = _Scene()
     s1, sched1, _, h1 = train(cfg, max_epochs=2, scene=scene, device="cpu")
     # the four streams, and their backups at it 0 (backup_every and
-    # checkpoint_every divide it 0, as in the JAX loop)
+    # checkpoint_every divide it 0, as in the JAX non-scan loop)
     assert sorted(f for f in os.listdir(tmp_path) if f.endswith(".npz")) == [
         f"model{g}{s}.npz" for g in ("", "_distortion", "_focal", "_pose")
         for s in ("", "_0")]

@@ -4,9 +4,10 @@ against the JAX package's (``nope_nerf_tpu/utils/logging.py``).
 Both training loops run 3 epochs on the same 4-frame 16x20 teacher scene
 from the same parameters (the JAX ``build_params`` draw, given to the port
 through ``convert.params_from_jax``), step by step (``tpu.epoch_scan:
-False``, the JAX loop's per-step path, which the port always runs), with
-every pixel as a ray (``n_training_points`` = H x W with distinct draws, so
-both losses average the same rays) and no jitter. The two ``events.jsonl``
+False``, the JAX loop's per-step path; ``tests/test_torch_scan.py`` holds
+the two scan paths to each other), with every pixel as a ray
+(``n_training_points`` = H x W with distinct draws, so both losses
+average the same rays) and no jitter. The two ``events.jsonl``
 files must hold the same tags at the same steps, the ``train/lr_*`` values
 equal, and every other value but ``perf/rays_per_sec`` (a wall-clock rate)
 within rtol 1e-3 / atol 1e-5: the two packages' f32 MLPs and optimisers

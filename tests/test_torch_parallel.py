@@ -569,7 +569,8 @@ def train_ranks(train_started):
 
 def test_train_two_ranks_runs_and_logs_once(train_ranks):
     """3 epochs with ``tpu.n_devices: 2``, the visualisation and pair dumps
-    on: finite losses and PSNR; one event log, checkpoints and the
+    on, step by step (``tpu.epoch_scan: False``; the resume runs the scan
+    path): finite losses and PSNR; one event log, checkpoints and the
     ``rendering/`` tree, written by rank 0 alone (each event once)."""
     out_dir, out = train_ranks
     hist, _ = out[0]["vis"]

@@ -249,7 +249,8 @@ def test_llff_path_converges(tmp_path):
 @pytest.fixture
 def tiny_bench(monkeypatch):
     """The bench module at a tiny shape: 8 frames of 16x20, width 32, 8
-    samples, 32 rays, 1 warm-up group and 2 timed groups of 3 steps."""
+    samples, 32 rays, 1 warm-up dispatch and 2 timed dispatches of 3
+    steps."""
     from nope_nerf_tpu_torch import bench
 
     base = bench.bench_config
@@ -264,9 +265,9 @@ def tiny_bench(monkeypatch):
     monkeypatch.setattr(bench, "bench_config", tiny)
     monkeypatch.setattr(bench, "H", 16)
     monkeypatch.setattr(bench, "W", 20)
-    monkeypatch.setattr(bench, "GROUP_STEPS", 3)
-    monkeypatch.setattr(bench, "WARMUP_GROUPS", 1)
-    monkeypatch.setattr(bench, "MEASURE_GROUPS", 2)
+    monkeypatch.setattr(bench, "SCAN_STEPS", 3)
+    monkeypatch.setattr(bench, "WARMUP_DISPATCHES", 1)
+    monkeypatch.setattr(bench, "MEASURE_DISPATCHES", 2)
     return bench
 
 
@@ -301,18 +302,19 @@ def test_bench_refuses(tiny_bench, monkeypatch):
     monkeypatch.setenv("BENCH_TPU_OVERRIDES",
                        json.dumps({"rays_per_step_multiplier": 2}))
     frames = []
-    real_step = tiny_bench.make_train_step
+    real_epoch = tiny_bench.make_epoch_step
 
-    def recording_step(*args, **kwargs):
-        step = real_step(*args, **kwargs)
+    def recording_epoch(*args, **kwargs):
+        epoch = real_epoch(*args, **kwargs)
 
-        def run(state, batch, *rest):
-            frames.append((batch["idx"], batch["ref_idx"]))
-            return step(state, batch, *rest)
+        def run(state, scene_arrays, idxs, refs, *rest):
+            frames.extend((list(map(int, i)), int(r))
+                          for i, r in zip(idxs, refs))
+            return epoch(state, scene_arrays, idxs, refs, *rest)
         return run
 
     clock = iter([100.0, 102.5])  # the timed window: 2.5 s
-    monkeypatch.setattr(tiny_bench, "make_train_step", recording_step)
+    monkeypatch.setattr(tiny_bench, "make_epoch_step", recording_epoch)
     monkeypatch.setattr(tiny_bench, "time", types.SimpleNamespace(
         perf_counter=lambda: next(clock)))
     with contextlib.redirect_stdout(io.StringIO()):
