@@ -5,29 +5,38 @@ Port of ``nope_nerf_tpu/ops/pallas/mlp_kernel.py``: ``fused_mlp_composite``
 (Pallas kernels ``_make_fwd_composite_kernel`` l.668 and
 ``_make_bwd_composite_kernel`` l.702) and ``fused_mlp`` (``_make_fwd_kernel``
 l.244 and ``_make_bwd_kernel`` l.258). The CUDA sources are
-``nope_nerf_tpu_torch/csrc/mlp_composite.cu`` and
-``nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu``, whose TMA + wgmma GEMMs run
-every layer both ways; the headers say what bounds the kernels on the H100
-and how the design answers it.
+``nope_nerf_tpu_torch/csrc/mlp_fused_fwd.cu`` (both forwards, one launch
+each), ``nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu`` (the backwards' TMA +
+wgmma GEMMs) and ``nope_nerf_tpu_torch/csrc/mlp_composite.cu``; the headers
+say what bounds the kernels on the H100 and how the design answers it.
 
 * :func:`fused_mlp_composite` (Kernel A) and :func:`fused_mlp` (Kernel C)
   are the public wrappers. For CUDA tensors they run
-  :class:`FusedMLPComposite` / :class:`FusedMLP` (a fixed sequence of
-  hand-written kernels forward, another backward) and count the launches in
+  :class:`FusedMLPComposite` / :class:`FusedMLP` and count the launches in
   :data:`FWD_LAUNCHES` / :data:`BWD_LAUNCHES` and :data:`FWD_POINT_LAUNCHES`
-  / :data:`BWD_POINT_LAUNCHES` (the forward's GEMMs in
-  :data:`GEMM_SM90_LAUNCHES`, the backward's input-gradient GEMMs in
-  :data:`GEMM_DGRAD_LAUNCHES` and weight-gradient GEMMs in
-  :data:`GEMM_WGRAD_LAUNCHES`); for CPU tensors they run the plain versions
+  / :data:`BWD_POINT_LAUNCHES`. Each forward is one launch of the fused
+  kernel (:func:`fused_fwd`, counted in :data:`MLP_FUSED_FWD_LAUNCHES`):
+  encodings, the ten layer GEMMs on a tile kept in shared memory, the heads,
+  and the compositing or the head activations; for an S that does not
+  divide 128 (:func:`fused_route`) Kernel A's compositing runs after it in
+  ``composite_fwd`` (:data:`COMPOSITE_AFTER_LAUNCHES`). The backward's GEMMs
+  are counted in :data:`GEMM_DGRAD_LAUNCHES` and
+  :data:`GEMM_WGRAD_LAUNCHES`. CPU tensors run the plain versions
   :func:`fused_mlp_composite_reference` / :func:`fused_mlp_reference`; any
   other device raises.
 * What the graph needs, and no more: when nothing is to be differentiated
-  (grad disabled, or no input requires grad: the eval render) the forward
-  runs the trunk on two ping-pong buffers and saves nothing; when no weight
-  needs a gradient (test-time pose optimisation) the backward skips the
-  weight-gradient launches (counted in :data:`WGRAD_LAUNCHES`) and the
-  bias sums. Either way the outputs and input gradients are bitwise those
-  of the full path.
+  (grad disabled, or no input requires grad: the eval render) the fused
+  forward stores nothing but its outputs; otherwise it also stores what
+  :func:`_chain_bwd` reads (:func:`fused_fwd_saves`). When no weight needs
+  a gradient (test-time pose optimisation) the backward skips the
+  weight-gradient launches (counted in :data:`WGRAD_LAUNCHES`) and the bias
+  sums. Either way the outputs and input gradients are bitwise those of the
+  full path.
+* The layer-by-layer forward the fused kernel replaced
+  (:func:`_composite_fwd_layered`, :func:`_point_fwd_layered`: the encoding
+  launches, :func:`_chain_fwd`'s eleven :func:`gemm_fwd` launches and the
+  heads) runs on no path; chip_smoke.py holds the fused forward's saved
+  tensors to it bit for bit and times it beside it.
 * The backward (:func:`_chain_bwd`) keeps its cotangents bf16 after their
   ReLU masks and takes the bias gradients as f32 column sums in the GEMMs'
   epilogues; every step has a plain version beside it, so it runs whole on
@@ -44,6 +53,8 @@ outputs in f32, stable softplus, exclusive cumprod of (1 - alpha + 1e-6).
 z and deltas get no gradient (z never depends on parameters).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -72,8 +83,13 @@ BWD_POINT_LAUNCHES = LaunchCounter("mlp_point_bwd")
 # gradients
 WGRAD_LAUNCHES = LaunchCounter("mlp_weight_grad_gemm")
 WGRAD_PER_BWD = 14
-# the forward's GEMMs on csrc/mlp_gemm_sm90.cu: 11 per forward (the ten layer
-# GEMMs and the direction row term of rgb_layer)
+# the fused forward of Kernels A and C (csrc/mlp_fused_fwd.cu): one launch
+# per forward; Kernel A's raw route (fused_route) runs composite_fwd after it
+MLP_FUSED_FWD_LAUNCHES = LaunchCounter("mlp_fused_fwd")
+COMPOSITE_AFTER_LAUNCHES = LaunchCounter("mlp_composite_after_fused")
+# the layer-by-layer forward's GEMM (csrc/mlp_gemm_sm90.cu, 11 per forward:
+# the ten layer GEMMs and the direction row term of rgb_layer); no path
+# launches it since the fused forward (chip_smoke.py times it beside it)
 GEMM_SM90_LAUNCHES = LaunchCounter("mlp_gemm_sm90")
 # the backward's input-gradient GEMMs on csrc/mlp_gemm_sm90.cu: DGRAD_PER_BWD
 # per backward, with or without the weight gradients
@@ -811,6 +827,139 @@ def _chain_fwd(Wt, Wh, Bs, enc, denc, denc_div, M, dims, save=True):
     return acts, feat, hr, raw
 
 
+# the fused forward (csrc/mlp_fused_fwd.cu): the hidden widths it is built
+# for (rgb_layer's output D / 2), its point tile, the widest encoding (one
+# 64-column k-tile) and what it computes after the heads
+FUSED_WIDTHS = (64, 128, 256)
+FUSED_TILE = 128
+FUSED_MAX_ENC = 64
+MODE_COMPOSITE, MODE_RAW, MODE_POINTS = 0, 1, 2
+# the weight k-tile maps in the order the kernel's ring streams them:
+# (layer, first column, width: "D", "pos" or "dir")
+FUSED_WEIGHT_MAPS = (
+    ("trunk0_0", 0, "pos"), ("trunk0_1", 0, "D"), ("trunk0_2", 0, "D"),
+    ("trunk0_3", 0, "D"), ("trunk1_0", 0, "D"), ("trunk1_0", "D", "pos"),
+    ("trunk1_1", 0, "D"), ("trunk1_2", 0, "D"), ("trunk1_3", 0, "D"),
+    ("fc_feature", 0, "D"), ("rgb_layer", "D", "dir"), ("rgb_layer", 0, "D"))
+FUSED_SAVE_MAPS = 12  # acts (8), feat, hr, enc, denc
+
+
+def fused_route(S):
+    """How Kernel A's forward composites S samples a ray, chosen by shape:
+    ``"fused"`` when a 128-point tile holds whole rays (128 % S == 0: the
+    stock 128 and the recovery scripts' 64), inside the fused kernel;
+    ``"raw"`` otherwise: the fused kernel writes the raw heads and
+    ``composite_fwd`` (csrc/mlp_composite.cu) runs after it. Both routes
+    are kernels; neither stands in for the other."""
+    return "fused" if FUSED_TILE % S == 0 else "raw"
+
+
+def fused_fwd_saves(M, denc_rows, dims, dev):
+    """The tensors a saving fused forward writes, in the shapes, dtypes and
+    row strides :func:`_chain_bwd` reads (those the layer-by-layer forward
+    allocated): enc (M, pad8(n_pos)) and denc (denc_rows, pad8(n_dir)) bf16
+    (their padding column is never written), the 8 trunk outputs, feat
+    (M, D) and hr (M, H2) bf16, raw (M, 4) f32."""
+    n_pos, n_dir, D, H2 = dims
+    bf = dict(dtype=_BF, device=dev)
+    return {"enc": torch.empty((M, _pad8(n_pos)), **bf),
+            "denc": torch.empty((denc_rows, _pad8(n_dir)), **bf),
+            "acts": [torch.empty((M, D), **bf) for _ in range(8)],
+            "feat": torch.empty((M, D), **bf),
+            "hr": torch.empty((M, H2), **bf),
+            "raw": torch.empty((M, 4), dtype=_F32, device=dev)}
+
+
+def fused_fwd_maps(Wt, dims, saves, points):
+    """The fused kernel's tensor-map arguments (:func:`tma_2d` tuples): the
+    12 weight k-tile maps of :data:`FUSED_WEIGHT_MAPS` (each a view of the
+    K-major :func:`_padded_t` weight at its true width, box rows D, or D / 2
+    for rgb_layer's two), then the :data:`FUSED_SAVE_MAPS` save maps (box
+    rows 64, one consumer warpgroup's): the 8 trunk outputs, feat, hr, the
+    position encoding at its true width, and the direction encoding for C
+    (``points``; A's is per ray and written row by row). Without ``saves``
+    the save maps are empty."""
+    n_pos, n_dir, D, H2 = dims
+    width = {"D": D, "pos": n_pos, "dir": n_dir}
+    maps = []
+    for name, k0, w in FUSED_WEIGHT_MAPS:
+        k0 = D if k0 == "D" else k0
+        maps.append(tma_2d(Wt[name][:, k0:k0 + width[w]],
+                           H2 if name == "rgb_layer" else D))
+    if saves is None:
+        return maps + [_NO_MAP] * FUSED_SAVE_MAPS
+    views = [*saves["acts"], saves["feat"], saves["hr"],
+             saves["enc"][:, :n_pos]]
+    maps += [tma_2d(v, GEMM_STORE_ROWS) for v in views]
+    maps.append(tma_2d(saves["denc"][:, :n_dir], GEMM_STORE_ROWS) if points
+                else _NO_MAP)
+    return maps
+
+
+def fused_fwd(Wt, Wh, Bs, dims, mode, levels, S, inputs, outs, flags,
+              saves=None, raw=None):
+    """One launch of the fused forward (csrc/mlp_fused_fwd.cu), counted in
+    :data:`MLP_FUSED_FWD_LAUNCHES`.
+
+    ``Wt``/``Wh``/``Bs``: :func:`_kernel_weights`' K-major weights, head
+    weights and biases; ``mode``: :data:`MODE_COMPOSITE` (Kernel A, 128 %
+    S == 0), :data:`MODE_RAW` (Kernel A, the raw heads only) or
+    :data:`MODE_POINTS` (Kernel C, S = 1); ``levels`` (l_pos, l_dir);
+    ``inputs`` (x0, x1, dirs, z, deltas): A's per-ray origins, directions
+    and view directions and its (N, S) z and deltas, or C's points and view
+    directions with None for the rest; ``outs`` (out0, out1, alpha): A's
+    rgbv (N, 3), dist (N, 1), alpha (N, S) (None on the raw route) or C's
+    rgb (M, 3), density (M, 1), None; ``flags`` (softplus, occ_alpha,
+    dist_alpha, white_bg); ``saves``: :func:`fused_fwd_saves` to write, or
+    None; ``raw`` (M, 4) f32 to write (with ``saves`` its own). Inputs are
+    contiguous f32 on one card; raises on anything the kernel cannot
+    take."""
+    n_pos, n_dir, D, H2 = dims
+    x0 = inputs[0]
+    points = mode == MODE_POINTS
+    M = x0.shape[0] if points else x0.shape[0] * S
+    n_rays = M if points else x0.shape[0]
+    if D not in FUSED_WIDTHS or H2 != D // 2:
+        raise ValueError(f"fused_fwd: hidden width {D} with rgb width {H2}; "
+                         f"the kernel takes D in {FUSED_WIDTHS}, D / 2")
+    if max(n_pos, n_dir) > FUSED_MAX_ENC:
+        raise ValueError(f"fused_fwd: encodings {n_pos} and {n_dir} wide; at "
+                         f"most {FUSED_MAX_ENC} (levels <= 10)")
+    if mode == MODE_COMPOSITE and fused_route(S) != "fused":
+        raise ValueError(f"fused_fwd: {S} samples a ray do not tile "
+                         f"{FUSED_TILE} points; take the raw route")
+    if M >= 2 ** 31:
+        raise ValueError(f"fused_fwd: {M} points; fewer than 2^31")
+    tensors = [t for t in (*inputs, *outs, raw) if t is not None]
+    if any(t.device != x0.device or t.dtype != _F32
+           or not t.is_contiguous() for t in tensors):
+        raise ValueError("fused_fwd: inputs and outputs must be contiguous "
+                         f"f32 on {x0.device}")
+    if raw is None and (mode == MODE_RAW or saves is not None):
+        raise ValueError("fused_fwd: the raw route and a saving forward "
+                         "write raw")
+    if M == 0:
+        return
+    maps = fused_fwd_maps(Wt, dims, saves, points)
+    specs = (ctypes.c_int64 * (6 * len(maps)))(
+        *[int(v or 0) for m in maps for v in m])
+    heads = (Wh["fc_density"], Bs["fc_density"], Wh["fc_rgb"], Bs["fc_rgb"])
+    denc_rays = saves["denc"] if saves is not None and not points else None
+    ptrs = (*inputs, *(Bs[name] for name in GEMM_LAYERS), *heads, *outs, raw,
+            denc_rays)
+    ptr_arr = (ctypes.c_uint64 * len(ptrs))(
+        *[0 if t is None else t.data_ptr() for t in ptrs])
+    ints = (ctypes.c_int * 13)(
+        D, M, n_rays, S, levels[0], levels[1], mode, int(saves is not None),
+        *(int(f) for f in flags),
+        0 if denc_rays is None else denc_rays.stride(0))
+    err = c_function("nnt_mlp_fused_fwd", "pppp")(
+        ctypes.addressof(specs), ctypes.addressof(ptr_arr),
+        ctypes.addressof(ints), _stream(x0))
+    check(err, "mlp_fused_fwd")
+    MLP_FUSED_FWD_LAUNCHES.add()
+
+
 def _chain_bwd(Wb, Wh, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
                weight_grads=True):
     """Backward of :func:`_chain_fwd` from the cotangents of the raw heads,
@@ -914,8 +1063,50 @@ def _cotangent(g, shape, dev):
 
 
 def _composite_fwd(origins, rays, dirs, z, deltas, cfg, weights, save):
-    """Kernel A's forward launches: (rgbv, dist, alpha) and, with ``save``,
-    the tensors its backward reads (None without)."""
+    """Kernel A's forward: one fused launch (:func:`fused_fwd`), and on the
+    raw route (:func:`fused_route`) composite_fwd after it. Returns
+    (rgbv, dist, alpha), the widths, and with ``save`` the tensors its
+    backward reads (None without)."""
+    l_pos, l_dir, act, occ_alpha, dist_alpha, white_bg, S = cfg
+    dims = _dims(weights, l_pos, l_dir)
+    N = origins.shape[0]
+    M = N * S
+    dev = origins.device
+    Wt, Wb, Wh, Bs = _kernel_weights(weights, save)
+    route = fused_route(S)
+    sv = fused_fwd_saves(M, N, dims, dev) if save else None
+    raw = (sv["raw"] if save else
+           torch.empty((M, 4), dtype=_F32, device=dev) if route == "raw"
+           else None)
+    rgbv = torch.empty((N, 3), dtype=_F32, device=dev)
+    dist = torch.empty((N, 1), dtype=_F32, device=dev)
+    alpha = torch.empty((N, S), dtype=_F32, device=dev)
+    flags = (act == "softplus", occ_alpha, dist_alpha, white_bg)
+    fused_fwd(Wt, Wh, Bs, dims, MODE_COMPOSITE if route == "fused"
+              else MODE_RAW, (l_pos, l_dir), S,
+              (origins, rays, dirs, z, deltas),
+              (rgbv, dist, alpha) if route == "fused" else (None,) * 3,
+              flags, sv, raw)
+    if route == "raw" and N:
+        err = c_function("nnt_composite_fwd", "ppppppiiiiiip")(
+            _ptr(raw), _ptr(z), _ptr(deltas), _ptr(rgbv), _ptr(dist),
+            _ptr(alpha), N, S, *(int(f) for f in flags), _stream(origins))
+        check(err, "composite_fwd")
+        COMPOSITE_AFTER_LAUNCHES.add()
+    FWD_LAUNCHES.add()
+    saved = ((origins, rays, dirs, z, deltas, sv["enc"], sv["denc"],
+              sv["feat"], sv["hr"], sv["raw"], *sv["acts"],
+              *_weight_list(Wb, Wh)) if save else None)
+    return (rgbv, dist, alpha), dims, saved
+
+
+def _composite_fwd_layered(origins, rays, dirs, z, deltas, cfg, weights,
+                           save):
+    """The layer-by-layer forward of Kernel A that :func:`_composite_fwd`
+    replaced (encode_fwd, :func:`_chain_fwd`, composite_fwd; no launch
+    counter of its own): (rgbv, dist, alpha) and, with ``save``, the
+    tensors its backward reads. No path runs it; chip_smoke.py holds the
+    fused forward to it."""
     l_pos, l_dir, act, occ_alpha, dist_alpha, white_bg, S = cfg
     dims = _dims(weights, l_pos, l_dir)
     n_pos, n_dir = dims[:2]
@@ -942,7 +1133,6 @@ def _composite_fwd(origins, rays, dirs, z, deltas, cfg, weights, save):
         _ptr(alpha), N, S, int(act == "softplus"), int(occ_alpha),
         int(dist_alpha), int(white_bg), stream)
     check(err, "composite_fwd")
-    FWD_LAUNCHES.add()
     saved = ((origins, rays, dirs, z, deltas, enc, denc, feat, hr, raw,
               *acts, *_weight_list(Wb, Wh)) if save else None)
     return (rgbv, dist, alpha), dims, saved
@@ -1006,8 +1196,33 @@ class FusedMLPComposite(torch.autograd.Function):
 
 
 def _point_fwd(pts, dirs, cfg, weights, save):
-    """Kernel C's forward launches: (rgb, density) and, with ``save``, the
-    tensors its backward reads (None without)."""
+    """Kernel C's forward: one fused launch (:func:`fused_fwd`). Returns
+    (rgb, density), the widths, and with ``save`` the tensors its backward
+    reads (None without)."""
+    l_pos, l_dir, act, occ_alpha = cfg
+    dims = _dims(weights, l_pos, l_dir)
+    M = pts.shape[0]
+    dev = pts.device
+    Wt, Wb, Wh, Bs = _kernel_weights(weights, save)
+    sv = fused_fwd_saves(M, M, dims, dev) if save else None
+    rgb = torch.empty((M, 3), dtype=_F32, device=dev)
+    density = torch.empty((M, 1), dtype=_F32, device=dev)
+    fused_fwd(Wt, Wh, Bs, dims, MODE_POINTS, (l_pos, l_dir), 1,
+              (pts, None, dirs, None, None), (rgb, density, None),
+              (act == "softplus", occ_alpha, False, False), sv,
+              sv["raw"] if save else None)
+    FWD_POINT_LAUNCHES.add()
+    saved = ((pts, dirs, sv["enc"], sv["denc"], sv["feat"], sv["hr"],
+              sv["raw"], *sv["acts"], *_weight_list(Wb, Wh)) if save
+             else None)
+    return (rgb, density), dims, saved
+
+
+def _point_fwd_layered(pts, dirs, cfg, weights, save):
+    """The layer-by-layer forward of Kernel C that :func:`_point_fwd`
+    replaced (encode_points, :func:`_chain_fwd`, head_act_fwd; no launch
+    counter of its own). No path runs it; chip_smoke.py holds the fused
+    forward to it."""
     l_pos, l_dir, act, occ_alpha = cfg
     dims = _dims(weights, l_pos, l_dir)
     n_pos, n_dir = dims[:2]
@@ -1032,7 +1247,6 @@ def _point_fwd(pts, dirs, cfg, weights, save):
         _ptr(raw), _ptr(rgb), _ptr(density), M, int(act == "softplus"),
         int(occ_alpha), stream)
     check(err, "head_act_fwd")
-    FWD_POINT_LAUNCHES.add()
     saved = ((pts, dirs, enc, denc, feat, hr, raw, *acts,
               *_weight_list(Wb, Wh)) if save else None)
     return (rgb, density), dims, saved

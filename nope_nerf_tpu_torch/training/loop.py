@@ -77,7 +77,7 @@ from ..models.nerf import init_nerf_params
 from ..models.pose import all_poses, init_pose_params
 from ..ops.interp import resize_bilinear, resize_nearest
 from ..parallel.mesh import RAY_AXIS, barrier, make_ray_mesh, replicate
-from ..utils.logging import MetricsLogger, Throughput
+from ..utils.logging import MetricsLogger, Throughput, summary_writer_class
 from .checkpoints import CheckpointIO
 from .scheduler import Scheduler, ScheduleState
 from .trainer import (
@@ -396,6 +396,9 @@ def train(cfg, max_epochs=None, scene=None, device="cuda", mesh=None):
 
 def _train(cfg, max_epochs, scene, device, mesh):
     seed = int(cfg["training"].get("seed", 42) or 42)
+    # the tensorboard import may draw from np.random (TensorFlow's first
+    # import): take it before the seed
+    summary_writer_class()
     np.random.seed(seed)
     pyrng = pyrandom.Random(seed)
     init_gen = torch.Generator().manual_seed(seed)

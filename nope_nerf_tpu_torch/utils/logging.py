@@ -10,6 +10,20 @@ import os
 import time
 
 
+def summary_writer_class():
+    """``torch.utils.tensorboard.SummaryWriter``, or None where it does not
+    import. Where TensorFlow is installed, importing tensorboard imports it,
+    and TensorFlow's first import draws from ``np.random``: the training
+    loop calls this before it seeds ``np.random``, so that the frame order
+    of a run does not depend on whether the process had loaded TensorFlow
+    before (the JAX package's process has)."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except Exception:
+        return None
+    return SummaryWriter
+
+
 class MetricsLogger:
     """Writes every scalar to ``<log_dir>/events.jsonl`` and, when
     tensorboard imports, to a ``SummaryWriter`` in the same directory;
@@ -19,12 +33,12 @@ class MetricsLogger:
         os.makedirs(log_dir, exist_ok=True)
         self.jsonl = open(os.path.join(log_dir, "events.jsonl"), "a")
         self.tb = None
-        try:
-            from torch.utils.tensorboard import SummaryWriter
-
-            self.tb = SummaryWriter(log_dir)
-        except Exception:
-            pass
+        writer = summary_writer_class()
+        if writer is not None:
+            try:
+                self.tb = writer(log_dir)
+            except Exception:
+                pass
 
     def add_scalar(self, tag, value, step):
         value = float(value)

@@ -247,9 +247,9 @@ def _kernel_call(dev, kernel):
 @pytest.mark.parametrize("kernel", ["A", "C"])
 def test_forward_without_graph_saves_nothing(dev, kernel):
     """With nothing to differentiate (no input requires grad, or grad
-    disabled) the forward runs on ping-pong buffers and builds no graph;
-    its outputs equal the saving forward's bit for bit, and it counts one
-    launch."""
+    disabled) the fused forward stores nothing but its outputs and builds
+    no graph; its outputs equal the saving forward's bit for bit, and it
+    counts one launch."""
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     fn, ws, ins, _ = _kernel_call(dev, kernel)
@@ -291,6 +291,197 @@ def test_input_only_backward_is_bitwise(dev, kernel):
     assert [b - a for a, b in zip(n1, n2)] == [0, 0, mk.DGRAD_PER_BWD, 0]
     for a, b in zip(inputs_only, full[:len(x)]):
         assert torch.equal(a, b)
+
+
+# the fused forward (csrc/mlp_fused_fwd.cu): (samples a ray, hidden width,
+# density activation, dist_alpha, white_bg) -- the stock shape, the recovery
+# scripts' (hidden 128, 64 samples), and S = 96, which does not tile 128
+# points and takes the raw route (composite_fwd after the fused kernel)
+FUSED_CASES = [(128, 256, "softplus", False, False),
+               (64, 128, "relu", True, True),
+               (96, 64, "softplus", True, False)]
+
+
+def _fused_inputs(dev, S, D, seed):
+    """Kernel A's inputs at S samples and width D, rays chosen so that the
+    last 128-point tile is partial (A), and the same points for Kernel C."""
+    N = {128: 37, 64: 101, 96: 77}[S]
+    ws, geo, z, deltas, cots = _kernel_a_inputs(dev, N, S, D, seed)
+    geo = [g.contiguous() for g in geo]  # as fused_mlp_composite passes them
+    o, r, d = geo
+    pts = (o[:, None, :] + r[:, None, :] * z[..., None]).reshape(-1, 3)
+    pdirs = d[:, None, :].expand(N, S, 3).reshape(-1, 3).contiguous()
+    return ws, geo, z, deltas, cots, pts, pdirs
+
+
+@pytest.mark.parametrize("S,D,act,dist_alpha,white_bg", FUSED_CASES)
+def test_fused_forward_matches_plain(dev, S, D, act, dist_alpha, white_bg):
+    """Kernel A's and Kernel C's fused forwards against their plain
+    versions at chip_smoke.py's bars (max|err| 1e-3), one fused launch
+    each (A's raw route adds composite_fwd), and Kernel C + the plain
+    compositing against Kernel A within 2e-5 (rgb, alpha)."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+    from nope_nerf_tpu_torch.ops.rendering import composite
+
+    ws, geo, z, deltas, _, pts, pdirs = _fused_inputs(dev, S, D, 11)
+    N = z.shape[0]
+    static = (10, 4, act, not dist_alpha, dist_alpha, white_bg, S)
+    counters = (mk.MLP_FUSED_FWD_LAUNCHES, mk.COMPOSITE_AFTER_LAUNCHES,
+                mk.GEMM_SM90_LAUNCHES)
+    n0 = [c.count for c in counters]
+    with torch.no_grad():
+        a = mk.fused_mlp_composite(ws, *geo, z, deltas, *static)
+        c = mk.fused_mlp(ws, pts, pdirs, 10, 4, act, not dist_alpha)
+    n1 = [c_.count - n for c_, n in zip(counters, n0)]
+    assert n1 == [2, int(S == 96), 0]
+    a_ref = mk.fused_mlp_composite_reference(ws, *geo, z, deltas, *static)
+    c_ref = mk.fused_mlp_reference(ws, pts, pdirs, 10, 4, act,
+                                   not dist_alpha)
+    for x, y in zip((*a, *c), (*a_ref, *c_ref)):
+        assert x.shape == y.shape and torch.isfinite(x).all()
+        assert float(torch.max(torch.abs(x - y))) <= 1e-3
+    if not dist_alpha:  # C's density is then A's alpha
+        rgbv, _, _ = composite(c[0].reshape(N, S, 3), c[1].reshape(N, S), z,
+                               white_background=white_bg)
+        assert float(torch.max(torch.abs(rgbv - a[0]))) <= 2e-5
+        assert float(torch.max(torch.abs(c[1].reshape(N, S) - a[2]))) <= 2e-5
+
+
+@pytest.mark.parametrize("S,D,act,dist_alpha,white_bg", FUSED_CASES)
+def test_fused_saves_equal_the_layer_by_layer_forward(dev, S, D, act,
+                                                      dist_alpha, white_bg):
+    """The saving fused forward against the layer-by-layer one it replaced
+    (encodings, _chain_fwd's GEMMs, heads, compositing): outputs and every
+    tensor the backward reads (enc, denc at their true widths, feat, hr,
+    raw, the 8 trunk outputs) bit for bit, in the same shapes, dtypes and
+    strides."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    ws, geo, z, deltas, _, pts, pdirs = _fused_inputs(dev, S, D, 12)
+    cfg_a = (10, 4, act, not dist_alpha, dist_alpha, white_bg, S)
+    cfg_c = (10, 4, act, not dist_alpha)
+    runs = [(mk._composite_fwd, mk._composite_fwd_layered,
+             (*geo, z, deltas, cfg_a), 5),
+            (mk._point_fwd, mk._point_fwd_layered, (pts, pdirs, cfg_c), 2)]
+    for fused, layered, args, first in runs:
+        out_f, dims, sav_f = fused(*args, ws, save=True)
+        out_l, _, sav_l = layered(*args, ws, save=True)
+        n_pos, n_dir = dims[:2]
+        for x, y in zip(out_f, out_l):
+            assert torch.equal(x, y)
+        for i, (x, y) in enumerate(zip(sav_f[first:first + 13],
+                                       sav_l[first:first + 13])):
+            assert (x.shape, x.dtype, x.stride()) == (y.shape, y.dtype,
+                                                      y.stride()), i
+            width = {0: n_pos, 1: n_dir}.get(i, x.shape[1])
+            assert torch.equal(x[:, :width], y[:, :width]), i
+
+
+@pytest.mark.parametrize("kernel", ["A", "C"])
+def test_fused_forward_gradients_match_plain(dev, kernel):
+    """The fused forward + the unchanged backward at the recovery scripts'
+    shape (hidden 128, 64 samples) against the plain version under the
+    training step's cotangents: gradients within chip_smoke.py's relL2
+    1e-2."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    ws, geo, z, deltas, cots, pts, pdirs = _fused_inputs(dev, 64, 128, 13)
+    if kernel == "A":
+        static = (10, 4, "softplus", True, False, False, 64)
+        cots[2] = torch.zeros_like(cots[2])
+
+        def fn(f, w, x):
+            return f(w, *x, z, deltas, *static)
+        ins, fns = geo, (mk.fused_mlp_composite,
+                         mk.fused_mlp_composite_reference)
+    else:
+        gen = np.random.default_rng(13)
+        cots = [torch.tensor(gen.normal(size=s) / s[0], dtype=torch.float32,
+                             device=dev) for s in ((pts.shape[0], 3),
+                                                   (pts.shape[0], 1))]
+
+        def fn(f, w, x):
+            return f(w, *x, 10, 4, "softplus", True)
+        ins, fns = (pts, pdirs), (mk.fused_mlp, mk.fused_mlp_reference)
+    grads = []
+    for f in fns:
+        w = [t.clone().requires_grad_() for t in ws]
+        x = [t.clone().requires_grad_() for t in ins]
+        grads.append(torch.autograd.grad(fn(f, w, x), x + w, cots))
+    for i, (a, b) in enumerate(zip(*grads)):
+        assert torch.isfinite(a).all()
+        assert _rel_l2(a, b) < 1e-2, i
+
+
+def test_fused_forward_captured_equals_eager(dev):
+    """The fused forward captured in a CUDA graph (the training step's
+    route) replays the eager call's outputs and saves bit for bit, and the
+    capture records one fused launch."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    ws, geo, z, deltas, _, _, _ = _fused_inputs(dev, 128, 256, 14)
+    cfg = (10, 4, "softplus", True, False, False, 128)
+
+    def run():  # the encodings at their true widths (the padding is unset)
+        outs, _, saved = mk._composite_fwd(*geo, z, deltas, cfg, ws,
+                                           save=True)
+        return [*outs, saved[5][:, :63], saved[6][:, :27], *saved[7:18]]
+
+    eager = [t.clone() for t in run()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    c0 = mk.MLP_FUSED_FWD_LAUNCHES.captured
+    with torch.cuda.graph(graph):
+        captured = run()
+    assert mk.MLP_FUSED_FWD_LAUNCHES.captured == c0 + 1
+    for t in captured:
+        t.fill_(float("nan")) if t.dtype == torch.float32 else t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(captured, eager)):
+        assert torch.equal(a, b), i
+
+
+def test_fused_forward_rejects_what_it_cannot_take(dev):
+    """Widths, encodings and routes the fused kernel does not take raise;
+    nothing falls back to the layer-by-layer forward."""
+    from nope_nerf_tpu_torch.models.nerf import init_nerf_params
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    ws, geo, z, deltas, _, pts, pdirs = _fused_inputs(dev, 96, 64, 15)
+    cfg = {"model": {"hidden_dim": 96, "pos_enc_levels": 10,
+                     "dir_enc_levels": 4},
+           "rendering": {"white_background": False}}
+    w96 = mk.collect_weights(init_nerf_params(torch.Generator().manual_seed(0),
+                                              cfg, dev))
+    cfg["model"].update(hidden_dim=64, pos_enc_levels=11)
+    w11 = mk.collect_weights(init_nerf_params(torch.Generator().manual_seed(0),
+                                              cfg, dev))
+    counters = (mk.MLP_FUSED_FWD_LAUNCHES, mk.GEMM_SM90_LAUNCHES)
+    n0 = [c.count for c in counters]
+    with pytest.raises(ValueError, match="hidden width"):
+        mk.fused_mlp(w96, pts, pdirs, 10, 4, "softplus", True)
+    with pytest.raises(ValueError, match="encodings"):
+        mk.fused_mlp(w11, pts, pdirs, 11, 4, "softplus", True)
+    Wt, _, Wh, Bs = mk._kernel_weights(ws, False)
+    dims = mk._dims(ws, 10, 4)
+    N, S = z.shape
+    outs = [torch.empty(s, device=dev) for s in ((N, 3), (N, 1), (N, S))]
+    with pytest.raises(ValueError, match="raw route"):
+        mk.fused_fwd(Wt, Wh, Bs, dims, mk.MODE_COMPOSITE, (10, 4), S,
+                     (*geo, z, deltas), outs, (1, 1, 0, 0))
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.fused_fwd(Wt, Wh, Bs, dims, mk.MODE_POINTS, (10, 4), 1,
+                     (pts.double(), None, pdirs, None, None),
+                     (outs[0], outs[1], None), (1, 1, 0, 0))
+    with pytest.raises(ValueError, match="write raw"):
+        mk.fused_fwd(Wt, Wh, Bs, dims, mk.MODE_RAW, (10, 4), S,
+                     (*geo, z, deltas), (None,) * 3, (1, 1, 0, 0))
+    assert [c.count for c in counters] == n0
 
 
 @pytest.mark.parametrize("S,D,masked", [(1500, 2100, False),

@@ -165,3 +165,63 @@ def test_throughput_counts_rays_since_reset(monkeypatch):
         t.tick()
         rates.append((r1, t.rate()))
     assert rates[0] == rates[1] == (4 * 512 / 2.0, 512 / 1.0)
+
+
+_FRAME_ORDER_RUN = r"""
+import json
+import sys
+
+if sys.argv[1] == "tensorflow_first":
+    import tensorflow  # noqa: F401
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+from nope_nerf_tpu_torch.training.loop import train
+from nope_nerf_tpu_torch.utils.synthetic import SyntheticScene, tiny_config
+
+orders = []
+permutation = np.random.permutation
+
+
+def recorded(n):
+    order = permutation(n)
+    orders.append([int(i) for i in order])
+    return order
+
+
+np.random.permutation = recorded
+scene = SyntheticScene(n_frames=4, hw=(12, 16), num_points=8, seed=0,
+                       device="cpu")
+cfg = tiny_config(scene, sys.argv[2], n_training_points=32, num_points=8)
+cfg["model"]["hidden_dim"] = 16
+cfg["training"]["seed"] = 7
+_, _, _, hist = train(cfg, max_epochs=2, scene=scene, device="cpu")
+print(json.dumps({"orders": orders, "losses": hist[0]["step_losses"]}))
+"""
+
+
+def test_frame_order_does_not_depend_on_tensorflow_import(tmp_path):
+    """Two fresh processes train 2 tiny epochs on the CPU at one seed, one
+    of them after ``import tensorflow``: the same frame permutations and
+    the same first-epoch step losses. The loop imports tensorboard (and,
+    where it is installed, TensorFlow, whose first import draws from
+    ``np.random``) before it seeds ``np.random``, as the JAX package's
+    process has TensorFlow loaded before its seed."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    runs = []
+    for mode in ("plain", "tensorflow_first"):
+        out = subprocess.run(
+            [sys.executable, "-c", _FRAME_ORDER_RUN, mode,
+             str(tmp_path / mode)], capture_output=True, text=True, env=env,
+            cwd=root, timeout=600)
+        assert out.returncode == 0, out.stderr[-4000:]
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert len(runs[0]["orders"]) == 2
+    assert runs[0]["orders"] == runs[1]["orders"]
+    assert runs[0]["losses"] == runs[1]["losses"]
