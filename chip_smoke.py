@@ -16,7 +16,14 @@ for A also on the raw route of an S that does not tile 128 points, where
 ``composite_fwd`` runs after it), and each forward is timed in turns
 against the layer-by-layer one and the plain version (CUDA events and the
 profiler's device time) at the stock shapes, without saves, at k = 4
-frames and at the recovery scripts' width (hidden 128, 64 samples). Then
+frames and at the recovery scripts' width (hidden 128, 64 samples).
+A-bwd and C-bwd run ten passes of ``csrc/mlp_fused_bwd.cu`` (each layer's
+input and weight gradient in one pass): at the same three shapes their
+gradients are held against the plain version (GRAD_RELL2) and against the
+layer-by-layer backward they replaced (``mlp_kernel._chain_bwd_layered``,
+BWD_LAYERED_RELL2), a rerun must be bitwise, and the two backwards are
+timed in turns with the kernels each launches per call and both memory
+floors (fused and layer-by-layer). Then
 it runs the GEMM phase (the layer-by-layer forward's TMA + wgmma layer
 GEMM of ``csrc/mlp_gemm_sm90.cu``, which no path runs since the fused
 forward, at four layer shapes at M = 131,072: its error against
@@ -28,8 +35,11 @@ weight-gradient GEMM ``gemm_wgrad`` at three, with Kernel A's per-ray
 direction weight gradient, in the same file, at M = 131,072: error against
 the plain versions, bitwise rerun, time beside the WMMA ``gemm_nn`` /
 ``gemm_tn`` they replaced, ``torch.mm`` in bf16 and the memory bound; the
-two narrow heads' weight gradients beside them),
-then trains six configurations at full width for two epochs of eight
+two narrow heads' weight gradients beside them; both on no path since the
+fused backward), the fused backward pass phase (each pass of the backward
+at M = 131,072 against ``gemm_dwgrad_reference``, bitwise rerun, device
+time beside the layer-by-layer dgrad + wgrad pair, the plain version and
+the memory bound), then trains six configurations at full width for two epochs of eight
 steps each on an in-memory 8-frame 540x960 scene with random weights and a
 smooth camera trajectory, through ``train()``, the first five on the stock
 config's scan path (``tpu.epoch_scan``: each epoch's steps replays of one
@@ -59,9 +69,10 @@ and checks that each run went through every kernel it should reach
 (launches run: eager calls plus each captured graph's launches times its
 replays; the
 fused forward once per forward of A or C and the layer-by-layer forward's
-GEMM never, the input-gradient GEMM 12 times per
-backward, the weight-gradient launches 14 times per backward that needs
-them, the WMMA GEMM never; Kernel A once each way and Kernel B twice in
+GEMM never, the fused backward pass 10 times per backward, the launches
+that serve only the weight gradients twice (A) or once (C) per backward
+that needs them, the layer-by-layer backward's GEMMs and the WMMA GEMM
+never; Kernel A once each way and Kernel B twice in
 every training step of the runs on Kernel A) and prints the last epoch's
 ms/step (wall on the host clock, and device) and rays/s of stock,
 multiplier, ssim_normal and multiplier_per_step side by side.
@@ -145,14 +156,16 @@ of the render CLI's last view and of the visualisation's view (at Kernel
 C's bars); and times a ``render_visdata`` call (its render and its Phong
 part) and a novel view.
 
-The recovery phase then recovers poses from scratch: the first REC_EPOCHS
-epochs of ``scripts/torch_reproduce_synthetic.sh``'s training (the JAX
+The recovery phase then recovers poses from scratch: the whole schedule
+of ``scripts/torch_reproduce_synthetic.sh``'s training (the JAX
 package's teacher at seed 3 from ``tests/fixtures/teacher_seed3.npz``, 20
 frames of 96x128 on disk, its scene.yaml: hidden 128, 64 samples, poses
 from identity, the auto-scheduler) through ``train()``; the mean ATE of
 the last REC_TAIL epochs must fall under REC_ATE_FRACTION of the first
-epoch's; Kernel A once each way and Kernel B twice per step, both held
-against their plain versions at the last step's inputs.
+epoch's; Kernel A once each way per step and Kernel B twice per step
+that builds the reference pair (the schedule anneals its losses to 0
+late in the run), both held against their plain versions at the last
+step's inputs.
 
 Prints, in order: the card's name and power limit, the kernel build time,
 one line per kernel check, the two GEMM phases' lines, one line per epoch, the
@@ -334,6 +347,10 @@ def run_module(*args):
 # 1.9e-6, alpha 5.7e-5, gradients relL2 <= 4.1e-3 (d_rays). The bars are
 # tightened to leave a margin of 2.4x or more over those.
 RGB_ATOL, DIST_ATOL, ALPHA_ATOL, GRAD_RELL2 = 1e-3, 1e-3, 1e-3, 1e-2
+# the fused backward against the layer-by-layer one on the same graph: the
+# same bf16 cotangents, the weight and bias gradients summed in another f32
+# order (relL2 <= 2e-5 on the H100 at the stock shapes and k = 4)
+BWD_LAYERED_RELL2 = 1e-3
 # rendering.normal_loss's normal_diff against float64 on the card, at the
 # ssim_normal run's 1,024 rays. Its f32 error is set by its few points
 # whose density gradient nearly vanishes, where normalising amplifies the
@@ -485,6 +502,32 @@ def mlp_bwd_floor(m, D, H2, n_pos, n_dir, div, weight_grads=True):
     return 1e3 * m * per_row / HBM_BYTES
 
 
+def mlp_bwd_floor_fused(m, D, H2, n_pos, n_dir, div, weight_grads=True):
+    """The fused backward's memory floor on ``m`` points, ms at the memory
+    rate: each launch of ``_chain_bwd`` reads its inputs once and writes its
+    outputs once, as :func:`mlp_bwd_floor` counts them. The heads' pass
+    reads g_raw and hr once for g_hr, fc_rgb's weight gradient and the
+    heads' biases; each layer's pass reads its cotangent and its saved
+    input once for both its input and its weight gradient (the input only
+    where a mask or a weight gradient needs it); Kernel A's per-ray
+    direction half reads g_hr again."""
+    bf, f4 = 2.0, 4.0
+    per_row = (
+        3 * 4 * f4                                  # raw, cotangents, g_raw
+        + 4 * f4 + 2 * H2 * bf                      # heads -> g_hr
+        + H2 * bf + D * bf + n_dir * f4             # rgb_layer -> g_feat, g_denc
+        + 3 * D * bf + f4                           # fc_feature + fc_density
+        + 7 * 3 * D * bf                            # masked trunk layers
+        + n_pos * f4 + (D * bf + n_pos * f4)        # trunk1_0's enc, trunk0_0
+        + (2 * n_pos + n_dir) * f4)                 # encoding backward
+    if weight_grads:
+        per_row += (
+            D * bf                                  # rgb_layer reads feat
+            + (n_dir * bf if div == 1 else H2 * bf + n_dir * bf / div)
+            + 2 * n_pos * bf)                       # trunk1_0, trunk0_0 read enc
+    return 1e3 * m * per_row / HBM_BYTES
+
+
 def rel_l2(a, b):
     import torch
 
@@ -572,6 +615,96 @@ def turns_line(t):
     return (f"fused {t['ms']:.4f} ms (device {t['device_ms']:.4f}), "
             f"layer-by-layer {t['earlier_ms']:.4f} ms (device "
             f"{t['earlier_device_ms']:.4f}), plain {t['plain_ms']:.3f} ms")
+
+
+@contextlib.contextmanager
+def layered_backward():
+    """Route Kernels A and C's backwards to the layer-by-layer chain the
+    fused passes replaced (``mlp_kernel._chain_bwd_layered``: twelve
+    ``gemm_dgrad`` and eleven or twelve ``gemm_wgrad`` launches with their
+    reductions), to hold the fused backward to it and time it beside it."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    real = mk._chain_bwd
+    mk._chain_bwd = mk._chain_bwd_layered
+    try:
+        yield
+    finally:
+        mk._chain_bwd = real
+
+
+def kernel_launches(fn):
+    """The kernels one call of ``fn`` launches on the card, counted by the
+    profiler (memory copies and sets left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # CUPTI now and then records no device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith(("Memcpy", "Memset")))
+        if n:
+            return n
+    raise RuntimeError("kernel_launches: the profiler recorded no kernel")
+
+
+def bwd_turns(grads, plain, iters=10):
+    """A backward timed in turns in this call, on this card: the fused
+    passes, the layer-by-layer chain (:func:`layered_backward`), the plain
+    version, the layer-by-layer chain and the fused passes again (CUDA
+    events; ``ms`` and ``earlier_ms`` the means of their two turns), then
+    the device time of both by the profiler and the kernels each launches
+    per call. ``grads`` and ``plain`` run the backward of the kernel's and
+    of the plain version's graph."""
+    def layered():
+        with layered_backward():
+            grads()
+
+    f1, l1 = cuda_ms(grads, iters), cuda_ms(layered, iters)
+    p = cuda_ms(plain, iters=3, warmup=1)
+    l2, f2 = cuda_ms(layered, iters), cuda_ms(grads, iters)
+    return {"ms": (f1 + f2) / 2, "earlier_ms": (l1 + l2) / 2, "plain_ms": p,
+            "device_ms": device_ms(grads, iters),
+            "earlier_device_ms": device_ms(layered, iters),
+            "launches_per_call": kernel_launches(grads),
+            "earlier_launches_per_call": kernel_launches(layered)}
+
+
+def bwd_turns_line(t):
+    return (f"fused passes {t['ms']:.4f} ms (device {t['device_ms']:.4f}, "
+            f"{t['launches_per_call']} launches), layer-by-layer "
+            f"{t['earlier_ms']:.4f} ms (device {t['earlier_device_ms']:.4f}, "
+            f"{t['earlier_launches_per_call']} launches), plain "
+            f"{t['plain_ms']:.3f} ms")
+
+
+def check_bwd_layered(label, grads, names):
+    """The fused backward (``grads``: gradients of one graph under fixed
+    cotangents) against a rerun, bit for bit, and against the
+    layer-by-layer backward on the same graph within BWD_LAYERED_RELL2:
+    returns the worst relL2."""
+    import torch
+
+    g1, g2 = grads(), grads()
+    with layered_backward():
+        gl = grads()
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(g1, g2))
+    rels = {n: rel_l2(a, b) for n, a, b in zip(names, g1, gl)}
+    worst = max(rels, key=rels.get)
+    print(f"{label}: fused backward rerun bitwise {bitwise}; against the "
+          f"layer-by-layer backward relL2 max {rels[worst]:.3e} ({worst})")
+    if not bitwise or not rels[worst] < BWD_LAYERED_RELL2:
+        raise AssertionError(f"{label}: fused backward rerun bitwise "
+                             f"{bitwise}, against the layer-by-layer one "
+                             f"{rels}")
+    return rels[worst]
 
 
 def check_fwd_saves(label, fused, layered, args, weights, first):
@@ -674,10 +807,12 @@ def check_kernel_a(dev, card):
     t_save = fwd_turns(lambda: fwd(mk.fused_mlp_composite),
                        lambda: fwd(mk.fused_mlp_composite_reference))
     t_nosave = fwd_turns(nosave, nosave_plain)
-    ms_bwd = cuda_ms(lambda: grads(out_k))
-    ms_bwd_plain = cuda_ms(lambda: grads(out_r))
-    dev_bwd = device_ms(lambda: grads(out_k))
-    floor = mlp_bwd_floor(N * S, *_mlp_widths(weights, static), div=S)
+    vs_layered = check_bwd_layered(f"kernel A bwd [{card}] N={N} S={S}",
+                                   lambda: grads(out_k), names)
+    t_bwd = bwd_turns(lambda: grads(out_k), lambda: grads(out_r))
+    widths = _mlp_widths(weights, static)
+    floor = mlp_bwd_floor_fused(N * S, *widths, div=S)
+    floor_layered = mlp_bwd_floor(N * S, *widths, div=S)
     io = nbytes(origins, rays_t, dirs, z_t, deltas_t, *o_k)
     (b_save, by_save), (b_ns, by_ns), (b_bwd, by_bwd) = mlp_bounds(
         weights, N * S, io, S)
@@ -690,8 +825,12 @@ def check_kernel_a(dev, card):
     worst = max(rels, key=rels.get)
     print(f"kernel A bwd [{card}]: relL2 max {rels[worst]:.3e} ({worst}); "
           + " ".join(f"{n}={v:.2e}" for n, v in rels.items())
-          + f"; kernel {ms_bwd:.3f} ms (device {dev_bwd:.3f} ms), plain "
-          f"{ms_bwd_plain:.3f} ms; layer-by-layer memory floor {floor:.3f} ms")
+          + f"; {bwd_turns_line(t_bwd)}; bound {b_bwd:.4f} ms ({by_bwd}); "
+          f"memory floor fused {floor:.3f} ms, layer-by-layer "
+          f"{floor_layered:.3f} ms")
+    print(f"kernel A launches per full backward [{card}]: layer-by-layer "
+          f"{t_bwd['earlier_launches_per_call']}, fused "
+          f"{t_bwd['launches_per_call']}")
     fails = []
     if not finite:
         fails.append("non-finite kernel output")
@@ -708,6 +847,9 @@ def check_kernel_a(dev, card):
                              + "; ".join(fails))
     shapes = {"k4": fwd_shape_turns(dev, card, 4 * N_RAYS, N_SAMPLES, None),
               "recovery": fwd_shape_turns(dev, card, N_RAYS, 64, 128)}
+    bwd_shapes = {"k4": bwd_shape_turns(dev, card, 4 * N_RAYS, N_SAMPLES,
+                                        None),
+                  "recovery": bwd_shape_turns(dev, card, N_RAYS, 64, 128)}
     raw_route = check_raw_route(dev, card)
     fwd_rec = {"name": "mlp_composite_fwd", "route": "cuda",
                "source": "nope_nerf_tpu_torch/csrc/mlp_fused_fwd.cu",
@@ -722,13 +864,15 @@ def check_kernel_a(dev, card):
                          "kernel writes raw and composite_fwd "
                          "(csrc/mlp_composite.cu) runs after it"}
     bwd_rec = {"name": "mlp_composite_bwd", "route": "cuda",
-               "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu + "
-                         "nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu",
+               "source": "nope_nerf_tpu_torch/csrc/mlp_fused_bwd.cu + "
+                         "nope_nerf_tpu_torch/csrc/mlp_composite.cu",
                "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:702",
                "max_abs_err": bwd_abs, "max_rel_l2": rels[worst],
-               "ms": ms_bwd, "device_ms": dev_bwd, "plain_ms": ms_bwd_plain,
+               "max_rel_l2_vs_layer_by_layer": vs_layered,
+               "rerun_bitwise": True, **t_bwd,
                "bound_ms": b_bwd, "bound_by": by_bwd, "library_ms": None,
-               "floor_ms": floor}
+               "floor_ms": floor, "layer_by_layer_floor_ms": floor_layered,
+               **bwd_shapes}
     return fwd_rec, bwd_rec
 
 
@@ -776,6 +920,72 @@ def fwd_shape_turns(dev, card, N, S, hidden, kernel="A"):
                              f"{err:.3e} > {RGB_ATOL}")
     return {"rays": N, "samples": S, "hidden": D, "max_abs_err": err, **t,
             "bound_ms": b_save, "bound_by": by_save}
+
+
+def bwd_shape_turns(dev, card, N, S, hidden, kernel="A"):
+    """Kernel A's backward at N rays x S samples (width ``hidden``, default
+    the stock 256), or Kernel C's at the same N x S points, under the
+    training step's cotangents: against its plain version (GRAD_RELL2) and
+    the layer-by-layer backward (:func:`check_bwd_layered`), and timed in
+    turns (:func:`bwd_turns`)."""
+    import torch
+
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    (cfg, weights, origins, rays_t, dirs, z_t, deltas_t, rng,
+     t) = stock_mlp_inputs(dev, N, S, hidden)
+    l_pos, l_dir = cfg["model"]["pos_enc_levels"], cfg["model"]["dir_enc_levels"]
+    act = cfg["model"]["occ_activation"]
+    if kernel == "A":
+        static = (l_pos, l_dir, act, True, False, False, S)
+        args = (origins, rays_t, dirs, z_t, deltas_t)
+        cots = (t(rng.normal(size=(N, 3)) / N), t(rng.normal(size=(N, 1)) / N),
+                torch.zeros((N, S), device=dev))
+        inputs = [origins, rays_t, dirs] + weights
+        fns = (mk.fused_mlp_composite, mk.fused_mlp_composite_reference)
+        names = ["d_origins", "d_rays", "d_dirs"]
+    else:
+        static = (l_pos, l_dir, act, True)
+        args = [(origins[:, None, :] + rays_t[:, None, :] * z_t[..., None])
+                .reshape(-1, 3).detach().requires_grad_(),
+                dirs[:, None, :].expand(N, S, 3).reshape(-1, 3).detach()
+                .contiguous().requires_grad_()]
+        M = N * S
+        cots = (t(rng.normal(size=(M, 3)) / M), t(rng.normal(size=(M, 1)) / M))
+        inputs = list(args) + weights
+        fns = (mk.fused_mlp, mk.fused_mlp_reference)
+        names = ["d_pts", "d_dirs"]
+    names += [f"{n}/{k}" for n in mk.W_NAMES for k in ("w", "b")]
+    outs = [fn(weights, *args, *static) for fn in fns]
+
+    def grads(o):
+        return torch.autograd.grad(o, inputs, cots, retain_graph=True)
+
+    g_k, g_r = grads(outs[0]), grads(outs[1])
+    rels = {n: rel_l2(a, b) for n, a, b in zip(names, g_k, g_r)}
+    worst = max(rels, key=rels.get)
+    D = cfg["model"]["hidden_dim"]
+    label = f"kernel {kernel} bwd [{card}] {N} x {S} points D={D}"
+    vs_layered = check_bwd_layered(label, lambda: grads(outs[0]), names)
+    tt = bwd_turns(lambda: grads(outs[0]), lambda: grads(outs[1]))
+    div = S if kernel == "A" else 1
+    widths = _mlp_widths(weights, static)
+    io = nbytes(*args) + 4.0 * N * (4 + S) if kernel == "A" else \
+        nbytes(*args) + 16.0 * N * S
+    _, _, (b_bwd, by_bwd) = mlp_bounds(weights, N * S, io, div)
+    floor = mlp_bwd_floor_fused(N * S, *widths, div=div)
+    floor_layered = mlp_bwd_floor(N * S, *widths, div=div)
+    print(f"{label}: relL2 max {rels[worst]:.3e} ({worst}) against the plain "
+          f"version; {bwd_turns_line(tt)}; bound {b_bwd:.4f} ms ({by_bwd}); "
+          f"memory floor fused {floor:.3f} ms, layer-by-layer "
+          f"{floor_layered:.3f} ms")
+    if not (rels[worst] < GRAD_RELL2
+            and all(bool(torch.isfinite(g).all()) for g in g_k)):
+        raise AssertionError(f"{label}: against its plain version {rels}")
+    return {"rays": N, "samples": S, "hidden": D, "max_rel_l2": rels[worst],
+            "max_rel_l2_vs_layer_by_layer": vs_layered, **tt,
+            "bound_ms": b_bwd, "bound_by": by_bwd, "floor_ms": floor,
+            "layer_by_layer_floor_ms": floor_layered}
 
 
 def check_raw_route(dev, card):
@@ -967,10 +1177,12 @@ def check_kernel_c(dev, card):
     t_save = fwd_turns(lambda: fwd(mk.fused_mlp),
                        lambda: fwd(mk.fused_mlp_reference))
     t_nosave = fwd_turns(nosave, nosave_plain)
-    ms_bwd = cuda_ms(lambda: grads(out_k))
-    ms_bwd_plain = cuda_ms(lambda: grads(out_r))
-    dev_bwd = device_ms(lambda: grads(out_k))
-    floor = mlp_bwd_floor(N * S, *_mlp_widths(weights, (l_pos, l_dir)), div=1)
+    vs_layered = check_bwd_layered(f"kernel C bwd [{card}] M={N * S}",
+                                   lambda: grads(out_k), names)
+    t_bwd = bwd_turns(lambda: grads(out_k), lambda: grads(out_r))
+    widths = _mlp_widths(weights, (l_pos, l_dir))
+    floor = mlp_bwd_floor_fused(N * S, *widths, div=1)
+    floor_layered = mlp_bwd_floor(N * S, *widths, div=1)
 
     # Kernel C + plain compositing against Kernel A at the same inputs
     with torch.no_grad():
@@ -993,8 +1205,9 @@ def check_kernel_c(dev, card):
     worst = max(rels, key=rels.get)
     print(f"kernel C bwd [{card}]: relL2 max {rels[worst]:.3e} ({worst}); "
           + " ".join(f"{n}={v:.2e}" for n, v in rels.items())
-          + f"; kernel {ms_bwd:.3f} ms (device {dev_bwd:.3f} ms), plain "
-          f"{ms_bwd_plain:.3f} ms; layer-by-layer memory floor {floor:.3f} ms")
+          + f"; {bwd_turns_line(t_bwd)}; bound {b_bwd:.4f} ms ({by_bwd}); "
+          f"memory floor fused {floor:.3f} ms, layer-by-layer "
+          f"{floor_layered:.3f} ms")
     print(f"kernel C + plain compositing vs kernel A [{card}]: max|err| "
           + " ".join(f"{n}={v:.3e}" for n, v in vs_a.items()))
     fails = []
@@ -1015,6 +1228,10 @@ def check_kernel_c(dev, card):
     shapes = {"k4": fwd_shape_turns(dev, card, 4 * N_RAYS, N_SAMPLES, None,
                                     "C"),
               "recovery": fwd_shape_turns(dev, card, N_RAYS, 64, 128, "C")}
+    bwd_shapes = {"k4": bwd_shape_turns(dev, card, 4 * N_RAYS, N_SAMPLES,
+                                        None, "C"),
+                  "recovery": bwd_shape_turns(dev, card, N_RAYS, 64, 128,
+                                              "C")}
     fwd_rec = {"name": "mlp_point_fwd", "route": "cuda",
                "source": "nope_nerf_tpu_torch/csrc/mlp_fused_fwd.cu",
                "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:244",
@@ -1025,13 +1242,15 @@ def check_kernel_c(dev, card):
                "nosave": {**t_nosave, "bound_ms": b_ns, "bound_by": by_ns},
                **shapes}
     bwd_rec = {"name": "mlp_point_bwd", "route": "cuda",
-               "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu + "
-                         "nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu",
+               "source": "nope_nerf_tpu_torch/csrc/mlp_fused_bwd.cu + "
+                         "nope_nerf_tpu_torch/csrc/mlp_composite.cu",
                "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:258",
                "max_abs_err": bwd_abs, "max_rel_l2": rels[worst],
-               "ms": ms_bwd, "device_ms": dev_bwd, "plain_ms": ms_bwd_plain,
+               "max_rel_l2_vs_layer_by_layer": vs_layered,
+               "rerun_bitwise": True, **t_bwd,
                "bound_ms": b_bwd, "bound_by": by_bwd, "library_ms": None,
-               "floor_ms": floor}
+               "floor_ms": floor, "layer_by_layer_floor_ms": floor_layered,
+               **bwd_shapes}
     return fwd_rec, bwd_rec
 
 
@@ -1492,11 +1711,161 @@ def check_gemm_bwd(dev, card):
     return recs
 
 
+# the fused backward pass (csrc/mlp_fused_bwd.cu) at each pass of the
+# backward: (pass, width of the input's first group, of its second (0:
+# none), N, masked, rank-1 term); the first group's output is f32 where it
+# is an encoding's (63 wide)
+FUSED_BWD_CASES = (
+    ("rgb_layer [feat | denc]", 256, 27, 128, False, False),
+    ("fc_feature + fc_density", 256, 0, 256, True, True),
+    ("trunk", 256, 0, 256, True, False),
+    ("trunk1_0 [a03 | enc]", 256, 63, 256, True, False),
+    ("trunk0_0", 63, 0, 256, False, False),
+)
+
+
+def check_fused_bwd(dev, card):
+    """The fused backward pass at each pass of Kernel A's and C's backward
+    at M = 131,072: its input gradients (bf16 in ulps, f32 in relL2), column
+    sums and weight gradients (fc_density's too) against
+    ``gemm_dwgrad_reference``, a bitwise rerun, and its device time (the
+    split reduction included) beside the layer-by-layer pair it replaced
+    (``gemm_dgrad`` of each group, then ``gemm_wgrad`` of each; fc_density
+    on ``head_weight_grad``), the plain version and the memory bound."""
+    import torch
+
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    M = N_RAYS * N_SAMPLES
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rows(k, scale=1.0):
+        """bf16 (M, k) normal values with NaN in the row padding."""
+        buf = torch.full((M, mk._pad8(k)), float("nan"), dtype=bf, device=dev)
+        buf[:, :k] = torch.randn((M, k), generator=gen, device=dev) * scale
+        return buf[:, :k]
+
+    def out_buf(k, dtype):
+        return torch.empty((M, mk._pad8(k)), dtype=dtype, device=dev)[:, :k]
+
+    table, worst_err = {}, 0.0
+    for name, K0, K1, N, masked, rank1 in FUSED_BWD_CASES:
+        g = rows(N, 1e-2)
+        xs = [rows(k) if k else None for k in (K0, K1)]
+        w = mk._padded(torch.randn((K0 + K1, N), generator=gen, device=dev)
+                       * N ** -0.5)
+        ws = (w[:K0], w[K0:])
+        g_raw = torch.randn((M, 4), generator=gen, device=dev) * 1e-2
+        wd = torch.randn((K0,), generator=gen, device=dev).to(bf)
+        rank = dict(gsig=g_raw[:, 0], wd=wd) if rank1 else {}
+        dt0 = f32 if K0 % 64 else bf
+
+        def groups():
+            dw = torch.empty((K0 + K1, N), device=dev)
+            gs = [mk.DwGroup(ws[0], out_buf(K0, dt0), x=xs[0], mask=masked,
+                             colsum=(torch.empty(K0, device=dev)
+                                     if dt0 == bf else None), dw=dw[:K0])]
+            if K1:
+                gs.append(mk.DwGroup(ws[1], out_buf(K1, f32), x=xs[1],
+                                     dw=dw[K0:]))
+            return gs
+
+        def new(gs=None):
+            gs = groups() if gs is None else gs
+            dwd = torch.empty((K0, 1), device=dev) if rank1 else None
+            mk.gemm_dwgrad(g, gs, dwd=dwd, **rank)
+            return gs, dwd
+
+        def plain():
+            return [mk.gemm_dwgrad_reference(
+                g.float(), ws[i].float(), xs[i].float(),
+                xs[i].float() if masked and i == 0 else None,
+                g_raw[:, 0] if rank1 and i == 0 else None,
+                wd.float() if rank1 and i == 0 else None)
+                for i in range(2 if K1 else 1)]
+
+        def layered(gs=groups()):
+            for i, grp in enumerate(gs):
+                mk.gemm_dgrad(g, grp.w, grp.out,
+                              mask=grp.x if grp.mask else None,
+                              colsum=grp.colsum is not None,
+                              **(rank if i == 0 else {}))
+            for grp in gs:
+                mk.gemm_wgrad(grp.x, g, grp.dw)
+            if rank1:
+                mk.head_weight_grad(xs[0], g_raw[:, :1])
+
+        (got, dwd), (again, dwd2) = new(), new()
+        ref = plain()
+        torch.cuda.synchronize()
+        errs, bitwise = {}, True
+        for i, (grp, (y, dw_ref)) in enumerate(zip(got, ref)):
+            bitwise &= torch.equal(grp.out, again[i].out) and torch.equal(
+                grp.dw, again[i].dw)
+            errs[f"out{i}"] = (gemm_ulps(grp.out, y.to(bf)) if grp.out.dtype
+                               == bf else rel_l2(grp.out, y))
+            errs[f"dw{i}"] = rel_l2(grp.dw, dw_ref)
+            if grp.colsum is not None:
+                bitwise &= torch.equal(grp.colsum, again[i].colsum)
+                errs["colsum"] = rel_l2(grp.colsum, y.sum(0))
+        if rank1:
+            bitwise &= torch.equal(dwd, dwd2)
+            errs["fc_density dw"] = rel_l2(dwd, mk.gemm_wgrad_reference(
+                xs[0].float(), g_raw[:, :1]))
+        finite = all(bool(torch.isfinite(grp.out.float()).all())
+                     and bool(torch.isfinite(grp.dw).all()) for grp in got)
+        ms = device_ms(new, iters=20)
+        ms_old = device_ms(layered, iters=20)
+        ms_plain = device_ms(plain, iters=3, warmup=1)
+        K = K0 + K1
+        moved = (2.0 * M * N + 2.0 * M * K
+                 + M * (K0 * (2 if dt0 == bf else 4) + 4 * K1)
+                 + 2.0 * K * N + 4.0 * K * N + (4.0 * M if rank1 else 0.0))
+        b_ms, b_by = bound(2.0 * 2 * M * K * N, moved)
+        ulps = [v for k, v in errs.items() if k.startswith("out")
+                and got[int(k[3:])].out.dtype == bf]
+        rels = [v for k, v in errs.items() if k not in
+                [f"out{i}" for i, grp in enumerate(got)
+                 if grp.out.dtype == bf]]
+        rec = {"K": [K0, K1], "N": N, "mask": masked, "rank1": rank1,
+               "errors": errs, "bitwise_rerun": bitwise, "ms": ms,
+               "earlier_ms": ms_old, "plain_ms": ms_plain, "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "gb_per_s": moved / ms / 1e6,
+               "max_abs_err": max(float(torch.max(torch.abs(
+                   grp.out.float() - y))) for grp, (y, _) in zip(got, ref))}
+        table[name] = rec
+        worst_err = max(worst_err, rec["max_abs_err"])
+        print(f"fused bwd pass {name} [{card}] M={M} K={K0}+{K1} N={N}: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (bf16 outputs in ulps, the rest relL2); bitwise rerun "
+              f"{bitwise}; {ms:.4f} ms device beside the layer-by-layer "
+              f"dgrad + wgrad {ms_old:.4f} ms, plain {ms_plain:.3f} ms; "
+              f"{rec['gb_per_s']:.0f} GB/s, bound {b_ms:.4f} ms ({b_by})")
+        if not (finite and bitwise and all(u <= GEMM_ULPS for u in ulps)
+                and all(r <= 1e-5 for r in rels)):
+            raise AssertionError(f"fused bwd pass {name}: {errs}, bitwise "
+                                 f"{bitwise}, finite {finite}")
+    head = table["trunk"]
+    return {"name": "mlp_fused_bwd", "route": "cuda",
+            "source": "nope_nerf_tpu_torch/csrc/mlp_fused_bwd.cu",
+            "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:702",
+            "also_serves": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:258",
+            "shape": "one 256x256 trunk layer at M=131072, weight gradient "
+                     "included",
+            "max_abs_err": worst_err, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "earlier_ms": head["earlier_ms"],
+            "library_ms": None, "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "shapes": table}
+
+
 def kernel_counters():
     """The launch counters of the six kernels, the fused forward and the
-    compositing after it (Kernel A's raw route), the layer-by-layer
-    forward's GEMM, the backward's input- and weight-gradient GEMMs (and
-    every weight-gradient launch) and the WMMA GEMM they replaced."""
+    compositing after it (Kernel A's raw route), the fused backward pass,
+    the layer-by-layer forward's GEMM, the layer-by-layer backward's input-
+    and weight-gradient GEMMs, the launches that serve only the weight
+    gradients, and the WMMA GEMM."""
     from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
     from nope_nerf_tpu_torch.ops.kernels import chamfer_kernel as ck
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -1504,7 +1873,8 @@ def kernel_counters():
     return (mk.FWD_LAUNCHES, mk.BWD_LAUNCHES, cb.LAUNCHES,
             mk.FWD_POINT_LAUNCHES, mk.BWD_POINT_LAUNCHES, ck.LAUNCHES,
             mk.MLP_FUSED_FWD_LAUNCHES, mk.COMPOSITE_AFTER_LAUNCHES,
-            mk.GEMM_SM90_LAUNCHES, mk.GEMM_DGRAD_LAUNCHES,
+            mk.MLP_FUSED_BWD_LAUNCHES, mk.GEMM_SM90_LAUNCHES,
+            mk.GEMM_DGRAD_LAUNCHES,
             mk.GEMM_WGRAD_LAUNCHES, mk.WGRAD_LAUNCHES, mk.GEMM_NN_LAUNCHES)
 
 
@@ -1512,19 +1882,21 @@ def check_gemm_counts(label, counts, weight_grads=True):
     """Every forward of Kernels A and C ran as one launch of the fused
     forward (csrc/mlp_fused_fwd.cu; every S on these paths tiles 128
     points, so no compositing after it) and the layer-by-layer forward's
-    GEMM never; every backward ran its 12 input-gradient GEMMs on
-    gemm_dgrad and, with ``weight_grads``, its weight gradients (11 of A's
-    and 12 of C's on gemm_wgrad, 14 weight-gradient launches in all; none
-    without); the WMMA GEMM never ran."""
+    GEMM never; every backward ran its ten fused passes
+    (csrc/mlp_fused_bwd.cu) and, with ``weight_grads``, the launches that
+    serve only the weight gradients (A: the per-ray direction half and the
+    split reduction, 2; C: the split reduction, 1; none without); the
+    layer-by-layer backward's GEMMs and the WMMA GEMM never ran."""
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     fwd = counts["mlp_composite_fwd"] + counts["mlp_point_fwd"]
     a_bwd, c_bwd = counts["mlp_composite_bwd"], counts["mlp_point_bwd"]
+    per = mk.WGRAD_PER_BWD
     want = {"mlp_fused_fwd": fwd, "mlp_composite_after_fused": 0,
-            "mlp_gemm_sm90": 0, "mlp_gemm_nn": 0,
-            "mlp_gemm_dgrad": mk.DGRAD_PER_BWD * (a_bwd + c_bwd),
-            "mlp_gemm_wgrad": (11 * a_bwd + 12 * c_bwd) if weight_grads else 0,
-            "mlp_weight_grad_gemm": (mk.WGRAD_PER_BWD * (a_bwd + c_bwd)
+            "mlp_gemm_sm90": 0, "mlp_gemm_nn": 0, "mlp_gemm_dgrad": 0,
+            "mlp_gemm_wgrad": 0,
+            "mlp_fused_bwd": mk.FUSED_BWD_PER_BWD * (a_bwd + c_bwd),
+            "mlp_weight_grad_gemm": (per["A"] * a_bwd + per["C"] * c_bwd
                                      if weight_grads else 0)}
     got = {k: counts[k] for k in want}
     if got != want:
@@ -1541,8 +1913,7 @@ def check_gemm_counts(label, counts, weight_grads=True):
 # the JAX package's fused MLP does. ``multiplier`` renders 4 frames' 4,096
 # rays per step through one Kernel A launch each way; ``ssim_normal`` adds
 # the SSIM map to rgb_s and turns on the normal term, which no loss reads
-MLP_GEMMS = ("mlp_fused_fwd", "mlp_gemm_dgrad", "mlp_gemm_wgrad",
-             "mlp_weight_grad_gemm")
+MLP_GEMMS = ("mlp_fused_fwd", "mlp_fused_bwd", "mlp_weight_grad_gemm")
 STOCK_KERNELS = ("mlp_composite_fwd", "mlp_composite_bwd", "chamfer_band",
                  "mlp_point_fwd", *MLP_GEMMS)
 K_FRAMES = 4
@@ -1630,7 +2001,9 @@ def per_step_launches():
     ``training.trainer.make_step_body`` makes (the per-step path's and the
     epoch step's) appends its kernels' launch counts to the yielded list:
     an eager step's launches, or those a capture records into its graph,
-    which every replay of the graph runs again."""
+    which every replay of the graph runs again; and under ``use_ref``
+    whether that step builds the reference pair (its static flag), whose
+    point clouds the Chamfer kernels match."""
     from nope_nerf_tpu_torch.training import trainer as module
 
     real = module.make_step_body
@@ -1643,8 +2016,11 @@ def per_step_launches():
             counters = kernel_counters()
             before = [c.count + c.captured for c in counters]
             out = body(*step_args, **step_kwargs)
+            static = (step_args[3] if len(step_args) > 3
+                      else step_kwargs["static"])
             steps.append({c.name: c.count + c.captured - b
                           for c, b in zip(counters, before)})
+            steps[-1]["use_ref"] = bool(static["use_ref"])
             return out
         return counted
 
@@ -1656,9 +2032,16 @@ def per_step_launches():
 
 
 def check_per_step(label, step_counts):
-    """Each step launched the kernels of PER_STEP exactly that often."""
+    """Each step launched the kernels of PER_STEP exactly that often; Kernel
+    B only in a step that builds the reference pair (the stock schedule's
+    steps all do; a run through the whole auto-schedule anneals the pair's
+    losses to 0 and its later steps build none)."""
+    def want(c):
+        return dict(PER_STEP, chamfer_band=PER_STEP["chamfer_band"]
+                    if c["use_ref"] else 0)
+
     bad = [(i, {n: c[n] for n in PER_STEP}) for i, c in enumerate(step_counts)
-           if any(c[n] != v for n, v in PER_STEP.items())]
+           if any(c[n] != v for n, v in want(c).items())]
     if not step_counts or bad:
         raise AssertionError(f"{label}: per-step launches {bad[:3]} of "
                              f"{len(step_counts)} steps, expected {PER_STEP}")
@@ -2009,9 +2392,10 @@ def check_restore(dev, card, cfg, trained):
 def check_input_only_backward(dev, card):
     """Kernel A's input-only backward (no weight needs a gradient) against
     the full one at the stock shapes: d_origins / d_rays / d_dirs bitwise
-    equal, the same input-gradient GEMMs, WGRAD_PER_BWD weight-gradient
-    launches against none, both timed beside the input-only memory
-    floor."""
+    equal, the same ten fused passes, WGRAD_PER_BWD["A"] launches that
+    serve only the weight gradients against none, both timed beside the
+    input-only memory floors (fused and layer-by-layer) and the input-only
+    layer-by-layer backward."""
     import torch
 
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -2027,7 +2411,7 @@ def check_input_only_backward(dev, card):
     geo = [origins, rays_t, dirs]
     out_full = mk.fused_mlp_composite(weights, *geo, z_t, deltas_t, *static)
     out_in = mk.fused_mlp_composite(frozen, *geo, z_t, deltas_t, *static)
-    count = (mk.WGRAD_LAUNCHES, mk.GEMM_DGRAD_LAUNCHES)
+    count = (mk.WGRAD_LAUNCHES, mk.MLP_FUSED_BWD_LAUNCHES)
     n0 = [c.count for c in count]
     g_full = torch.autograd.grad(out_full, geo + weights, cots,
                                  retain_graph=True)
@@ -2042,21 +2426,33 @@ def check_input_only_backward(dev, card):
                                                 retain_graph=True))
     dev_in = device_ms(lambda: torch.autograd.grad(out_in, geo, cots,
                                                    retain_graph=True))
-    floor = mlp_bwd_floor(N_RAYS * N_SAMPLES, *_mlp_widths(weights, static),
-                          div=N_SAMPLES, weight_grads=False)
+    with layered_backward():
+        dev_in_layered = device_ms(lambda: torch.autograd.grad(
+            out_in, geo, cots, retain_graph=True))
+    widths = _mlp_widths(weights, static)
+    floor = mlp_bwd_floor_fused(N_RAYS * N_SAMPLES, *widths, div=N_SAMPLES,
+                                weight_grads=False)
+    floor_layered = mlp_bwd_floor(N_RAYS * N_SAMPLES, *widths, div=N_SAMPLES,
+                                  weight_grads=False)
     print(f"kernel A input-only bwd [{card}] N={N_RAYS} S={N_SAMPLES}: "
           f"d_origins/d_rays/d_dirs bitwise equal to the full backward "
           f"{same}; weight-gradient launches {n1[0] - n0[0]} (full) vs "
-          f"{n2[0] - n1[0]}, input-gradient GEMMs {n1[1] - n0[1]} vs "
+          f"{n2[0] - n1[0]}, fused passes {n1[1] - n0[1]} vs "
           f"{n2[1] - n1[1]}; full {ms_full:.3f} ms, input-only {ms_in:.3f} ms"
-          f" (device {dev_in:.3f} ms); input-only memory floor {floor:.3f} ms")
-    want = ((mk.WGRAD_PER_BWD, mk.DGRAD_PER_BWD), (0, mk.DGRAD_PER_BWD))
+          f" (device {dev_in:.3f} ms; layer-by-layer {dev_in_layered:.3f} "
+          f"ms); input-only memory floor fused {floor:.3f} ms, "
+          f"layer-by-layer {floor_layered:.3f} ms")
+    want = ((mk.WGRAD_PER_BWD["A"], mk.FUSED_BWD_PER_BWD),
+            (0, mk.FUSED_BWD_PER_BWD))
     got = tuple((b[0] - a[0], b[1] - a[1]) for a, b in ((n0, n1), (n1, n2)))
     if not all(same) or got != want:
         raise AssertionError("kernel A's input-only backward differs from "
                              f"the full one (launches {got}, expected {want})")
     return {"ms_full": ms_full, "ms_input_only": ms_in,
-            "device_ms_input_only": dev_in, "floor_ms_input_only": floor}
+            "device_ms_input_only": dev_in,
+            "layer_by_layer_device_ms_input_only": dev_in_layered,
+            "floor_ms_input_only": floor,
+            "layer_by_layer_floor_ms_input_only": floor_layered}
 
 
 def pose_step_ms(dev, nerf_params, scene, render_cfg, weight_grads):
@@ -2986,17 +3382,22 @@ def run_synthetic(dev, card):
 # (the JAX package's teacher at seed 3 from tests/fixtures/teacher_seed3.npz,
 # 20 frames of 96x128 written to disk and read back by get_scene, which
 # holds 2 out; hidden 128, 64 samples, 1024 rays, identity poses, the
-# auto-scheduler, chamfer_mode auto): the first REC_EPOCHS epochs of that
-# script's training through train(). The gate: the mean ATE of the last
-# REC_TAIL epochs under REC_ATE_FRACTION of the first epoch's ATE. Before
-# its plateau switch the run's ATE wobbles by up to 2x from epoch to epoch,
-# hence the mean. The script's full run on an H100 (700 W) reads 0.362 of
-# its start there (0.457 at most over those epochs), and its mean stays
-# under 0.5 from epoch 107 on (PERF.md §6). The control
+# auto-scheduler, chamfer_mode auto): that script's training through
+# train(), its whole schedule (REC_EPOCHS None: until the auto-scheduler
+# ends it, 700-1000 epochs, 30-55 s on an H100). The gate: the mean ATE of
+# the last REC_TAIL epochs under REC_ATE_FRACTION of the first epoch's ATE.
+# A run's ATE is chaotic in the f32 rounding of its gradients: on an H100
+# (700 W) the first 130 epochs met the gate for exactly one rounding (the
+# layer-by-layer backward at its stock split counts: 0.45) and for none of
+# 18 others (that backward or the fused one with other split counts:
+# 0.52-1.11 of the start), and that one rounding read 0.59 at epoch 300;
+# over the whole schedule 6 of 8 roundings (3 of each backward) end at
+# 0.16-0.29 and one of each stalls at 0.57-0.60 (PERF.md §6, PR 14;
+# tools/torch_recovery_rounding_probe.py). The control
 # (``--recovery-control``) runs the same phase with the pose learning rate
-# at 0, which the gate must reject.
+# at 0, which the gate must reject (1.00 of its start).
 REC_SEED, REC_FRAMES, REC_HW = 3, 20, (96, 128)
-REC_EPOCHS, REC_TAIL, REC_ATE_FRACTION = 130, 10, 0.5
+REC_EPOCHS, REC_TAIL, REC_ATE_FRACTION = None, 10, 0.5
 
 
 def recovery_scene_yaml(base):
@@ -3067,14 +3468,15 @@ def run_recovery(dev, card, pose_lr=None):
           f"every 10th epoch " + " ".join(f"{a:.4f}" for a in ate[::10])
           + f" -> {ate[-1]:.4f}; PSNR {psnr[0]:.2f} -> {psnr[-1]:.2f} dB")
     steps = sum(h["steps"] for h in history)
-    if (len(history) != REC_EPOCHS or steps != REC_EPOCHS * scene.N_imgs
+    if (len(history) <= REC_TAIL or steps != len(history) * scene.N_imgs
+            or (REC_EPOCHS is not None and len(history) != REC_EPOCHS)
             or not all(map(math.isfinite, ate + psnr))):
         raise AssertionError(f"recovery: {len(history)} epochs, {steps} "
                              f"steps, ATE {ate}, PSNR {psnr}")
     tail = sum(ate[-REC_TAIL:]) / REC_TAIL
     if not tail < REC_ATE_FRACTION * ate[0]:
         raise AssertionError(f"recovery: ATE {ate[0]:.5f} -> {tail:.5f} "
-                             f"(mean of the last {REC_TAIL} of {REC_EPOCHS} "
+                             f"(mean of the last {REC_TAIL} of {len(history)} "
                              f"epochs), not under {REC_ATE_FRACTION} of its "
                              "start")
     check_launches("recovery training", counts,
@@ -3088,7 +3490,7 @@ def run_recovery(dev, card, pose_lr=None):
         "mlp_composite": check_kernel_a_call(f"recovery [{card}]", a_call)}
     print(f"recovery launches [{card}]: {counts}")
     shutil.rmtree(base)
-    return counts, {"epochs": REC_EPOCHS, "steps": steps,
+    return counts, {"epochs": len(history), "steps": steps,
                     "ate_per_epoch": ate, "psnr_per_epoch": psnr,
                     "ate_tail_fraction": tail / ate[0],
                     "gate_fraction": REC_ATE_FRACTION,
@@ -3715,7 +4117,8 @@ def main(argv=None):
     d = check_kernel_d(dev, card)
     gemm = check_gemm(dev, card)
     gemm_bwd = check_gemm_bwd(dev, card)
-    records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d, gemm, *gemm_bwd]
+    fused_bwd = check_fused_bwd(dev, card)
+    records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d, gemm, *gemm_bwd, fused_bwd]
     launches = {rec["name"]: 0 for rec in records}
     runs = {}
     for label, overrides, expect in RUNS:

@@ -28,10 +28,10 @@
 //
 // Design: the TPU kernel kept every activation in VMEM and recomputed the
 // forward inside the backward. A block on this card has at most 227 KB of
-// shared memory, which does not hold the 1.2 MB of weights, so each layer is
-// its own GEMM launch on mlp_gemm_sm90.cu (TMA + wgmma, both directions)
-// and the forward SAVES its bf16 activations (about 0.7 GB at the stock
-// step) for the backward instead of recomputing. This file holds the rest:
+// shared memory, which does not hold the 1.2 MB of weights, so the forward
+// (mlp_fused_fwd.cu) SAVES its bf16 activations (about 0.7 GB at the stock
+// step) for the backward (mlp_fused_bwd.cu, one pass per layer) instead of
+// recomputing. This file holds the rest:
 //   * encode_points / encode_rows: pts = o + r*z, [x, sin 2^l x, cos 2^l x]
 //     in f32 (full-precision sincosf), stored as bf16; directions encoded
 //     once per ray.
@@ -39,13 +39,14 @@
 //     activations, and the compositing scan one thread per ray, sequential
 //     over the samples. The TPU layout tricks (selector matmuls, log-space
 //     cumprod, triangular-matmul suffix sums) become plain loops.
-//   * heads_bwd: the rgb head's backward, the first bf16 cotangent and
-//     rgb_layer's bias sums; head_wgrad: the two narrow heads' weight
-//     gradients from g_raw's f32 columns; ray_sum + dir_wgrad: Kernel A's
-//     per-ray direction half of rgb_layer's weight gradient.
-//   * reduce_splits: the split partial sums (weight gradients, column sums)
-//     added in a fixed order (no float atomics, so runs repeat bitwise);
-//     colsum: the narrow heads' bias sums.
+//   * ray_sum + dir_wgrad: Kernel A's per-ray direction half of
+//     rgb_layer's weight gradient. For the layer-by-layer backward (on no
+//     path since mlp_fused_bwd.cu): heads_bwd, the rgb head's backward, the
+//     first bf16 cotangent and rgb_layer's bias sums; head_wgrad: the two
+//     narrow heads' weight gradients from g_raw's f32 columns; colsum: the
+//     narrow heads' bias sums.
+//   * reduce_splits: split partial sums added in a fixed order (no float
+//     atomics, so runs repeat bitwise).
 //   * encode_bwd: one warp per ray; the encoding backward and the ray sums
 //     that give d_origins, d_rays and d_dirs.
 //   * gemm_nn / gemm_tn: the WMMA GEMMs (16x16x16, register-staged tiles)

@@ -18,8 +18,11 @@
 // 128), whose direction half is a per-ray row term rowterm = denc @
 // W_rgb[D:] computed once per ray by this kernel with an f32 output and added
 // in the epilogue of the per-point GEMM (a TMA box cannot index rows by
-// row / S). The backwards run the same chain backward (_chain_bwd): twelve
-// input-gradient GEMMs and eleven (A) or twelve (C) weight-gradient GEMMs.
+// row / S). The backwards ran the same chain backward (now
+// mlp_kernel._chain_bwd_layered): twelve input-gradient GEMMs and eleven (A)
+// or twelve (C) weight-gradient GEMMs. Since mlp_fused_fwd.cu and
+// mlp_fused_bwd.cu no path runs these GEMMs; chip_smoke.py times them beside
+// the fused kernels.
 //
 // What bounds it on the H100: one layer at K = N = 256 does 2KN / (2K + 2N) =
 // 128 FLOP per byte of activations in and out, under the card's ~295 FLOP/B
@@ -104,17 +107,6 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
                    reinterpret_cast<uint64_t>(map)),
                "r"(src), "r"(x), "r"(y)
                : "memory");
-}
-
-// descriptor of an MN-major tile with 128-byte swizzle (CUTLASS's canonical
-// Swizzle<3,4,3> o ((8,n),(8,k)):((1,LBO),(8,SBO)) in 16-byte units): each
-// 128-byte row holds 64 consecutive M (or N) elements of one k, rows follow
-// k, 8-row groups are SBO = 1024 bytes apart along k and 64-element column
-// blocks `lbo` bytes apart along M / N -- the layout TMA writes for a box of
-// 128-byte rows taken down the reduction dimension.
-__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
 // The producer thread of the row-tile kernels (forward and input gradient):

@@ -1,7 +1,7 @@
 // PTX helpers of the port's Hopper kernels (mlp_gemm_sm90.cu,
-// mlp_fused_fwd.cu): shared-memory addresses, mbarriers, TMA loads, bulk
-// groups, proxy fences, named barriers, wgmma and its descriptors, and the
-// driver's tensor-map encoder.
+// mlp_fused_fwd.cu, mlp_fused_bwd.cu): shared-memory addresses, mbarriers,
+// TMA loads, bulk groups, proxy fences, named barriers, wgmma and its
+// descriptors, and the driver's tensor-map encoder.
 #pragma once
 
 #include <cuda.h>
@@ -90,6 +90,17 @@ __device__ __forceinline__ void wgmma_wait() {
 // with CU_TENSOR_MAP_SWIZZLE_128B writes into a 1024-byte-aligned buffer).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// descriptor of an MN-major tile with 128-byte swizzle (CUTLASS's canonical
+// Swizzle<3,4,3> o ((8,n),(8,k)):((1,LBO),(8,SBO)) in 16-byte units): each
+// 128-byte row holds 64 consecutive M (or N) elements of one k, rows follow
+// k, 8-row groups are SBO = 1024 bytes apart along k and 64-element column
+// blocks `lbo` bytes apart along M / N -- the layout TMA writes for a box of
+// 128-byte rows taken down the reduction dimension.
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 

@@ -6,9 +6,11 @@ Port of ``nope_nerf_tpu/ops/pallas/mlp_kernel.py``: ``fused_mlp_composite``
 ``_make_bwd_composite_kernel`` l.702) and ``fused_mlp`` (``_make_fwd_kernel``
 l.244 and ``_make_bwd_kernel`` l.258). The CUDA sources are
 ``nope_nerf_tpu_torch/csrc/mlp_fused_fwd.cu`` (both forwards, one launch
-each), ``nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu`` (the backwards' TMA +
-wgmma GEMMs) and ``nope_nerf_tpu_torch/csrc/mlp_composite.cu``; the headers
-say what bounds the kernels on the H100 and how the design answers it.
+each), ``nope_nerf_tpu_torch/csrc/mlp_fused_bwd.cu`` (both backwards, one
+pass per layer), ``nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu`` (the
+layer-by-layer GEMMs, on no path) and
+``nope_nerf_tpu_torch/csrc/mlp_composite.cu``; the headers say what bounds
+the kernels on the H100 and how the design answers it.
 
 * :func:`fused_mlp_composite` (Kernel A) and :func:`fused_mlp` (Kernel C)
   are the public wrappers. For CUDA tensors they run
@@ -19,28 +21,32 @@ say what bounds the kernels on the H100 and how the design answers it.
   encodings, the ten layer GEMMs on a tile kept in shared memory, the heads,
   and the compositing or the head activations; for an S that does not
   divide 128 (:func:`fused_route`) Kernel A's compositing runs after it in
-  ``composite_fwd`` (:data:`COMPOSITE_AFTER_LAUNCHES`). The backward's GEMMs
-  are counted in :data:`GEMM_DGRAD_LAUNCHES` and
-  :data:`GEMM_WGRAD_LAUNCHES`. CPU tensors run the plain versions
+  ``composite_fwd`` (:data:`COMPOSITE_AFTER_LAUNCHES`). Each backward runs
+  ten fused layer passes (:func:`gemm_dwgrad`, counted in
+  :data:`MLP_FUSED_BWD_LAUNCHES`). CPU tensors run the plain versions
   :func:`fused_mlp_composite_reference` / :func:`fused_mlp_reference`; any
   other device raises.
 * What the graph needs, and no more: when nothing is to be differentiated
   (grad disabled, or no input requires grad: the eval render) the fused
   forward stores nothing but its outputs; otherwise it also stores what
   :func:`_chain_bwd` reads (:func:`fused_fwd_saves`). When no weight needs
-  a gradient (test-time pose optimisation) the backward skips the
-  weight-gradient launches (counted in :data:`WGRAD_LAUNCHES`) and the bias
-  sums. Either way the outputs and input gradients are bitwise those of the
-  full path.
+  a gradient (test-time pose optimisation) the backward runs its passes
+  with their weight-gradient half off and skips the launches that serve
+  only the weight gradients (counted in :data:`WGRAD_LAUNCHES`). Either way
+  the outputs and input gradients are bitwise those of the full path.
 * The layer-by-layer forward the fused kernel replaced
   (:func:`_composite_fwd_layered`, :func:`_point_fwd_layered`: the encoding
   launches, :func:`_chain_fwd`'s eleven :func:`gemm_fwd` launches and the
   heads) runs on no path; chip_smoke.py holds the fused forward's saved
   tensors to it bit for bit and times it beside it.
 * The backward (:func:`_chain_bwd`) keeps its cotangents bf16 after their
-  ReLU masks and takes the bias gradients as f32 column sums in the GEMMs'
+  ReLU masks and takes the bias gradients as f32 column sums in the passes'
   epilogues; every step has a plain version beside it, so it runs whole on
-  CPU tensors too.
+  CPU tensors too. The layer-by-layer backward it replaced
+  (:func:`_chain_bwd_layered`: twelve :func:`gemm_dgrad` and eleven or
+  twelve :func:`gemm_wgrad` launches with their reductions) runs on no
+  path; chip_smoke.py holds the fused backward to it and times it beside
+  it.
 * The plain versions emulate bf16 operands as bf16-rounded f32 tensors with
   f32 matmuls and take the backward from autograd (matmul cotangents
   rounded to bf16 as in the kernels); both share :func:`_chain_reference`,
@@ -76,13 +82,17 @@ FWD_LAUNCHES = LaunchCounter("mlp_composite_fwd")
 BWD_LAUNCHES = LaunchCounter("mlp_composite_bwd")
 FWD_POINT_LAUNCHES = LaunchCounter("mlp_point_fwd")
 BWD_POINT_LAUNCHES = LaunchCounter("mlp_point_bwd")
-# weight-gradient launches of Kernels A and C's backwards: WGRAD_PER_BWD per
-# backward that computes the weight gradients (11 on gemm_wgrad, 12 in C,
-# whose direction half is per point; A's per-ray direction half; the two
-# narrow heads on the WMMA gemm_tn), none in one that needs only the input
-# gradients
+# the launches of Kernels A and C's backwards that run only for the weight
+# gradients: WGRAD_PER_BWD[kernel] per backward that computes them (the one
+# split reduction at its end, and A's per-ray direction half of rgb_layer's),
+# none in one that needs only the input gradients. The layer-by-layer
+# backward (_chain_bwd_layered) counts its weight-gradient GEMMs here too
 WGRAD_LAUNCHES = LaunchCounter("mlp_weight_grad_gemm")
-WGRAD_PER_BWD = 14
+WGRAD_PER_BWD = {"A": 2, "C": 1}
+# the fused backward pass of one layer (csrc/mlp_fused_bwd.cu):
+# FUSED_BWD_PER_BWD per backward, with or without the weight gradients
+MLP_FUSED_BWD_LAUNCHES = LaunchCounter("mlp_fused_bwd")
+FUSED_BWD_PER_BWD = 10
 # the fused forward of Kernels A and C (csrc/mlp_fused_fwd.cu): one launch
 # per forward; Kernel A's raw route (fused_route) runs composite_fwd after it
 MLP_FUSED_FWD_LAUNCHES = LaunchCounter("mlp_fused_fwd")
@@ -91,11 +101,14 @@ COMPOSITE_AFTER_LAUNCHES = LaunchCounter("mlp_composite_after_fused")
 # the ten layer GEMMs and the direction row term of rgb_layer); no path
 # launches it since the fused forward (chip_smoke.py times it beside it)
 GEMM_SM90_LAUNCHES = LaunchCounter("mlp_gemm_sm90")
-# the backward's input-gradient GEMMs on csrc/mlp_gemm_sm90.cu: DGRAD_PER_BWD
-# per backward, with or without the weight gradients
+# the layer-by-layer backward's input-gradient GEMMs on
+# csrc/mlp_gemm_sm90.cu: DGRAD_PER_BWD per backward of _chain_bwd_layered,
+# with or without the weight gradients; no path launches them since the
+# fused backward (chip_smoke.py times them beside it)
 GEMM_DGRAD_LAUNCHES = LaunchCounter("mlp_gemm_dgrad")
 DGRAD_PER_BWD = 12
-# the backward's weight-gradient GEMMs on csrc/mlp_gemm_sm90.cu (wgmma)
+# its weight-gradient GEMMs on csrc/mlp_gemm_sm90.cu (wgmma): 11 per full
+# backward of A, 12 of C
 GEMM_WGRAD_LAUNCHES = LaunchCounter("mlp_gemm_wgrad")
 # the WMMA GEMM of csrc/mlp_composite.cu that the GEMMs above replaced; no
 # path launches it (chip_smoke.py times it beside them)
@@ -960,10 +973,420 @@ def fused_fwd(Wt, Wh, Bs, dims, mode, levels, S, inputs, outs, flags,
     MLP_FUSED_FWD_LAUNCHES.add()
 
 
+# ---------------------------------------------------------------------------
+# The fused backward (csrc/mlp_fused_bwd.cu): one pass per layer
+# ---------------------------------------------------------------------------
+
+# fan-in columns per block of the fused backward pass, rows per tile (the
+# cotangent's and the inputs' tensor-map boxes; an output box is one
+# warpgroup's 64 rows), and the cotangent widths (the layers' fan_out) it is
+# built for
+FUSED_BWD_SLICE, FUSED_BWD_TILE = 64, 128
+FUSED_BWD_WIDTHS = (32, 64, 128, 256)
+
+
+def gemm_dwgrad_reference(g, w, x=None, mask=None, gsig=None, wd=None):
+    """Plain version of one group of :func:`gemm_dwgrad`: (the input
+    gradient in f32 before its rounding, :func:`gemm_dgrad_reference`; the
+    weight gradient x^T g, :func:`gemm_wgrad_reference`, or None without
+    ``x``)."""
+    y = gemm_dgrad_reference(g, w, mask, gsig, wd)
+    return y, (None if x is None else gemm_wgrad_reference(x, g))
+
+
+class DwGroup:
+    """One group of columns of a layer's input in :func:`gemm_dwgrad`.
+
+    w: the layer's bf16 weight rows of the group, a (K, N) view of
+    :func:`_padded`; out: its input gradient, a (M, K) bf16 (a cotangent)
+    or f32 (an encoding's) view; x: the saved bf16 (M, K) input of the
+    group, or None when nothing reads it; mask: the output is zeroed where
+    x <= 0 (the ReLU of the layer below); colsum: an f32 (K,) tensor for the
+    column sums of the masked values before rounding (the bias gradient of
+    the layer below), or None; dw: a contiguous f32 (K, N) tensor for x^T g,
+    or None."""
+
+    __slots__ = ("w", "out", "x", "mask", "colsum", "dw")
+
+    def __init__(self, w, out, x=None, mask=False, colsum=None, dw=None):
+        self.w, self.out, self.x, self.mask = w, out, x, mask
+        self.colsum, self.dw = colsum, dw
+
+
+def dwgrad_split(m, slices, sms):
+    """(row tiles per split, splits) of :func:`gemm_dwgrad` on ``m`` rows
+    whose input has ``slices`` 64-column slices: about one block per SM over
+    the (splits x slices) grid, every split non-empty."""
+    tiles = -(-m // FUSED_BWD_TILE)
+    splits = max(1, min(tiles, sms // slices))
+    per = -(-tiles // splits)
+    return per, -(-tiles // per)
+
+
+class SplitSums:
+    """The split partial sums of a backward's weight and bias gradients,
+    added in one launch of reduce_segments (csrc/mlp_fused_bwd.cu) at its
+    end, counted in :data:`WGRAD_LAUNCHES`: each entry an f32 partial whose
+    split s starts at element s * stride, and the contiguous output its sum
+    over the splits fills."""
+
+    MAX = 32
+
+    def __init__(self):
+        self.entries = []
+
+    def add(self, partial, out, splits, stride):
+        if not out.is_contiguous() or out.dtype != _F32:
+            raise ValueError("SplitSums: outputs are contiguous f32")
+        self.entries.append((partial, out, splits, stride))
+
+    def run(self):
+        if not self.entries:
+            return
+        if len(self.entries) > self.MAX:
+            raise ValueError(f"SplitSums: {len(self.entries)} entries; at "
+                             f"most {self.MAX} a launch")
+        n = len(self.entries)
+        parts = (ctypes.c_uint64 * n)(*[p.data_ptr() for p, _, _, _ in self.entries])
+        outs = (ctypes.c_uint64 * n)(*[o.data_ptr() for _, o, _, _ in self.entries])
+        strides = (ctypes.c_int64 * n)(*[s for _, _, _, s in self.entries])
+        splits = (ctypes.c_int * n)(*[k for _, _, k, _ in self.entries])
+        sizes = (ctypes.c_int * n)(*[o.numel() for _, o, _, _ in self.entries])
+        out = self.entries[0][1]
+        err = c_function("nnt_reduce_segments", "pppppip")(
+            ctypes.addressof(parts), ctypes.addressof(outs),
+            ctypes.addressof(strides), ctypes.addressof(splits),
+            ctypes.addressof(sizes), n, _stream(out))
+        check(err, "reduce_segments")
+        WGRAD_LAUNCHES.add()
+        self.entries = []
+
+
+def _check_dwgrad(g, groups, gsig, wd, dwd):
+    """Raise unless :func:`gemm_dwgrad`'s kernel takes these operands."""
+    M, N = g.shape
+    if g.dtype != _BF or N not in FUSED_BWD_WIDTHS or M >= 2 ** 31:
+        raise ValueError(f"gemm_dwgrad: g {tuple(g.shape)} {g.dtype}; a bf16 "
+                         f"cotangent N in {FUSED_BWD_WIDTHS} wide")
+    if not 1 <= len(groups) <= 2:
+        raise ValueError("gemm_dwgrad: one or two groups of columns")
+    for i, grp in enumerate(groups):
+        K = grp.w.shape[0]
+        if grp.w.dtype != _BF or grp.w.shape[1] != N:
+            raise ValueError(f"gemm_dwgrad: weight rows {tuple(grp.w.shape)} "
+                             f"{grp.w.dtype}; bf16 (K, {N})")
+        if grp.out.shape != (M, K) or grp.out.dtype not in (_BF, _F32):
+            raise ValueError(f"gemm_dwgrad: output {tuple(grp.out.shape)} "
+                             f"{grp.out.dtype}; bf16 or f32 ({M}, {K})")
+        if grp.x is not None and (grp.x.dtype != _BF or grp.x.shape != (M, K)):
+            raise ValueError(f"gemm_dwgrad: input {tuple(grp.x.shape)} "
+                             f"{grp.x.dtype}; bf16 ({M}, {K})")
+        if (grp.mask or grp.colsum is not None) and (
+                i != 0 or grp.out.dtype != _BF):
+            raise ValueError("gemm_dwgrad: a mask and column sums belong to "
+                             "the first group, with a bf16 output")
+        if grp.mask and grp.x is None:
+            raise ValueError("gemm_dwgrad: a mask reads the group's input")
+        if grp.colsum is not None and (
+                grp.colsum.shape != (K,) or grp.colsum.dtype != _F32
+                or not grp.colsum.is_contiguous()):
+            raise ValueError(f"gemm_dwgrad: column sums are contiguous f32 "
+                             f"({K},)")
+        if grp.dw is not None and (grp.x is None or grp.dw.shape != (K, N)
+                                   or grp.dw.dtype != _F32
+                                   or not grp.dw.is_contiguous()):
+            raise ValueError(f"gemm_dwgrad: a weight gradient reads the "
+                             f"group's input into a contiguous f32 ({K}, {N})")
+    x0, K0 = groups[0].x, groups[0].w.shape[0]
+    if (gsig is None) != (wd is None) or (gsig is not None and (
+            gsig.dtype != _F32 or gsig.shape != (M,) or wd.dtype != _BF
+            or wd.shape != (K0,) or not wd.is_contiguous())):
+        raise ValueError("gemm_dwgrad: the rank-1 term is f32 gsig (M,) with "
+                         f"contiguous bf16 wd ({K0},)")
+    if dwd is not None and (gsig is None or x0 is None or dwd.shape != (K0, 1)
+                            or dwd.dtype != _F32 or not dwd.is_contiguous()):
+        raise ValueError("gemm_dwgrad: the rank-1 weight gradient reads gsig "
+                         f"and the first group's input into f32 ({K0}, 1)")
+
+
+def dwgrad_args(g, groups, split, partials=None, gsig=None, wd=None):
+    """The arguments of one :func:`gemm_dwgrad` launch (csrc/mlp_fused_bwd.cu
+    ``nnt_mlp_fused_bwd``): (the 7 tensor-map tuples of :func:`tma_2d`: g
+    and the groups' inputs (box rows 128), weight rows (64) and outputs (64),
+    :data:`_NO_MAP` for an absent one; the 5 pointers: the dW, column-sum
+    and rank-1 partials, gsig and wd, None for an absent one; the 14 ints:
+    N, M, splits, tiles per split, gsig's row stride, the rows of a split's
+    dW partial, then per group its width, f32 output, mask and weight
+    gradient (zeros for no second group)). ``split`` is
+    :func:`dwgrad_split`'s pair; ``partials`` the dict of the partial
+    tensors ("dw", "colsum", "rowdot", any may be None)."""
+    M, N = g.shape
+    partials = partials or {}
+    two = list(groups) + [None] * (2 - len(groups))
+    xs = [_NO_MAP if grp is None or grp.x is None
+          else tma_2d(grp.x, FUSED_BWD_TILE) for grp in two]
+    ws = [_NO_MAP if grp is None else tma_2d(grp.w, FUSED_BWD_SLICE)
+          for grp in two]
+    outs = [_NO_MAP if grp is None else tma_2d(grp.out, GEMM_STORE_ROWS)
+            for grp in two]
+    maps = [tma_2d(g, FUSED_BWD_TILE), *xs, *ws, *outs]
+    ptrs = [partials.get("dw"), partials.get("colsum"), partials.get("rowdot"),
+            gsig, wd]
+    ints = [N, M, split[1], split[0],
+            gsig.stride(0) if gsig is not None else 0,
+            sum(grp.w.shape[0] for grp in groups)]
+    for grp in two:
+        ints += ([0, 0, 0, 0] if grp is None else
+                 [grp.w.shape[0], int(grp.out.dtype == _F32), int(grp.mask),
+                  int(grp.dw is not None)])
+    return maps, ptrs, ints
+
+
+def gemm_dwgrad(g, groups, gsig=None, wd=None, dwd=None, sums=None):
+    """One layer's backward pass on the fused kernel (csrc/mlp_fused_bwd.cu),
+    counted in :data:`MLP_FUSED_BWD_LAUNCHES`: from its masked bf16
+    cotangent g (M, N), for each :class:`DwGroup` of its input's columns the
+    input gradient out = mask(g @ w^T [+ bf16(gsig) wd^T]) (rounded to the
+    output's type), and where asked the column sums (``colsum``) and the
+    weight gradient x^T g (``dw``); with ``dwd`` (K0, 1) also the first
+    group's x^T bf16(gsig) (fc_density's weight gradient, from fc_feature's
+    pass). g and each group's input are read once.
+
+    The weight and bias gradients are split partial sums: with ``sums`` (a
+    :class:`SplitSums`) they are added there, at the end of the backward,
+    else by one launch before returning. A group without ``dw`` runs the
+    input gradient alone: the same values either way. CPU tensors run
+    :func:`gemm_dwgrad_reference`; on the card an operand the kernel cannot
+    take raises."""
+    M, N = g.shape
+    if _device("gemm_dwgrad", g) == "cpu":
+        for i, grp in enumerate(groups):
+            rank1 = i == 0 and gsig is not None
+            y, dw = gemm_dwgrad_reference(
+                g.float(), grp.w.float(),
+                None if grp.dw is None else grp.x.float(),
+                grp.x.float() if grp.mask else None,
+                gsig if rank1 else None, wd.float() if rank1 else None)
+            grp.out.copy_(y)
+            if grp.colsum is not None:
+                grp.colsum.copy_(y.sum(0))
+            if dw is not None:
+                grp.dw.copy_(dw)
+        if dwd is not None:
+            dwd.copy_(gemm_wgrad_reference(groups[0].x.float(),
+                                           gsig.reshape(-1, 1)))
+        return
+    _check_dwgrad(g, groups, gsig, wd, dwd)
+    if M == 0:
+        for t in (dwd, *(x for grp in groups for x in (grp.colsum, grp.dw))):
+            if t is not None:
+                t.zero_()
+        return
+    slices = sum(-(-grp.w.shape[0] // FUSED_BWD_SLICE) for grp in groups)
+    split = dwgrad_split(M, slices, _sm_count(g.device))
+    splits = split[1]
+    K = [grp.w.shape[0] for grp in groups]
+    f32 = dict(dtype=_F32, device=g.device)
+    partials = {}
+    if any(grp.dw is not None for grp in groups):
+        partials["dw"] = torch.empty((splits, sum(K), N), **f32)
+    if groups[0].colsum is not None:
+        partials["colsum"] = torch.empty((splits, K[0]), **f32)
+    if dwd is not None:
+        partials["rowdot"] = torch.empty((splits, K[0]), **f32)
+    maps, ptrs, ints = dwgrad_args(g, groups, split, partials, gsig, wd)
+    specs = (ctypes.c_int64 * (6 * len(maps)))(
+        *[int(v or 0) for m in maps for v in m])
+    ptr_arr = (ctypes.c_uint64 * len(ptrs))(
+        *[0 if t is None else t.data_ptr() for t in ptrs])
+    int_arr = (ctypes.c_int * len(ints))(*ints)
+    err = c_function("nnt_mlp_fused_bwd", "pppp")(
+        ctypes.addressof(specs), ctypes.addressof(ptr_arr),
+        ctypes.addressof(int_arr), _stream(g))
+    check(err, "mlp_fused_bwd")
+    MLP_FUSED_BWD_LAUNCHES.add()
+    own = sums is None
+    sums = SplitSums() if own else sums
+    row = 0
+    for grp, k in zip(groups, K):
+        if grp.dw is not None:
+            sums.add(partials["dw"][:, row:], grp.dw, splits, sum(K) * N)
+        row += k
+    if groups[0].colsum is not None:
+        sums.add(partials["colsum"], groups[0].colsum, splits, K[0])
+    if dwd is not None:
+        sums.add(partials["rowdot"], dwd, splits, K[0])
+    if own:
+        sums.run()
+
+
+def heads_rows_per_block(m, sms):
+    """Rows per block of :func:`heads_bwd_fused`: about four blocks per SM,
+    a multiple of 64."""
+    return max(64, -(-m // (4 * sms * 64)) * 64)
+
+
+def heads_bwd_fused(g_raw, hr, wc, out, b_rgb=None, dw_rgb=None,
+                    b_heads=None, sums=None):
+    """The rgb head's backward with the heads' weight-gradient work folded
+    in (csrc/mlp_fused_bwd.cu heads_bwd_fused_kernel): out (M, H2) bf16 =
+    relu_mask(hr) * (bf16(g_raw[:, 1:4]) @ wc^T) as :func:`heads_bwd`, and
+    with the three f32 outputs: ``b_rgb`` (H2,) its column sums before the
+    rounding (rgb_layer's bias gradient), ``dw_rgb`` (H2, 3) = hr^T
+    bf16(g_raw[:, 1:4]) (fc_rgb's), ``b_heads`` (4,) = g_raw's column sums
+    (fc_density's and fc_rgb's biases): split partial sums added by
+    ``sums`` (:class:`SplitSums`) or, without it, before returning. CPU
+    tensors run the plain versions."""
+    M, H2 = hr.shape
+    wgrad = b_rgb is not None
+    if _device("heads_bwd_fused", g_raw) == "cpu":
+        y = heads_bwd_reference(g_raw, hr.float(), wc.float())
+        out.copy_(y)
+        if wgrad:
+            b_rgb.copy_(y.sum(0))
+            dw_rgb.copy_(gemm_wgrad_reference(hr.float(), g_raw[:, 1:]))
+            b_heads.copy_(g_raw.sum(0))
+        return out
+    if (b_rgb is None) != (dw_rgb is None) or (b_rgb is None) != (
+            b_heads is None):
+        raise ValueError("heads_bwd_fused: the three weight-gradient outputs "
+                         "come together")
+    if out.dtype != _BF or out.shape != (M, H2) or hr.dtype != _BF \
+            or hr.stride(1) != 1 or out.stride(1) != 1 \
+            or not g_raw.is_contiguous() or g_raw.shape != (M, 4) \
+            or wc.shape != (H2, 3) or wc.dtype != _BF \
+            or not wc.is_contiguous():
+        raise ValueError("heads_bwd_fused: contiguous f32 g_raw (M, 4), "
+                         "row-major bf16 hr and out (M, H2), bf16 wc (H2, 3)")
+    if wgrad and any(t.dtype != _F32 or not t.is_contiguous() or t.shape != s
+                     for t, s in ((b_rgb, (H2,)), (dw_rgb, (H2, 3)),
+                                  (b_heads, (4,)))):
+        raise ValueError("heads_bwd_fused: contiguous f32 outputs (H2,), "
+                         "(H2, 3), (4,)")
+    rows = heads_rows_per_block(M, _sm_count(out.device))
+    blocks = -(-M // rows)
+    parts = ([torch.empty((blocks, n), dtype=_F32, device=out.device)
+              for n in (H2, 3 * H2, 4)] if wgrad else [None] * 3)
+    err = c_function("nnt_heads_bwd_fused", "ppippiiiipppp")(
+        _ptr(g_raw), _ptr(hr), hr.stride(0), _ptr(wc), _ptr(out),
+        out.stride(0), M, H2, rows, *[None if p is None else _ptr(p)
+                                      for p in parts], _stream(out))
+    check(err, "heads_bwd_fused")
+    if wgrad and M:
+        own = sums is None
+        sums = SplitSums() if own else sums
+        for p, o in zip(parts, (b_rgb, dw_rgb, b_heads)):
+            sums.add(p, o, blocks, p.shape[1])
+        if own:
+            sums.run()
+    elif wgrad:
+        for t in (b_rgb, dw_rgb, b_heads):
+            t.zero_()
+    return out
+
+
 def _chain_bwd(Wb, Wh, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
                weight_grads=True):
     """Backward of :func:`_chain_fwd` from the cotangents of the raw heads,
-    g_raw (M, 4) f32 = [sigma, rgb].
+    g_raw (M, 4) f32 = [sigma, rgb]: the rgb head's backward
+    (:func:`heads_bwd_fused`), then one fused pass per layer
+    (:func:`gemm_dwgrad`, ten in all) from rgb_layer ([feat | denc]) and
+    fc_feature (with fc_density's rank-1 term and weight gradient) down the
+    trunk (trunk1_0 as [a03 | enc]) to trunk0_0, each reading its cotangent
+    and its saved input once for both its input gradient and its weight
+    gradient; Kernel A's per-ray direction half of rgb_layer's weight
+    gradient on :func:`dir_weight_grad`; the split partial sums of every
+    weight and bias gradient added in one launch at the end
+    (:class:`SplitSums`).
+
+    Every cotangent that a matmul reads is stored bf16, after its ReLU mask:
+    the rounding the plain version (and the TPU kernel) applies where it
+    enters the matmul, and rounding commutes with the mask. Each bias
+    gradient is the f32 column sum of a masked cotangent before rounding;
+    the encodings' cotangents stay f32.
+
+    Returns (the 24 weight and bias gradients in kernel order, or 24 Nones
+    without ``weight_grads``; the cotangent of the position encoding as two
+    f32 (M, n_pos) summands; that of the direction encoding, f32 (M, n_dir),
+    per point). Without ``weight_grads`` the same passes run with their
+    weight-gradient half off, so the input cotangents are bitwise equal
+    either way. Runs on CPU tensors too (every step's plain version)."""
+    n_pos, n_dir, D, H2 = dims
+    dev = g_raw.device
+    wg = weight_grads
+
+    def buf(width, dtype=_BF):
+        # rows padded to 16 bytes, as TMA needs; the view has the true width
+        return torch.empty((M, _pad8(width)), dtype=dtype, device=dev)[:, :width]
+
+    def new(*shape):
+        return torch.empty(shape, dtype=_F32, device=dev) if wg else None
+
+    dw = {n: new(*W[n].shape) for W, names in ((Wb, GEMM_LAYERS),
+                                               (Wh, HEAD_LAYERS))
+          for n in names}
+    b = {n: new(Wb[n].shape[1]) for n in GEMM_LAYERS}
+    heads_b = new(4)  # [fc_density, fc_rgb]
+    sums = SplitSums()
+    g_hr = heads_bwd_fused(g_raw, hr, Wh["fc_rgb"], buf(H2), b["rgb_layer"],
+                           dw["fc_rgb"], heads_b, sums)
+    wr = Wb["rgb_layer"]
+    g_feat, g_denc = buf(D), buf(n_dir, _F32)
+    per_point = denc_div == 1
+    dw_r = (None,) * 2 if not wg else (dw["rgb_layer"][:D], dw["rgb_layer"][D:])
+    gemm_dwgrad(g_hr, (
+        DwGroup(wr[:D], g_feat, x=feat if wg else None,
+                colsum=b["fc_feature"], dw=dw_r[0]),
+        DwGroup(wr[D:D + n_dir], g_denc,
+                x=denc[:, :n_dir] if wg and per_point else None,
+                dw=dw_r[1] if per_point else None)), sums=sums)
+    if wg and not per_point:
+        dir_weight_grad(denc[:, :n_dir], g_hr, denc_div, dw_r[1])
+    # g[name]: the masked cotangent of a trunk layer's output
+    g = {"trunk1_3": buf(D)}
+    gemm_dwgrad(g_feat, (DwGroup(Wb["fc_feature"], g["trunk1_3"], x=acts[7],
+                                 mask=True, colsum=b["trunk1_3"],
+                                 dw=dw["fc_feature"]),),
+                gsig=g_raw[:, 0], wd=Wh["fc_density"].reshape(-1),
+                dwd=dw["fc_density"], sums=sums)
+    pos = enc[:, :n_pos]
+    for name in ("trunk1_3", "trunk1_2", "trunk1_1", "trunk1_0",
+                 "trunk0_3", "trunk0_2", "trunk0_1", "trunk0_0"):
+        stack, j = int(name[5]), int(name[-1])
+        if j:  # its input is the layer below's output, masked by its ReLU
+            lower = f"trunk{stack}_{j - 1}"
+            g[lower] = buf(D)
+            groups = [DwGroup(Wb[name], g[lower], x=acts[4 * stack + j - 1],
+                              mask=True, colsum=b[lower], dw=dw[name])]
+        elif stack:  # trunk1_0: [a03 | enc]
+            g["trunk0_3"], g_enc_skip = buf(D), buf(n_pos, _F32)
+            w10 = Wb[name]
+            groups = [DwGroup(w10[:D], g["trunk0_3"], x=acts[3], mask=True,
+                              colsum=b["trunk0_3"],
+                              dw=dw[name][:D] if wg else None),
+                      DwGroup(w10[D:D + n_pos], g_enc_skip,
+                              x=pos if wg else None,
+                              dw=dw[name][D:] if wg else None)]
+        else:  # trunk0_0: enc
+            g_enc = buf(n_pos, _F32)
+            groups = [DwGroup(Wb[name], g_enc, x=pos if wg else None,
+                              dw=dw[name])]
+        gemm_dwgrad(g[name], groups, sums=sums)
+    sums.run()
+    enc_cots = (g_enc_skip, g_enc)
+    if not wg:
+        return [None] * (2 * len(W_NAMES)), enc_cots, g_denc
+    b["fc_density"], b["fc_rgb"] = heads_b[:1], heads_b[1:]
+    d_weights = [t for name in W_NAMES
+                 for t in (dw[name], b[name].reshape(1, -1))]
+    return d_weights, enc_cots, g_denc
+
+
+def _chain_bwd_layered(Wb, Wh, g_raw, enc, denc, denc_div, feat, hr, acts,
+                       M, dims, weight_grads=True):
+    """The layer-by-layer backward that :func:`_chain_bwd` replaced: the
+    same contract, on about 55 launches. No path runs it; chip_smoke.py
+    holds the fused backward to it and times the two in turns.
 
     Every cotangent that a matmul reads is stored bf16, after its ReLU mask:
     the rounding the plain version (and the TPU kernel) applies where it

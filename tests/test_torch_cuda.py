@@ -271,24 +271,27 @@ def test_forward_without_graph_saves_nothing(dev, kernel):
 @pytest.mark.parametrize("kernel", ["A", "C"])
 def test_input_only_backward_is_bitwise(dev, kernel):
     """When no weight needs a gradient (test-time pose optimisation), the
-    backward runs none of the 12 weight-gradient GEMMs and returns the input
-    gradients of the full backward bit for bit."""
+    backward runs its ten fused passes with their weight-gradient half off
+    and none of the launches that serve only the weight gradients, and
+    returns the input gradients of the full backward bit for bit; the
+    layer-by-layer GEMMs never run."""
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     fn, ws, ins, cots = _kernel_call(dev, kernel)
     x = [a.clone().requires_grad_() for a in ins]
     w = [a.clone().requires_grad_() for a in ws]
-    counters = (mk.WGRAD_LAUNCHES, mk.GEMM_WGRAD_LAUNCHES,
-                mk.GEMM_DGRAD_LAUNCHES, mk.GEMM_NN_LAUNCHES)
+    counters = (mk.WGRAD_LAUNCHES, mk.MLP_FUSED_BWD_LAUNCHES,
+                mk.GEMM_WGRAD_LAUNCHES, mk.GEMM_DGRAD_LAUNCHES,
+                mk.GEMM_NN_LAUNCHES)
     n0 = [c.count for c in counters]
     full = torch.autograd.grad(fn(w, x), x + w, cots)
     n1 = [c.count for c in counters]
     inputs_only = torch.autograd.grad(fn(ws, x), x, cots)
     n2 = [c.count for c in counters]
-    on_wgmma = 11 if kernel == "A" else 12  # C's direction half is per point
     assert [b - a for a, b in zip(n0, n1)] == [
-        mk.WGRAD_PER_BWD, on_wgmma, mk.DGRAD_PER_BWD, 0]
-    assert [b - a for a, b in zip(n1, n2)] == [0, 0, mk.DGRAD_PER_BWD, 0]
+        mk.WGRAD_PER_BWD[kernel], mk.FUSED_BWD_PER_BWD, 0, 0, 0]
+    assert [b - a for a, b in zip(n1, n2)] == [
+        0, mk.FUSED_BWD_PER_BWD, 0, 0, 0]
     for a, b in zip(inputs_only, full[:len(x)]):
         assert torch.equal(a, b)
 
@@ -744,6 +747,253 @@ def test_backward_gemms_reject_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="bf16"):
         mk.gemm_wgrad(a, a.float())
     assert [c.count for c in counters] == n0
+
+
+# the fused backward pass (csrc/mlp_fused_bwd.cu), one case per pass of the
+# backward: (first group's width, second group's (0: none), N, masked,
+# rank-1 term) at the stock widths, hidden 128 and hidden 64; the first
+# group's output is f32 where it is an encoding's (63 wide)
+DWGRAD_PASSES = [
+    (256, 27, 128, False, False),   # rgb_layer: [feat | denc]
+    (256, 0, 256, True, True),      # fc_feature (+ fc_density)
+    (256, 0, 256, True, False),     # trunk1_3 .. trunk1_1, trunk0_3 .. 1
+    (256, 63, 256, True, False),    # trunk1_0: [a03 | enc]
+    (63, 0, 256, False, False),     # trunk0_0
+    (128, 27, 64, False, False),    # hidden 128
+    (128, 63, 128, True, False),
+    (128, 0, 128, True, True),
+    (64, 27, 32, False, False),     # hidden 64
+    (64, 0, 64, True, True),
+]
+
+
+def _dwgrad_operands(dev, M, K0, K1, N, masked, rank1, seed):
+    """A pass's operands: (g, the two groups' inputs, the weight rows, g_raw
+    and wd for the rank-1 term)."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = (torch.randn((M, N), generator=gen, device=dev) * 1e-2).to(
+        torch.bfloat16)
+    xs = [_nan_padded(dev, gen, M, k) if k else None for k in (K0, K1)]
+    w = mk._padded(torch.randn((K0 + K1, N), generator=gen, device=dev)
+                   * N ** -0.5)
+    g_raw = torch.randn((M, 4), generator=gen, device=dev) * 1e-2
+    wd = torch.randn((K0,), generator=gen, device=dev).to(torch.bfloat16)
+    return g, xs, (w[:K0], w[K0:]), g_raw, wd
+
+
+def _dwgrad_groups(dev, M, K0, K1, N, masked, xs, ws, weight_grads):
+    """The pass's :class:`DwGroup` s with fresh outputs (the first group's
+    f32 when it is an encoding's) and, with ``weight_grads``, fresh column
+    sums and weight gradients (rows of one dW)."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    f32 = torch.float32
+    dt0 = f32 if K0 % 64 else torch.bfloat16
+    dw = torch.full((K0 + K1, N), float("nan"), device=dev)
+    groups = [mk.DwGroup(
+        ws[0], torch.empty((M, mk._pad8(K0)), dtype=dt0, device=dev)[:, :K0],
+        x=xs[0] if (masked or weight_grads) else None, mask=masked,
+        colsum=(torch.empty(K0, device=dev) if weight_grads
+                and dt0 != f32 else None),
+        dw=dw[:K0] if weight_grads else None)]
+    if K1:
+        groups.append(mk.DwGroup(
+            ws[1], torch.empty((M, mk._pad8(K1)), dtype=f32,
+                               device=dev)[:, :K1],
+            x=xs[1] if weight_grads else None,
+            dw=dw[K0:] if weight_grads else None))
+    return groups
+
+
+@pytest.mark.parametrize("M", [1000, 131072])
+@pytest.mark.parametrize("K0,K1,N,masked,rank1", DWGRAD_PASSES)
+def test_fused_bwd_pass_matches_plain(dev, M, K0, K1, N, masked, rank1):
+    """One fused backward pass against gemm_dwgrad_reference (the plain
+    gemm_dgrad_reference and gemm_wgrad_reference), ragged and stock M: the
+    bf16 input gradient within one bf16 ulp of the rounded reference, the
+    f32 ones, the column sums and the weight gradients (fc_density's too)
+    to relL2 1e-5 (f32 order only), finite (the NaN row padding is never
+    read); bitwise equal on a rerun; the input-only pass's outputs bitwise
+    those of the full pass. One launch counted per pass, and one split
+    reduction per full pass."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    g, xs, ws, g_raw, wd = _dwgrad_operands(dev, M, K0, K1, N, masked, rank1,
+                                            M + K0 + K1 + N)
+    rank = dict(gsig=g_raw[:, 0], wd=wd) if rank1 else {}
+    runs = []
+    counts = []
+    for weight_grads in (True, True, False):
+        groups = _dwgrad_groups(dev, M, K0, K1, N, masked, xs, ws,
+                                weight_grads)
+        dwd = (torch.empty((K0, 1), device=dev) if rank1 and weight_grads
+               else None)
+        n0 = (mk.MLP_FUSED_BWD_LAUNCHES.count, mk.WGRAD_LAUNCHES.count)
+        mk.gemm_dwgrad(g, groups, dwd=dwd, **rank)
+        counts.append((mk.MLP_FUSED_BWD_LAUNCHES.count - n0[0],
+                       mk.WGRAD_LAUNCHES.count - n0[1]))
+        runs.append((groups, dwd))
+    assert counts == [(1, 1), (1, 1), (1, 0)]
+    (full, dwd), (again, dwd2), (inputs_only, _) = runs
+    for i, grp in enumerate(full):
+        y, dw = mk.gemm_dwgrad_reference(
+            g.float(), grp.w.float(), xs[i].float(),
+            xs[i].float() if grp.mask else None,
+            g_raw[:, 0] if rank1 and i == 0 else None,
+            wd.float() if rank1 and i == 0 else None)
+        assert torch.isfinite(grp.out.float()).all()
+        assert torch.equal(grp.out, again[i].out)
+        assert torch.equal(grp.out, inputs_only[i].out)
+        if grp.out.dtype == torch.bfloat16:
+            assert _ulps(grp.out, y.to(torch.bfloat16)) <= 1.0
+        else:
+            assert _rel_l2(grp.out, y) <= 1e-5
+        assert torch.isfinite(grp.dw).all() and torch.equal(grp.dw, again[i].dw)
+        assert _rel_l2(grp.dw, dw) <= 1e-5, i
+        if grp.colsum is not None:
+            assert torch.equal(grp.colsum, again[i].colsum)
+            assert _rel_l2(grp.colsum, y.sum(0)) <= 1e-5
+    if rank1:
+        assert torch.equal(dwd, dwd2)
+        assert _rel_l2(dwd, mk.gemm_wgrad_reference(
+            xs[0].float(), g_raw[:, :1])) <= 1e-5
+
+
+@pytest.mark.parametrize("rays,S,H2", [(1024, 128, 128), (37, 8, 32),
+                                       (40, 64, 64)])
+def test_heads_bwd_fused_matches_plain(dev, rays, S, H2):
+    """The rgb head's backward with the heads' weight-gradient work folded
+    in against its plain versions: g_hr within one bf16 ulp of
+    heads_bwd_reference and bitwise that of the input-only call, the column
+    sums, fc_rgb's dW and g_raw's column sums to relL2 1e-5; bitwise on a
+    rerun."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    gen = torch.Generator(device=dev).manual_seed(rays + S + H2)
+    M = rays * S
+    g_raw = torch.randn((M, 4), generator=gen, device=dev)
+    hr = torch.randn((M, H2), generator=gen, device=dev).relu().to(
+        torch.bfloat16)
+    wc = torch.randn((H2, 3), generator=gen, device=dev).to(torch.bfloat16)
+    outs = []
+    for wgrad in (True, True, False):
+        sums = ([torch.empty(s, device=dev) for s in ((H2,), (H2, 3), (4,))]
+                if wgrad else [None] * 3)
+        outs.append((mk.heads_bwd_fused(g_raw, hr, wc, torch.empty_like(hr),
+                                        *sums), sums))
+    (g_hr, sums), (again, sums2), (alone, _) = outs
+    ref = mk.heads_bwd_reference(g_raw, hr.float(), wc.float())
+    assert torch.equal(g_hr, again) and torch.equal(g_hr, alone)
+    assert _ulps(g_hr, ref.to(torch.bfloat16)) <= 1.0
+    want = (ref.sum(0), mk.gemm_wgrad_reference(hr.float(), g_raw[:, 1:]),
+            g_raw.sum(0))
+    for got, got2, w in zip(sums, sums2, want):
+        assert torch.equal(got, got2)
+        assert _rel_l2(got, w) <= 1e-5
+
+
+def test_fused_bwd_pass_rejects_what_it_cannot_take(dev):
+    """An operand the fused backward pass cannot take raises; nothing falls
+    back, and nothing is counted."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    M = 256
+    g = _nan_padded(dev, gen, M, 64)
+    x = _nan_padded(dev, gen, M, 64)
+    w = mk._padded(torch.randn((64, 64), device=dev))
+    out = torch.empty((M, 64), dtype=torch.bfloat16, device=dev)
+    f32_out = torch.empty((M, 64), device=dev)
+    misaligned = torch.zeros(M * 64 + 8, dtype=torch.bfloat16,
+                             device=dev)[1:1 + M * 64].view(M, 64)
+    n0 = (mk.MLP_FUSED_BWD_LAUNCHES.count, mk.WGRAD_LAUNCHES.count)
+    bad = [
+        ("bf16 cotangent", _nan_padded(dev, gen, M, 48),
+         [mk.DwGroup(mk._padded(torch.randn((64, 48), device=dev)), out)]),
+        ("bf16 cotangent", g.float(), [mk.DwGroup(w, out)]),
+        ("16-byte", g, [mk.DwGroup(w, out, x=misaligned, mask=True)]),
+        ("first group", g, [mk.DwGroup(w, out), mk.DwGroup(w, out, x=x,
+                                                          mask=True)]),
+        ("first group", g, [mk.DwGroup(w, f32_out, x=x,
+                                       colsum=torch.empty(64, device=dev))]),
+        ("reads the group's input", g, [mk.DwGroup(w, out, mask=True)]),
+        ("reads the group's input", g, [mk.DwGroup(
+            w, out, dw=torch.empty((64, 64), device=dev))]),
+        ("one or two groups", g, [mk.DwGroup(w, out)] * 3),
+    ]
+    for match, gg, groups in bad:
+        with pytest.raises(ValueError, match=match):
+            mk.gemm_dwgrad(gg, groups)
+    with pytest.raises(ValueError, match="rank-1"):
+        mk.gemm_dwgrad(g, [mk.DwGroup(w, out, x=x, mask=True)],
+                       gsig=torch.zeros(M, device=dev))
+    with pytest.raises(ValueError, match="come together"):
+        mk.heads_bwd_fused(torch.zeros((M, 4), device=dev), out, torch.zeros(
+            (64, 3), dtype=torch.bfloat16, device=dev), out.clone(),
+            b_rgb=torch.empty(64, device=dev))
+    assert (mk.MLP_FUSED_BWD_LAUNCHES.count, mk.WGRAD_LAUNCHES.count) == n0
+
+
+# the backwards held to the layer-by-layer one: (kernel, hidden width)
+FUSED_BWD_CASES = [("A", 256), ("A", 128), ("A", 64), ("C", 256), ("C", 128),
+                   ("C", 64)]
+
+
+def _layered_grads(fn, w, x, cots):
+    """The same backward through mlp_kernel._chain_bwd_layered."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    real = mk._chain_bwd
+    mk._chain_bwd = mk._chain_bwd_layered
+    try:
+        return torch.autograd.grad(fn(w, x), x + w, cots)
+    finally:
+        mk._chain_bwd = real
+
+
+@pytest.mark.parametrize("kernel,D", FUSED_BWD_CASES)
+def test_fused_backward_matches_layered_and_plain(dev, kernel, D):
+    """Kernel A's backward (64 rays x 128 samples) and Kernel C's (1500
+    points) on the fused passes against the layer-by-layer backward they
+    replaced (relL2 1e-3: the same bf16 cotangents, the weight and bias
+    gradients summed in another f32 order) and against the plain version
+    (relL2 1e-2, chip_smoke.py's bar), at every width the fused kernels
+    take; bitwise equal on a rerun; ten fused passes and no layer-by-layer
+    GEMM per backward."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    if kernel == "A":
+        ws, geo, z, deltas, cots = _kernel_a_inputs(dev, 64, 128, D, D + 1)
+        static = (10, 4, "softplus", True, False, False, 128)
+        cots[2] = torch.zeros_like(cots[2])
+
+        def fn(w, x, f=mk.fused_mlp_composite):
+            return f(w, *x, z, deltas, *static)
+        plain = mk.fused_mlp_composite_reference
+        ins = geo
+    else:
+        ws, ins, cots = _kernel_c_inputs(dev, 1500, D, D + 2)
+
+        def fn(w, x, f=mk.fused_mlp):
+            return f(w, *x, 10, 4, "softplus", True)
+        plain = mk.fused_mlp_reference
+    x = [a.clone().requires_grad_() for a in ins]
+    w = [a.clone().requires_grad_() for a in ws]
+    counters = (mk.MLP_FUSED_BWD_LAUNCHES, mk.GEMM_DGRAD_LAUNCHES,
+                mk.GEMM_WGRAD_LAUNCHES)
+    n0 = [c.count for c in counters]
+    got = torch.autograd.grad(fn(w, x), x + w, cots)
+    n1 = [c.count for c in counters]
+    again = torch.autograd.grad(fn(w, x), x + w, cots)
+    layered = _layered_grads(fn, w, x, cots)
+    ref = torch.autograd.grad(fn(w, x, plain), x + w, cots)
+    assert [b - a for a, b in zip(n0, n1)] == [mk.FUSED_BWD_PER_BWD, 0, 0]
+    for i, (a, b, l, r) in enumerate(zip(got, again, layered, ref)):
+        assert torch.isfinite(a).all() and torch.equal(a, b), i
+        assert _rel_l2(a, l) < 1e-3, (i, _rel_l2(a, l))
+        assert _rel_l2(a, r) < 1e-2, (i, _rel_l2(a, r))
 
 
 def _shaped_field(dev):

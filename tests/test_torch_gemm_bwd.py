@@ -1,11 +1,15 @@
-"""The Python side of the backward's GEMMs (csrc/mlp_gemm_sm90.cu: the
-input-gradient ``gemm_dgrad`` and the weight-gradient ``gemm_wgrad``) and of
-the chain backward that runs on them: their tensor-map arguments, the plain
-versions against the JAX kernels' ``_mm_t`` / ``_mm_acc``, the wrappers' CPU
-paths, and ``_chain_bwd`` run whole on CPU tensors (every step's plain
-version: buffer widths, f32 tails, bias sums) against autograd through the
-plain chain and against the JAX Pallas ``fused_mlp`` backward in interpret
-mode. The kernels themselves run only on the card (tests/test_torch_cuda.py).
+"""The Python side of the backward's kernels -- the fused layer pass
+(csrc/mlp_fused_bwd.cu: ``gemm_dwgrad``, each layer's input and weight
+gradient in one pass, with ``heads_bwd_fused`` and the split reduction) and
+the layer-by-layer GEMMs it replaced (csrc/mlp_gemm_sm90.cu: the
+input-gradient ``gemm_dgrad`` and the weight-gradient ``gemm_wgrad``) -- and
+of the chain backward that runs on them: their tensor-map arguments and
+split rules, the plain versions against the JAX kernels' ``_mm_t`` /
+``_mm_acc`` and JAX autograd, the wrappers' CPU paths, and ``_chain_bwd``
+run whole on CPU tensors (every step's plain version: buffer widths, f32
+tails, bias sums) against autograd through the plain chain, against the
+layer-by-layer chain and against the JAX Pallas backwards in interpret mode.
+The kernels themselves run only on the card (tests/test_torch_cuda.py).
 """
 import jax
 import jax.numpy as jnp
@@ -85,6 +89,130 @@ def test_wgrad_rows_per_split(M):
     assert mk.wgrad_rows_per_split(131072, 256, 132) == 2048
 
 
+def test_tma_2d_arguments_of_the_fused_backward():
+    """The fused pass's launch arguments: the cotangent and the groups'
+    inputs as boxes of 128 rows, the weight rows as 64-row boxes of the
+    untransposed bf16 weight (true width fan_out), the outputs as 64-row
+    boxes (f32 for an encoding's), absent maps empty; the partials' and the
+    rank-1 term's pointers; the ints (N, M, splits, tiles per split, gsig's
+    row stride, the dW partial's rows, then per group its width, f32
+    output, mask, weight gradient)."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    rng = np.random.default_rng(1)
+    D, M = 256, 300
+    w10 = mk._padded(torch.zeros((D + 63, D)))
+    g = torch.zeros((M, D), dtype=BF)
+    a03 = _nan_padded(rng, M, D)[:, :D]
+    enc = _nan_padded(rng, M, 63)[:, :63]
+    out0 = torch.empty((M, D), dtype=BF)
+    out1 = torch.empty((M, 64), dtype=F32)[:, :63]
+    dw = torch.empty((D + 63, D))
+    groups = [mk.DwGroup(w10[:D], out0, x=a03, mask=True,
+                         colsum=torch.empty(D), dw=dw[:D]),
+              mk.DwGroup(w10[D:D + 63], out1, x=enc, dw=dw[D:])]
+    split = mk.dwgrad_split(M, 5, 132)
+    parts = {"dw": torch.empty((split[1], D + 63, D)),
+             "colsum": torch.empty((split[1], D))}
+    maps, ptrs, ints = mk.dwgrad_args(g, groups, split, parts)
+    want = [(D, M, 512, 64, 128), (D, M, 512, 64, 128), (63, M, 128, 64, 128),
+            (D, D, 512, 64, 64), (D, 63, 512, 64, 64), (D, M, 512, 64, 64),
+            (63, M, 256, 32, 64)]
+    assert [m[1:] for m in maps] == want
+    assert maps[4][0] == w10.data_ptr() + D * 512
+    assert maps[2][0] == enc.data_ptr()
+    assert ptrs[0] is parts["dw"] and ptrs[1] is parts["colsum"]
+    assert ptrs[2:] == [None, None, None]
+    assert ints == [D, M, split[1], split[0], 0, D + 63,
+                    D, 0, 1, 1, 63, 1, 0, 1]
+    # the input-only fc_feature pass: no partials, the rank-1 term's gsig
+    # as a column of g_raw (row stride 4), no second group
+    g_raw = torch.zeros((M, 4))
+    wd = torch.zeros(D, dtype=BF)
+    maps, ptrs, ints = mk.dwgrad_args(
+        g, [mk.DwGroup(w10[:D], out0, x=a03, mask=True)], (3, 1), None,
+        gsig=g_raw[:, 0], wd=wd)
+    assert maps[2] == maps[4] == maps[6] == mk._NO_MAP
+    assert ptrs[:3] == [None, None, None] and ptrs[4] is wd
+    assert ptrs[3].data_ptr() == g_raw.data_ptr() and ptrs[3].stride() == (4,)
+    assert ints == [D, M, 1, 3, 4, D, D, 0, 1, 0, 0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("M", [200, 131072, 524288])
+def test_dwgrad_split(M):
+    """About one block per SM of an H100 (132) over the (splits x slices)
+    grid, whole 128-row tiles per split, every split non-empty, the splits
+    covering M."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    tiles = -(-M // mk.FUSED_BWD_TILE)
+    for slices in (1, 2, 4, 5):
+        per, splits = mk.dwgrad_split(M, slices, 132)
+        assert splits * slices <= 132 and splits <= tiles
+        assert splits * per >= tiles > (splits - 1) * per
+    assert mk.dwgrad_split(131072, 4, 132) == (32, 32)
+    assert mk.dwgrad_split(131072, 5, 132) == (40, 26)
+
+
+def test_fused_backward_wrappers_cpu_path_is_the_plain_version():
+    """gemm_dwgrad and heads_bwd_fused on CPU tensors fill their outputs
+    with the plain versions' values (the input gradient rounded to the
+    output's type, the column sums taken before the rounding, the weight
+    gradients of the groups that ask for one, fc_density's from the rank-1
+    term) and launch nothing; the split sums of a CPU backward are empty;
+    any other device raises."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    rng = np.random.default_rng(6)
+    M, D = 96, 32
+    g = _nan_padded(rng, M, D)[:, :D]
+    act = _nan_padded(rng, M, D)[:, :D]
+    enc = _nan_padded(rng, M, 27)[:, :27]
+    w = mk._padded(torch.tensor(rng.normal(size=(D + 27, D)) * 0.2,
+                                dtype=F32))
+    g_raw = torch.tensor(rng.normal(size=(M, 4)), dtype=F32)
+    wd = torch.tensor(rng.normal(size=(D,)), dtype=F32).to(BF)
+    counters = (mk.MLP_FUSED_BWD_LAUNCHES, mk.WGRAD_LAUNCHES)
+    n0 = [c.count for c in counters]
+    out0, out1 = torch.empty((M, D), dtype=BF), torch.empty((M, 27))
+    colsum, dw, dwd = torch.empty(D), torch.empty((D + 27, D)), torch.empty(
+        (D, 1))
+    sums = mk.SplitSums()
+    mk.gemm_dwgrad(g, [mk.DwGroup(w[:D], out0, x=act, mask=True,
+                                  colsum=colsum, dw=dw[:D]),
+                       mk.DwGroup(w[D:], out1, x=enc, dw=dw[D:])],
+                   gsig=g_raw[:, 0], wd=wd, dwd=dwd, sums=sums)
+    y0, dw0 = mk.gemm_dwgrad_reference(g.float(), w[:D].float(), act.float(),
+                                       act.float(), g_raw[:, 0], wd.float())
+    y1, dw1 = mk.gemm_dwgrad_reference(g.float(), w[D:].float(), enc.float())
+    torch.testing.assert_close(out0, y0.to(BF), rtol=0, atol=0)
+    torch.testing.assert_close(colsum, y0.sum(0), rtol=0, atol=0)
+    torch.testing.assert_close(out1, y1, rtol=0, atol=0)
+    torch.testing.assert_close(dw, torch.cat([dw0, dw1]), rtol=0, atol=0)
+    torch.testing.assert_close(dwd, mk.gemm_wgrad_reference(
+        act.float(), g_raw[:, :1]), rtol=0, atol=0)
+    assert sums.entries == []
+
+    hr = _nan_padded(rng, M, D)[:, :D]
+    wc = torch.tensor(rng.normal(size=(D, 3)), dtype=F32).to(BF)
+    b_rgb, dw_rgb, b_heads = torch.empty(D), torch.empty((D, 3)), torch.empty(4)
+    g_hr = mk.heads_bwd_fused(g_raw, hr, wc, torch.empty((M, D), dtype=BF),
+                              b_rgb, dw_rgb, b_heads, sums)
+    want = mk.heads_bwd_reference(g_raw, hr.float(), wc.float())
+    torch.testing.assert_close(g_hr, want.to(BF), rtol=0, atol=0)
+    torch.testing.assert_close(b_rgb, want.sum(0), rtol=0, atol=0)
+    torch.testing.assert_close(dw_rgb, mk.gemm_wgrad_reference(
+        hr.float(), g_raw[:, 1:]), rtol=0, atol=0)
+    torch.testing.assert_close(b_heads, g_raw.sum(0), rtol=0, atol=0)
+    sums.run()  # nothing to add on the CPU: no launch
+    assert [c.count for c in counters] == n0
+    meta = lambda x: x.to("meta")  # noqa: E731
+    with pytest.raises(ValueError, match="unsupported device"):
+        mk.gemm_dwgrad(meta(g), [mk.DwGroup(meta(w[:D]), meta(out0))])
+    with pytest.raises(ValueError, match="unsupported device"):
+        mk.heads_bwd_fused(meta(g_raw), meta(hr), meta(wc), meta(out0))
+
+
 def _bf(x):
     return np.asarray(torch.tensor(np.asarray(x, np.float32)).to(BF).float())
 
@@ -126,6 +254,26 @@ def test_backward_gemm_references_match_jax(seed):
     g_raw = np.concatenate([gsig, g_rgb], 1)
     close(mk.heads_bwd_reference(t(g_raw), t(act[:, :D]), t(wc)),
           jmk._mm_t(g_rgb, wc) * mask[:, :D])
+
+    # the fused pass's plain version: exactly gemm_dgrad_reference and
+    # gemm_wgrad_reference, and both halves against the JAX kernels' matmuls
+    # and against JAX autograd of the layer x @ w (bf16-rounded operands,
+    # f32: the VJP's cotangents are g @ w^T and x^T @ g)
+    y, dw = mk.gemm_dwgrad_reference(t(g), t(w), t(act), mask=t(act),
+                                     gsig=t(gsig[:, 0]), wd=t(wd[:, 0]))
+    torch.testing.assert_close(y, mk.gemm_dgrad_reference(
+        t(g), t(w), t(act), t(gsig[:, 0]), t(wd[:, 0])), rtol=0, atol=0)
+    torch.testing.assert_close(dw, mk.gemm_wgrad_reference(t(act), t(g)),
+                               rtol=0, atol=0)
+    close(y, (jmk._mm_t(g, w) + jmk._mm_t(gsig, wd)) * mask)
+    close(dw, jmk._mm_acc(act, g))
+    _, vjp = jax.vjp(lambda x_, w_: x_ @ w_, jnp.asarray(act),
+                     jnp.asarray(_bf(w)))
+    d_act, d_wt = vjp(jnp.asarray(_bf(g)))
+    y2, dw2 = mk.gemm_dwgrad_reference(t(g), t(w), t(act))
+    close(y2, d_act)
+    close(dw2, d_wt)
+    assert mk.gemm_dwgrad_reference(t(g), t(w))[1] is None
 
 
 def test_backward_wrappers_cpu_path_is_the_plain_version():
@@ -218,7 +366,8 @@ def _chain_inputs(hidden, M, div, seed):
 
 
 @pytest.mark.parametrize("hidden,M,div", [(32, 296, 8), (64, 296, 1),
-                                          (64, 200, 8), (32, 200, 1)])
+                                          (64, 200, 8), (32, 200, 1),
+                                          (128, 300, 1), (128, 300, 4)])
 def test_chain_bwd_matches_autograd(hidden, M, div):
     """_chain_bwd on CPU tensors (ragged M) against autograd through the
     plain chain on the same forward: every weight and bias gradient and the
@@ -249,6 +398,26 @@ def test_chain_bwd_matches_autograd(hidden, M, div):
     assert _rel_l2(gd, denc_in.grad) <= 1e-5
 
 
+@pytest.mark.parametrize("hidden,M,div", [(64, 296, 8), (128, 300, 1)])
+def test_chain_bwd_matches_the_layered_chain(hidden, M, div):
+    """On CPU tensors the fused passes' chain and the layer-by-layer chain
+    it replaced run the same plain versions: every weight and bias gradient
+    and both encodings' cotangents bitwise equal, with and without the
+    weight gradients."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    _, enc, denc, (acts, feat, hr, _), dims, (Wb, Wh), rng = _chain_inputs(
+        hidden, M, div, hidden + div)
+    g_raw = torch.tensor(rng.normal(size=(M, 4)) / M, dtype=F32)
+    for weight_grads in (True, False):
+        args = (Wb, Wh, g_raw, enc, denc, div, feat, hr, acts, M, dims,
+                weight_grads)
+        (dw, (e1, e2), gd), (dw_l, (e1_l, e2_l), gd_l) = (
+            mk._chain_bwd(*args), mk._chain_bwd_layered(*args))
+        for a, b in zip((*dw, e1, e2, gd), (*dw_l, e1_l, e2_l, gd_l)):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
 def test_chain_bwd_input_only_is_bitwise():
     """Without the weight gradients the chain runs the same input-gradient
     GEMMs without their column sums: the encodings' cotangents are bitwise
@@ -268,13 +437,24 @@ def test_chain_bwd_input_only_is_bitwise():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("act,occ_alpha", [("softplus", True),
-                                           ("relu", False)])
-def test_chain_bwd_weight_grads_vs_pallas(act, occ_alpha):
+@pytest.mark.parametrize("act,occ_alpha,hidden,M,S", [
+    pytest.param("softplus", True, 32, 2048, 1, id="softplus-True"),
+    pytest.param("relu", False, 32, 2048, 1, id="relu-False"),
+    # hidden 128 on a ragged batch (not a multiple of 128; the JAX kernel
+    # runs it padded to 1024 points whose cotangents are zero)
+    pytest.param("softplus", True, 128, 1000, 1, id="hidden128-ragged"),
+    # Kernel A: the direction encoding per ray (div = S = 24), 30 rays (720
+    # points; the JAX kernel pads to its 40-ray block)
+    pytest.param("softplus", True, 128, 720, 24, id="hidden128-rays"),
+])
+def test_chain_bwd_weight_grads_vs_pallas(act, occ_alpha, hidden, M, S):
     """_chain_bwd's 24 weight and bias gradients on CPU tensors against the
-    JAX Pallas ``fused_mlp`` backward in interpret mode (Kernel C's VJP) on
-    the same numpy points, directions and cotangents, with g_raw from
-    autograd through the plain head activations: the bar of
+    JAX Pallas backward in interpret mode on the same numpy inputs and
+    cotangents: Kernel C's (``fused_mlp``'s VJP, S = 1; g_raw from autograd
+    through the plain head activations) or Kernel A's
+    (``fused_mlp_composite``'s VJP under cotangents of rgb and depth; g_raw
+    from autograd through the plain head activations and compositing, the
+    direction encoding once per ray): the bar of
     tests/test_torch_kernels_cd.py::test_fused_mlp_reference_vs_pallas
     (relL2 0.02)."""
     import nope_nerf_tpu.ops.pallas.mlp_kernel as jmk
@@ -283,26 +463,50 @@ def test_chain_bwd_weight_grads_vs_pallas(act, occ_alpha):
     from nope_nerf_tpu_torch.ops.encoding import encode_position
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
-    cfg = {"model": {"hidden_dim": 32, "pos_enc_levels": 10,
+    cfg = {"model": {"hidden_dim": hidden, "pos_enc_levels": 10,
                      "dir_enc_levels": 4},
            "rendering": {"white_background": False}}
     tree = jax.device_get(init_nerf_params(jax.random.PRNGKey(7), cfg))
     weights = mk.collect_weights(params_from_jax({"nerf": tree})["nerf"])
-    rng = np.random.default_rng(23)
-    M = 2048
-    pts = rng.normal(size=(M, 3)).astype(np.float32)
-    d = rng.normal(size=(M, 3))
-    dirs = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-    c_rgb = rng.normal(size=(M, 3)).astype(np.float32) / M
-    c_den = rng.normal(size=(M, 1)).astype(np.float32) / M
-
     jw = jmk.collect_weights(jax.tree.map(jnp.asarray, tree))
+    rng = np.random.default_rng(23)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    N = M // S
+    d = rng.normal(size=(N, 3))
+    dirs = f32(d / np.linalg.norm(d, axis=1, keepdims=True))
+    if S == 1:
+        pts = f32(rng.normal(size=(M, 3)))
+        cots = (f32(rng.normal(size=(M, 3)) / M),
+                f32(rng.normal(size=(M, 1)) / M))
+        pad = -M % jmk.BM  # whole 1024-point blocks, zero cotangents
 
-    def jloss(w):
-        rgb, den = jmk.fused_mlp(w, jnp.asarray(pts), jnp.asarray(dirs), 10,
-                                 4, act, occ_alpha)
-        return jnp.sum(rgb * jnp.asarray(c_rgb)) + jnp.sum(
-            den * jnp.asarray(c_den))
+        def jloss(w):
+            zp = lambda a: jnp.asarray(np.concatenate(  # noqa: E731
+                [a, np.zeros((pad, a.shape[1]), np.float32)]))
+            rgb, den = jmk.fused_mlp(w, zp(pts), zp(dirs), 10, 4, act,
+                                     occ_alpha)
+            return jnp.sum(rgb * zp(cots[0])) + jnp.sum(den * zp(cots[1]))
+    else:
+        o = f32(np.broadcast_to(rng.normal(scale=0.1, size=3), (N, 3)))
+        rays = f32(-dirs)
+        z = f32(np.sort(rng.uniform(0.1, 4.0, size=(N, S)), axis=1))
+        deltas = f32(np.concatenate([np.diff(z, axis=1),
+                                     np.full((N, 1), 1e10)], 1))
+        pts = f32((o[:, None, :] + rays[:, None, :] * z[..., None])
+                  .reshape(-1, 3))
+        cots = (f32(rng.normal(size=(N, 3)) / N),
+                f32(rng.normal(size=(N, 1)) / N))
+        static = (10, 4, act, occ_alpha, False, False, S)
+        pad = -N % jmk._rays_per_block(S)
+
+        def jloss(w):
+            zp = lambda a: jnp.asarray(np.concatenate(  # noqa: E731
+                [a, np.repeat(a[-1:], pad, 0)]))
+            zc = lambda a: jnp.asarray(np.concatenate(  # noqa: E731
+                [a, np.zeros((pad, a.shape[1]), np.float32)]))
+            rgbv, dist, _ = jmk.fused_mlp_composite(
+                w, zp(o), zp(rays), zp(dirs), zp(z), zp(deltas), *static)
+            return jnp.sum(rgbv * zc(cots[0])) + jnp.sum(dist * zc(cots[1]))
 
     jmk.INTERPRET = True
     try:
@@ -311,22 +515,30 @@ def test_chain_bwd_weight_grads_vs_pallas(act, occ_alpha):
         jmk.INTERPRET = False
 
     def encoded(x, levels, n):
-        buf = torch.full((M, mk._pad8(n)), float("nan"), dtype=BF)
+        buf = torch.full((x.shape[0], mk._pad8(n)), float("nan"), dtype=BF)
         buf[:, :n] = encode_position(torch.tensor(x), levels).to(BF)
         return buf
 
     enc, denc = encoded(pts, 10, 63), encoded(dirs, 4, 27)
     dims = mk._dims(weights, 10, 4)
     Wt, Wb, Wh, Bs = mk._kernel_weights(weights, True)
-    acts, feat, hr, raw = mk._chain_fwd(Wt, Wh, Bs, enc, denc, 1, M, dims)
+    acts, feat, hr, raw = mk._chain_fwd(Wt, Wh, Bs, enc, denc, S, M, dims)
     raw_sigma = raw[:, :1].clone().requires_grad_()
     raw_rgb = raw[:, 1:].clone().requires_grad_()
     rgb, den = mk._act_fwd(raw_sigma, raw_rgb, act, occ_alpha)
+    if S == 1:
+        outs = (rgb, den)
+    else:  # the plain compositing of fused_mlp_composite_reference
+        alpha = den.reshape(N, S)
+        trans = torch.cumprod(torch.cat([torch.ones_like(alpha[:, :1]),
+                                         1.0 - alpha + 1e-6], 1), 1)[:, :-1]
+        wts = alpha * trans
+        outs = (torch.sum(wts[..., None] * rgb.reshape(N, S, 3), dim=1),
+                torch.sum(wts * torch.tensor(z), dim=1, keepdim=True))
     g_sig, g_rgb = torch.autograd.grad(
-        (rgb, den), (raw_sigma, raw_rgb),
-        (torch.tensor(c_rgb), torch.tensor(c_den)))
+        outs, (raw_sigma, raw_rgb), tuple(torch.tensor(c) for c in cots))
     g_raw = torch.cat([g_sig, g_rgb], 1)
-    d_w, _, _ = mk._chain_bwd(Wb, Wh, g_raw, enc, denc, 1, feat, hr, acts, M,
+    d_w, _, _ = mk._chain_bwd(Wb, Wh, g_raw, enc, denc, S, feat, hr, acts, M,
                               dims)
     names = [f"{n}/{k}" for n in mk.W_NAMES for k in "wb"]
     for name, got, want in zip(names, d_w, jg):
