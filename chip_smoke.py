@@ -39,7 +39,14 @@ two narrow heads' weight gradients beside them; both on no path since the
 fused backward), the fused backward pass phase (each pass of the backward
 at M = 131,072 against ``gemm_dwgrad_reference``, bitwise rerun, device
 time beside the layer-by-layer dgrad + wgrad pair, the plain version and
-the memory bound), then trains six configurations at full width for two epochs of eight
+the memory bound), the compositing / encoding backward phase (Kernel A's
+``composite_bwd`` and ``encode_bwd`` at the stock shapes, k = 4 and the
+recovery width, on the inputs a full and an input-only backward give them:
+bit for bit against the per-ray kernels they replaced, within
+A_BWD_PLAIN_RELL2 of their plain versions, each timed alone in turns with
+the old one beside its bound; the whole A-bwd, full and input-only, bit
+for bit against the same backward on the old pair, timed in turns, and its
+device time split by kernel), then trains six configurations at full width for two epochs of eight
 steps each on an in-memory 8-frame 540x960 scene with random weights and a
 smooth camera trajectory, through ``train()``, the first five on the stock
 config's scan path (``tpu.epoch_scan``: each epoch's steps replays of one
@@ -72,8 +79,9 @@ fused forward once per forward of A or C and the layer-by-layer forward's
 GEMM never, the fused backward pass 10 times per backward, the launches
 that serve only the weight gradients twice (A) or once (C) per backward
 that needs them, the layer-by-layer backward's GEMMs and the WMMA GEMM
-never; Kernel A once each way and Kernel B twice in
-every training step of the runs on Kernel A) and prints the last epoch's
+never; Kernel A once each way, its compositing and
+encoding backward once each and their per-ray predecessors never, and
+Kernel B twice in every training step of the runs on Kernel A) and prints the last epoch's
 ms/step (wall on the host clock, and device) and rays/s of stock,
 multiplier, ssim_normal and multiplier_per_step side by side.
 
@@ -171,7 +179,8 @@ Prints, in order: the card's name and power limit, the kernel build time,
 one line per kernel check, the two GEMM phases' lines, one line per epoch, the
 training runs' checks, the scan phase's lines, the eval phase's, the DPT
 phase's, the multigpu phase's, the synthetic phase's, the recovery phase's,
-the JSON lines of the training runs, the scan, eval, DPT, multigpu,
+the JSON lines of the training runs, the compositing / encoding backward
+phase, the scan, eval, DPT, multigpu,
 synthetic and recovery phases, a JSON line with every
 kernel's errors, launches (each phase's share too), times and bound (and
 the library call's time
@@ -1860,12 +1869,277 @@ def check_fused_bwd(dev, card):
             "bound_by": head["bound_by"], "shapes": table}
 
 
+@contextlib.contextmanager
+def per_ray_backward():
+    """Route Kernel A's compositing and encoding backward to the kernels
+    the group and staged kernels replaced (``mlp_kernel.
+    _composite_bwd_per_ray``: one thread per ray through a global scratch
+    buffer; ``_encode_bwd_per_ray``: one warp per ray whose lanes read
+    whole rows alone), to hold the new pair to them and time them beside
+    it."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    real = mk.composite_bwd, mk.encode_bwd
+    mk.composite_bwd = mk._composite_bwd_per_ray
+    mk.encode_bwd = mk._encode_bwd_per_ray
+    try:
+        yield
+    finally:
+        mk.composite_bwd, mk.encode_bwd = real
+
+
+def kernel_split(fn, iters=10):
+    """{kernel name: device ms per call} of ``fn`` by the profiler, the
+    kernels' own time summed by name (warmed up once)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # CUPTI now and then records no device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        split = {e.key: e.self_device_time_total / iters / 1e3
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.self_device_time_total > 0}
+        if split:
+            return split
+    raise RuntimeError("kernel_split: the profiler recorded no kernel")
+
+
+def pair_turns(new, old, plain=None, iters=20):
+    """Two versions of one function timed in turns in this call: new, old,
+    old, new by CUDA events (``ms``, ``earlier_ms``: the means of their two
+    turns), then each's device time by the profiler, and the plain
+    version's events time where one is given."""
+    n1, o1 = cuda_ms(new, iters), cuda_ms(old, iters)
+    o2, n2 = cuda_ms(old, iters), cuda_ms(new, iters)
+    out = {"ms": (n1 + n2) / 2, "earlier_ms": (o1 + o2) / 2,
+           "device_ms": device_ms(new, iters),
+           "earlier_device_ms": device_ms(old, iters)}
+    if plain is not None:
+        out["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
+    return out
+
+
+# Kernel A's compositing and encoding backward: the stock step's shapes, the
+# k = 4 step's and the recovery scripts' (hidden 128, 64 samples)
+A_BWD_SHAPES = (("stock", N_RAYS, N_SAMPLES, None),
+                ("k4", 4 * N_RAYS, N_SAMPLES, None),
+                ("recovery", N_RAYS, 64, 128))
+# their plain versions on the card against the kernels: relL2 of g_raw and
+# of each of d_origins, d_rays, d_dirs (f32, the same steps; the kernels
+# contract some products into FMAs and call CUDA's sincosf, torch its sin
+# and cos)
+A_BWD_PLAIN_RELL2 = 1e-5
+
+
+def check_composite_encode_bwd(dev, card):
+    """Kernel A's compositing backward (``composite_bwd``) and encoding
+    backward (``encode_bwd``) at A_BWD_SHAPES, on the inputs a full
+    backward gives them (recorded on the path) and that an input-only one
+    gives them (which must be the same tensors' values, bit for bit): each
+    kernel's outputs against the per-ray kernel it replaced, bit for bit,
+    and against its plain version (A_BWD_PLAIN_RELL2); each kernel alone
+    timed in turns with the old one (new, old, old, new; events and
+    profiler device time) beside its plain version and its bound (bytes:
+    each input read once at its true width, each output written once);
+    the whole A-bwd, full and input-only, against the same backward on the
+    old pair (:func:`per_ray_backward`): gradients bit for bit, device
+    time in turns, launches per call, and the profiler's split of its
+    device time by kernel; then Kernel C's backward at the stock step's
+    points split likewise. Returns the two kernels' records and every
+    shape's numbers."""
+    import torch
+
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    shapes = {}
+    for label, N, S, hidden in A_BWD_SHAPES:
+        (cfg, weights, origins, rays_t, dirs, z_t, deltas_t, rng,
+         t) = stock_mlp_inputs(dev, N, S, hidden)
+        model = cfg["model"]
+        static = (model["pos_enc_levels"], model["dir_enc_levels"],
+                  model["occ_activation"], True, False, False, S)
+        cots = (t(rng.normal(size=(N, 3)) / N), t(rng.normal(size=(N, 1)) / N),
+                torch.zeros((N, S), device=dev))
+        geo = [origins, rays_t, dirs]
+        out = mk.fused_mlp_composite(weights, *geo, z_t, deltas_t, *static)
+        frozen = [w.detach() for w in weights]
+        out_io = mk.fused_mlp_composite(frozen, *geo, z_t, deltas_t, *static)
+
+        def full():
+            return torch.autograd.grad(out, geo + weights, cots,
+                                       retain_graph=True)
+
+        def input_only():
+            return torch.autograd.grad(out_io, geo, cots, retain_graph=True)
+
+        calls = {}
+        for route, fn in (("full", full), ("input_only", input_only)):
+            with recording(mk, "composite_bwd") as c_call, \
+                    recording(mk, "encode_bwd") as e_call:
+                fn()
+            calls[route] = (c_call[-1][0], e_call[-1][0])
+        same_inputs = all(
+            torch.equal(a, b) if torch.is_tensor(a) else a == b
+            for x, y in zip(calls["full"], calls["input_only"])
+            for a, b in zip(x, y))
+        c_args, e_args = calls["full"]
+        torch.cuda.synchronize()
+        got_c, old_c = mk.composite_bwd(*c_args), mk._composite_bwd_per_ray(
+            *c_args)
+        got_e, old_e = mk.encode_bwd(*e_args), mk._encode_bwd_per_ray(*e_args)
+        ref_c = mk.composite_bwd_reference(*c_args)
+        ref_e = mk.encode_bwd_reference(*e_args)
+        torch.cuda.synchronize()
+        bitwise = {"g_raw": torch.equal(got_c, old_c),
+                   **{n: torch.equal(a, b) for n, a, b in
+                      zip(("d_o", "d_r", "d_d"), got_e, old_e)}}
+        rel = {"g_raw": rel_l2(got_c, ref_c),
+               **{n: rel_l2(a, b) for n, a, b in
+                  zip(("d_o", "d_r", "d_d"), got_e, ref_e)}}
+        err_c = float(torch.max(torch.abs(got_c - ref_c)))
+        err_e = max(float(torch.max(torch.abs(a - b)))
+                    for a, b in zip(got_e, ref_e))
+        finite = bool(torch.isfinite(got_c).all()) and all(
+            bool(torch.isfinite(a).all()) for a in got_e)
+
+        grads = {}
+        for route, fn in (("full", full), ("input_only", input_only)):
+            g_new = fn()
+            with per_ray_backward():
+                g_old = fn()
+            torch.cuda.synchronize()
+            grads[route] = all(torch.equal(a, b) for a, b in zip(g_new, g_old))
+
+        def old_pair(fn):
+            def run():
+                with per_ray_backward():
+                    fn()
+            return run
+
+        t_c = pair_turns(lambda: mk.composite_bwd(*c_args),
+                         lambda: mk._composite_bwd_per_ray(*c_args),
+                         lambda: mk.composite_bwd_reference(*c_args))
+        t_e = pair_turns(lambda: mk.encode_bwd(*e_args),
+                         lambda: mk._encode_bwd_per_ray(*e_args),
+                         lambda: mk.encode_bwd_reference(*e_args))
+        t_full = pair_turns(full, old_pair(full), iters=10)
+        t_io = pair_turns(input_only, old_pair(input_only), iters=10)
+        launches = {"full": kernel_launches(full),
+                    "input_only": kernel_launches(input_only),
+                    "full_old_pair": kernel_launches(old_pair(full))}
+        split = {"full": kernel_split(full),
+                 "input_only": kernel_split(input_only),
+                 "full_old_pair": kernel_split(old_pair(full))}
+        M = N * S
+        n_pos, n_dir = (3 * (2 * static[0] + 1), 3 * (2 * static[1] + 1))
+        b_c = bound(nbytes=nbytes(*c_args[:6]) + nbytes(got_c))
+        b_e = bound(nbytes=4.0 * M * (2 * n_pos + n_dir + 1)
+                    + nbytes(*e_args[:3]) + nbytes(*got_e))
+        rec = {"rays": N, "samples": S, "hidden": model["hidden_dim"],
+               "bitwise_to_per_ray": bitwise,
+               "input_only_inputs_equal_full": same_inputs,
+               "a_bwd_bitwise_to_per_ray_pair": grads,
+               "rel_l2_to_plain": rel, "composite_max_abs_err": err_c,
+               "encode_max_abs_err": err_e,
+               "composite_bwd": {**t_c, "bound_ms": b_c[0],
+                                 "bound_by": b_c[1]},
+               "encode_bwd": {**t_e, "bound_ms": b_e[0], "bound_by": b_e[1]},
+               "a_bwd_full": t_full, "a_bwd_input_only": t_io,
+               "a_bwd_launches_per_call": launches,
+               "a_bwd_device_ms_by_kernel": split}
+        shapes[label] = rec
+        print(f"kernel A compositing / encoding backward [{card}] {label} "
+              f"{N} x {S} D={model['hidden_dim']}: bitwise to the per-ray "
+              f"kernels {bitwise}, the input-only backward's inputs equal "
+              f"{same_inputs}, A-bwd bitwise to the per-ray pair {grads}; "
+              "relL2 to plain " + " ".join(f"{k}={v:.2e}" for k, v in
+                                            rel.items())
+              + f"; composite_bwd {t_c['ms']:.4f} ms (device "
+              f"{t_c['device_ms']:.4f}) against {t_c['earlier_ms']:.4f} "
+              f"(device {t_c['earlier_device_ms']:.4f}), plain "
+              f"{t_c['plain_ms']:.3f}, bound {b_c[0]:.4f} ({b_c[1]}); "
+              f"encode_bwd {t_e['ms']:.4f} ms (device "
+              f"{t_e['device_ms']:.4f}) against {t_e['earlier_ms']:.4f} "
+              f"(device {t_e['earlier_device_ms']:.4f}), plain "
+              f"{t_e['plain_ms']:.3f}, bound {b_e[0]:.4f} ({b_e[1]}); "
+              f"A-bwd full device {t_full['device_ms']:.4f} against "
+              f"{t_full['earlier_device_ms']:.4f}, input-only "
+              f"{t_io['device_ms']:.4f} against "
+              f"{t_io['earlier_device_ms']:.4f}; launches {launches}")
+        print(f"kernel A bwd device ms by kernel [{card}] {label}: "
+              + json.dumps(split))
+        fails = [k for k, v in bitwise.items() if not v]
+        fails += [f"A-bwd {k}" for k, v in grads.items() if not v]
+        fails += [f"{k} relL2 {v:.3e}" for k, v in rel.items()
+                  if not v < A_BWD_PLAIN_RELL2]
+        if not same_inputs:
+            fails.append("the input-only backward's kernel inputs differ")
+        if not finite:
+            fails.append("non-finite outputs")
+        if launches["full"] != launches["full_old_pair"]:
+            fails.append(f"launches per A-bwd {launches}")
+        if fails:
+            raise AssertionError(f"kernel A compositing / encoding backward "
+                                 f"{label}: {fails}")
+    # Kernel C's backward at the stock step's points, split by kernel: the
+    # per-point kernels (head_act_bwd, encode_points_bwd) it runs beside its
+    # passes
+    (cfg, weights, origins, rays_t, dirs, z_t, _, rng,
+     t) = stock_mlp_inputs(dev)
+    model = cfg["model"]
+    pts = (origins[:, None, :] + rays_t[:, None, :] * z_t[..., None]).reshape(
+        -1, 3).detach().requires_grad_()
+    view = dirs[:, None, :].expand(N_RAYS, N_SAMPLES, 3).reshape(-1, 3) \
+        .detach().contiguous().requires_grad_()
+    M = pts.shape[0]
+    cots = (t(rng.normal(size=(M, 3)) / M), t(rng.normal(size=(M, 1)) / M))
+    out = mk.fused_mlp(weights, pts, view, model["pos_enc_levels"],
+                       model["dir_enc_levels"], model["occ_activation"], True)
+    c_split = kernel_split(
+        lambda: torch.autograd.grad(out, [pts, view] + weights, cots,
+                                    retain_graph=True))
+    print(f"kernel C bwd device ms by kernel [{card}] {M} points: "
+          + json.dumps(c_split))
+    stock = shapes["stock"]
+    records = []
+    for name, line, err, part in (
+            ("composite_bwd", 637, "composite_max_abs_err",
+             "_composite_bwd (l.637) + _act_bwd (l.228)"),
+            ("encode_bwd", 134, "encode_max_abs_err",
+             "_encode_bwd (l.134) with the ray sums (l.764, l.786-792)")):
+        t = stock[name]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "nope_nerf_tpu_torch/csrc/mlp_composite.cu",
+            "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:702",
+            "replaces_part": f"nope_nerf_tpu/ops/pallas/mlp_kernel.py:{line}",
+            "part": part,
+            "max_abs_err": stock[err], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "earlier_ms": t["earlier_ms"], "device_ms": t["device_ms"],
+            "earlier_device_ms": t["earlier_device_ms"],
+            "bitwise_to_per_ray": True,
+            "shapes": {k: {**v[name], "bitwise_to_per_ray":
+                           v["bitwise_to_per_ray"]}
+                       for k, v in shapes.items()}})
+    return records, dict(shapes, c_bwd_device_ms_by_kernel=c_split)
+
+
 def kernel_counters():
     """The launch counters of the six kernels, the fused forward and the
     compositing after it (Kernel A's raw route), the fused backward pass,
     the layer-by-layer forward's GEMM, the layer-by-layer backward's input-
     and weight-gradient GEMMs, the launches that serve only the weight
-    gradients, and the WMMA GEMM."""
+    gradients, the WMMA GEMM, and Kernel A's compositing and encoding
+    backward with the per-ray kernels they replaced."""
     from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
     from nope_nerf_tpu_torch.ops.kernels import chamfer_kernel as ck
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -1875,7 +2149,10 @@ def kernel_counters():
             mk.MLP_FUSED_FWD_LAUNCHES, mk.COMPOSITE_AFTER_LAUNCHES,
             mk.MLP_FUSED_BWD_LAUNCHES, mk.GEMM_SM90_LAUNCHES,
             mk.GEMM_DGRAD_LAUNCHES,
-            mk.GEMM_WGRAD_LAUNCHES, mk.WGRAD_LAUNCHES, mk.GEMM_NN_LAUNCHES)
+            mk.GEMM_WGRAD_LAUNCHES, mk.WGRAD_LAUNCHES, mk.GEMM_NN_LAUNCHES,
+            mk.COMPOSITE_BWD_LAUNCHES, mk.ENCODE_BWD_LAUNCHES,
+            mk.COMPOSITE_BWD_PER_RAY_LAUNCHES,
+            mk.ENCODE_BWD_PER_RAY_LAUNCHES)
 
 
 def check_gemm_counts(label, counts, weight_grads=True):
@@ -1886,7 +2163,10 @@ def check_gemm_counts(label, counts, weight_grads=True):
     (csrc/mlp_fused_bwd.cu) and, with ``weight_grads``, the launches that
     serve only the weight gradients (A: the per-ray direction half and the
     split reduction, 2; C: the split reduction, 1; none without); the
-    layer-by-layer backward's GEMMs and the WMMA GEMM never ran."""
+    layer-by-layer backward's GEMMs and the WMMA GEMM never ran; every
+    backward of A ran its compositing and its encoding backward once each
+    (csrc/mlp_composite.cu's group and staged kernels) and the per-ray
+    kernels they replaced never."""
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     fwd = counts["mlp_composite_fwd"] + counts["mlp_point_fwd"]
@@ -1897,7 +2177,9 @@ def check_gemm_counts(label, counts, weight_grads=True):
             "mlp_gemm_wgrad": 0,
             "mlp_fused_bwd": mk.FUSED_BWD_PER_BWD * (a_bwd + c_bwd),
             "mlp_weight_grad_gemm": (per["A"] * a_bwd + per["C"] * c_bwd
-                                     if weight_grads else 0)}
+                                     if weight_grads else 0),
+            "composite_bwd": a_bwd, "encode_bwd": a_bwd,
+            "composite_bwd_per_ray": 0, "encode_bwd_per_ray": 0}
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"{label}: GEMM launches {got} for {fwd} "
@@ -1937,7 +2219,10 @@ KERNEL_A_RUNS = ("multiplier", "multiplier_per_step")
 # too: the point of rendering the frames as one batch), its forward one
 # fused launch, Kernel B twice (the pc loss's two directions)
 PER_STEP = {"mlp_composite_fwd": 1, "mlp_composite_bwd": 1,
-            "mlp_fused_fwd": 1, "chamfer_band": 2}
+            "mlp_fused_fwd": 1, "chamfer_band": 2, "composite_bwd": 1,
+            "encode_bwd": 1}
+# the kernels every backward of Kernel A launches once besides its passes
+A_BWD_KERNELS = ("composite_bwd", "encode_bwd")
 
 
 def run_training(dev, card, label, overrides, expect):
@@ -2523,7 +2808,8 @@ def run_eval(dev, card, cfg, trained):
           f"{res['ms_per_image'][0]:.1f} ms/image (render + scoring + PNGs), "
           f"peak memory {peak / 2**30:.3f} GiB; launches {counts}")
     stray = [n for n, v in counts.items() if v and n not in (
-        "mlp_composite_fwd", "mlp_composite_bwd", *MLP_GEMMS)]
+        "mlp_composite_fwd", "mlp_composite_bwd", *MLP_GEMMS,
+        *A_BWD_KERNELS)]
     if not (counts["mlp_composite_fwd"] and counts["mlp_composite_bwd"]) \
             or stray or not finite:
         raise AssertionError(f"eval: kernel A fwd/bwd not both launched, or "
@@ -2886,7 +3172,10 @@ def check_reference_checkpoints(card, trained):
 
 def check_launches(label, counts, expect, weight_grads=True):
     """Every kernel in ``expect`` launched in ``counts``, no other one, and
-    the GEMM counts of :func:`check_gemm_counts`."""
+    the GEMM counts of :func:`check_gemm_counts` (Kernel A's backward
+    brings :data:`A_BWD_KERNELS` with it)."""
+    if "mlp_composite_bwd" in expect:
+        expect = (*expect, *A_BWD_KERNELS)
     idle = [n for n in expect if counts[n] == 0]
     stray = [n for n, v in counts.items() if v and n not in expect]
     if idle or stray:
@@ -4118,7 +4407,9 @@ def main(argv=None):
     gemm = check_gemm(dev, card)
     gemm_bwd = check_gemm_bwd(dev, card)
     fused_bwd = check_fused_bwd(dev, card)
-    records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d, gemm, *gemm_bwd, fused_bwd]
+    a_bwd_parts, a_bwd_pair = check_composite_encode_bwd(dev, card)
+    records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d, gemm, *gemm_bwd, fused_bwd,
+               *a_bwd_parts]
     launches = {rec["name"]: 0 for rec in records}
     runs = {}
     for label, overrides, expect in RUNS:
@@ -4179,6 +4470,7 @@ def main(argv=None):
         "steps": steps, "multiplier_kernel_a": runs["multiplier_kernel_a"],
         "multiplier_per_step_kernel_a": runs["multiplier_per_step_kernel_a"],
         "ssim_normal": ssim_normal}}))
+    print(json.dumps({"a_bwd_pair": a_bwd_pair}))
     print(json.dumps({"scan": scan_rec}))
     print(json.dumps({"eval": eval_rec}))
     print(json.dumps({"dpt": dpt_rec}))

@@ -38,7 +38,11 @@
 //   * heads / composite: density and rgb heads (f32 raw outputs), head
 //     activations, and the compositing scan one thread per ray, sequential
 //     over the samples. The TPU layout tricks (selector matmuls, log-space
-//     cumprod, triangular-matmul suffix sums) become plain loops.
+//     cumprod, triangular-matmul suffix sums) become plain loops. The
+//     compositing backward on the path is composite_bwd_group: one block
+//     per group of rays, the per-point work parallel, only the two
+//     recurrences one thread per ray (composite_bwd, one thread per ray
+//     throughout, runs on no path).
 //   * ray_sum + dir_wgrad: Kernel A's per-ray direction half of
 //     rgb_layer's weight gradient. For the layer-by-layer backward (on no
 //     path since mlp_fused_bwd.cu): heads_bwd, the rgb head's backward, the
@@ -47,8 +51,12 @@
 //     narrow heads' bias sums.
 //   * reduce_splits: split partial sums added in a fixed order (no float
 //     atomics, so runs repeat bitwise).
-//   * encode_bwd: one warp per ray; the encoding backward and the ray sums
-//     that give d_origins, d_rays and d_dirs.
+//   * encode_bwd_staged: the encoding backward and the ray sums that give
+//     d_origins, d_rays and d_dirs, a block of two warps per ray sharing
+//     coalesced loads of rows staged through shared memory, the sums taken
+//     by one warp as before (encode_bwd, one warp per ray whose lanes read
+//     whole rows alone, runs on no path). Both backward kernels on the path
+//     equal the ones they replaced bit for bit.
 //   * gemm_nn / gemm_tn: the WMMA GEMMs (16x16x16, register-staged tiles)
 //     that the backward ran on before mlp_gemm_sm90.cu's; no path runs them,
 //     chip_smoke.py times them beside their successors.
@@ -569,7 +577,9 @@ __global__ void composite_fwd_kernel(const float* __restrict__ raw, const float*
   dist[ray] = dd;
 }
 
-// Backward of compositing + head activations: cotangents of the raw heads.
+// Backward of compositing + head activations: cotangents of the raw heads,
+// one thread per ray. On no path since composite_bwd_group_kernel (below),
+// which computes it bit for bit; chip_smoke.py times the two in turns.
 // scratch: 4 x (n_samples x n_rays) f32, laid out sample-major so that
 // neighbouring threads (rays) touch neighbouring addresses.
 __global__ void composite_bwd_kernel(const float* __restrict__ raw, const float* __restrict__ z,
@@ -630,6 +640,112 @@ __global__ void composite_bwd_kernel(const float* __restrict__ raw, const float*
     out[1] = w * gr * sr * (1.f - sr);
     out[2] = w * gg * sg * (1.f - sg);
     out[3] = w * gb * sb * (1.f - sb);
+  }
+}
+
+// The same function, one block per group of `rays` whole rays (their
+// rays * n_samples points are contiguous in raw, z, deltas, g_alpha and
+// g_raw). What the one-thread-per-ray kernel did in a thread's registers
+// and a global scratch buffer runs in three phases over shared memory:
+//   1. per point, all threads: raw as one float4, alpha and gw, each with
+//      the old kernel's expression;
+//   2. per ray, one thread each: the two recurrences in the old order,
+//      trans (before each sample's factor) forward and the suffix sum
+//      rsum of gw * w (after each sample) backward -- the only sequential
+//      work, one multiply or one FMA a sample;
+//   3. per point, all threads: ga, the activation derivatives and g_raw,
+//      written as one float4, each with the old kernel's expression.
+// Every value is the old kernel's bit for bit: the same operations on the
+// same operands in the same order (rsum's numerator is the recurrence,
+// the division after it is per point). A ray's arrays are rows of stride
+// ld = n_samples | 1 (odd: the phase-2 threads hit distinct banks).
+constexpr int CB_THREADS = 256;
+
+__global__ void __launch_bounds__(CB_THREADS)
+    composite_bwd_group_kernel(const float* __restrict__ raw, const float* __restrict__ z,
+                               const float* __restrict__ deltas,
+                               const float* __restrict__ g_rgbv,
+                               const float* __restrict__ g_dist,
+                               const float* __restrict__ g_alpha, float* __restrict__ g_raw,
+                               int n_rays, int n_samples, int rays, CompositeFlags f) {
+  extern __shared__ float sm[];
+  const int S = n_samples, ld = S | 1;
+  const int ray0 = blockIdx.x * rays;
+  const int nr = min(rays, n_rays - ray0);
+  const int np = nr * S;
+  float* s_alpha = sm;
+  float* s_gw = s_alpha + rays * ld;
+  float* s_trans = s_gw + rays * ld;
+  float* s_rsum = s_trans + rays * ld;
+  float* s_cot = s_rsum + rays * ld;  // per ray: gr, gg, gb, gd
+  for (int i = threadIdx.x; i < nr; i += blockDim.x) {
+    const int64_t ray = ray0 + i;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) s_cot[4 * i + c] = g_rgbv[ray * 3 + c];
+    s_cot[4 * i + 3] = g_dist[ray];
+  }
+  __syncthreads();
+  const int64_t m0 = (int64_t)ray0 * S;
+  const float4* raw4 = reinterpret_cast<const float4*>(raw) + m0;
+  for (int p = threadIdx.x; p < np; p += blockDim.x) {
+    const int i = p / S, s = p - i * S;
+    const int64_t m = m0 + p;
+    const float4 rw = raw4[p];
+    const float gr = s_cot[4 * i], gg = s_cot[4 * i + 1], gb = s_cot[4 * i + 2];
+    const float gd = s_cot[4 * i + 3];
+    const float alpha = alpha_of(density_act(rw.x, f), deltas[m], s, S, f);
+    float gw = gr * sigmoid(rw.y) + gg * sigmoid(rw.z) + gb * sigmoid(rw.w) + gd * z[m];
+    if (f.white_bg) gw -= gr + gg + gb;
+    s_alpha[i * ld + s] = alpha;
+    s_gw[i * ld + s] = gw;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nr; i += blockDim.x) {
+    const float* a = s_alpha + i * ld;
+    const float* g = s_gw + i * ld;
+    float* t = s_trans + i * ld;
+    float* r = s_rsum + i * ld;
+    float trans = 1.f;
+#pragma unroll 8
+    for (int s = 0; s < S; ++s) {
+      t[s] = trans;
+      trans *= 1.f - a[s] + 1e-6f;
+    }
+    float rsum = 0.f;  // sum over later samples of gw * w
+#pragma unroll 8
+    for (int s = S - 1; s >= 0; --s) {
+      r[s] = rsum;
+      const float w = a[s] * t[s];
+      rsum += g[s] * w;
+    }
+  }
+  __syncthreads();
+  float4* out4 = reinterpret_cast<float4*>(g_raw) + m0;
+  for (int p = threadIdx.x; p < np; p += blockDim.x) {
+    const int i = p / S, s = p - i * S;
+    const int64_t m = m0 + p;
+    const float4 rw = raw4[p];
+    const float gr = s_cot[4 * i], gg = s_cot[4 * i + 1], gb = s_cot[4 * i + 2];
+    const float alpha = s_alpha[i * ld + s], trans = s_trans[i * ld + s];
+    const float gw = s_gw[i * ld + s], rsum = s_rsum[i * ld + s];
+    const float w = alpha * trans;
+    const float ga = gw * trans - rsum / (1.f - alpha + 1e-6f) + g_alpha[m];
+    const float rs = rw.x;
+    float g_sig;
+    if (f.dist_alpha) {
+      const float d = density_act(rs, f);
+      g_sig = s == n_samples - 1 ? 0.f : ga * deltas[m] * expf(-d * deltas[m]);
+    } else {
+      g_sig = ga;
+    }
+    float dd = f.softplus_act ? sigmoid(rs) : (rs > 0.f ? 1.f : 0.f);
+    if (f.occ_alpha) {
+      const float d0 = f.softplus_act ? softplus(rs) : fmaxf(rs, 0.f);
+      dd *= expf(-d0);
+    }
+    const float sr = sigmoid(rw.y), sg = sigmoid(rw.z), sb = sigmoid(rw.w);
+    out4[p] = make_float4(g_sig * dd, w * gr * sr * (1.f - sr), w * gg * sg * (1.f - sg),
+                          w * gb * sb * (1.f - sb));
   }
 }
 
@@ -750,6 +866,8 @@ __global__ void __launch_bounds__(HW_THREADS)
 
 constexpr int MAX_ENC = 3 * (2 * 16 + 1);
 
+// On no path since encode_bwd_staged_kernel (below), which computes it bit
+// for bit; chip_smoke.py times the two in turns.
 __global__ void encode_bwd_kernel(const float* __restrict__ o, const float* __restrict__ r,
                                   const float* __restrict__ dirs, const float* __restrict__ z,
                                   const float* __restrict__ ge1, int ld1,
@@ -798,6 +916,186 @@ __global__ void encode_bwd_kernel(const float* __restrict__ o, const float* __re
     acc_r[c] = warp_sum(acc_r[c]);
   }
   for (int k = 0; k < n_dir; ++k) gds[k] = warp_sum(gds[k]);
+  if (lane != 0) return;
+  float dd[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    d_o[ray * 3 + c] = acc_o[c];
+    d_r[ray * 3 + c] = acc_r[c];
+    dd[c] = gds[c];
+  }
+  for (int l = 0; l < l_dir; ++l) {
+    const float f = ldexpf(1.f, l);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float sn, cs;
+      sincosf(dirs[ray * 3 + c] * f, &sn, &cs);
+      dd[c] += (gds[3 * (1 + 2 * l) + c] * cs - gds[3 * (2 + 2 * l) + c] * sn) * f;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) d_d[ray * 3 + c] = dd[c];
+}
+
+// The same function, one block of EB_WARPS warps per ray, with every load
+// coalesced. The old kernel's lane l read whole rows of samples l, l + 32,
+// ... by itself (each load instruction of a warp touched 32 rows), kept the
+// direction sums in a runtime-indexed array (local memory), and had one
+// warp's loads in flight per ray. Here the block's warps share the loads and
+// the sincos work, and every sum keeps the old kernel's operands and order:
+//   1. the direction sums: thread (warp w, lane j) owns column k = j (+ 32
+//      per group) of the old kernel's lanes i = w, w + EB_WARPS, ...: the
+//      partial part[i][k] = gd[i][k] + gd[i + 32][k] + ... in sample order,
+//      each warp load one row; warp 0 then replays warp_sum's butterfly on
+//      part[.][k] (lane 0's operands at each stage), so each column sum is
+//      the old one bit for bit (f32 addition commutes);
+//   2. the position part, EB_WARPS * 32 samples a round: warp w stages
+//      rows 32 w .. 32 w + 31 of the round, ge1 + ge2 (float4 loads across
+//      the columns, the sums rounded as the old kernel's g1[k] + g2[k]),
+//      into shared memory, and lane l computes that sample's dp from its
+//      row with the old expressions in the old order; warp 0's lane l then
+//      adds the round's dp of samples l, l + 32, ... to its accumulators in
+//      sample order, as the old lane l did, and the same warp_sum ends.
+// Staged rows are 4 * ceil(n_pos / 4) + 1 floats apart (odd: lane l
+// reading row l hits bank l + k); the round's dp are 3 floats apart. The
+// direction partials wait in shared memory until the end, so their loads
+// and the first round's overlap.
+constexpr int EB_WARPS = 2;     // warps a ray (a block)
+constexpr int EB_UNROLL = 8;    // float4 loads a lane has in flight per operand
+
+__host__ __device__ inline int eb_row_floats(int n_pos) { return (n_pos + 3) / 4 * 4 + 1; }
+__host__ __device__ inline int eb_smem_floats(int n_pos, int n_dir) {
+  return EB_WARPS * 32 * (eb_row_floats(n_pos) + 3) + 33 * n_dir;
+}
+
+__global__ void __launch_bounds__(EB_WARPS * 32)
+    encode_bwd_staged_kernel(const float* __restrict__ o, const float* __restrict__ r,
+                             const float* __restrict__ dirs, const float* __restrict__ z,
+                             const float* __restrict__ ge1, int ld1,
+                             const float* __restrict__ ge2, int ld2,
+                             const float* __restrict__ gd, int ldd, float* __restrict__ d_o,
+                             float* __restrict__ d_r, float* __restrict__ d_d, int n_rays,
+                             int n_samples, int l_pos, int l_dir) {
+  extern __shared__ float sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t ray = blockIdx.x;
+  const int n_pos = 3 * (2 * l_pos + 1), n_dir = 3 * (2 * l_dir + 1);
+  const int q4 = (n_pos + 3) / 4, ldg = eb_row_floats(n_pos);
+  float* rows = sm + warp * 32 * ldg;
+  float* dps = sm + EB_WARPS * 32 * ldg;  // the round's dp [EB_WARPS * 32][3]
+  float* part = dps + EB_WARPS * 32 * 3;  // direction partials [32][n_dir]
+  float* gds = part + 32 * n_dir;
+  const int S = n_samples;
+  const int64_t m0 = ray * S;
+
+  for (int k0 = 0; k0 < n_dir; k0 += 32) {
+    const int k = k0 + lane;
+    if (k < n_dir) {
+#pragma unroll
+      for (int i = warp; i < 32; i += EB_WARPS) {
+        float p = 0.f;
+#pragma unroll 4
+        for (int s = i; s < S; s += 32) p += gd[(m0 + s) * ldd + k];
+        part[i * n_dir + k] = p;
+      }
+    }
+  }
+
+  float ov[3], rv[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    ov[c] = o[ray * 3 + c];
+    rv[c] = r[ray * 3 + c];
+  }
+  float acc_o[3] = {0.f, 0.f, 0.f}, acc_r[3] = {0.f, 0.f, 0.f};  // warp 0's
+  for (int r0 = 0; r0 < S; r0 += EB_WARPS * 32) {
+    const int c0 = r0 + warp * 32;
+    const int n = max(0, min(32, S - c0));
+    const int items = n * q4;  // float4 columns of the warp's rows
+    for (int base = 0; base < items; base += 32 * EB_UNROLL) {
+      float4 a[EB_UNROLL], b[EB_UNROLL];
+#pragma unroll
+      for (int u = 0; u < EB_UNROLL; ++u) {
+        const int it = base + u * 32 + lane;
+        if (it < items) {
+          const int row = it / q4, q = it - row * q4;
+          const int64_t m = m0 + c0 + row;
+          a[u] = *reinterpret_cast<const float4*>(ge1 + m * ld1 + 4 * q);
+          b[u] = *reinterpret_cast<const float4*>(ge2 + m * ld2 + 4 * q);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < EB_UNROLL; ++u) {
+        const int it = base + u * 32 + lane;
+        if (it < items) {
+          const int row = it / q4, q = it - row * q4;
+          float* dst = rows + row * ldg + 4 * q;
+          dst[0] = a[u].x + b[u].x;
+          dst[1] = a[u].y + b[u].y;
+          dst[2] = a[u].z + b[u].z;
+          dst[3] = a[u].w + b[u].w;
+        }
+      }
+    }
+    __syncwarp();
+    if (lane < n) {
+      const float zz = z[m0 + c0 + lane];
+      const float* g = rows + lane * ldg;
+      float dp[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) dp[c] = g[c];
+      for (int l = 0; l < l_pos; ++l) {
+        const float f = ldexpf(1.f, l);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float p = expand(ov[c], rv[c], zz);
+          float sn, cs;
+          sincosf(p * f, &sn, &cs);
+          const int ks = 3 * (1 + 2 * l) + c, kc = 3 * (2 + 2 * l) + c;
+          const float gs = g[ks], gc = g[kc];
+          dp[c] += (gs * cs - gc * sn) * f;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) dps[(warp * 32 + lane) * 3 + c] = dp[c];
+    }
+    __syncthreads();
+    if (warp == 0) {
+      for (int w = 0; w < EB_WARPS; ++w) {
+        const int s = r0 + w * 32 + lane;
+        if (s < S) {
+          const float zz = z[m0 + s];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const float dp = dps[(w * 32 + lane) * 3 + c];
+            acc_o[c] += dp;
+            acc_r[c] += dp * zz;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (warp != 0) return;
+  for (int k0 = 0; k0 < n_dir; k0 += 32) {
+    const int k = k0 + lane;
+    if (k < n_dir) {
+      float v[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) v[i] = part[i * n_dir + k];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int i = 0; i < off; ++i) v[i] = v[i] + v[i + off];
+      gds[k] = v[0];
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    acc_o[c] = warp_sum(acc_o[c]);
+    acc_r[c] = warp_sum(acc_r[c]);
+  }
   if (lane != 0) return;
   float dd[3];
 #pragma unroll
@@ -988,6 +1286,32 @@ int nnt_composite_bwd(const float* raw, const float* z, const float* deltas,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The same contract without scratch: one block per `rays` rays (>= 1),
+// 16 * (rays * (n_samples | 1) + rays) bytes of shared memory (at most the
+// card's 227 KB opt-in); raw and g_raw 16-byte aligned.
+int nnt_composite_bwd_group(const float* raw, const float* z, const float* deltas,
+                            const float* g_rgbv, const float* g_dist, const float* g_alpha,
+                            float* g_raw, int n_rays, int n_samples, int rays,
+                            int softplus_act, int occ_alpha, int dist_alpha, int white_bg,
+                            void* stream) {
+  if (rays < 1 || n_samples < 1 || reinterpret_cast<uintptr_t>(raw) % 16 ||
+      reinterpret_cast<uintptr_t>(g_raw) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rays <= 0) return 0;
+  CompositeFlags f{softplus_act, occ_alpha, dist_alpha, white_bg};
+  const size_t smem = sizeof(float) * (4 * (size_t)rays * (n_samples | 1) + 4 * (size_t)rays);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(composite_bwd_group_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  composite_bwd_group_kernel<<<blocks_for(n_rays, rays), CB_THREADS, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      raw, z, deltas, g_rgbv, g_dist, g_alpha, g_raw, n_rays, n_samples, rays, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // g_hr bf16 (m x h2, h2 <= 1024); partial (ceil(m / rows) x h2) f32 or null
 int nnt_heads_bwd(const float* g_raw, const void* hr, const void* wc, void* g_hr, float* partial,
                   int m, int h2, int rows, void* stream) {
@@ -1041,6 +1365,32 @@ int nnt_encode_bwd(const float* o, const float* r, const float* dirs, const floa
                       static_cast<cudaStream_t>(stream)>>>(o, r, dirs, z, ge1, ld1, ge2, ld2,
                                                            gd, ldd, d_o, d_r, d_d, n_rays,
                                                            n_samples, l_pos, l_dir);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same contract, rows staged through shared memory: ge1, ge2 16-byte
+// aligned with row strides ld1, ld2 multiples of 4 floats (each row is read
+// as ceil(n_pos / 4) float4, up to its padding); n_dir <= MAX_ENC.
+int nnt_encode_bwd_staged(const float* o, const float* r, const float* dirs, const float* z,
+                          const float* ge1, int ld1, const float* ge2, int ld2, const float* gd,
+                          int ldd, float* d_o, float* d_r, float* d_d, int n_rays, int n_samples,
+                          int l_pos, int l_dir, void* stream) {
+  const int n_pos = 3 * (2 * l_pos + 1), n_dir = 3 * (2 * l_dir + 1);
+  const int row = eb_row_floats(n_pos) - 1;  // the floats of a row's float4
+  if (n_dir > MAX_ENC || l_pos < 0 || l_dir < 0 || n_samples < 1 || ld1 % 4 || ld2 % 4 ||
+      ld1 < row || ld2 < row || reinterpret_cast<uintptr_t>(ge1) % 16 ||
+      reinterpret_cast<uintptr_t>(ge2) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rays <= 0) return 0;
+  const int smem = static_cast<int>(sizeof(float)) * eb_smem_floats(n_pos, n_dir);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(encode_bwd_staged_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  encode_bwd_staged_kernel<<<n_rays, EB_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      o, r, dirs, z, ge1, ld1, ge2, ld2, gd, ldd, d_o, d_r, d_d, n_rays, n_samples, l_pos,
+      l_dir);
   return static_cast<int>(cudaGetLastError());
 }
 

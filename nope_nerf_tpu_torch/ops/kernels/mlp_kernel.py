@@ -23,7 +23,11 @@ the kernels on the H100 and how the design answers it.
   divide 128 (:func:`fused_route`) Kernel A's compositing runs after it in
   ``composite_fwd`` (:data:`COMPOSITE_AFTER_LAUNCHES`). Each backward runs
   ten fused layer passes (:func:`gemm_dwgrad`, counted in
-  :data:`MLP_FUSED_BWD_LAUNCHES`). CPU tensors run the plain versions
+  :data:`MLP_FUSED_BWD_LAUNCHES`); Kernel A's backward runs them between
+  its compositing backward (:func:`composite_bwd`) and its encoding
+  backward (:func:`encode_bwd`), each bitwise equal to the per-ray kernel
+  it replaced (:func:`_composite_bwd_per_ray`, :func:`_encode_bwd_per_ray`,
+  on no path). CPU tensors run the plain versions
   :func:`fused_mlp_composite_reference` / :func:`fused_mlp_reference`; any
   other device raises.
 * What the graph needs, and no more: when nothing is to be differentiated
@@ -113,6 +117,14 @@ GEMM_WGRAD_LAUNCHES = LaunchCounter("mlp_gemm_wgrad")
 # the WMMA GEMM of csrc/mlp_composite.cu that the GEMMs above replaced; no
 # path launches it (chip_smoke.py times it beside them)
 GEMM_NN_LAUNCHES = LaunchCounter("mlp_gemm_nn")
+# Kernel A's compositing backward and encoding backward
+# (csrc/mlp_composite.cu: composite_bwd_group, encode_bwd_staged), once each
+# per backward; the one-thread- and one-warp-per-ray kernels they replaced
+# bit for bit run on no path (chip_smoke.py times them beside them)
+COMPOSITE_BWD_LAUNCHES = LaunchCounter("composite_bwd")
+ENCODE_BWD_LAUNCHES = LaunchCounter("encode_bwd")
+COMPOSITE_BWD_PER_RAY_LAUNCHES = LaunchCounter("composite_bwd_per_ray")
+ENCODE_BWD_PER_RAY_LAUNCHES = LaunchCounter("encode_bwd_per_ray")
 # the layers that run as GEMMs (the two narrow heads run in heads_fwd)
 GEMM_LAYERS = tuple(n for n in W_NAMES if n not in ("fc_density", "fc_rgb"))
 HEAD_LAYERS = ("fc_density", "fc_rgb")
@@ -274,11 +286,31 @@ def fused_mlp_composite_reference(weights, origins, rays, dirs, z, deltas,
     """Plain PyTorch version of :func:`fused_mlp_composite` (same arguments
     and outputs): per-ray (N, 3) geometry and (N, S) z/deltas ->
     (rgb_values (N, 3), dist (N, 1), alpha (N, S))."""
-    N = origins.shape[0]
+    enc, denc = _encodings_reference(origins, rays, dirs, z, l_pos, l_dir)
+    raw_sigma, raw_rgb = _chain_reference(_weights_dict(weights), _bf(enc),
+                                          _bf(denc))
+    return _composite_reference(raw_sigma, raw_rgb, z, deltas, act,
+                                occ_alpha, dist_alpha, white_bg)
+
+
+def _encodings_reference(origins, rays, dirs, z, l_pos, l_dir):
+    """The encodings of :func:`fused_mlp_composite_reference` before their
+    bf16 rounding: the position encoding of the N * S points o + r z (M,
+    n_pos) and the direction encoding of each ray repeated for its S
+    samples (M, n_dir), f32."""
+    S = z.shape[1]
     pts = origins[:, None, :] + rays[:, None, :] * z[..., None]
-    enc = _bf(encode_position(pts.reshape(-1, 3), l_pos))
-    denc = _bf(encode_position(dirs, l_dir)).repeat_interleave(S, dim=0)
-    raw_sigma, raw_rgb = _chain_reference(_weights_dict(weights), enc, denc)
+    enc = encode_position(pts.reshape(-1, 3), l_pos)
+    denc = encode_position(dirs, l_dir).repeat_interleave(S, dim=0)
+    return enc, denc
+
+
+def _composite_reference(raw_sigma, raw_rgb, z, deltas, act, occ_alpha,
+                         dist_alpha, white_bg):
+    """The head activations and the compositing of
+    :func:`fused_mlp_composite_reference`: raw heads (M, 1) / (M, 3) and
+    (N, S) z, deltas -> (rgb_values (N, 3), dist (N, 1), alpha (N, S))."""
+    N, S = z.shape
     rgb, d = _act_fwd(raw_sigma, raw_rgb, act, occ_alpha)
     sig2d = d.reshape(N, S)
     if dist_alpha:
@@ -295,6 +327,106 @@ def fused_mlp_composite_reference(weights, origins, rays, dirs, z, deltas,
     if white_bg:
         rgbv = rgbv + (1.0 - torch.sum(w, dim=1, keepdim=True))
     return rgbv, dist, alpha
+
+
+def _sigmoid(x):
+    """The kernels' sigmoid, 1 / (1 + exp(-x))."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def composite_bwd_reference(raw, z, deltas, g_rgbv, g_dist, g_alpha, flags):
+    """Plain version of :func:`composite_bwd`, step for step as the kernel
+    computes it in f32: the cotangents of the raw heads (M, 4) = [sigma,
+    rgb] from those of rgb_values (N, 3), dist (N, 1) and alpha (N, S),
+    given the raw heads (M, 4) and (N, S) z and deltas. ``flags`` is
+    (softplus, occ_alpha, dist_alpha, white_bg). The transmittance is the
+    exclusive product of (1 - alpha + 1e-6) and rsum the suffix sum of gw *
+    w after each sample, both one sample at a time."""
+    softplus_act, occ_alpha, dist_alpha, white_bg = (bool(f) for f in flags)
+    N, S = z.shape
+    raw = raw.reshape(N, S, 4)
+    rs = raw[..., 0]
+    d0 = _softplus(rs) if softplus_act else torch.clamp_min(rs, 0.0)
+    d = 1.0 - torch.exp(-d0) if occ_alpha else d0
+    last = torch.arange(S, device=z.device) == S - 1
+    if dist_alpha:
+        alpha = torch.where(last, torch.ones_like(d),
+                            1.0 - torch.exp(-d * deltas))
+    else:
+        alpha = d
+    sig = [_sigmoid(raw[..., 1 + c]) for c in range(3)]
+    gr, gg, gb = (g_rgbv[:, c:c + 1] for c in range(3))
+    gw = gr * sig[0] + gg * sig[1] + gb * sig[2] + g_dist * z
+    if white_bg:
+        gw = gw - (gr + gg + gb)
+    factor = 1.0 - alpha + 1e-6
+    trans = torch.empty_like(alpha)
+    t = torch.ones_like(alpha[:, 0])
+    for s in range(S):
+        trans[:, s] = t
+        t = t * factor[:, s]
+    w = alpha * trans
+    rsum = torch.empty_like(alpha)
+    r = torch.zeros_like(alpha[:, 0])
+    for s in range(S - 1, -1, -1):
+        rsum[:, s] = r
+        r = r + gw[:, s] * w[:, s]
+    ga = gw * trans - rsum / (1.0 - alpha + 1e-6) + g_alpha
+    if dist_alpha:
+        g_sig = torch.where(last, torch.zeros_like(ga),
+                            ga * deltas * torch.exp(-d * deltas))
+    else:
+        g_sig = ga
+    dd = _sigmoid(rs) if softplus_act else (rs > 0).to(rs.dtype)
+    if occ_alpha:
+        dd = dd * torch.exp(-d0)
+    g_raw = torch.stack([g_sig * dd] + [w * g * s * (1.0 - s) for g, s in
+                                        zip((gr, gg, gb), sig)], -1)
+    return g_raw.reshape(N * S, 4)
+
+
+def _lane_sums(x):
+    """Per-ray sums of (N, S, c) over the samples as the kernels' warps take
+    them: lane l adds samples l, l + 32, ... in order, then the butterfly
+    of ``warp_sum`` (lane 0's operands at each stage)."""
+    N, S, c = x.shape
+    acc = torch.zeros((N, 32, c), dtype=x.dtype, device=x.device)
+    for c0 in range(0, S, 32):
+        n = min(32, S - c0)
+        acc[:, :n] = acc[:, :n] + x[:, c0:c0 + n]
+    for off in (16, 8, 4, 2, 1):
+        acc = acc[:, :off] + acc[:, off:2 * off]
+    return acc[:, 0]
+
+
+def encode_bwd_reference(origins, rays, dirs, z, ge1, ge2, gd, l_pos, l_dir):
+    """Plain version of :func:`encode_bwd`, step for step as the kernel
+    computes it in f32: the backward of the position encoding of o + r z
+    from its cotangent ge1 + ge2 ((M, >= n_pos) each) and of the direction
+    encoding from gd ((M, >= n_dir), per point) -> (d_origins, d_rays,
+    d_dirs), each (N, 3). Each per-ray sum is taken as the kernels' warps
+    take it (:func:`_lane_sums`); the direction cotangent is summed over
+    the ray before its encoding backward."""
+    N, S = z.shape
+    n_pos, n_dir = 3 * (2 * l_pos + 1), 3 * (2 * l_dir + 1)
+    g = (ge1[:, :n_pos] + ge2[:, :n_pos]).reshape(N, S, n_pos)
+    pts = origins[:, None, :] + rays[:, None, :] * z[..., None]
+    dp = g[..., :3]
+    for lvl in range(l_pos):
+        f = 2.0 ** lvl
+        ks, kc = 3 * (1 + 2 * lvl), 3 * (2 + 2 * lvl)
+        dp = dp + (g[..., ks:ks + 3] * torch.cos(pts * f)
+                   - g[..., kc:kc + 3] * torch.sin(pts * f)) * f
+    d_o = _lane_sums(dp)
+    d_r = _lane_sums(dp * z[..., None])
+    gds = _lane_sums(gd[:, :n_dir].reshape(N, S, n_dir))
+    dd = gds[:, :3]
+    for lvl in range(l_dir):
+        f = 2.0 ** lvl
+        ks, kc = 3 * (1 + 2 * lvl), 3 * (2 + 2 * lvl)
+        dd = dd + (gds[:, ks:ks + 3] * torch.cos(dirs * f)
+                   - gds[:, kc:kc + 3] * torch.sin(dirs * f)) * f
+    return d_o, d_r, dd
 
 
 # ---------------------------------------------------------------------------
@@ -1485,6 +1617,184 @@ def _cotangent(g, shape, dev):
     return g.to(_F32).contiguous()
 
 
+# composite_bwd's points a block (its rays: COMPOSITE_BWD_POINTS // S, at
+# least 1) and the shared memory a block may take (the H100's opt-in limit)
+COMPOSITE_BWD_POINTS = 512
+SMEM_LIMIT = 227 * 1024
+
+
+def _composite_bwd_args(raw, z, deltas, g_rgbv, g_dist, g_alpha, name):
+    """Checks of the compositing backward's operands: (N, S)."""
+    N, S = z.shape
+    want = {"raw": (N * S, 4), "deltas": (N, S), "g_rgbv": (N, 3),
+            "g_dist": (N, 1), "g_alpha": (N, S)}
+    for key, t in zip(want, (raw, deltas, g_rgbv, g_dist, g_alpha)):
+        if tuple(t.shape) != want[key]:
+            raise ValueError(f"{name}: {key} is {tuple(t.shape)}, expected "
+                             f"{want[key]} for z {(N, S)}")
+    tensors = (raw, z, deltas, g_rgbv, g_dist, g_alpha)
+    if any(t.device != z.device or t.dtype != _F32 or not t.is_contiguous()
+           for t in tensors):
+        raise ValueError(f"{name}: operands must be contiguous f32 on "
+                         f"{z.device}")
+    return N, S
+
+
+def composite_bwd(raw, z, deltas, g_rgbv, g_dist, g_alpha, flags):
+    """Kernel A's compositing and head-activation backward: the cotangents
+    of the raw heads, g_raw (M, 4) f32 = [sigma, rgb], from those of
+    rgb_values (N, 3), dist (N, 1) and alpha (N, S), given the raw heads
+    (M = N * S, 4) and the (N, S) z and deltas; ``flags`` (softplus,
+    occ_alpha, dist_alpha, white_bg). CUDA tensors launch
+    ``composite_bwd_group`` (csrc/mlp_composite.cu: a block per group of
+    whole rays; counted in :data:`COMPOSITE_BWD_LAUNCHES`), bitwise equal
+    to the one-thread-per-ray kernel it replaced
+    (:func:`_composite_bwd_per_ray`); CPU tensors run
+    :func:`composite_bwd_reference`. Raises on a shape the kernel cannot
+    take."""
+    if z.device.type == "cpu":
+        return composite_bwd_reference(raw, z, deltas, g_rgbv, g_dist,
+                                       g_alpha, flags)
+    _device("composite_bwd", z)
+    N, S = _composite_bwd_args(raw, z, deltas, g_rgbv, g_dist, g_alpha,
+                               "composite_bwd")
+    rays = max(1, COMPOSITE_BWD_POINTS // S)
+    if 16 * ((S | 1) + 1) > SMEM_LIMIT:
+        raise ValueError(f"composite_bwd: {S} samples a ray; a ray's four "
+                         f"arrays must fit {SMEM_LIMIT} bytes of shared "
+                         "memory")
+    g_raw = torch.empty((N * S, 4), dtype=_F32, device=z.device)
+    if N:
+        err = c_function("nnt_composite_bwd_group", "pppppppiiiiiiip")(
+            _ptr(raw), _ptr(z), _ptr(deltas), _ptr(g_rgbv), _ptr(g_dist),
+            _ptr(g_alpha), _ptr(g_raw), N, S, rays,
+            *(int(bool(f)) for f in flags), _stream(z))
+        check(err, "composite_bwd")
+        COMPOSITE_BWD_LAUNCHES.add()
+    return g_raw
+
+
+def _composite_bwd_per_ray(raw, z, deltas, g_rgbv, g_dist, g_alpha, flags):
+    """The compositing backward :func:`composite_bwd` replaced, one thread
+    per ray through a global scratch buffer (4 x S x N f32); the same
+    contract, CUDA tensors only (counted in
+    :data:`COMPOSITE_BWD_PER_RAY_LAUNCHES`). No path runs it;
+    chip_smoke.py holds the new kernel to it bit for bit and times the two
+    in turns."""
+    if z.device.type != "cuda":
+        raise ValueError("composite_bwd_per_ray: CUDA tensors only")
+    N, S = _composite_bwd_args(raw, z, deltas, g_rgbv, g_dist, g_alpha,
+                               "composite_bwd_per_ray")
+    g_raw = torch.empty((N * S, 4), dtype=_F32, device=z.device)
+    scratch = torch.empty((4, S, N), dtype=_F32, device=z.device)
+    err = c_function("nnt_composite_bwd", "ppppppppiiiiiip")(
+        _ptr(raw), _ptr(z), _ptr(deltas), _ptr(g_rgbv), _ptr(g_dist),
+        _ptr(g_alpha), _ptr(scratch), _ptr(g_raw), N, S,
+        *(int(bool(f)) for f in flags), _stream(z))
+    check(err, "composite_bwd_per_ray")
+    COMPOSITE_BWD_PER_RAY_LAUNCHES.add()
+    return g_raw
+
+
+# the direction encoding's widest cotangent the encoding backward takes
+MAX_ENC = 3 * (2 * 16 + 1)
+# the warps of encode_bwd_staged's block, one block a ray
+ENCODE_BWD_WARPS = 2
+
+
+def _encode_bwd_args(origins, rays, dirs, z, ge1, ge2, gd, l_pos, l_dir,
+                     name):
+    """Checks of the encoding backward's operands: (N, S, n_pos, n_dir)."""
+    N, S = z.shape
+    n_pos, n_dir = 3 * (2 * l_pos + 1), 3 * (2 * l_dir + 1)
+    if min(l_pos, l_dir) < 0 or n_dir > MAX_ENC:
+        raise ValueError(f"{name}: levels {l_pos} / {l_dir}; the direction "
+                         f"encoding may be at most {MAX_ENC} wide")
+    for key, t in (("origins", origins), ("rays", rays), ("dirs", dirs)):
+        if tuple(t.shape) != (N, 3) or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous ({N}, 3)")
+    if not z.is_contiguous():
+        raise ValueError(f"{name}: z must be contiguous")
+    for key, t, k in (("ge1", ge1, n_pos), ("ge2", ge2, n_pos),
+                      ("gd", gd, n_dir)):
+        if t.shape[0] != N * S or t.shape[1] < k or t.stride(1) != 1:
+            raise ValueError(f"{name}: {key} must be ({N * S}, >= {k}) with "
+                             "unit column stride")
+    if any(t.device != z.device or t.dtype != _F32
+           for t in (origins, rays, dirs, z, ge1, ge2, gd)):
+        raise ValueError(f"{name}: operands must be f32 on {z.device}")
+    return N, S, n_pos, n_dir
+
+
+def encode_bwd(origins, rays, dirs, z, ge1, ge2, gd, l_pos, l_dir):
+    """Kernel A's encoding backward with the ray sums: the cotangent of the
+    position encoding of the points o + r z as two f32 summands ge1, ge2
+    (M, >= n_pos) and that of the direction encoding per point, gd (M, >=
+    n_dir) -> (d_origins, d_rays, d_dirs), each (N, 3) f32. CUDA tensors
+    launch ``encode_bwd_staged`` (csrc/mlp_composite.cu: a block of two
+    warps per ray, the rows staged through shared memory with coalesced
+    loads, the sums in the old lanes' order; counted in
+    :data:`ENCODE_BWD_LAUNCHES`), bitwise equal to the kernel it replaced
+    (:func:`_encode_bwd_per_ray`); it reads ge1 and ge2 as float4 up to
+    their padding, so their base must be 16-byte aligned and their row
+    strides multiples of 4 columns covering ceil(n_pos / 4) * 4. CPU
+    tensors run :func:`encode_bwd_reference`. Raises on what the kernel
+    cannot take."""
+    if z.device.type == "cpu":
+        return encode_bwd_reference(origins, rays, dirs, z, ge1, ge2, gd,
+                                    l_pos, l_dir)
+    _device("encode_bwd", z)
+    N, S, n_pos, n_dir = _encode_bwd_args(origins, rays, dirs, z, ge1, ge2,
+                                          gd, l_pos, l_dir, "encode_bwd")
+    row = -(-n_pos // 4) * 4
+    for key, t in (("ge1", ge1), ("ge2", ge2)):
+        end = (t.storage_offset() + (t.shape[0] - 1) * t.stride(0) + row) * 4
+        if (t.data_ptr() % 16 or t.stride(0) % 4 or t.stride(0) < row
+                or end > t.untyped_storage().nbytes()):
+            raise ValueError(f"encode_bwd: {key} must be 16-byte aligned, "
+                             f"its row stride a multiple of 4 and at least "
+                             f"{row}, and its storage hold the last row's "
+                             f"{row} columns")
+    smem = 4 * (ENCODE_BWD_WARPS * 32 * (row + 4) + 33 * n_dir)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"encode_bwd: {n_pos} position channels need "
+                         f"{smem} bytes of shared memory, more than "
+                         f"{SMEM_LIMIT}")
+    outs = [torch.empty((N, 3), dtype=_F32, device=z.device)
+            for _ in range(3)]
+    if N:
+        err = c_function("nnt_encode_bwd_staged", "ppppp" "ipipi" "pppiiiip")(
+            _ptr(origins), _ptr(rays), _ptr(dirs), _ptr(z),
+            _ptr(ge1), ge1.stride(0), _ptr(ge2), ge2.stride(0), _ptr(gd),
+            gd.stride(0), *(_ptr(t) for t in outs), N, S, l_pos, l_dir,
+            _stream(z))
+        check(err, "encode_bwd")
+        ENCODE_BWD_LAUNCHES.add()
+    return tuple(outs)
+
+
+def _encode_bwd_per_ray(origins, rays, dirs, z, ge1, ge2, gd, l_pos, l_dir):
+    """The encoding backward :func:`encode_bwd` replaced, one warp per ray
+    whose lanes read whole rows alone; the same contract, CUDA tensors only
+    (counted in :data:`ENCODE_BWD_PER_RAY_LAUNCHES`). No path runs it;
+    chip_smoke.py holds the new kernel to it bit for bit and times the two
+    in turns."""
+    if z.device.type != "cuda":
+        raise ValueError("encode_bwd_per_ray: CUDA tensors only")
+    N, S, _, _ = _encode_bwd_args(origins, rays, dirs, z, ge1, ge2, gd,
+                                  l_pos, l_dir, "encode_bwd_per_ray")
+    outs = [torch.empty((N, 3), dtype=_F32, device=z.device)
+            for _ in range(3)]
+    err = c_function("nnt_encode_bwd", "ppppp" "ipipi" "pppiiiip")(
+        _ptr(origins), _ptr(rays), _ptr(dirs), _ptr(z),
+        _ptr(ge1), ge1.stride(0), _ptr(ge2), ge2.stride(0), _ptr(gd),
+        gd.stride(0), *(_ptr(t) for t in outs), N, S, l_pos, l_dir,
+        _stream(z))
+    check(err, "encode_bwd_per_ray")
+    ENCODE_BWD_PER_RAY_LAUNCHES.add()
+    return tuple(outs)
+
+
 def _composite_fwd(origins, rays, dirs, z, deltas, cfg, weights, save):
     """Kernel A's forward: one fused launch (:func:`fused_fwd`), and on the
     raw route (:func:`fused_route`) composite_fwd after it. Returns
@@ -1587,33 +1897,20 @@ class FusedMLPComposite(torch.autograd.Function):
         N = origins.shape[0]
         M = N * S
         dev = origins.device
-        stream = _stream(origins)
         g_rgbv = _cotangent(g_rgbv, (N, 3), dev)
         g_dist = _cotangent(g_dist, (N, 1), dev)
         g_alpha = _cotangent(g_alpha, (N, S), dev)
 
         # compositing + head activations -> cotangents of the raw heads
-        g_raw = torch.empty((M, 4), dtype=_F32, device=dev)
-        scratch = torch.empty((4, S, N), dtype=_F32, device=dev)
-        err = c_function("nnt_composite_bwd", "ppppppppiiiiiip")(
-            _ptr(raw), _ptr(z), _ptr(deltas), _ptr(g_rgbv), _ptr(g_dist),
-            _ptr(g_alpha), _ptr(scratch), _ptr(g_raw), N, S,
-            int(act == "softplus"), int(occ_alpha), int(dist_alpha),
-            int(white_bg), stream)
-        check(err, "composite_bwd")
+        g_raw = composite_bwd(raw, z, deltas, g_rgbv, g_dist, g_alpha,
+                              (act == "softplus", occ_alpha, dist_alpha,
+                               white_bg))
         d_weights, (ge1, ge2), gd = _chain_bwd(
             Wb, Wh, g_raw, enc, denc, S, feat, hr, acts, M, ctx.dims,
             weight_grads=any(ctx.needs_input_grad[6:]))
         # encoding backward + ray sums
-        d_o = torch.empty((N, 3), dtype=_F32, device=dev)
-        d_r = torch.empty((N, 3), dtype=_F32, device=dev)
-        d_d = torch.empty((N, 3), dtype=_F32, device=dev)
-        err = c_function("nnt_encode_bwd", "ppppp" "ipipi" "pppiiiip")(
-            _ptr(origins), _ptr(rays), _ptr(dirs), _ptr(z),
-            _ptr(ge1), ge1.stride(0), _ptr(ge2), ge2.stride(0), _ptr(gd),
-            gd.stride(0),
-            _ptr(d_o), _ptr(d_r), _ptr(d_d), N, S, l_pos, l_dir, stream)
-        check(err, "encode_bwd")
+        d_o, d_r, d_d = encode_bwd(origins, rays, dirs, z, ge1, ge2, gd,
+                                   l_pos, l_dir)
         BWD_LAUNCHES.add()
         return (d_o, d_r, d_d, None, None, None, *d_weights)
 

@@ -6,6 +6,8 @@
 Each hand-written kernel against its plain PyTorch version on the card, at
 small shapes.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -994,6 +996,162 @@ def test_fused_backward_matches_layered_and_plain(dev, kernel, D):
         assert torch.isfinite(a).all() and torch.equal(a, b), i
         assert _rel_l2(a, l) < 1e-3, (i, _rel_l2(a, l))
         assert _rel_l2(a, r) < 1e-2, (i, _rel_l2(a, r))
+
+
+# Kernel A's compositing and encoding backward: (rays, samples), ragged
+# blocks and sample counts that tile no warp or block among them
+COMPOSITE_BWD_SHAPES = [(1024, 128), (300, 64), (37, 96), (50, 12),
+                        (3, 700), (1, 2000)]
+COMPOSITE_FLAGS = [(True, True, False, False), (False, False, True, True),
+                   (True, False, True, False), (False, True, False, True)]
+
+
+def _composite_bwd_operands(dev, N, S, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    z = torch.sort(rnd(N, S).abs() * 2.0 + 0.5, dim=1).values
+    deltas = torch.cat([z[:, 1:] - z[:, :-1],
+                        torch.full((N, 1), 1e10, device=dev)], 1)
+    return (rnd(N * S, 4, scale=2.0), z, deltas, rnd(N, 3), rnd(N, 1),
+            rnd(N, S))
+
+
+@pytest.mark.parametrize("N,S", COMPOSITE_BWD_SHAPES)
+@pytest.mark.parametrize("flags", COMPOSITE_FLAGS)
+def test_composite_bwd_equals_per_ray_kernel(dev, N, S, flags):
+    """composite_bwd_group against the one-thread-per-ray kernel it
+    replaced, bit for bit, and against its plain version within relL2 1e-5;
+    one launch counted."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    args = (*_composite_bwd_operands(dev, N, S, N + S), flags)
+    n0 = mk.COMPOSITE_BWD_LAUNCHES.count
+    got = mk.composite_bwd(*args)
+    assert mk.COMPOSITE_BWD_LAUNCHES.count == n0 + 1
+    old = mk._composite_bwd_per_ray(*args)
+    ref = mk.composite_bwd_reference(*args)
+    assert got.shape == (N * S, 4) and torch.isfinite(got).all()
+    assert torch.equal(got, old)
+    assert _rel_l2(got, ref) < 1e-5, _rel_l2(got, ref)
+
+
+ENCODE_BWD_CASES = [(1024, 128, 10, 4), (300, 64, 10, 4), (37, 96, 10, 4),
+                    (50, 12, 10, 4), (9, 40, 4, 6), (5, 33, 10, 16)]
+
+
+def _encode_bwd_operands(dev, N, S, l_pos, l_dir, seed):
+    """Per-ray geometry and z, and the encodings' cotangents as the chain
+    backward leaves them: f32 rows padded to 8 columns (NaN in the
+    padding, which the kernels must not read into a result)."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    M = N * S
+    rays = torch.nn.functional.normalize(
+        torch.randn((N, 3), generator=gen, device=dev), dim=1)
+    origins = (torch.randn((1, 3), generator=gen, device=dev) * 0.1).expand(
+        N, 3).contiguous()
+    z = torch.sort(torch.rand((N, S), generator=gen, device=dev) * 3.5 + 0.5,
+                   dim=1).values
+
+    def cot(k):
+        buf = torch.full((M, mk._pad8(k)), float("nan"), device=dev)
+        buf[:, :k] = torch.randn((M, k), generator=gen, device=dev) * 1e-3
+        return buf[:, :k]
+
+    n_pos, n_dir = 3 * (2 * l_pos + 1), 3 * (2 * l_dir + 1)
+    return (origins, rays, -rays, z, cot(n_pos), cot(n_pos), cot(n_dir),
+            l_pos, l_dir)
+
+
+@pytest.mark.parametrize("N,S,l_pos,l_dir", ENCODE_BWD_CASES)
+def test_encode_bwd_equals_per_ray_kernel(dev, N, S, l_pos, l_dir):
+    """encode_bwd_staged against the one-warp-per-ray kernel it replaced,
+    bit for bit (d_origins, d_rays, d_dirs), and against its plain version
+    within relL2 1e-5 each, at the stock levels and at direction encodings
+    of two and four 32-column groups; one launch counted."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    args = _encode_bwd_operands(dev, N, S, l_pos, l_dir, N + S)
+    n0 = mk.ENCODE_BWD_LAUNCHES.count
+    got = mk.encode_bwd(*args)
+    assert mk.ENCODE_BWD_LAUNCHES.count == n0 + 1
+    old = mk._encode_bwd_per_ray(*args)
+    ref = mk.encode_bwd_reference(*args)
+    for name, a, b, r in zip(("d_o", "d_r", "d_d"), got, old, ref):
+        assert a.shape == (N, 3) and torch.isfinite(a).all(), name
+        assert torch.equal(a, b), name
+        assert _rel_l2(a, r) < 1e-5, (name, _rel_l2(a, r))
+
+
+@contextlib.contextmanager
+def _per_ray_pair():
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    real = mk.composite_bwd, mk.encode_bwd
+    mk.composite_bwd = mk._composite_bwd_per_ray
+    mk.encode_bwd = mk._encode_bwd_per_ray
+    try:
+        yield
+    finally:
+        mk.composite_bwd, mk.encode_bwd = real
+
+
+@pytest.mark.parametrize("N,S,D,flags", [
+    (256, 128, 256, ("softplus", True, False, False)),
+    (100, 64, 128, ("relu", False, True, True)),
+    (37, 96, 64, ("softplus", True, False, True))])
+def test_kernel_a_backward_equals_per_ray_pair(dev, N, S, D, flags):
+    """Kernel A's whole backward, full and input-only, on the group and
+    staged kernels against the same backward on the per-ray pair they
+    replaced: every gradient bit for bit; each new kernel launched once a
+    backward, the per-ray ones never."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    ws, geo, z, deltas, cots = _kernel_a_inputs(dev, N, S, D, N + D)
+    static = (10, 4, *flags, S)
+    g = [x.clone().requires_grad_() for x in geo]
+    counters = (mk.COMPOSITE_BWD_LAUNCHES, mk.ENCODE_BWD_LAUNCHES,
+                mk.COMPOSITE_BWD_PER_RAY_LAUNCHES,
+                mk.ENCODE_BWD_PER_RAY_LAUNCHES)
+    for weights in ([x.clone().requires_grad_() for x in ws], ws):
+        out = mk.fused_mlp_composite(weights, *g, z, deltas, *static)
+        inputs = g + [w for w in weights if w.requires_grad]
+        n0 = [c.count for c in counters]
+        got = torch.autograd.grad(out, inputs, cots, retain_graph=True)
+        assert [c.count - n for c, n in zip(counters, n0)] == [1, 1, 0, 0]
+        with _per_ray_pair():
+            old = torch.autograd.grad(out, inputs, cots)
+        assert len(got) == len(inputs)
+        for i, (a, b) in enumerate(zip(got, old)):
+            assert torch.isfinite(a).all() and torch.equal(a, b), i
+
+
+def test_composite_and_encode_bwd_reject_what_they_cannot_take(dev):
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    c_args = _composite_bwd_operands(dev, 4, 16, 0)
+    flags = (True, True, False, False)
+    with pytest.raises(ValueError, match="g_alpha"):
+        mk.composite_bwd(*c_args[:5], c_args[5][:, :8], flags)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        mk.composite_bwd(c_args[0], c_args[1].t().contiguous().t(),
+                         *c_args[2:], flags)
+    big = _composite_bwd_operands(dev, 1, 15000, 0)
+    with pytest.raises(ValueError, match="samples a ray"):
+        mk.composite_bwd(*big, flags)
+    e_args = list(_encode_bwd_operands(dev, 4, 16, 10, 4, 0))
+    with pytest.raises(ValueError, match="at most"):
+        mk.encode_bwd(*e_args[:7], 10, 17)
+    shifted = torch.zeros((64, 68), device=dev)[:, 1:64]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mk.encode_bwd(*e_args[:4], shifted, *e_args[5:])
+    narrow = torch.zeros((64, 63), device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mk.encode_bwd(*e_args[:5], narrow, *e_args[6:])
 
 
 def _shaped_field(dev):
