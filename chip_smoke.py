@@ -17,13 +17,17 @@ for A also on the raw route of an S that does not tile 128 points, where
 against the layer-by-layer one and the plain version (CUDA events and the
 profiler's device time) at the stock shapes, without saves, at k = 4
 frames and at the recovery scripts' width (hidden 128, 64 samples).
-A-bwd and C-bwd run ten passes of ``csrc/mlp_fused_bwd.cu`` (each layer's
-input and weight gradient in one pass): at the same three shapes their
-gradients are held against the plain version (GRAD_RELL2) and against the
-layer-by-layer backward they replaced (``mlp_kernel._chain_bwd_layered``,
-BWD_LAYERED_RELL2), a rerun must be bitwise, and the two backwards are
-timed in turns with the kernels each launches per call and both memory
-floors (fused and layer-by-layer). Then
+B's split-band kernel must return the indices of the per-query kernel
+(``chamfer_band._nearest_idx_banded_per_query``) bit for bit, on the stock
+pair and at every recorded call of the training phases, and is timed in
+turns with it (events and device time); D's device time stands beside its
+events time. A-bwd and C-bwd run ten passes of ``csrc/mlp_fused_bwd.cu``
+(each layer's input and weight gradient in one pass): at the same three
+shapes their gradients are held against the plain version (GRAD_RELL2) and
+against the layer-by-layer backward they replaced
+(``mlp_kernel._chain_bwd_layered``, BWD_LAYERED_RELL2), a rerun must be
+bitwise, and the two backwards are timed in turns with the kernels each
+launches per call and both memory floors (fused and layer-by-layer). Then
 it runs the GEMM phase (the layer-by-layer forward's TMA + wgmma layer
 GEMM of ``csrc/mlp_gemm_sm90.cu``, which no path runs since the fused
 forward, at four layer shapes at M = 131,072: its error against
@@ -89,10 +93,9 @@ The scan phase (:func:`run_scan`) holds ``make_epoch_step``'s captured
 route to its eager route (the same step body, step by step) in the five
 training configurations: 2 epochs of 8 steps each from the same
 parameters, Adam state and generator state, the per-step losses, the
-parameters and Adam's moments after them bit for bit (else, when an eager
-rerun differs too, within the multigpu bars, and the line says which),
-one graph per run with Kernel A once each way and B twice (C once each way
-and D twice; D twice under parity) per replay; the multigpu phase adds the
+parameters and Adam's moments after them bit for bit, one graph per run
+with Kernel A once each way and B twice (C once each way and D twice; D
+twice under parity) per replay; the multigpu phase adds the
 stock run under a one-rank NCCL mesh, its all-reduces captured. It times
 each route's wall and device ms per
 step; holds the pose-optimisation block captured against eager over 5 pose
@@ -386,8 +389,11 @@ GEMM_ULPS = 1.0
 # dense bf16 tensor-core FLOP/s, memory bytes/s, FP32 lane instructions/s
 BF16_FLOPS, HBM_BYTES, FP32_INSTR = 989e12, 3.35e12, 33.5e12
 # FP32 instructions per point pair of the Chamfer argmins (3 sub, 3 mul,
-# 2 add, compare and select; no FMA by design)
+# 2 add, compare and select; no FMA by design): Kernel D's
 PAIR_INSTR = 10
+# Kernel B's split-band design keeps a chunk's running minimum with one
+# fminf a pair: 3 sub, 3 mul, 2 add and one min
+BAND_PAIR_INSTR = 9
 
 
 def card_line():
@@ -1073,8 +1079,12 @@ def depth_pair(dev, hs, ws, seed):
 
 
 def check_kernel_b(dev, card):
-    """Kernel B (banded Chamfer argmin) against its plain version on a
-    135x240 depth-map pair warped by a small rigid motion."""
+    """Kernel B (banded Chamfer argmin) on a 135x240 depth-map pair warped
+    by a small rigid motion: bit for bit the per-query kernel's and the
+    plain version's indices; then the kernel and the per-query kernel (as
+    its wrapper ran it, with its two padded copies) in turns by CUDA events
+    and by device time (:func:`pair_turns`), the per-query kernel alone by
+    device time, and the plain version by events."""
     import torch
 
     from nope_nerf_tpu_torch.geometry.rays import project_to_cam
@@ -1088,31 +1098,51 @@ def check_kernel_b(dev, card):
     n = hs * ws
     starts = cb.rows_to_start_tiles(X, n, (hs, ws), cam, project_to_cam, k)
     idx_k = cb.nearest_idx_banded(X, Y, starts, k)
+    idx_o = cb._nearest_idx_banded_per_query(X, Y, starts, k)
     idx_r = cb.nearest_idx_banded_reference(X, Y, starts, k)
     torch.cuda.synchronize()
     mism = int(torch.sum(idx_k != idx_r))
+    mism_old = int(torch.sum(idx_k != idx_o))
     dk = torch.linalg.vector_norm(X - Y[idx_k.long()], dim=-1)
     dr = torch.linalg.vector_norm(X - Y[idx_r.long()], dim=-1)
     max_abs = float(torch.max(torch.abs(dk - dr)))
-    ms = cuda_ms(lambda: cb.nearest_idx_banded(X, Y, starts, k), iters=20)
-    ms_plain = cuda_ms(
-        lambda: cb.nearest_idx_banded_reference(X, Y, starts, k), iters=5)
-    print(f"kernel B [{card}] {n} x {n} points, k_tiles={k}: "
-          f"{mism} index mismatches, max|err| of the matched distance "
-          f"{max_abs:.3e}; kernel {ms:.3f} ms, plain {ms_plain:.3f} ms")
-    if mism:
-        raise AssertionError(f"kernel B: {mism} indices differ from its "
-                             "plain version")
+    turns = pair_turns(lambda: cb.nearest_idx_banded(X, Y, starts, k),
+                       lambda: cb._nearest_idx_banded_per_query(X, Y, starts,
+                                                                k),
+                       lambda: cb.nearest_idx_banded_reference(X, Y, starts,
+                                                               k),
+                       iters=50)
+    old_split = kernel_split(
+        lambda: cb._nearest_idx_banded_per_query(X, Y, starts, k), iters=50)
+    old_kernel = sum(v for name, v in old_split.items()
+                     if "band_argmin_kernel" in name)
     # every query group scans k_tiles (at most Y's tiles) of TILE rows
-    pairs = (-(-n // cb.QB) * cb.QB * min(k, -(-n // cb.TILE)) * cb.TILE)
-    b_ms, b_by = bound(instr=PAIR_INSTR * pairs,
+    pairs = n * min(k, -(-n // cb.TILE)) * cb.TILE
+    b_ms, b_by = bound(instr=BAND_PAIR_INSTR * pairs,
                        nbytes=nbytes(X, Y, starts, idx_k))
+    print(f"kernel B [{card}] {n} x {n} points, k_tiles={k}: {mism} index "
+          f"mismatches against the plain version, {mism_old} against the "
+          f"per-query kernel, max|err| of the matched distance "
+          f"{max_abs:.3e}; kernel {turns['ms']:.4f} ms by events, device "
+          f"{turns['device_ms']:.4f}; the per-query kernel with its copies "
+          f"{turns['earlier_ms']:.4f}, device "
+          f"{turns['earlier_device_ms']:.4f} (the kernel alone "
+          f"{old_kernel:.4f}); plain {turns['plain_ms']:.3f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    if mism or mism_old:
+        raise AssertionError(f"kernel B: {mism} indices differ from its "
+                             f"plain version, {mism_old} from the per-query "
+                             "kernel")
     return {"name": "chamfer_band", "route": "cuda",
             "source": "nope_nerf_tpu_torch/csrc/chamfer_band.cu",
             "replaces": "nope_nerf_tpu/ops/pallas/chamfer_band.py:90",
-            "max_abs_err": max_abs, "index_mismatches": mism, "ms": ms,
-            "plain_ms": ms_plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "max_abs_err": max_abs, "index_mismatches": mism,
+            "per_query_mismatches": mism_old, "ms": turns["ms"],
+            "device_ms": turns["device_ms"], "plain_ms": turns["plain_ms"],
+            "per_query_ms": turns["earlier_ms"],
+            "per_query_device_ms": turns["earlier_device_ms"],
+            "per_query_kernel_device_ms": old_kernel, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 def check_kernel_c(dev, card):
@@ -1288,17 +1318,19 @@ def check_kernel_d(dev, card):
         mism = sum(int(torch.sum(a != b)) for a, b in zip(idx_k, idx_r))
         loss_err = float(torch.abs(loss_k - loss_r))
         ms = cuda_ms(lambda: ck.nearest_idx_exact(X, Y), iters=10)
+        dms = device_ms(lambda: ck.nearest_idx_exact(X, Y), iters=10)
         ms_plain = cuda_ms(lambda: ck.nearest_idx_exact_reference(X, Y),
                            iters=2, warmup=1)
         ms_grid = cuda_ms(lambda: ch.nearest_idx_window(X, Y), iters=5)
         print(f"kernel D [{card}] {n} x {n} points: {mism} index mismatches,"
-              f" |loss err| {loss_err:.3e}; kernel {ms:.3f} ms, plain "
-              f"{ms_plain:.3f} ms; grid mode {ms_grid:.3f} ms")
+              f" |loss err| {loss_err:.3e}; kernel {ms:.3f} ms (device "
+              f"{dms:.4f}), plain {ms_plain:.3f} ms; grid mode {ms_grid:.3f} "
+              "ms")
         if mism:
             raise AssertionError(f"kernel D: {mism} indices differ from its "
                                  f"plain version at {n} points")
         rows.append((n, mism, loss_err, ms, ms_plain, ms_grid,
-                     nbytes(X, Y, *idx_k)))
+                     nbytes(X, Y, *idx_k), dms))
     per_pair = sum(row[3] / row[0] ** 2 for row in rows) / len(rows)
     per_point = sum(row[5] / (2 * row[0]) for row in rows) / len(rows)
     print(f"chamfer auto cost laws [{card}]: exact {per_pair:.3e} ms/pair, "
@@ -1307,16 +1339,16 @@ def check_kernel_d(dev, card):
     # both directions scan every pair
     (b_ms, b_by), (b_large, _) = (bound(instr=PAIR_INSTR * 2 * row[0] ** 2,
                                         nbytes=row[6]) for row in rows)
-    n, mism, loss_err, ms, ms_plain, ms_grid, _ = rows[0]
+    n, mism, loss_err, ms, ms_plain, ms_grid, _, dms = rows[0]
     return {"name": "chamfer_exact", "route": "cuda",
             "source": "nope_nerf_tpu_torch/csrc/chamfer_exact.cu",
             "replaces": "nope_nerf_tpu/ops/pallas/chamfer_kernel.py:87",
             "max_abs_err": loss_err, "index_mismatches": mism, "ms": ms,
-            "plain_ms": ms_plain, "grid_ms": ms_grid, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "device_ms": dms, "plain_ms": ms_plain, "grid_ms": ms_grid,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "large": {"points": rows[1][0], "ms": rows[1][3],
-                      "plain_ms": rows[1][4], "grid_ms": rows[1][5],
-                      "bound_ms": b_large}}
+                      "device_ms": rows[1][7], "plain_ms": rows[1][4],
+                      "grid_ms": rows[1][5], "bound_ms": b_large}}
 
 
 # the forward's layer GEMMs timed in the GEMM phase: (layer, K1, K2, N,
@@ -2134,7 +2166,8 @@ def check_composite_encode_bwd(dev, card):
 
 
 def kernel_counters():
-    """The launch counters of the six kernels, the fused forward and the
+    """The launch counters of the six kernels (with Kernel B's per-query
+    kernel, on no path), the fused forward and the
     compositing after it (Kernel A's raw route), the fused backward pass,
     the layer-by-layer forward's GEMM, the layer-by-layer backward's input-
     and weight-gradient GEMMs, the launches that serve only the weight
@@ -2145,7 +2178,8 @@ def kernel_counters():
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     return (mk.FWD_LAUNCHES, mk.BWD_LAUNCHES, cb.LAUNCHES,
-            mk.FWD_POINT_LAUNCHES, mk.BWD_POINT_LAUNCHES, ck.LAUNCHES,
+            cb.PER_QUERY_LAUNCHES, mk.FWD_POINT_LAUNCHES,
+            mk.BWD_POINT_LAUNCHES, ck.LAUNCHES,
             mk.MLP_FUSED_FWD_LAUNCHES, mk.COMPOSITE_AFTER_LAUNCHES,
             mk.MLP_FUSED_BWD_LAUNCHES, mk.GEMM_SM90_LAUNCHES,
             mk.GEMM_DGRAD_LAUNCHES,
@@ -2441,11 +2475,10 @@ def scan_route(dev, setup, capture_it, mesh=None, timed=True):
 
 
 def compare_routes(label, eager, graph, rerun):
-    """'bitwise' when the captured route's losses, parameters and Adam
-    moments equal the eager route's bit for bit; else, when an eager rerun
-    (``rerun()``) is not bitwise either, 'tolerance' within the multigpu
-    phase's bars (loss rtol MG_LOSS_RTOL, relL2 MG_GRAD_RELL2); raises
-    otherwise. Returns (held, numbers)."""
+    """Raises unless the captured route's losses, parameters and Adam
+    moments equal the eager route's bit for bit, saying whether an eager
+    rerun (``rerun()``) is bitwise the first (a step that is not
+    deterministic eagerly) or not. Returns the differences' numbers."""
     import torch
 
     def diff(a, b):
@@ -2459,15 +2492,12 @@ def compare_routes(label, eager, graph, rerun):
         return bit, {"loss_max_rel": loss_rel, "state_max_rel_l2": max(rels)}
 
     bit, numbers = diff(graph, eager)
-    if bit:
-        return "bitwise", numbers
-    rerun_bit, _ = diff(rerun(), eager)
-    if (rerun_bit or numbers["loss_max_rel"] > MG_LOSS_RTOL
-            or numbers["state_max_rel_l2"] > MG_GRAD_RELL2):
+    if not bit:
+        rerun_bit, _ = diff(rerun(), eager)
         raise AssertionError(f"{label}: the captured epochs differ from the "
                              f"eager ones {numbers} (an eager rerun bitwise "
                              f"equal: {rerun_bit})")
-    return "tolerance", numbers
+    return numbers
 
 
 def scan_pose(dev, card):
@@ -2532,9 +2562,9 @@ def scan_pose(dev, card):
           f"eager: bitwise {bitwise} (pose relL2 {rel:.3e}); ms per pose "
           "step wall / device: " + "; ".join(
               f"{r} {w:.3f} / {d:.3f}" for r, (w, d) in times.items()))
-    if not (bitwise or rel <= MG_GRAD_RELL2):
+    if not bitwise:
         raise AssertionError(f"scan pose block: captured against eager "
-                             f"relL2 {rel}")
+                             f"relL2 {rel}, not bitwise")
     return {"bitwise": bitwise, "pose_rel_l2": rel,
             "ms_per_step": {r: {"wall": w, "device": d}
                             for r, (w, d) in times.items()}}
@@ -2554,7 +2584,7 @@ def run_scan(dev, card):
         setup = scan_setup(dev, overrides)
         eager = scan_route(dev, setup, False)
         graph = scan_route(dev, setup, True)
-        held, numbers = compare_routes(
+        numbers = compare_routes(
             f"scan {label}", eager, graph,
             lambda: scan_route(dev, setup, False))
         run = graph["run"]
@@ -2567,7 +2597,7 @@ def run_scan(dev, card):
                                  f"launches per replay {per_replay}, "
                                  f"expected {want}")
         replays = graphs[0].record.replays
-        runs[label] = dict(numbers, held=held, graphs=len(graphs),
+        runs[label] = dict(numbers, graphs=len(graphs),
                            warmups=run.graphs.warmups, replays=replays,
                            launches_per_replay=per_replay[0],
                            ms_per_step={
@@ -2576,7 +2606,7 @@ def run_scan(dev, card):
                                "cuda graph": {"wall": graph["wall_ms"],
                                               "device": graph["device_ms"]}})
         print(f"scan {label} [{card}]: {EPOCHS} epochs x {N_FRAMES} steps "
-              f"captured against eager: {held} ({numbers}); "
+              f"captured against eager: bitwise ({numbers}); "
               f"{len(graphs)} graph, {run.graphs.warmups} warm-up step, "
               f"{replays} replays; ms/step wall / device: eager "
               f"{eager['wall_ms']:.3f} / {eager['device_ms']:.3f}, cuda "
@@ -3078,7 +3108,8 @@ def run_dpt(dev, card):
     kernel_checks = {
         "chamfer_band": check_argmin_calls(
             "dpt training's chamfer_band", cb.nearest_idx_banded,
-            cb.nearest_idx_banded_reference, argmin_calls),
+            cb.nearest_idx_banded_reference, argmin_calls,
+            cb._nearest_idx_banded_per_query),
         "mlp_point_fwd": check_point_mlp_call(
             "dpt training's visualisation", point_calls)}
     print(f"dpt training [{card}]: {len(losses)} steps on the priors "
@@ -3448,23 +3479,33 @@ def check_ssim_normal(dev, card, cfg, state):
             "step_ms_with_normal": [on1, on2]}
 
 
-def check_argmin_calls(label, kernel, plain, calls):
+def check_argmin_calls(label, kernel, plain, calls, oracle=None):
     """Rerun recorded calls of a Chamfer argmin wrapper through the kernel
-    and its plain version: identical indices required."""
+    and its plain version: identical indices required; with ``oracle``
+    (the kernel it replaced) also bit for bit its indices."""
     import torch
 
-    mism = 0
+    def mismatches(a, b):
+        if torch.is_tensor(a):
+            a, b = (a,), (b,)
+        return sum(int(torch.sum(x != y)) for x, y in zip(a, b))
+
+    mism = old = 0
     for args, kwargs in calls:
-        out_k, out_r = kernel(*args, **kwargs), plain(*args, **kwargs)
-        if torch.is_tensor(out_k):
-            out_k, out_r = (out_k,), (out_r,)
-        mism += sum(int(torch.sum(a != b)) for a, b in zip(out_k, out_r))
-    if not calls or mism:
+        out_k = kernel(*args, **kwargs)
+        mism += mismatches(out_k, plain(*args, **kwargs))
+        if oracle is not None:
+            old += mismatches(out_k, oracle(*args, **kwargs))
+    if not calls or mism or old:
         raise AssertionError(f"{label}: {len(calls)} recorded calls, {mism} "
-                             "indices differ from the plain version")
+                             f"indices differ from the plain version, {old} "
+                             "from the kernel it replaced")
     X, Y = calls[-1][0][:2]
-    return {"calls": len(calls), "points": [X.shape[0], Y.shape[0]],
-            "index_mismatches": mism}
+    out = {"calls": len(calls), "points": [X.shape[0], Y.shape[0]],
+           "index_mismatches": mism}
+    if oracle is not None:
+        out["per_query_mismatches"] = old
+    return out
 
 
 def check_point_mlp_call(label, calls):
@@ -3528,9 +3569,10 @@ def run_synthetic(dev, card):
     # the Chamfer kernel `auto` resolves to: its counter, wrapper and plain
     # version ("grid" runs none)
     argmin = {"band": ("chamfer_band", cb, "nearest_idx_banded",
-                       cb.nearest_idx_banded_reference),
+                       cb.nearest_idx_banded_reference,
+                       cb._nearest_idx_banded_per_query),
               "exact": ("chamfer_exact", ck, "nearest_idx_exact",
-                        ck.nearest_idx_exact_reference)}.get(mode)
+                        ck.nearest_idx_exact_reference, None)}.get(mode)
     torch.cuda.empty_cache()
     counters = reset_counts()
     t0 = time.perf_counter()
@@ -3578,7 +3620,7 @@ def run_synthetic(dev, card):
     if argmin:
         kernel_checks[argmin[0]] = check_argmin_calls(
             f"synthetic training's {argmin[0]}", getattr(argmin[1], argmin[2]),
-            argmin[3], argmin_calls)
+            argmin[3], argmin_calls, argmin[4])
 
     counters = reset_counts()
     t0 = time.perf_counter()
@@ -3775,7 +3817,8 @@ def run_recovery(dev, card, pose_lr=None):
     kernel_checks = {
         "chamfer_band": check_argmin_calls(
             "recovery's last step's chamfer_band", cb.nearest_idx_banded,
-            cb.nearest_idx_banded_reference, argmin_calls),
+            cb.nearest_idx_banded_reference, argmin_calls,
+            cb._nearest_idx_banded_per_query),
         "mlp_composite": check_kernel_a_call(f"recovery [{card}]", a_call)}
     print(f"recovery launches [{card}]: {counts}")
     shutil.rmtree(base)
@@ -3983,7 +4026,7 @@ def mg_one_rank(dev, card):
         # the scan path under the mesh: its all-reduces captured into the
         # graph (NCCL), against the same epochs eager
         setup = scan_setup(dev, {})
-        scan_held, scan_numbers = compare_routes(
+        scan_numbers = compare_routes(
             "multigpu W = 1 scan",
             scan_route(dev, setup, False, mesh=mesh, timed=False),
             scan_route(dev, setup, True, mesh=mesh, timed=False),
@@ -4001,10 +4044,9 @@ def mg_one_rank(dev, card):
               f"bitwise equal to the unsharded one over 2 steps (loss, rgb, "
               f"depth, gradients, parameters after Adam); the scan path "
               f"under the mesh, {EPOCHS} epochs captured against eager: "
-              f"{scan_held} ({scan_numbers}); ms/step plain "
+              f"bitwise ({scan_numbers}); ms/step plain "
               f"{times['plain']}, mesh {times['mesh']}; launches {counts}")
         return counts, {"backend": mesh.backend, "bitwise_steps": 2,
-                        "scan_captured_vs_eager": scan_held,
                         "ms_per_step": times}
     finally:
         dist.destroy_process_group()
@@ -4060,7 +4102,8 @@ def mg_worker(rank, port, out, dpt_cfg_path):
                                  f"{a_check['rays']} rays, not {N_RAYS // 2}")
         b_check = check_argmin_calls(f"{label} chamfer_band",
                                      cb.nearest_idx_banded,
-                                     cb.nearest_idx_banded_reference, b_calls)
+                                     cb.nearest_idx_banded_reference, b_calls,
+                                     cb._nearest_idx_banded_per_query)
         it = iter(range(MG_STEPS, MG_STEPS + 100))
         ms = host_ms(lambda: step(state, mg_batch(batch0, scene, next(it)),
                                   scalars, static), iters=5)

@@ -8,11 +8,19 @@ starts at the group's start tile (the nan-robust median of its projected
 rows, :func:`band_start_tiles`).
 
 * :func:`nearest_idx_banded` is the public wrapper: CUDA tensors launch the
-  hand-written kernel (``csrc/chamfer_band.cu``, replacing the Pallas
-  ``_band_kernel``) and count it in :data:`LAUNCHES`; CPU tensors run
+  hand-written kernel (``csrc/chamfer_band.cu``'s split-band kernel,
+  replacing the Pallas ``_band_kernel``) on X and Y as they are, and count
+  it in :data:`LAUNCHES`; CPU tensors run
   :func:`nearest_idx_banded_reference`; any other device raises.
-* Both compute the direct (x - y)^2 sum without FMAs and break ties toward
-  the first occurrence, so they return identical indices.
+* :func:`_nearest_idx_banded_per_query` launches the per-query kernel that
+  the split-band kernel replaced (one query a thread) on padded copies,
+  counted in :data:`PER_QUERY_LAUNCHES`. It is on no path: chip_smoke.py
+  and the card tests hold the split-band kernel to it bit for bit, NaN and
+  infinite rows included.
+* All compute the direct (x - y)^2 sum without FMAs and break ties toward
+  the first occurrence, so they return identical indices on finite inputs
+  (``torch.argmin`` of the plain version takes a NaN distance as the
+  minimum; the kernels never pick one).
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ QB = 1024        # queries per group (one start tile each)
 _SENTINEL = 1e5  # padded X rows -> +S, padded Y rows -> -S (never win)
 
 LAUNCHES = LaunchCounter("chamfer_band")
+PER_QUERY_LAUNCHES = LaunchCounter("chamfer_band_per_query")
 
 
 def band_start_tiles(row_hint, n_y, ws_y, k_tiles, qb=QB):
@@ -109,6 +118,22 @@ def nearest_idx_banded_reference(X, Y, starts, k_tiles):
     return torch.cat(out).to(torch.int32)[:S]
 
 
+def _check_cuda_inputs(X, Y, starts, k_tiles):
+    """Raise on what the kernels cannot take; returns _band_shapes."""
+    dev = X.device
+    if Y.device != dev or starts.device != dev:
+        raise ValueError("nearest_idx_banded: X, Y and starts must share "
+                         "one device")
+    if X.dtype != torch.float32 or Y.dtype != torch.float32:
+        raise ValueError("nearest_idx_banded: X and Y must be float32")
+    if X.dim() != 2 or Y.dim() != 2 or X.shape[1] != 3 or Y.shape[1] != 3:
+        raise ValueError("nearest_idx_banded: X and Y must be (n, 3)")
+    shapes = _band_shapes(X, Y, k_tiles)
+    if starts.shape[0] != shapes[3] // QB:
+        raise ValueError(f"starts must have {shapes[3] // QB} entries")
+    return shapes
+
+
 def nearest_idx_banded(X, Y, starts, k_tiles=8):
     """Banded one-direction NN: for each X query group, argmin over the
     k_tiles*TILE Y rows starting at its start tile. Forward-only.
@@ -122,16 +147,30 @@ def nearest_idx_banded(X, Y, starts, k_tiles=8):
         return nearest_idx_banded_reference(X, Y, starts, k_tiles)
     if dev.type != "cuda":
         raise ValueError(f"nearest_idx_banded: unsupported device {dev}")
-    if Y.device != dev or starts.device != dev:
-        raise ValueError("nearest_idx_banded: X, Y and starts must share "
-                         "one device")
-    if X.dtype != torch.float32 or Y.dtype != torch.float32:
-        raise ValueError("nearest_idx_banded: X and Y must be float32")
-    if X.dim() != 2 or Y.dim() != 2 or X.shape[1] != 3 or Y.shape[1] != 3:
-        raise ValueError("nearest_idx_banded: X and Y must be (n, 3)")
-    S, n_tiles, k_tiles, Sp, Dp = _band_shapes(X, Y, k_tiles)
-    if starts.shape[0] != Sp // QB:
-        raise ValueError(f"starts must have {Sp // QB} entries")
+    S, n_tiles, k_tiles, _, _ = _check_cuda_inputs(X, Y, starts, k_tiles)
+    out = torch.empty(S, dtype=torch.int32, device=dev)
+    if S == 0:
+        return out
+    Xc, Yc = X.detach().contiguous(), Y.detach().contiguous()
+    st = starts.to(torch.int32).contiguous()
+    err = c_function("nnt_band_argmin_split", "ppppiiiiiip")(
+        Xc.data_ptr(), Yc.data_ptr(), st.data_ptr(), out.data_ptr(),
+        S, Y.shape[0], n_tiles, k_tiles, TILE, QB,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "band_argmin_split")
+    LAUNCHES.add()
+    return out
+
+
+def _nearest_idx_banded_per_query(X, Y, starts, k_tiles=8):
+    """:func:`nearest_idx_banded` on the per-query kernel the split-band
+    kernel replaced (CUDA tensors only): one query a thread over
+    sentinel-padded copies of X and Y."""
+    dev = X.device
+    if dev.type != "cuda":
+        raise ValueError(f"_nearest_idx_banded_per_query: unsupported device "
+                         f"{dev}")
+    S, n_tiles, k_tiles, Sp, Dp = _check_cuda_inputs(X, Y, starts, k_tiles)
     Xp = _prep(X.detach(), Sp, _SENTINEL).contiguous()
     Yp = _prep(Y.detach(), Dp, -_SENTINEL).contiguous()
     st = starts.to(torch.int32).contiguous()
@@ -141,7 +180,7 @@ def nearest_idx_banded(X, Y, starts, k_tiles=8):
         Sp, n_tiles, k_tiles, TILE, QB,
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "band_argmin")
-    LAUNCHES.add()
+    PER_QUERY_LAUNCHES.add()
     return out[:S]
 
 

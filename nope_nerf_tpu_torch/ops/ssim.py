@@ -76,12 +76,19 @@ def ssim(img1, img2, window_size: int = 11):
     return m.mean()
 
 
+def reflect_pad1(a):
+    """(H, W, C) -> (H + 2, W + 2, C): reflection padding by one pixel (the
+    edge is not repeated), bitwise ``F.pad(..., mode="reflect")``. Built
+    from slices and concatenations, whose backward adds each reflected
+    pixel's two gradients in one fixed order: on CUDA the backward of
+    ``F.pad``'s reflect mode adds them with atomics, in an order that
+    changes from run to run."""
+    a = torch.cat([a[1:2], a, a[-2:-1]], dim=0)
+    return torch.cat([a[:, 1:2], a, a[:, -2:-1]], dim=1)
+
+
 def ssim_loss_map(x, y, c1=C1, c2=C2):
     """Elementwise SSIM-loss map for (H, W, C) images in [0, 1]."""
-    def pad(a):
-        return F.pad(a.permute(2, 0, 1)[None], (1, 1, 1, 1),
-                     mode="reflect")[0].permute(1, 2, 0)
-
     # made on the images' device: a copy from host memory cannot be
     # captured into a CUDA graph of the step
     box = torch.full((3, 3), 1.0 / 9.0, device=x.device)
@@ -89,7 +96,7 @@ def ssim_loss_map(x, y, c1=C1, c2=C2):
     def pool(a):
         return _depthwise(a, box, 0)
 
-    x, y = pad(x), pad(y)
+    x, y = reflect_pad1(x), reflect_pad1(y)
     mu_x, mu_y = pool(x), pool(y)
     sigma_x = pool(x * x) - mu_x**2
     sigma_y = pool(y * y) - mu_y**2

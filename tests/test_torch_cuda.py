@@ -166,6 +166,91 @@ def test_kernel_b_matches_plain(dev, S, D, k):
     assert torch.equal(idx, ref)
 
 
+def _band_clouds(rng, S, D, special):
+    """Normal X (S, 3) and Y (D, 3) with duplicate rows of Y and queries on
+    rows of Y (exact ties); with ``special`` also NaN and infinite rows and
+    entries in both, and rows equal to Y's -1e5 padding sentinel."""
+    X = rng.normal(size=(S, 3)).astype(np.float32)
+    Y = rng.normal(size=(D, 3)).astype(np.float32)
+    Y[rng.integers(0, D, D // 4)] = Y[rng.integers(0, D, D // 4)]
+    X[: S // 8] = Y[rng.integers(0, D, S // 8)]
+    if special:
+        Y[rng.integers(0, D, 20)] = np.nan
+        Y[rng.integers(0, D, 20), rng.integers(0, 3, 20)] = np.inf
+        Y[rng.integers(0, D, 5)] = -1e5
+        X[rng.integers(0, S, 20)] = np.nan
+        X[rng.integers(0, S, 20), 1] = -np.inf
+        X[rng.integers(0, S, 5)] = np.inf
+    return X, Y
+
+
+# (S, D): S below one query group, ragged, several groups; Y ragged
+BAND_SHAPES = [(100, 900), (1024, 3000), (3000, 5000), (5000, 4100)]
+
+
+@pytest.mark.parametrize("S,D", BAND_SHAPES)
+@pytest.mark.parametrize("special", [False, True])
+def test_kernel_b_equals_per_query_kernel(dev, S, D, special):
+    """The split-band kernel returns the per-query kernel's indices bit for
+    bit, NaN and infinite rows included, and the plain version's on finite
+    inputs, for k_tiles from 1 to all of Y's tiles (and past them) with
+    starts clamped at both ends; one launch a call, the per-query kernel
+    never on the wrapper's path."""
+    from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
+
+    rng = np.random.default_rng(S + D + special)
+    X, Y = (torch.tensor(a, device=dev) for a in _band_clouds(rng, S, D,
+                                                               special))
+    n_tiles = -(-D // cb.TILE)
+    for k in sorted({1, 2, n_tiles, n_tiles + 3}):
+        starts = torch.tensor(rng.integers(-2, n_tiles + 2,
+                                           size=-(-S // cb.QB)),
+                              dtype=torch.int32, device=dev)
+        n0, p0 = cb.LAUNCHES.count, cb.PER_QUERY_LAUNCHES.count
+        idx = cb.nearest_idx_banded(X, Y, starts, k)
+        assert (cb.LAUNCHES.count, cb.PER_QUERY_LAUNCHES.count) == (n0 + 1,
+                                                                    p0)
+        old = cb._nearest_idx_banded_per_query(X, Y, starts, k)
+        assert idx.dtype == torch.int32 and idx.shape == (S,)
+        assert torch.equal(idx, old), k
+        if not special:
+            assert torch.equal(idx, cb.nearest_idx_banded_reference(
+                X, Y, starts, k)), k
+
+
+def test_kernel_b_all_nan_queries_keep_the_band_start(dev):
+    """A query whose every distance is NaN keeps its band's first row, in
+    both kernels."""
+    from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
+
+    X = torch.full((1500, 3), float("nan"), device=dev)
+    Y = torch.randn(5000, 3, device=dev)
+    starts = torch.tensor([1, 9], dtype=torch.int32, device=dev)
+    idx = cb.nearest_idx_banded(X, Y, starts, 2)
+    want = torch.tensor([1024] * 1024 + [3 * 1024] * 476, dtype=torch.int32,
+                        device=dev)
+    assert torch.equal(idx, want)
+    assert torch.equal(cb._nearest_idx_banded_per_query(X, Y, starts, 2),
+                       want)
+
+
+def test_kernel_b_rejects_what_it_cannot_take(dev):
+    """Other dtypes, shapes, devices and start counts raise before any
+    launch; an empty query set returns without one."""
+    from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
+
+    X = torch.randn(1500, 3, device=dev)
+    Y = torch.randn(2000, 3, device=dev)
+    starts = torch.zeros(2, dtype=torch.int32, device=dev)
+    n0 = cb.LAUNCHES.count
+    for args in ((X.double(), Y, starts), (X, Y[:, :2], starts),
+                 (X, Y.cpu(), starts), (X, Y, starts[:1])):
+        with pytest.raises(ValueError):
+            cb.nearest_idx_banded(*args, 2)
+    empty = cb.nearest_idx_banded(X[:0], Y, starts[:0], 2)
+    assert empty.shape == (0,) and cb.LAUNCHES.count == n0
+
+
 def _kernel_c_inputs(dev, M, hidden, seed):
     from nope_nerf_tpu_torch.models.nerf import init_nerf_params
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -1330,14 +1415,17 @@ def test_frozen_nets_on_card_match_cpu(dev, net):
         assert float(got) == pytest.approx(float(want), rel=2e-4)
 
 
-def test_captured_epoch_equals_eager_epoch(dev):
+@pytest.mark.parametrize("config", ["stock", "ssim_normal"])
+def test_captured_epoch_equals_eager_epoch(dev, config):
     """``make_epoch_step`` on the card: two epochs of 4 steps replayed from
     one captured CUDA graph of the step against the same two epochs run
-    eagerly, from the same parameters, Adam state and generator state (a
-    small stock-route model: Kernels A and B). The per-step losses, the
-    parameters and Adam's moments are equal bit for bit; each replay runs
-    Kernel A once each way and Kernel B twice; a call on another state or
-    generator than the capture's raises."""
+    eagerly, twice, from the same parameters, Adam state and generator
+    state (a small stock-route model: Kernels A and B; ``ssim_normal`` adds
+    the SSIM map to rgb_s and turns on the normal term). The per-step
+    losses, the parameters and Adam's moments of all three runs are equal
+    bit for bit; each replay runs Kernel A once each way and Kernel B
+    twice; a call on another state or generator than the capture's
+    raises."""
     from nope_nerf_tpu_torch.config import DEFAULT_CONFIG, load_config
     from nope_nerf_tpu_torch.synthetic import MemoryScene
     from nope_nerf_tpu_torch.training import capture
@@ -1352,6 +1440,9 @@ def test_captured_epoch_equals_eager_epoch(dev):
     cfg["model"]["hidden_dim"] = 64
     cfg["rendering"]["num_points"] = 32
     cfg["training"]["n_training_points"] = 256
+    if config == "ssim_normal":
+        cfg["training"]["with_ssim"] = True
+        cfg["rendering"]["normal_loss"] = True
     scene = MemoryScene(4, 96, 128, 0)
     cfg["_num_cams"] = 4
     batch0 = scene_batch_arrays(scene, cfg, dev)
@@ -1362,7 +1453,7 @@ def test_captured_epoch_equals_eager_epoch(dev):
     static = sched.static_flags(0)
     orders = [np.array([2, 0, 3, 1]), np.array([1, 3, 0, 2])]
     results = []
-    for capture_it in (False, True):
+    for capture_it in (False, True, False):
         params, init_c2w = build_params(cfg, scene,
                                         torch.Generator().manual_seed(0), dev)
         state = init_train_state(params, capturable=True)
@@ -1397,8 +1488,9 @@ def test_captured_epoch_equals_eager_epoch(dev):
                 with pytest.raises(ValueError, match="captured on other"):
                     run(args[0], batch0, orders[0], (orders[0] + 1) % 4,
                         scalars, args[1], static)
-    (le, pe, me), (lg, pg, mg) = results
+    (le, pe, me) = results[0]
     assert torch.isfinite(le).all()
-    assert torch.equal(le, lg)
-    assert all(torch.equal(a, b) for a, b in zip(pe, pg))
-    assert all(torch.equal(a, b) for a, b in zip(me, mg))
+    for lg, pg, mg in results[1:]:
+        assert torch.equal(le, lg)
+        assert all(torch.equal(a, b) for a, b in zip(pe, pg))
+        assert all(torch.equal(a, b) for a, b in zip(me, mg))

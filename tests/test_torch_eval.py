@@ -411,6 +411,45 @@ def test_ssim_matches_jax():
             np.asarray(jmap(jnp.asarray(a), jnp.asarray(b))), atol=1e-5)
 
 
+def test_ssim_loss_map_gradient_matches_jax():
+    """The loss map's gradient, which a ``with_ssim`` training step takes,
+    against the JAX package's on the pairs of :func:`test_ssim_matches_jax`
+    (relL2 1e-5, the SSIM map gradient's bar on the card; these pairs read
+    4.4e-6, the same with ``F.pad``: f32 sums in another order). Its
+    reflection padding
+    (``ssim.reflect_pad1``, slices and concatenations: deterministic on
+    CUDA, unlike ``F.pad``'s reflect backward) equals ``F.pad``'s reflect
+    mode bit for bit forward, and within 1e-15 backward in float64."""
+    import torch.nn.functional as F
+    from nope_nerf_tpu.ops.ssim import ssim_loss_map as jmap
+    from nope_nerf_tpu_torch.ops import ssim as ps
+
+    rng = np.random.default_rng(2)
+    x = rng.uniform(size=(*HW, 3)).astype(np.float32)
+    y = np.clip(x + 0.1 * rng.normal(size=x.shape), 0, 1).astype(np.float32)
+    cot = rng.normal(size=x.shape).astype(np.float32)
+    for a, b in ((x, y), (y, x)):
+        tb = _t(b).requires_grad_()
+        got = torch.autograd.grad(ps.ssim_loss_map(_t(a), tb), tb,
+                                  _t(cot))[0]
+        want = jax.grad(lambda v: jnp.sum(jmap(jnp.asarray(a), v)
+                                          * jnp.asarray(cot)))(
+            jnp.asarray(b))
+        want = np.asarray(want)
+        assert (np.linalg.norm(got.numpy() - want)
+                / np.linalg.norm(want)) < 1e-5
+
+    v = torch.tensor(rng.normal(size=(*HW, 3))).requires_grad_()
+    ref = F.pad(v.permute(2, 0, 1)[None], (1, 1, 1, 1),
+                mode="reflect")[0].permute(1, 2, 0)
+    out = ps.reflect_pad1(v)
+    assert torch.equal(out, ref)
+    g = torch.tensor(rng.normal(size=out.shape))
+    np.testing.assert_allclose(torch.autograd.grad(out, v, g)[0].numpy(),
+                               torch.autograd.grad(ref, v, g)[0].numpy(),
+                               rtol=0, atol=1e-15)
+
+
 # ---------------------------------------------------------------------------
 # rendering and eval_image
 # ---------------------------------------------------------------------------
