@@ -1,0 +1,7 @@
+"""pose_opt_mfu: The whole step's model FLOPs per second as a share of the bf16
+peak."""
+from benchmark.readers import mfu
+
+
+def read(t):
+    return mfu(t, "pose_opt")
