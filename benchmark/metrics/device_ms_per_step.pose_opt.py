@@ -1,0 +1,8 @@
+"""device_ms_per_step.pose_opt: The device ms per step of a dispatch
+(evaluation/pose_opt.py::PoseOptBlock): one event pair around each call's
+work over its steps, the median over the process's dispatches."""
+from benchmark.program_trace import device_ms_per_step
+
+
+def read(t):
+    return device_ms_per_step(t, "pose_opt")

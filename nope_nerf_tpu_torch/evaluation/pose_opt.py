@@ -24,6 +24,7 @@ import bisect
 import numpy as np
 import torch
 
+from .. import tracing
 from ..geometry.align import align_ate_c2b_use_a2b, align_scale_c2b_use_a2b
 from ..geometry.rays import pixels_from_flat_idx, rigid_inv
 from ..models.pose import all_poses, init_pose_params, pose_c2w
@@ -72,6 +73,7 @@ def pose_opt_loss(pose_params, nerf_params, eval_imgs, camera_mat, scale_mat,
                        device=ray_idx.device)
     out = render_rays(nerf_params, p, depth, camera_mat, rigid_inv(c2w),
                       scale_mat, render_cfg, add_noise=False, eval_mode=True)
+    tracing.section("step.loss")
     return torch.mean((out["rgb"] - rgb_gt) ** 2)
 
 
@@ -93,6 +95,13 @@ class PoseOptBlock:
     selects the step's row of the block's buffers, which hold the first
     block's number of steps (no later block is longer). ``route`` names
     the route.
+
+    Each call is one ``tracing`` dispatch of phase "pose_opt" (its record
+    in ``last_dispatch``), with the host spans ``dispatch.upload``,
+    ``dispatch.scalars``, ``dispatch.replay`` and ``dispatch.snapshot``;
+    the step marks ``step.rays``, ``step.field``, ``step.loss``,
+    ``step.backward`` (with ``step.backward.field``), ``step.update`` and
+    ``step.aux``.
     """
 
     def __init__(self, cfg, render_cfg, init_c2w, n_points, hw, device,
@@ -102,32 +111,50 @@ class PoseOptBlock:
         self.fast = (cfg.get("tpu", {}) or {}).get("fast_ray_sampling", True)
         device = torch.device(device)
         self.graphs = StepGraphs(device,
-                                 eager=eager or device.type != "cuda")
+                                 eager=eager or device.type != "cuda",
+                                 phase="pose_opt")
         self.route = self.graphs.route
         self.bufs = None
+        self.last_dispatch = None
 
     def __call__(self, nerf_params, pose_params, optimizer, eval_imgs,
                  camera_mat, scale_mat, lrs_steps, frame_idx, generator):
         n = len(lrs_steps)
         dev = eval_imgs.device
-        if self.bufs is None:
-            self.bufs = {
-                "lrs": torch.zeros(n, dtype=torch.float32, device=dev),
-                "frames": torch.zeros(n, dtype=torch.long, device=dev),
-                "losses": torch.zeros(n, dtype=torch.float32, device=dev),
-                "counter": torch.zeros((), dtype=torch.long, device=dev)}
-        b = self.bufs
-        if n > b["lrs"].shape[0]:
+        if self.bufs is not None and n > self.bufs["lrs"].shape[0]:
             raise ValueError(f"a block of {n} steps after one of "
-                             f"{b['lrs'].shape[0]}")
-        lrs = torch.from_numpy(np.asarray(lrs_steps, np.float32))
-        b["lrs"][:n].copy_(lrs.pin_memory() if dev.type == "cuda" else lrs,
-                           non_blocking=True)
-        upload_ints(b["frames"][:n], frame_idx)
-        b["counter"].zero_()
-        lr = optimizer.param_groups[0]["lr"]
+                             f"{self.bufs['lrs'].shape[0]}")
+        with tracing.dispatch("pose_opt", n, dev) as rec:
+            losses = self._block(nerf_params, pose_params, optimizer,
+                                 eval_imgs, camera_mat, scale_mat, lrs_steps,
+                                 frame_idx, generator)
+        self.last_dispatch = rec
+        return losses
+
+    def _block(self, nerf_params, pose_params, optimizer, eval_imgs,
+               camera_mat, scale_mat, lrs_steps, frame_idx, generator):
+        n = len(lrs_steps)
+        dev = eval_imgs.device
+        with tracing.span("dispatch.upload"):
+            if self.bufs is None:
+                self.bufs = {
+                    "lrs": torch.zeros(n, dtype=torch.float32, device=dev),
+                    "frames": torch.zeros(n, dtype=torch.long, device=dev),
+                    "losses": torch.zeros(n, dtype=torch.float32,
+                                          device=dev),
+                    "counter": torch.zeros((), dtype=torch.long,
+                                           device=dev)}
+            b = self.bufs
+            lrs = torch.from_numpy(np.asarray(lrs_steps, np.float32))
+            b["lrs"][:n].copy_(lrs.pin_memory() if dev.type == "cuda"
+                               else lrs, non_blocking=True)
+            upload_ints(b["frames"][:n], frame_idx)
+        with tracing.span("dispatch.scalars"):
+            b["counter"].zero_()
+            lr = optimizer.param_groups[0]["lr"]
 
         def one():
+            tracing.section("step.rays")
             i = b["counter"].reshape(1)
             lr.copy_(b["lrs"].index_select(0, i)[0])
             f = b["frames"].index_select(0, i)[0]
@@ -137,15 +164,19 @@ class PoseOptBlock:
             loss = pose_opt_loss(pose_params, nerf_params, eval_imgs,
                                  camera_mat, scale_mat, f, ray_idx,
                                  self.init_c2w, self.render_cfg)
+            tracing.section("step.backward")
             loss.backward()
+            tracing.section("step.update")
             optimizer.step()
+            tracing.section("step.aux")
             b["losses"].index_copy_(0, i, loss.detach().reshape(1))
             b["counter"].add_(1)
 
         self.graphs.run("pose", one, n, (generator,), lambda: bound_tensors(
             nerf_params, pose_params, optimizer, eval_imgs, camera_mat,
             scale_mat))
-        return b["losses"][:n].clone()
+        with tracing.span("dispatch.snapshot"):
+            return b["losses"][:n].clone()
 
 
 def pose_optimizer(pose_params, capturable):

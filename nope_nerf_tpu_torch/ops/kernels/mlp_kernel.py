@@ -68,6 +68,7 @@ import ctypes
 
 import torch
 
+from ... import tracing
 from ..._build import c_function, check
 from ...models.nerf import matmul_bf16
 from ..encoding import encode_position
@@ -1876,7 +1877,9 @@ class FusedMLPComposite(torch.autograd.Function):
     ``cfg`` is (l_pos, l_dir, act, occ_alpha, dist_alpha, white_bg, S).
     The backward computes the weight gradients only when a weight needs
     one (test-time pose optimisation needs only d_origins / d_rays /
-    d_dirs)."""
+    d_dirs). Inside a traced step the backward is the section
+    ``step.backward.field`` (``tracing.py``), after which ``step.backward``
+    resumes."""
 
     @staticmethod
     def forward(ctx, origins, rays, dirs, z, deltas, cfg, *weights):
@@ -1889,6 +1892,7 @@ class FusedMLPComposite(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_rgbv, g_dist, g_alpha):
+        tracing.section("step.backward.field")
         l_pos, l_dir, act, occ_alpha, dist_alpha, white_bg, S = ctx.cfg
         saved = ctx.saved_tensors
         origins, rays, dirs, z, deltas, enc, denc, feat, hr, raw = saved[:10]
@@ -1912,6 +1916,7 @@ class FusedMLPComposite(torch.autograd.Function):
         d_o, d_r, d_d = encode_bwd(origins, rays, dirs, z, ge1, ge2, gd,
                                    l_pos, l_dir)
         BWD_LAUNCHES.add()
+        tracing.section("step.backward")
         return (d_o, d_r, d_d, None, None, None, *d_weights)
 
 

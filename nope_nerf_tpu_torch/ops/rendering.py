@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..geometry.rays import (
     arange_pixels,
     get_ndc_rays_fxfy,
@@ -178,6 +179,7 @@ def render_rays(nerf_params, pixels, depth_prior, camera_mat, world_mat,
     """
     rays = ray_setup(pixels, depth_prior, camera_mat, world_mat, scale_mat,
                      cfg, generator=generator, add_noise=add_noise)
+    tracing.section("step.field")
     return render_ray_batch(nerf_params, rays, cfg, generator=generator,
                             eval_mode=eval_mode)
 

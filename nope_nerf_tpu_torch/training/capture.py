@@ -20,6 +20,18 @@ a later call whose tensors or generators lie elsewhere raises too. With
 ``eager`` (the reference route, and the only one on the CPU) the same
 steps run as they are.
 
+Sections: a :class:`StepGraphs` made with a ``phase`` runs its warm-up
+and eager steps inside ``tracing.step``, so the step's
+``tracing.section`` boundaries record timing events (``tracing.py``), and
+captures each key's step twice: once as it is, and once inside
+``tracing.step``, whose boundaries become external event-record nodes of
+that second graph. The last step of each call is a replay of the second
+graph, every other step a replay of the first: each node stalls the step
+by ~4 us, 0.8% of a stock training step and 3% of a pose step when every
+replay carried them (PERF.md), while one timed step a call leaves the
+section times of the call's last step. Each replay opens the host span
+``dispatch.replay``.
+
 Launch counts: a kernel wrapper called while the stream captures counts
 its launch in ``LaunchCounter.captured``; each graph keeps its own share
 (:class:`LaunchRecord`: the launches of one replay) and its replays, so
@@ -30,6 +42,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..ops.kernels import LaunchCounter
 
 
@@ -48,14 +61,18 @@ _RECORDS = []
 
 
 class CapturedStep:
-    """One captured step: its graph, its :class:`LaunchRecord`, and the
-    tensors and generators it was captured on."""
+    """One captured step: its graph, its :class:`LaunchRecord`, the
+    tensors and generators it was captured on, and with a phase the same
+    step captured with its section events (``timed``) and their
+    ``tracing.Sections`` (both None without)."""
 
-    def __init__(self, graph, record, generators, tensors):
-        self.graph = graph
+    def __init__(self, graph, record, generators, tensors, timed=None,
+                 sections=None):
+        self.graph, self.timed = graph, timed
         self.record = record
         self.generators = tuple(generators)
         self.storage = _storage(tensors)
+        self.sections = sections
 
     def check(self, generators, tensors):
         """Raise unless ``generators`` and ``tensors`` are those of the
@@ -69,8 +86,12 @@ class CapturedStep:
                 "other tensors or generators than this call's: a replay "
                 "reads and writes the storage of its capture")
 
-    def replay(self):
-        self.graph.replay()
+    def replay(self, timed=False):
+        """One replay: of the graph with the section events when ``timed``
+        and there is one."""
+        graph = self.timed if timed and self.timed is not None else self.graph
+        with tracing.span("dispatch.replay"):
+            graph.replay()
         self.record.replays += 1
 
 
@@ -133,25 +154,46 @@ def reset_replays():
 
 class StepGraphs:
     """The steps of one device by key: replays of one captured graph per
-    key in one graph pool, or with ``eager`` the step function as it is."""
+    key in one graph pool, or with ``eager`` the step function as it is.
+    With ``phase`` ("train", "pose_opt") the steps record their
+    ``tracing`` sections."""
 
-    def __init__(self, device, eager=False):
+    def __init__(self, device, eager=False, phase=None):
         device = torch.device(device)
         if not eager and device.type != "cuda":
             raise ValueError(f"no CUDA graph on {device}: only eager steps")
-        self.device, self.eager = device, eager
+        self.device, self.eager, self.phase = device, eager, phase
         self.pool = None if eager else torch.cuda.graph_pool_handle()
         self.graphs = {}
         self.warmups = 0
+        self.eager_sections = {}
+
+    def _traced(self, key, fn, sections=None):
+        """``fn`` as one step recording its sections: into ``sections``, or
+        into the key's eager ones; ``fn`` itself without a phase."""
+        if self.phase is None:
+            return fn
+        if sections is None:
+            sections = self.eager_sections.get(key)
+            if sections is None:
+                sections = self.eager_sections[key] = tracing.Sections(
+                    self.phase, False, self.device)
+
+        def traced():
+            with tracing.step(sections):
+                fn()
+
+        return traced
 
     @property
     def route(self):
         return "eager" if self.eager else "cuda graph"
 
     def run(self, key, fn, n, generators=(), inputs=()):
-        """Run ``fn`` as ``n`` steps of ``key``: replays of its graph, or
-        for a new key an eager warm-up step on a side stream, its capture
-        and n - 1 replays. ``fn`` must read and write only tensors that
+        """Run ``fn`` as ``n`` steps of ``key``: replays of its graph (the
+        last one of the timed graph, with a phase), or for a new key an
+        eager warm-up step on a side stream, its capture and n - 1
+        replays. ``fn`` must read and write only tensors that
         outlive the graph (it may allocate temporaries), and synchronise
         nothing with the host. ``generators`` are the explicit
         ``torch.Generator`` s it draws from: the graph registers them, so
@@ -161,21 +203,24 @@ class StepGraphs:
         of its arguments); a replay on other tensors or generators than
         the capture's raises."""
         if self.eager:
+            step = self._traced(key, fn)
             for _ in range(n):
-                fn()
+                step()
             return
         if n <= 0:
             return
         captured = self.graphs.get(key)
         if captured is None:
-            self.warm_up(fn)
+            self.warm_up(self._traced(key, fn))
             captured = self.graphs[key] = self.capture(
                 key, fn, generators, inputs)
             n -= 1
         else:
             captured.check(generators, _listed(inputs))
-        for _ in range(n):
-            captured.replay()
+        for i in range(n):
+            captured.replay(timed=i == n - 1)
+        if n and captured.sections is not None:
+            tracing.replayed(captured.sections)
 
     def warm_up(self, fn):
         """Run ``fn`` once eagerly on a side stream, ordered with the
@@ -191,16 +236,28 @@ class StepGraphs:
     def capture(self, key, fn, generators=(), inputs=()):
         """Record ``fn`` into a new graph in this pool (nothing runs), on
         the tensors ``inputs`` (a list, or a function giving it once the
-        warm-up has made the optimiser state) and ``generators``."""
-        graph = torch.cuda.CUDAGraph()
-        for gen in generators:
-            graph.register_generator_state(gen)
+        warm-up has made the optimiser state) and ``generators``; with a
+        phase, again into a second graph with its section events."""
         before = [c.captured for c in LaunchCounter.all]
-        with torch.cuda.graph(graph, pool=self.pool):
-            fn()
+        graph = self._graph(fn, generators)
         launches = {c.name: c.captured - b
                     for c, b in zip(LaunchCounter.all, before)
                     if c.captured != b}
         rec = LaunchRecord(key, launches)
         _RECORDS.append(rec)
-        return CapturedStep(graph, rec, generators, _listed(inputs))
+        timed = sections = None
+        if self.phase is not None:
+            sections = tracing.Sections(self.phase, True, self.device)
+            warm = self.eager_sections.get(key)
+            sections.reserve(len(warm.names) if warm is not None else 0)
+            timed = self._graph(self._traced(key, fn, sections), generators)
+        return CapturedStep(graph, rec, generators, _listed(inputs), timed,
+                            sections)
+
+    def _graph(self, fn, generators):
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        with torch.cuda.graph(graph, pool=self.pool):
+            fn()
+        return graph

@@ -60,6 +60,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from .. import tracing
 from ..config import apply_parity_profile, check_supported
 from ..convert import (
     adam_state_from_jax_leaves,
@@ -280,42 +281,18 @@ class HostCopy:
         return self.host
 
 
-class DeviceTimer:
-    """Seconds on the device's timeline from :meth:`__init__` to
-    :meth:`stop`: the span between two CUDA events, read once the work
-    queued between them is done, idle time between kernels included (so
-    near the kernels' time on the scan path, where the host queues ahead,
-    and near the wall time on the per-step path, which waits for each
-    step); None off CUDA, where no device time is measured."""
-
-    def __init__(self, device):
-        self.events = None
-        if device.type == "cuda":
-            self.events = [torch.cuda.Event(enable_timing=True)
-                           for _ in range(2)]
-            self.events[0].record()
-
-    def stop(self):
-        if self.events is not None:
-            self.events[1].record()
-
-    def seconds(self):
-        if self.events is None:
-            return None
-        self.events[1].synchronize()
-        return self.events[0].elapsed_time(self.events[1]) / 1e3
-
-
 def epoch_record(epoch, it, n, loss, step_losses, psnr, wall, device,
-                 n_rays):
+                 n_rays, sections_ms=None):
     """One epoch's history entry: ``ms_per_step`` and ``rays_per_sec`` from
     the host clock's ``wall`` seconds, ``device_ms_per_step`` from the
-    :class:`DeviceTimer` span ``device`` (None when not measured)."""
+    device span of ``device`` seconds (the epoch's dispatch, or a
+    ``tracing.DeviceTimer``; None when not measured), and ``sections_ms``,
+    the device ms of each section of a step (``tracing.section_ms``)."""
     return {"epoch": epoch, "it": it, "steps": n, "loss": loss,
             "step_losses": step_losses, "psnr": psnr,
             "ms_per_step": 1e3 * wall / n, "rays_per_sec": n * n_rays / wall,
             "device_ms_per_step": None if device is None
-            else 1e3 * device / n}
+            else 1e3 * device / n, "sections_ms": sections_ms}
 
 
 def epoch_line(rec):
@@ -359,8 +336,15 @@ def train(cfg, max_epochs=None, scene=None, device="cuda", mesh=None):
     the end. Returns (state, scheduler, scene, history): history has one
     dict per epoch run (epoch, it, steps, loss, step_losses, psnr,
     ms_per_step and rays_per_sec on the host clock, device_ms_per_step on
-    the device's (None off CUDA), and ate_trans, rpe_trans, rpe_rot in the
-    epochs that score the poses).
+    the device's (None off CUDA), sections_ms, and ate_trans, rpe_trans,
+    rpe_rot in the epochs that score the poses). On the scan path
+    device_ms_per_step is the epoch's ``tracing`` dispatch span, and
+    sections_ms the device ms of each section of the last replay of the
+    step (``tracing.section_ms("train")``) where that replay has finished
+    when the epoch is processed: the last epoch's, and every epoch's under
+    ``tpu.eager_metrics`` or ``scheduling_mode: reset``; None before that
+    (a later epoch's replays are queued, and reading would wait for them),
+    on the per-step path and off CUDA.
 
     With ``tpu.profile_dir`` the whole run is traced by one
     ``torch.profiler.profile`` (CPU activity, and CUDA activity on the
@@ -513,7 +497,7 @@ def _train(cfg, max_epochs, scene, device, mesh):
         the host clock from its start to ``t_next``, the next epoch's start
         (all of its host work included), or else to the moment its metrics
         reached the host."""
-        p_epoch, p_it, keys, copy, p_order, timing, t_start = pending
+        p_epoch, p_it, keys, copy, p_order, record, t_start = pending
         host = copy.wait()
         aux_mean, steps = host["mean"], host["steps"]
         mean = {k: float(aux_mean[j]) for j, k in enumerate(keys)}
@@ -540,9 +524,14 @@ def _train(cfg, max_epochs, scene, device, mesh):
                 logger.add_scalar(f"train/shift{vname}", v, p_it)
         psnr = float(mse2psnr(mean["l2_mean"]))
         wall = (time.perf_counter() if t_next is None else t_next) - t_start
+        device_ms = record.device_ms()
         rec = epoch_record(p_epoch, p_it, steps.shape[0], mean["loss"],
                            [float(x) for x in steps[:, col["loss"]]], psnr,
-                           wall, timing.seconds(), n_rays)
+                           wall, None if device_ms is None
+                           else device_ms / 1e3, n_rays,
+                           tracing.section_ms(
+                               "train", eager=epoch_fn.route == "eager",
+                               wait=False))
         say(epoch_line(rec))
         pose = {k: host[f"pose_{k}"] for k in ("r", "t")}
         rec.update(end_of_epoch(p_epoch, p_it, psnr, pose))
@@ -577,7 +566,6 @@ def _train(cfg, max_epochs, scene, device, mesh):
             # of the captured step); its metrics come back as one copy
             it0 = sched_state.it + 1
             t_start = time.perf_counter()
-            timing = DeviceTimer(device)
             try:
                 state, aux_mean, _ = epoch_fn(
                     state, batch0, frames if mult > 1 else order,
@@ -586,7 +574,6 @@ def _train(cfg, max_epochs, scene, device, mesh):
                 raise FloatingPointError(
                     f"training epoch {epoch} (steps it={it0}.."
                     f"{it0 + n_views - 1}): {e}") from e
-            timing.stop()
             sched_state.it += n_views
             it = sched_state.it
             throughput.tick(n_views)
@@ -597,7 +584,8 @@ def _train(cfg, max_epochs, scene, device, mesh):
                 "steps": torch.stack([epoch_fn.steps[k] for k in keys], 1),
                 "pose_r": state.params["pose"]["r"].detach(),
                 "pose_t": state.params["pose"]["t"].detach()})
-            pending = (epoch, it, keys, copy, order, timing, t_start)
+            pending = (epoch, it, keys, copy, order,
+                       epoch_fn.last_dispatch, t_start)
             if eager_metrics:
                 process_epoch(pending)
             else:
@@ -627,7 +615,7 @@ def _train(cfg, max_epochs, scene, device, mesh):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        timing = DeviceTimer(device)
+        timing = tracing.DeviceTimer(device)
         for step_frames, ref_idx in zip(frames, ref_order):
             sched_state.it += 1
             it = sched_state.it

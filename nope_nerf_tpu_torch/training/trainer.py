@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..geometry.rays import (
     arange_pixels,
     camera_mat_from_fxfy,
@@ -256,12 +257,14 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
         if mesh is not None:
             rcfg = dict(rcfg, mesh=mesh)
             rgb_gt = shard_rays(rgb_gt, mesh)
+        tracing.section("step.field")
         out = render_ray_batch(params["nerf"], rays, rcfg,
                                generator=generator, eval_mode=False)
 
     # ---- reference-image branch -------------------------------------------
     loss_kwargs = {}
     if static["use_ref"]:
+        tracing.section("step.pair")
         c2w_ref = c2w_of(ref_idx)
         scale_ref, shift_ref = scale_shift(ref_idx)
         if tcfg["detach_ref_img"]:
@@ -352,6 +355,7 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
         loss_kwargs["Y"] = pc2
 
     # ---- assemble -------------------------------------------------------
+    tracing.section("step.loss")
     depth_gt = out.get("depth_gt")
     if static["render_model"] and tcfg["detach_gt_depth"]:
         depth_gt = depth_gt.detach()
@@ -424,6 +428,7 @@ def make_step_body(cfg, render_cfg, init_c2w=None, mesh=None):
                                  static=static, init_c2w=init_c2w,
                                  render_cfg=render_cfg, generator=generator,
                                  mesh=mesh)
+        tracing.section("step.backward")
         loss.backward()
         return loss, aux
 
@@ -452,6 +457,7 @@ def make_step_body(cfg, render_cfg, init_c2w=None, mesh=None):
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         loss, aux = run(state, batch, scalars, static, generator)
+        tracing.section("step.update")
         with torch.no_grad():
             for group in opt.param_groups:
                 for p in group["params"]:
@@ -528,6 +534,14 @@ class EpochStep:
     ``steps`` holds the last epoch's per-step aux values. A graph replays
     on the state, scene arrays and generator of its capture: a call with
     others raises.
+
+    Each call is one ``tracing`` dispatch of phase "train" (its record in
+    ``last_dispatch``: the call's device time without waiting for it),
+    with the host spans ``dispatch.upload``, ``dispatch.scalars``,
+    ``dispatch.replay`` (one per replay) and ``dispatch.snapshot``; the
+    step marks the sections ``step.rays``, ``step.field``, ``step.pair``,
+    ``step.loss``, ``step.backward`` (with ``step.backward.field`` inside:
+    Kernel A's backward), ``step.update`` and ``step.aux``.
     """
 
     def __init__(self, cfg, render_cfg, init_c2w, mesh, device, eager):
@@ -538,11 +552,13 @@ class EpochStep:
             self.route, self.why = "eager", "eager=True"
         if self.route == "cuda graph":
             warm_up_collectives(mesh)
-        self.graphs = StepGraphs(self.device, eager=self.route == "eager")
+        self.graphs = StepGraphs(self.device, eager=self.route == "eager",
+                                 phase="train")
         self.bufs = {}
         self.scalars = None
         self.counter = None
         self.steps = None
+        self.last_dispatch = None
 
     def _fill_scalars(self, scalars, dev):
         """The loss weights and rgb weights as 0-d device tensors (made once,
@@ -570,24 +586,39 @@ class EpochStep:
             raise ValueError(f"an epoch step made for {self.device} given "
                              f"scene arrays on {dev}")
         key = (tuple(sorted(static.items())), n, k)
-        buf = self.bufs.get(key)
-        if buf is None:
-            buf = self.bufs[key] = {
-                "idxs": torch.zeros(idxs.shape, dtype=torch.long, device=dev),
-                "refs": torch.zeros((n,), dtype=torch.long, device=dev)}
-        upload_ints(buf["idxs"], idxs)
-        upload_ints(buf["refs"], ref_idxs)
-        sc = self._fill_scalars(scalars, dev)
-        set_lrs(state.optimizer, scalars["lrs"])
-        counter = self.counter
-        counter.zero_()
+        with tracing.dispatch("train", n, dev) as rec:
+            aux_mean, aux_last = self._epoch(key, state, scene_arrays, idxs,
+                                             ref_idxs, scalars, generator,
+                                             static)
+        self.last_dispatch = rec
+        return state, aux_mean, aux_last
+
+    def _epoch(self, key, state, scene_arrays, idxs, ref_idxs, scalars,
+               generator, static):
+        n, dev = idxs.shape[0], scene_arrays["imgs"].device
+        with tracing.span("dispatch.upload"):
+            buf = self.bufs.get(key)
+            if buf is None:
+                buf = self.bufs[key] = {
+                    "idxs": torch.zeros(idxs.shape, dtype=torch.long,
+                                        device=dev),
+                    "refs": torch.zeros((n,), dtype=torch.long, device=dev)}
+            upload_ints(buf["idxs"], idxs)
+            upload_ints(buf["refs"], ref_idxs)
+        with tracing.span("dispatch.scalars"):
+            sc = self._fill_scalars(scalars, dev)
+            set_lrs(state.optimizer, scalars["lrs"])
+            counter = self.counter
+            counter.zero_()
 
         def one():
+            tracing.section("step.rays")
             i = counter.reshape(1)
             batch = dict(scene_arrays,
                          idx=buf["idxs"].index_select(0, i)[0],
                          ref_idx=buf["refs"].index_select(0, i)[0])
             _, aux = self.body(state, batch, sc, static, generator)
+            tracing.section("step.aux")
             if "aux" not in buf:  # the key's first step, never captured
                 buf["keys"] = [a for a in sorted(aux) if torch.is_tensor(
                     aux[a]) and aux[a].dim() == 0]
@@ -603,15 +634,16 @@ class EpochStep:
                                   scene_arrays))
         # copies made on the device after the epoch's steps and before any
         # later epoch's: a caller may read them while the next epoch runs
-        snap = buf["aux"].clone()
-        cols = {a: j for j, a in enumerate(buf["keys"])}
-        mean = snap.mean(0)
-        aux_mean = {a: mean[j] for a, j in cols.items()}
-        aux_last = {a: snap[-1, j] for a, j in cols.items()}
-        aux_last["scale_steps"] = snap[:, cols["scale"]]
-        aux_last["shift_steps"] = snap[:, cols["shift"]]
-        self.steps = {a: snap[:, j] for a, j in cols.items()}
-        return state, aux_mean, aux_last
+        with tracing.span("dispatch.snapshot"):
+            snap = buf["aux"].clone()
+            cols = {a: j for j, a in enumerate(buf["keys"])}
+            mean = snap.mean(0)
+            aux_mean = {a: mean[j] for a, j in cols.items()}
+            aux_last = {a: snap[-1, j] for a, j in cols.items()}
+            aux_last["scale_steps"] = snap[:, cols["scale"]]
+            aux_last["shift_steps"] = snap[:, cols["shift"]]
+            self.steps = {a: snap[:, j] for a, j in cols.items()}
+        return aux_mean, aux_last
 
 
 def same_device(a, b):

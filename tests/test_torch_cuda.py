@@ -1494,3 +1494,60 @@ def test_captured_epoch_equals_eager_epoch(dev, config):
         assert torch.equal(le, lg)
         assert all(torch.equal(a, b) for a, b in zip(pe, pg))
         assert all(torch.equal(a, b) for a, b in zip(me, mg))
+
+
+def test_captured_epoch_sections_tile_the_dispatch(dev):
+    """The section timing events of a captured ``make_epoch_step`` (a small
+    stock-route model, 8 steps an epoch): the last replay's sections,
+    ``step.rays`` ... ``step.aux`` with Kernel A's backward in
+    ``step.backward.field``, sum to the dispatch's device ms over its steps
+    within 5%, the replays queued behind a busy device so that none waits
+    for the host; the eager warm-up keeps its own sections."""
+    from nope_nerf_tpu_torch import tracing
+    from nope_nerf_tpu_torch.config import DEFAULT_CONFIG, load_config
+    from nope_nerf_tpu_torch.synthetic import MemoryScene
+    from nope_nerf_tpu_torch.training.loop import (build_params,
+                                                   scene_batch_arrays)
+    from nope_nerf_tpu_torch.training.scheduler import Scheduler
+    from nope_nerf_tpu_torch.training.trainer import (init_train_state,
+                                                      make_epoch_step,
+                                                      make_render_cfg)
+
+    tracing.reset()
+    cfg = load_config(DEFAULT_CONFIG)
+    cfg["model"]["hidden_dim"] = 64
+    cfg["rendering"]["num_points"] = 32
+    cfg["training"]["n_training_points"] = 256
+    n = 8
+    scene = MemoryScene(n, 96, 128, 0)
+    cfg["_num_cams"] = n
+    batch0 = scene_batch_arrays(scene, cfg, dev)
+    sched = Scheduler(cfg)
+    w_l1, w_l2 = sched.rgb_loss_switch(0)
+    scalars = {"weights": sched.weights(0), "w_l1": w_l1, "w_l2": w_l2,
+               "lrs": sched.applied_lrs(0)}
+    params, init_c2w = build_params(cfg, scene,
+                                    torch.Generator().manual_seed(0), dev)
+    state = init_train_state(params, capturable=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    run = make_epoch_step(cfg, make_render_cfg(cfg, dev), init_c2w,
+                          device=dev)
+    order = np.arange(n)
+    refs = np.array([scene.sample_ref_idx(int(i)) for i in order])
+    static = sched.static_flags(0)
+    run(state, batch0, order, refs, scalars, gen, static)
+    names = {"step.rays", "step.field", "step.pair", "step.loss",
+             "step.backward", "step.backward.field", "step.update",
+             "step.aux"}
+    warm = tracing.section_ms("train", eager=True)
+    assert set(warm) == names and all(v > 0 for v in warm.values())
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # ~50 ms: the epoch queues behind it
+    run(state, batch0, order, refs, scalars, gen, static)
+    per_step = run.last_dispatch.device_ms() / n
+    got = tracing.section_ms("train")
+    assert set(got) == names and all(v > 0 for v in got.values())
+    assert sum(got.values()) == pytest.approx(per_step, rel=0.05)
+    (graph,) = run.graphs.graphs.values()
+    assert graph.sections.names[-1] == tracing.END
+    assert graph.sections.names.count("step.backward") == 2

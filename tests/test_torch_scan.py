@@ -443,12 +443,14 @@ def test_scan_loop_eager_modes_process_each_epoch_at_once(loop_runs, mode):
 def test_scan_loop_history_times_the_wall_clock(loop_runs, mode):
     """The scan loop's epoch records time the host clock as the per-step
     loop's do: ``ms_per_step`` and ``rays_per_sec`` from one wall time,
-    and ``device_ms_per_step`` None on the CPU, where no device time is
+    and ``device_ms_per_step`` (the epoch's ``tracing`` dispatch span)
+    and ``sections_ms`` None on the CPU, where no device time is
     measured."""
     history = loop_runs[mode]["port_history"]
     assert history
     for rec in history:
         assert rec["device_ms_per_step"] is None
+        assert rec["sections_ms"] is None
         assert rec["ms_per_step"] > 0
         assert rec["rays_per_sec"] * rec["ms_per_step"] / 1e3 == (
             pytest.approx(LH * LW))
