@@ -50,7 +50,12 @@ bit for bit against the per-ray kernels they replaced, within
 A_BWD_PLAIN_RELL2 of their plain versions, each timed alone in turns with
 the old one beside its bound; the whole A-bwd, full and input-only, bit
 for bit against the same backward on the old pair, timed in turns, and its
-device time split by kernel), then trains six configurations at full width for two epochs of eight
+device time split by kernel), the reference pair phase
+(``check_ref_pair``: ``csrc/ref_pair.cu`` against its plain version at
+Tanks' and LLFF's cloud grids in every PAIR_CASES case, outputs, start
+tiles and every input gradient within PAIR_BARS, a rerun bitwise, forward
++ backward timed in turns with the plain version, the step's tensor code it
+replaced), then trains six configurations at full width for two epochs of eight
 steps each on an in-memory 8-frame 540x960 scene with random weights and a
 smooth camera trajectory, through ``train()``, the first five on the stock
 config's scan path (``tpu.epoch_scan``: each epoch's steps replays of one
@@ -1351,6 +1356,316 @@ def check_kernel_d(dev, card):
                       "grid_ms": rows[1][5], "bound_ms": b_large}}
 
 
+# the reference pair (ops/kernels/ref_pair.py) at the two configs' cloud
+# grids: Tanks' 135x240 and LLFF's 189x252 (47,628 points: a last band
+# group of 524); cases that between them swap the pair both ways, detach the
+# reference and rgb_s's depths or not, give camera_mat a gradient or not,
+# take band starts or none (chamfer_mode exact), shift first or scale first,
+# distort or not, drop rgb_s, and read the indices on the device or the host
+PAIR_SHAPES = ((135, 240), (189, 252))
+PAIR_CASES = {
+    "stock": dict(swap=False, detach_ref=True, detach_rgbs=False,
+                  cam_grad=False, band=True, shift_first=False,
+                  learn_dist=True, scale_pcs=True, rgb=True,
+                  auto_mask=False, host_idx=False),
+    "swap": dict(swap=True, detach_ref=False, detach_rgbs=True,
+                 cam_grad=True, band=True, shift_first=True,
+                 learn_dist=True, scale_pcs=True, rgb=True,
+                 auto_mask=False, host_idx=False),
+    "exact": dict(swap=False, detach_ref=False, detach_rgbs=True,
+                  cam_grad=True, band=False, shift_first=False,
+                  learn_dist=True, scale_pcs=False, rgb=True,
+                  auto_mask=True, host_idx=True),
+    "swap_no_rgb": dict(swap=True, detach_ref=True, detach_rgbs=False,
+                        cam_grad=False, band=True, shift_first=False,
+                        learn_dist=False, scale_pcs=True, rgb=False,
+                        auto_mask=False, host_idx=True),
+}
+
+
+def ref_pair_case(dev, hs, ws, case, seed=SEED):
+    """The inputs of one :data:`PAIR_CASES` pair on an (hs, ws) grid: a
+    4-frame table of noisy depth maps of one smooth surface with a corner
+    patch of near depths (some below the near limit, some behind the later
+    camera once moved), smooth images, seeded poses, distortion scalars and
+    the stock camera matrix's form. Returns (make, spec, cotangents): each
+    ``make()`` gives fresh leaves as ``ref_pair``'s positional arguments."""
+    import numpy as np
+    import torch
+
+    from nope_nerf_tpu_torch.geometry.rays import rigid_inv
+    from nope_nerf_tpu_torch.geometry.so3 import make_c2w
+    from nope_nerf_tpu_torch.ops.kernels.ref_pair import PairSpec
+
+    c = PAIR_CASES[case]
+    rng = np.random.default_rng(seed)
+    frames = 4
+    yy, xx = np.meshgrid(np.linspace(0, 1, hs), np.linspace(0, 1, ws),
+                         indexing="ij")
+    dtab = (2.0 + 0.5 * np.sin(3 * xx) * np.cos(2 * yy)
+            + 0.02 * rng.normal(size=(frames, hs, ws)))
+    dtab[:, :hs // 8, :ws // 8] = rng.uniform(-0.02, 0.06,
+                                              (frames, hs // 8, ws // 8))
+    freq = rng.uniform(2, 6, (frames, 1, 1, 3))
+    phase = rng.uniform(0, 6, (frames, 1, 1, 3))
+    itab = 0.5 + 0.4 * np.sin(freq * xx[None, ..., None]
+                              + 0.7 * freq * yy[None, ..., None] + phase)
+    c2ws = [make_c2w(torch.tensor(rng.normal(0, 0.06, 3), dtype=torch.float32),
+                     torch.tensor(rng.normal(0, 0.15, 3), dtype=torch.float32))
+            for _ in range(frames)]
+    idx, ref = (frames - 1, 1) if c["swap"] else (1, 2)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    dtab, itab = t(dtab), t(itab)
+    cam = t([[1.6, 0, 0, 0], [0, -2.844, 0, 0], [0, 0, -1, 0], [0, 0, 0, 1]])
+    c2w, c2w_ref = c2ws[idx].to(dev), c2ws[ref].to(dev)
+    scalars = [t([v]) for v in (1.05, 0.02, 0.95, -0.03)]
+    if c["host_idx"]:
+        rows = (idx, idx, ref)
+    else:
+        rows = tuple(torch.tensor(v, dtype=torch.int64, device=dev)
+                     for v in (idx, idx, ref))
+    spec = PairSpec(num_cams=frames, nearest_limit=0.01,
+                    shift_first=c["shift_first"], learn_dist=c["learn_dist"],
+                    scale_pcs=c["scale_pcs"], use_rgb_s=c["rgb"],
+                    detach_rgbs_scale=c["detach_rgbs"],
+                    auto_mask=c["auto_mask"],
+                    band_tiles=max(2, round(32 * ws / 1024)) if c["band"]
+                    else None)
+    n = hs * ws
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cots = [torch.randn(s, generator=gen, device=dev) / n
+            for s in ((n, 3), (n, 3), (hs, ws, 3))]
+
+    def make():
+        grads = (True, True, not c["detach_ref"], True, True,
+                 not c["detach_ref"], not c["detach_ref"], c["cam_grad"])
+        mats = [m.clone().requires_grad_(g) for m, g in zip(
+            (c2w, rigid_inv(c2w), c2w_ref, *scalars, cam), grads)]
+        return ((dtab, rows[1], rows[2]),
+                (itab, rows[1], rows[2]) if c["rgb"] else None, rows[0],
+                *mats)
+
+    return make, spec, cots
+
+
+PAIR_GRADS = ("c2w", "world_mat", "c2w_ref", "scale_cur", "shift_cur",
+              "scale_ref", "shift_ref", "camera_mat")
+
+
+def run_pair(fn, args, spec, cots):
+    """``fn`` (``ref_pair`` or its plain version) on ``args``: its outputs
+    and the gradients of <outputs, cotangents> to every leaf that takes one
+    ({name: gradient})."""
+    import torch
+
+    out = fn(*args, spec)
+    outs = [out["X"], out["Y"]]
+    if spec.use_rgb_s:
+        outs.append(out["rgb_pc1_proj"])
+    names = [n for n, a in zip(PAIR_GRADS, args[3:]) if a.requires_grad]
+    leaves = [a for a in args[3:] if a.requires_grad]
+    # a leaf the route does not reach (world_mat when the pair keeps its
+    # order on the host) gets zeros, as the kernel gives it
+    grads = torch.autograd.grad(outs, leaves, cots[:len(outs)],
+                                allow_unused=True, materialize_grads=True)
+    return out, dict(zip(names, grads))
+
+
+def pair_start_margins(out, args, spec):
+    """Per band group and direction, how many grid rows the plain route's
+    median row hint lies from the nearest rounding boundary of its start
+    tile (hints recomputed from its outputs, within a few ulps)."""
+    import torch
+
+    from nope_nerf_tpu_torch.geometry.rays import project_to_cam, rigid_inv
+    from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
+
+    (dtab, _, _), _, idx, c2w, world, c2w_ref, sc_cur, _, sc_ref, _, cam = \
+        args
+    hs, ws = dtab.shape[1:3]
+    swap = bool(idx >= spec.num_cams - 1)
+    rt = (world @ c2w_ref if swap else rigid_inv(c2w_ref) @ c2w).detach()
+    s2 = (sc_cur if swap else sc_ref).detach() if spec.scale_pcs else 1.0
+    X, Y = out["X"].detach() * s2, out["Y"].detach() * s2
+    q21 = (Y - rt[:3, 3]) @ rt[:3, :3]
+    margins = []
+    for pts in (X, q21):
+        xy, _ = project_to_cam(pts, cam.detach())
+        row = (xy[:, 1] + 1.0) * 0.5 * (hs - 1)
+        n = row.shape[0]
+        pad = torch.full((-(-n // cb.QB) * cb.QB - n,), float("nan"),
+                         device=row.device)
+        groups = torch.cat([row, pad]).reshape(-1, cb.QB)
+        finite = torch.isfinite(groups)
+        srt = torch.sort(torch.where(finite, groups, 3.4e38), dim=1).values
+        n_fin = finite.sum(1)
+        med = torch.gather(srt, 1, torch.clamp((n_fin - 1) // 2, 0)[:, None])
+        tiles = med[:, 0] * ws / cb.TILE
+        margins.append(torch.abs(tiles - torch.floor(tiles) - 0.5)
+                       * cb.TILE / ws)
+    return margins
+
+
+def ref_pair_readings(dev, hs, ws, case):
+    """The kernel route against the plain version on one case: each
+    output's largest difference (X and Y relative to their largest value,
+    rgb_pc1_proj absolute), the masks' and start tiles' mismatches (with the
+    largest boundary margin among the mismatched groups), each gradient's
+    largest difference relative to its largest value, whether a rerun is
+    bitwise, and how many points the case clamps or projects outside."""
+    import torch
+
+    from nope_nerf_tpu_torch.ops.kernels import ref_pair as rp
+
+    make, spec, cots = ref_pair_case(dev, hs, ws, case)
+    kernel = run_pair(rp.ref_pair, make(), spec, cots)
+    again = run_pair(rp.ref_pair, make(), spec, cots)
+    args = make()
+    plain = run_pair(rp.ref_pair_reference, args, spec, cots)
+    (ko, kg), (po, pg) = kernel, plain
+
+    def rel(a, b):
+        a, b = a.detach(), b.detach()
+        return float(torch.max(torch.abs(a - b))
+                     / torch.clamp_min(torch.max(torch.abs(b)), 1e-30))
+
+    r = {"X": rel(ko["X"], po["X"]), "Y": rel(ko["Y"], po["Y"]),
+         "grads": {k: rel(kg[k], pg[k]) for k in pg},
+         "grad_names": sorted(kg) == sorted(pg)}
+    if spec.use_rgb_s:
+        r["rgb_abs"] = float(torch.max(torch.abs(ko["rgb_pc1_proj"]
+                                                 - po["rgb_pc1_proj"])))
+        r["valid_mismatches"] = int(torch.sum(ko["valid_points"]
+                                              != po["valid_points"]))
+        r["outside"] = int(torch.sum(po["valid_points"] == 0))
+        r["images_equal"] = all(
+            torch.equal(ko[k], po[k]) for k in ("rgb_pc1", "rgb_pc1_ori")
+            if k in po)
+    if spec.band_tiles is not None:
+        margins = pair_start_margins(po, args, spec)
+        mism = [ks != ps for ks, ps in zip(ko["chamfer_starts"],
+                                           po["chamfer_starts"])]
+        r["start_mismatches"] = int(sum(int(m.sum()) for m in mism))
+        r["start_margin_of_mismatch"] = max(
+            [float(mg[m].max()) for mg, m in zip(margins, mism) if m.any()],
+            default=0.0)
+        r["start_groups"] = int(po["chamfer_starts"][0].numel())
+    else:
+        r["no_starts"] = "chamfer_starts" not in ko
+    ao, ag = again
+    r["bitwise_rerun"] = (
+        all(torch.equal(ko[k], ao[k]) for k in ("X", "Y", "rgb_pc1_proj",
+                                                "valid_points") if k in ko)
+        and all(torch.equal(a, b) for a, b in zip(
+            ko.get("chamfer_starts", ()), ao.get("chamfer_starts", ())))
+        and all(torch.equal(kg[k], ag[k]) for k in kg))
+    return r
+
+
+# the kernel route against the plain version (ref_pair_readings), on an
+# H100 at 700 W (PERF.md): X and Y within 1e-6 of their largest coordinate
+# (read: 1.9e-7; the rotation's three-term sums are FMA chains in index
+# order, cuBLAS's order may differ in the last bit); rgb_pc1_proj within
+# 2e-4 (read: 5.4e-5; a point near the later camera's centre, the corner
+# patch, magnifies that last bit through the projection's division); each
+# gradient within 1e-4 of its largest entry (read: 2.1e-5; f32 sums over the
+# cloud in another order); the masks and the rgb_s images equal; a start tile
+# may differ only in a group whose median row hint lies within 1e-3 rows of
+# its rounding boundary; a rerun bitwise
+PAIR_BARS = {"X": 1e-6, "Y": 1e-6, "rgb_abs": 2e-4, "grad": 1e-4,
+             "start_margin": 1e-3}
+
+
+def ref_pair_faults(r):
+    """What in one :func:`ref_pair_readings` breaks :data:`PAIR_BARS`."""
+    bad = [f"{k} {r[k]:.3e}" for k in ("X", "Y", "rgb_abs")
+           if k in r and not r[k] <= PAIR_BARS[k]]
+    bad += [f"d/d{k} {v:.3e}" for k, v in r["grads"].items()
+            if not v <= PAIR_BARS["grad"]]
+    if not r["grad_names"]:
+        bad.append("gradients to other leaves")
+    if r.get("valid_mismatches") or r.get("images_equal") is False:
+        bad.append(f"masks {r.get('valid_mismatches')} mismatches, images "
+                   f"equal {r.get('images_equal')}")
+    if r.get("start_margin_of_mismatch", 0.0) > PAIR_BARS["start_margin"]:
+        bad.append(f"{r['start_mismatches']} start tiles, one "
+                   f"{r['start_margin_of_mismatch']:.3e} rows from its "
+                   "boundary")
+    if r.get("no_starts") is False:
+        bad.append("band starts without band")
+    if not r["bitwise_rerun"]:
+        bad.append("a rerun differs")
+    return bad
+
+
+def check_ref_pair(dev, card):
+    """The reference pair's kernels (csrc/ref_pair.cu) against the plain
+    version at both configs' cloud grids (PAIR_SHAPES), every PAIR_CASES
+    case, forward and backward, held to PAIR_BARS; then at each grid the
+    stock case's forward + backward timed in turns against the plain
+    version (the step's tensor code before the kernel), with each one's
+    launches, beside the bytes' bound. No single PyTorch call computes the
+    pair (``library_ms`` None)."""
+    import torch
+
+    from nope_nerf_tpu_torch.ops.kernels import ref_pair as rp
+
+    readings, timings = {}, {}
+    for hs, ws in PAIR_SHAPES:
+        for case in PAIR_CASES:
+            r = ref_pair_readings(dev, hs, ws, case)
+            readings[f"{hs}x{ws} {case}"] = r
+            bad = ref_pair_faults(r)
+            if bad:
+                raise AssertionError(f"ref_pair {hs}x{ws} {case}: "
+                                     + "; ".join(bad))
+        make, spec, cots = ref_pair_case(dev, hs, ws, "stock")
+        args = make()
+
+        def call(fn, args=args, spec=spec, cots=cots):
+            return lambda: run_pair(fn, args, spec, cots)
+
+        new, old = call(rp.ref_pair), call(rp.ref_pair_reference)
+        t = pair_turns(new, old)
+        out = rp.ref_pair(*args, spec)
+        io = [args[0][0][0], args[0][0][0], args[1][0][0], args[1][0][0],
+              *(v for v in out.values() if torch.is_tensor(v)), *cots,
+              *out["chamfer_starts"]]
+        b_ms, b_by = bound(nbytes=nbytes(*io))
+        timings[f"{hs}x{ws}"] = {
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "plain_ms": t["earlier_ms"],
+            "plain_device_ms": t["earlier_device_ms"],
+            "launches": kernel_launches(new),
+            "plain_launches": kernel_launches(old), "bound_ms": b_ms,
+            "bound_by": b_by}
+    worst = {k: max(r.get(k, 0.0) for r in readings.values())
+             for k in ("X", "Y", "rgb_abs")}
+    worst["grad"] = max(v for r in readings.values()
+                        for v in r["grads"].values())
+    print(f"ref_pair [{card}] {len(readings)} cases at {PAIR_SHAPES}: "
+          f"worst {worst} (bars {PAIR_BARS}), start tiles mismatched "
+          f"{sum(r.get('start_mismatches', 0) for r in readings.values())},"
+          f" reruns bitwise; forward + backward: " + "; ".join(
+              f"{k} kernel {v['ms']:.4f} ms (device {v['device_ms']:.4f}, "
+              f"{v['launches']} launches), plain {v['plain_ms']:.4f} "
+              f"(device {v['plain_device_ms']:.4f}, {v['plain_launches']} "
+              f"launches), bound {v['bound_ms']:.5f} ({v['bound_by']})"
+              for k, v in timings.items()))
+    stock = timings["135x240"]
+    return {"name": "ref_pair", "route": "cuda",
+            "source": "nope_nerf_tpu_torch/csrc/ref_pair.cu",
+            "replaces": "none (training/trainer.py compute_loss's pair)",
+            "worst": worst, "ms": stock["ms"],
+            "device_ms": stock["device_ms"], "plain_ms": stock["plain_ms"],
+            "plain_device_ms": stock["plain_device_ms"],
+            "bound_ms": stock["bound_ms"], "bound_by": stock["bound_by"],
+            "library_ms": None, "shapes": timings}
+
+
 # the forward's layer GEMMs timed in the GEMM phase: (layer, K1, K2, N,
 # direction row term, ReLU) at the stock widths
 GEMM_CASES = (
@@ -2172,10 +2487,12 @@ def kernel_counters():
     the layer-by-layer forward's GEMM, the layer-by-layer backward's input-
     and weight-gradient GEMMs, the launches that serve only the weight
     gradients, the WMMA GEMM, and Kernel A's compositing and encoding
-    backward with the per-ray kernels they replaced."""
+    backward with the per-ray kernels they replaced, and the reference
+    pair's forward and backward."""
     from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
     from nope_nerf_tpu_torch.ops.kernels import chamfer_kernel as ck
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+    from nope_nerf_tpu_torch.ops.kernels import ref_pair as rp
 
     return (mk.FWD_LAUNCHES, mk.BWD_LAUNCHES, cb.LAUNCHES,
             cb.PER_QUERY_LAUNCHES, mk.FWD_POINT_LAUNCHES,
@@ -2186,7 +2503,7 @@ def kernel_counters():
             mk.GEMM_WGRAD_LAUNCHES, mk.WGRAD_LAUNCHES, mk.GEMM_NN_LAUNCHES,
             mk.COMPOSITE_BWD_LAUNCHES, mk.ENCODE_BWD_LAUNCHES,
             mk.COMPOSITE_BWD_PER_RAY_LAUNCHES,
-            mk.ENCODE_BWD_PER_RAY_LAUNCHES)
+            mk.ENCODE_BWD_PER_RAY_LAUNCHES, rp.LAUNCHES, rp.BWD_LAUNCHES)
 
 
 def check_gemm_counts(label, counts, weight_grads=True):
@@ -2230,15 +2547,18 @@ def check_gemm_counts(label, counts, weight_grads=True):
 # rays per step through one Kernel A launch each way; ``ssim_normal`` adds
 # the SSIM map to rgb_s and turns on the normal term, which no loss reads
 MLP_GEMMS = ("mlp_fused_fwd", "mlp_fused_bwd", "mlp_weight_grad_gemm")
+# every training step that builds the reference pair runs it one way each
+PAIR_KERNELS = ("ref_pair", "ref_pair_bwd")
 STOCK_KERNELS = ("mlp_composite_fwd", "mlp_composite_bwd", "chamfer_band",
-                 "mlp_point_fwd", *MLP_GEMMS)
+                 "mlp_point_fwd", *MLP_GEMMS, *PAIR_KERNELS)
 K_FRAMES = 4
 RUNS = (
     ("stock", {}, STOCK_KERNELS),
     ("unfused_exact", {"tpu": {"fuse_compositing": False,
                                "chamfer_mode": "exact"}},
-     ("mlp_point_fwd", "mlp_point_bwd", "chamfer_exact", *MLP_GEMMS)),
-    ("parity", {"tpu": {"parity": True}}, ("chamfer_exact",)),
+     ("mlp_point_fwd", "mlp_point_bwd", "chamfer_exact", *MLP_GEMMS,
+      *PAIR_KERNELS)),
+    ("parity", {"tpu": {"parity": True}}, ("chamfer_exact", *PAIR_KERNELS)),
     ("multiplier", {"tpu": {"rays_per_step_multiplier": K_FRAMES}},
      STOCK_KERNELS),
     ("ssim_normal", {"training": {"with_ssim": True},
@@ -2251,10 +2571,11 @@ RUNS = (
 KERNEL_A_RUNS = ("multiplier", "multiplier_per_step")
 # the launches of every step of these runs: Kernel A once each way (at k = 4
 # too: the point of rendering the frames as one batch), its forward one
-# fused launch, Kernel B twice (the pc loss's two directions)
+# fused launch, Kernel B twice (the pc loss's two directions), the reference
+# pair once each way
 PER_STEP = {"mlp_composite_fwd": 1, "mlp_composite_bwd": 1,
             "mlp_fused_fwd": 1, "chamfer_band": 2, "composite_bwd": 1,
-            "encode_bwd": 1}
+            "encode_bwd": 1, "ref_pair": 1, "ref_pair_bwd": 1}
 # the kernels every backward of Kernel A launches once besides its passes
 A_BWD_KERNELS = ("composite_bwd", "encode_bwd")
 
@@ -2352,12 +2673,13 @@ def per_step_launches():
 
 def check_per_step(label, step_counts):
     """Each step launched the kernels of PER_STEP exactly that often; Kernel
-    B only in a step that builds the reference pair (the stock schedule's
-    steps all do; a run through the whole auto-schedule anneals the pair's
-    losses to 0 and its later steps build none)."""
+    B and the pair's kernels only in a step that builds the reference pair
+    (the stock schedule's steps all do; a run through the whole
+    auto-schedule anneals the pair's losses to 0 and its later steps build
+    none)."""
     def want(c):
-        return dict(PER_STEP, chamfer_band=PER_STEP["chamfer_band"]
-                    if c["use_ref"] else 0)
+        return dict(PER_STEP, **{k: PER_STEP[k] if c["use_ref"] else 0
+                                 for k in ("chamfer_band", *PAIR_KERNELS)})
 
     bad = [(i, {n: c[n] for n in PER_STEP}) for i, c in enumerate(step_counts)
            if any(c[n] != v for n, v in want(c).items())]
@@ -2380,9 +2702,10 @@ SCAN_RUNS = (("stock", {}, PER_STEP),
              ("unfused_exact", {"tpu": {"fuse_compositing": False,
                                         "chamfer_mode": "exact"}},
               {"mlp_point_fwd": 1, "mlp_point_bwd": 1, "mlp_fused_fwd": 1,
-               "chamfer_exact": 2}),
+               "chamfer_exact": 2, "ref_pair": 1, "ref_pair_bwd": 1}),
              ("parity", {"tpu": {"parity": True}},
-              {"chamfer_exact": 2, "mlp_fused_fwd": 0}),
+              {"chamfer_exact": 2, "mlp_fused_fwd": 0, "ref_pair": 1,
+               "ref_pair_bwd": 1}),
              ("ssim_normal", {"training": {"with_ssim": True},
                               "rendering": {"normal_loss": True}}, PER_STEP))
 SCAN_TIMED_EPOCHS = 2
@@ -3612,7 +3935,7 @@ def run_synthetic(dev, card):
     check_launches("synthetic training", counts,
                    ("mlp_composite_fwd", "mlp_composite_bwd",
                     "mlp_point_fwd", *(argmin[:1] if argmin else ()),
-                    *MLP_GEMMS))
+                    *MLP_GEMMS, *PAIR_KERNELS))
     print(f"synthetic training launches [{card}] (chamfer_mode auto -> "
           f"{mode} at {n_pc} points): {counts}; rendering/: "
           f"{len(fired)} visualisations, {len(pairs)} pair images")
@@ -3812,7 +4135,7 @@ def run_recovery(dev, card, pose_lr=None):
                              "start")
     check_launches("recovery training", counts,
                    ("mlp_composite_fwd", "mlp_composite_bwd", "chamfer_band",
-                    *MLP_GEMMS))
+                    *MLP_GEMMS, *PAIR_KERNELS))
     check_per_step("recovery training", step_counts)
     kernel_checks = {
         "chamfer_band": check_argmin_calls(
@@ -4369,7 +4692,8 @@ def short_bench(dev, card, overrides, layout=BENCH_SHORT):
         raise AssertionError(f"bench {overrides}: printed {lines}")
     label = f"bench {json.dumps(overrides)}"
     check_launches(label, counts, ("mlp_composite_fwd", "mlp_composite_bwd",
-                                   "chamfer_band", *MLP_GEMMS))
+                                   "chamfer_band", *MLP_GEMMS,
+                                   *PAIR_KERNELS))
     check_per_step(label, step_counts)
     print(f"bench {json.dumps(overrides)} [{card}]: {layout[1]} x "
           f"{layout[0]} warm-up steps, {layout[2]} x {layout[0]} timed: "
@@ -4451,8 +4775,9 @@ def main(argv=None):
     gemm_bwd = check_gemm_bwd(dev, card)
     fused_bwd = check_fused_bwd(dev, card)
     a_bwd_parts, a_bwd_pair = check_composite_encode_bwd(dev, card)
+    pair = check_ref_pair(dev, card)
     records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d, gemm, *gemm_bwd, fused_bwd,
-               *a_bwd_parts]
+               *a_bwd_parts, pair]
     launches = {rec["name"]: 0 for rec in records}
     runs = {}
     for label, overrides, expect in RUNS:

@@ -26,7 +26,8 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = ("mlp_fused_fwd.cu", "mlp_fused_bwd.cu", "mlp_gemm_sm90.cu",
-           "mlp_composite.cu", "chamfer_band.cu", "chamfer_exact.cu")
+           "mlp_composite.cu", "chamfer_band.cu", "chamfer_exact.cu",
+           "ref_pair.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -117,8 +118,7 @@ def load_library(verbose=False):
         return _state["lib"]
 
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
+_CODES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
 _functions = {}
@@ -126,12 +126,12 @@ _functions = {}
 
 def c_function(name, signature):
     """C entry ``name`` with argtypes from ``signature`` (a string of 'p'
-    pointer / 'i' int codes; the stream is the trailing 'p'). Every entry
-    returns its ``cudaGetLastError()`` as an int."""
+    pointer / 'i' int / 'f' float codes; the stream is the trailing 'p').
+    Every entry returns its ``cudaGetLastError()`` as an int."""
     fn = _functions.get(name)
     if fn is None:
         fn = getattr(load_library(), name)
-        fn.argtypes = [_P if c == "p" else _I for c in signature]
+        fn.argtypes = [_CODES[c] for c in signature]
         fn.restype = ctypes.c_int
         _functions[name] = fn
     return fn

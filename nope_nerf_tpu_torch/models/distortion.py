@@ -33,3 +33,12 @@ def distortion_scale_shift(params, idx, num_cams: int,
         elif idx == num_cams - 1:
             scale = torch.ones_like(scale)
     return scale, take_rows(shifts, idx)
+
+
+def apply_distortion(depth, scale, shift, shift_first):
+    """A frame's depth prior under its distortion scale and shift:
+    ``(depth + shift) * scale`` with ``training.shift_first``, else
+    ``depth * scale + shift``."""
+    if shift_first:
+        return (depth + shift) * scale
+    return depth * scale + shift

@@ -26,19 +26,14 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..geometry.rays import (
-    arange_pixels,
-    camera_mat_from_fxfy,
-    pixels_from_flat_idx,
-    project_to_cam,
-    rigid_inv,
-    transform_to_world,
-)
+from ..geometry.rays import (camera_mat_from_fxfy, pixels_from_flat_idx,
+                             rigid_inv)
 from ..losses.losses import total_loss
-from ..models.distortion import distortion_scale_shift
+from ..models.distortion import apply_distortion, distortion_scale_shift
 from ..models.intrinsics import focal_fxfy
 from ..models.pose import pose_c2w, take_rows
-from ..ops.interp import grid_sample, resize_bilinear, resize_nearest
+from ..ops.interp import resize_bilinear, resize_nearest
+from ..ops.kernels.ref_pair import pair_spec, ref_pair
 from ..ops.rendering import concat_rays, ray_setup, render_ray_batch
 from ..parallel.mesh import (all_reduce_grads, shard_rays,
                              warm_up_collectives)
@@ -95,12 +90,6 @@ def set_lrs(optimizer, lrs):
             group["lr"].fill_(lr)
         else:
             group["lr"] = lr
-
-
-def _apply_distortion(depth, scale, shift, shift_first):
-    if shift_first:
-        return (depth + shift) * scale
-    return depth * scale + shift
 
 
 def sample_ray_idx(n_points, hw, fast_sampling, generator, device):
@@ -172,7 +161,6 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
     tcfg, pcfg, dcfg = cfg["training"], cfg["pose"], cfg["distortion"]
     tpu = cfg.get("tpu", {}) or {}
     n_points = tcfg["n_training_points"]
-    nl = tcfg["nearest_limit"]
     num_cams = cfg["_num_cams"]
     learn_dist = dcfg["learn_distortion"]
     eye = torch.eye(4, dtype=torch.float32, device=dev)
@@ -236,8 +224,8 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
                 world_f = rigid_inv(c2w_of(f)) if pcfg["learn_pose"] else eye
                 sc_f, sh_f = scale_shift(f)
             if learn_dist:
-                d_rays = _apply_distortion(d_rays, sc_f, sh_f,
-                                           tcfg["shift_first"])
+                d_rays = apply_distortion(d_rays, sc_f, sh_f,
+                                          tcfg["shift_first"])
             setups.append(ray_setup(p, d_rays, camera_mat, world_f,
                                     scale_mat, render_cfg, generator=generator,
                                     add_noise=add_noise))
@@ -264,95 +252,32 @@ def compute_loss(params, batch, scalars, *, cfg, static, init_c2w=None,
     # ---- reference-image branch -------------------------------------------
     loss_kwargs = {}
     if static["use_ref"]:
+        # clouds, rgb_s reprojection and band starts: one kernel each way on
+        # the card (ops/kernels/ref_pair.py), the plain version on the CPU
         tracing.section("step.pair")
         c2w_ref = c2w_of(ref_idx)
         scale_ref, shift_ref = scale_shift(ref_idx)
         if tcfg["detach_ref_img"]:
             c2w_ref = c2w_ref.detach()
             scale_ref, shift_ref = scale_ref.detach(), shift_ref.detach()
-        ref_Rt = rigid_inv(c2w_ref)
-        # frame ordering: the pair is (earlier=1, later=2)
-        swap = idx >= num_cams - 1
-
-        def pick(a, b):
-            """``a`` where the pair swaps, else ``b``."""
-            if torch.is_tensor(swap):
-                return torch.where(swap, a, b)
-            return a if swap else b
-
-        Rt_rel_12 = pick(world_mat @ c2w_ref, ref_Rt @ c2w)
-        R_rel_12 = Rt_rel_12[:3, :3]
-        t_rel_12 = Rt_rel_12[:3, 3]
-        scale2 = pick(scale_input, scale_ref)
-
         ratio = tcfg["pc_ratio"]
         sres = (int(hd / ratio), int(wd / ratio))
-        _, p_pc = arange_pixels(sres, device=dev)
-        if "dpts_small" in batch:
-            dsm_cur = take_rows(batch["dpts_small"], idx)
-            dsm_ref = take_rows(batch["dpts_small"], ref_idx)
-        else:
-            dsm_cur = resize_nearest(take_rows(dpts, idx), sres)
-            dsm_ref = resize_nearest(take_rows(dpts, ref_idx), sres)
-        d1s, d2s = pick(dsm_ref, dsm_cur), pick(dsm_cur, dsm_ref)
-        if learn_dist:
-            scale1 = pick(scale_ref, scale_input)
-            shift1 = pick(shift_ref, shift_input)
-            shift2 = pick(shift_input, shift_ref)
-            d1s = _apply_distortion(d1s, scale1, shift1, tcfg["shift_first"])
-            d2s = _apply_distortion(d2s, scale2, shift2, tcfg["shift_first"])
-        d1s = torch.clamp_min(d1s, nl)
-        d2s = torch.clamp_min(d2s, nl)
-        pc1 = transform_to_world(p_pc, d1s.reshape(-1), camera_mat)
-        pc2 = transform_to_world(p_pc, d2s.reshape(-1), camera_mat)
 
-        if static["use_rgb_s"]:
-            if "imgs_small" in batch:
-                ism_cur = take_rows(batch["imgs_small"], idx)
-                ism_ref = take_rows(batch["imgs_small"], ref_idx)
-            else:
-                ism_cur = resize_bilinear(take_rows(imgs, idx), sres)
-                ism_ref = resize_bilinear(take_rows(imgs, ref_idx), sres)
-            img1s, img2s = pick(ism_ref, ism_cur), pick(ism_cur, ism_ref)
-            pc1_for_rgb = pc1.detach() if tcfg["detach_rgbs_scale"] else pc1
-            pc1_rot = pc1_for_rgb @ R_rel_12.t() + t_rel_12
-            # clamp points behind the near limit (all 3 coordinates)
-            invalid = -pc1_rot[:, 2:] < nl
-            pc1_rot = torch.where(invalid, torch.full_like(pc1_rot, nl),
-                                  pc1_rot)
-            p_reproj, valid = project_to_cam(pc1_rot, camera_mat)
-            rgb_pc1_proj = grid_sample(img2s, p_reproj, mode="bilinear",
-                                       align_corners=True)
-            # img1s sampled at its own pixel grid is the identity
-            loss_kwargs["rgb_pc1"] = img1s
-            loss_kwargs["rgb_pc1_proj"] = rgb_pc1_proj.reshape(sres[0],
-                                                               sres[1], 3)
-            loss_kwargs["valid_points"] = valid.to(torch.float32).reshape(
-                sres[0], sres[1], 1)
-            if tcfg.get("with_auto_mask", False):
-                loss_kwargs["rgb_pc1_ori"] = img2s
+        def small_maps(key, full, resize):
+            """The pair's rows of the scene's small maps, or its two frames
+            resized."""
+            if key in batch:
+                return batch[key], idx, ref_idx
+            return torch.stack([resize(take_rows(full, idx), sres),
+                                resize(take_rows(full, ref_idx), sres)]), 0, 1
 
-        pc1 = pc1 @ R_rel_12.t() + t_rel_12
-        if tpu.get("chamfer_mode", "exact") in ("band", "auto"):
-            from ..ops.kernels.chamfer_band import TILE, rows_to_start_tiles
-
-            band_rows = tpu.get("chamfer_band_rows", 32)
-            k_band = tpu.get("chamfer_band_tiles") or max(
-                2, round(band_rows * sres[1] / TILE))
-            n_pc = sres[0] * sres[1]
-            q21 = (pc2 - t_rel_12) @ R_rel_12
-            loss_kwargs["chamfer_starts"] = (
-                rows_to_start_tiles(pc1, n_pc, sres, camera_mat,
-                                    project_to_cam, k_band),
-                rows_to_start_tiles(q21, n_pc, sres, camera_mat,
-                                    project_to_cam, k_band),
-            )
-            loss_kwargs["chamfer_band_tiles"] = k_band
-        if tcfg["scale_pcs"]:
-            pc1 = pc1 / scale2
-            pc2 = pc2 / scale2
-        loss_kwargs["X"] = pc1
-        loss_kwargs["Y"] = pc2
+        images = (small_maps("imgs_small", imgs, resize_bilinear)
+                  if static["use_rgb_s"] else None)
+        loss_kwargs = ref_pair(
+            small_maps("dpts_small", dpts, resize_nearest), images, idx,
+            c2w, world_mat, c2w_ref, scale_input, shift_input, scale_ref,
+            shift_ref, camera_mat,
+            pair_spec(cfg, static["use_rgb_s"], sres))
 
     # ---- assemble -------------------------------------------------------
     tracing.section("step.loss")

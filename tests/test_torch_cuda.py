@@ -1415,6 +1415,58 @@ def test_frozen_nets_on_card_match_cpu(dev, net):
         assert float(got) == pytest.approx(float(want), rel=2e-4)
 
 
+PAIR_CASES = ["stock", "swap", "exact", "swap_no_rgb"]
+
+
+@pytest.mark.parametrize("hs,ws", [(135, 240), (189, 252)])
+@pytest.mark.parametrize("case", PAIR_CASES)
+def test_ref_pair_matches_plain(dev, hs, ws, case):
+    """The reference pair's kernels (csrc/ref_pair.cu) against the plain
+    version at the two configs' cloud grids (189x252 ends in a partial band
+    group) in chip_smoke.py's cases: the pair swapped both ways, the
+    reference and rgb_s's depths detached or not, camera_mat with and
+    without a gradient, band starts or none (chamfer_mode exact), points
+    clamped at the near limit and points projecting outside the frame.
+    Outputs and every input gradient within chip_smoke.PAIR_BARS (stated
+    there with their reasons), the start tiles equal but near a rounding
+    boundary, a rerun bitwise; one launch counted each way."""
+    import chip_smoke
+    from nope_nerf_tpu_torch.ops.kernels import ref_pair as rp
+
+    f0, b0 = rp.LAUNCHES.count, rp.BWD_LAUNCHES.count
+    r = chip_smoke.ref_pair_readings(dev, hs, ws, case)
+    assert not chip_smoke.ref_pair_faults(r), r
+    # the kernel route ran twice, each once each way
+    assert (rp.LAUNCHES.count - f0, rp.BWD_LAUNCHES.count - b0) == (2, 2)
+    if "outside" in r:
+        assert r["outside"] > 0  # some points leave the frame
+
+
+def test_ref_pair_rejects_what_it_cannot_take(dev):
+    """Wrong dtypes, shapes and index types raise before any launch."""
+    import chip_smoke
+    from nope_nerf_tpu_torch.ops.kernels import ref_pair as rp
+
+    make, spec, _ = chip_smoke.ref_pair_case(dev, 27, 48, "stock")
+    args = list(make())
+    n0 = rp.LAUNCHES.count
+    bad = [
+        (0, (args[0][0].double(), *args[0][1:])),
+        (1, (args[1][0][..., :2].contiguous(), *args[1][1:])),
+        (2, args[2].to(torch.int32)),
+        (10, args[10][:3]),
+        (3, args[3].cpu()),
+    ]
+    for i, value in bad:
+        call = list(args)
+        call[i] = value
+        with pytest.raises(ValueError, match="ref_pair"):
+            rp.ref_pair(*call, spec)
+    with pytest.raises(ValueError, match="rgb_s needs"):
+        rp.ref_pair(args[0], None, *args[2:], spec)
+    assert rp.LAUNCHES.count == n0
+
+
 @pytest.mark.parametrize("config", ["stock", "ssim_normal"])
 def test_captured_epoch_equals_eager_epoch(dev, config):
     """``make_epoch_step`` on the card: two epochs of 4 steps replayed from
@@ -1423,9 +1475,9 @@ def test_captured_epoch_equals_eager_epoch(dev, config):
     state (a small stock-route model: Kernels A and B; ``ssim_normal`` adds
     the SSIM map to rgb_s and turns on the normal term). The per-step
     losses, the parameters and Adam's moments of all three runs are equal
-    bit for bit; each replay runs Kernel A once each way and Kernel B
-    twice; a call on another state or generator than the capture's
-    raises."""
+    bit for bit; each replay runs Kernel A once each way, Kernel B
+    twice and the reference pair's kernels once each way; a call on another
+    state or generator than the capture's raises."""
     from nope_nerf_tpu_torch.config import DEFAULT_CONFIG, load_config
     from nope_nerf_tpu_torch.synthetic import MemoryScene
     from nope_nerf_tpu_torch.training import capture
@@ -1478,6 +1530,7 @@ def test_captured_epoch_equals_eager_epoch(dev, config):
             launches = graph.record.launches
             assert (launches["mlp_composite_fwd"], launches[
                 "mlp_composite_bwd"], launches["chamfer_band"]) == (1, 1, 2)
+            assert (launches["ref_pair"], launches["ref_pair_bwd"]) == (1, 1)
             assert capture.replayed_launches()["chamfer_band"] >= 14
             # a replay writes the storage of its capture: another state or
             # generator is refused, not silently left untouched
