@@ -128,9 +128,11 @@ The DPT phase writes a 4-frame 540x960 scene in the LLFF layout, converts
 a seeded checkpoint with the published DPT-hybrid keys and shapes with
 ``python -m nope_nerf_tpu_torch.convert_dpt``, runs ``python -m
 nope_nerf_tpu_torch.dpt_depth`` on it (4 priors of 384x672, finite and
-positive, and 4 PNGs), holds frame 0's depth against the same function in
-float64 on the card (relL2 DPT_RELL2, which the same run with TF32 on must
-exceed), times a frame and reads the peak memory, then loads the scene with
+positive, and 4 PNGs), holds frame 0's depth from ``dpt_depth.depth_batch``
+(the CLI's batch function, which the benchmark's depth-prior cell times)
+against the network in float64 on the card (relL2 DPT_RELL2, which the
+same run with TF32 on must exceed), times a batch of ``depth_batch`` a
+frame and reads the peak memory, then loads the scene with
 the port's ``get_scene`` (the priors feed it) and trains the stock config
 on it for 2 epochs, checking Kernels A and B launched and holding Kernel
 B's last two eager calls (clouds from the 384x672 priors) and Kernel C's
@@ -3367,16 +3369,16 @@ def run_dpt(dev, card):
     if len(npzs) != DPT_FRAMES or len(pngs) != DPT_FRAMES or bad:
         raise AssertionError(f"dpt_depth wrote {files}; bad priors {bad}")
 
-    # one frame through the same function in f32, in float64 and with TF32
-    # on, from the scene as the CLI read it
+    # one frame through the CLI's batch function in f32, and the network in
+    # float64 and with TF32 on, from the scene as the CLI read it
     from nope_nerf_tpu_torch.config import DEFAULT_CONFIG, load_config
+    from nope_nerf_tpu_torch.dpt_depth import depth_batch
 
     pre_cfg = load_config(cfg_path, DEFAULT_CONFIG)
-    frames = get_scene(pre_cfg, mode="all").imgs
-    x = torch.as_tensor(np.stack([dpt.dpt_input_transform(f)
-                                  for f in frames]), device=dev)
+    frames = torch.as_tensor(get_scene(pre_cfg, mode="all").imgs, device=dev)
+    x = dpt.dpt_input_transform_batched(frames)
     params = dpt.load_dpt(npz, dev)
-    depth = dpt.apply_dpt_batched(params, x[:1])[0]
+    depth = depth_batch(params, frames[:1], pre_cfg["depth"])[0]
     p64 = tree_to(params, torch.float64)
     depth64 = dpt.apply_dpt_batched(p64, x[:1].double())[0]
     del p64
@@ -3388,8 +3390,8 @@ def run_dpt(dev, card):
                      depth64)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    ms = cuda_ms(lambda: dpt.apply_dpt_batched(params, x), iters=3,
-                 warmup=1) / len(x)
+    ms = cuda_ms(lambda: depth_batch(params, frames, pre_cfg["depth"]),
+                 iters=3, warmup=1) / len(x)
     peak = torch.cuda.max_memory_allocated(dev)
     d = depth64.cpu().numpy()
     print(f"dpt [{card}]: {DPT_FRAMES} frames {H}x{W} -> {DPT_OUT_HW[0]}x"

@@ -10,8 +10,11 @@ W') f32, at the ``dpt_input_transform`` size) and a ``<name>.png``
 preview: the priors training reads. ``depth.type`` must be ``DPT`` and
 ``depth.path`` the npz of ``python -m nope_nerf_tpu_torch.convert_dpt``.
 
-Runs on ``--device`` (default ``cuda``; with no CUDA device it raises
-unless ``--device cpu`` is given), in full f32 (TF32 off around the
+Each batch of frames is uploaded once and goes through
+:func:`depth_batch` (the input transform on the device in float64, the
+network, the depth tail), the function the benchmark's depth-prior cell
+times. Runs on ``--device`` (default ``cuda``; with no CUDA device it
+raises unless ``--device cpu`` is given), in full f32 (TF32 off around the
 forward). With ``tpu.n_devices`` N > 1 it is one of N processes of
 ``python -m torch.distributed.run --nproc-per-node N -m
 nope_nerf_tpu_torch.dpt_depth <cfg>``: each batch's frames are sharded
@@ -31,13 +34,48 @@ from .config import (
     check_supported,
     load_config,
 )
+from . import tracing
 from .dataloading.scene import get_scene
 from .device import resolve_device
-from .models.dpt import apply_dpt_batched, dpt_input_transform, load_dpt
+from .models.dpt import (
+    apply_dpt_batched,
+    dpt_input_transform_batched,
+    load_dpt,
+)
 from .parallel.mesh import barrier
 from .training.loop import mesh_for
 
 BATCH = 4
+# the eager tracing phase of depth_batch's sections
+PHASE = "depth_priors"
+
+
+def depth_batch(params, frames, depth_cfg, mesh=None, pre_relu=False):
+    """(B, H, W, 3) frames in [0, 1] on the parameters' device -> (B, h',
+    w') f32 depth on that device (the inverse depth with ``invert`` False,
+    and the head's output before its ReLU with ``non_negative`` False too):
+    :func:`..models.dpt.dpt_input_transform_batched`, then
+    :func:`..models.dpt.apply_dpt_batched` with ``depth_cfg``'s ``scale``,
+    ``shift``, ``invert`` and ``non_negative``, sharded over ``mesh``.
+    With ``pre_relu``, (depth, the head's output before its ReLU) from the
+    same kernels.
+
+    Traced as the host span ``dpt.batch`` around one eager step of the
+    phase ``depth_priors`` (``tracing.py``), whose sections
+    ``dpt.transform``, ``dpt.resnet``, ``dpt.vit`` and ``dpt.decoder``
+    tile the batch; counts ``dpt.frames`` and ``dpt.batches``. Nothing in
+    it waits for the device."""
+    with tracing.span("dpt.batch"), \
+            tracing.eager_step(PHASE, frames.device):
+        tracing.section("dpt.transform")
+        x = dpt_input_transform_batched(frames)
+        depth = apply_dpt_batched(
+            params, x, mesh=mesh, scale=depth_cfg["scale"],
+            shift=depth_cfg["shift"], invert=depth_cfg["invert"],
+            non_negative=depth_cfg["non_negative"], pre_relu=pre_relu)
+    tracing.count("dpt.frames", frames.shape[0])
+    tracing.count("dpt.batches")
+    return depth
 
 
 def main(cfg, device="cuda", mesh=None):
@@ -71,14 +109,9 @@ def main(cfg, device="cuda", mesh=None):
 
     names = [n.split(".")[0] for n in scene.img_list]
     for start in range(0, scene.N_imgs, batch_size):
-        batch = np.stack([dpt_input_transform(scene.imgs[i]) for i in
-                          range(start, min(start + batch_size,
-                                           scene.N_imgs))])
-        depths = apply_dpt_batched(
-            params, torch.as_tensor(batch, device=dev), mesh=mesh,
-            scale=depth["scale"], shift=depth["shift"],
-            invert=depth["invert"],
-            non_negative=depth["non_negative"]).cpu().numpy()
+        frames = torch.as_tensor(scene.imgs[start:start + batch_size],
+                                 device=dev)
+        depths = depth_batch(params, frames, depth, mesh).cpu().numpy()
         if not lead:
             continue
         for d, name in zip(depths, names[start:]):

@@ -24,9 +24,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..convert import dpt_params_from_jax, tree_to
 from ..device import no_tf32
-from ..ops.interp import resize_bilinear
 from ..parallel.mesh import gather_rays, shard_rays
 from ..training.checkpoints import load_pytree
 
@@ -52,14 +52,31 @@ def _same_pads(size, k, stride):
     return total // 2, total - total // 2
 
 
+def _standardised(w):
+    """``w`` standardised per output channel (timm StdConv2dSame: biased
+    variance, eps 1e-6). The network is frozen: a weight that does not
+    require grad keeps its standardised copy beside it (an attribute, with
+    the weight's version, so an in-place change recomputes it), and each
+    batch launches only the convolution instead of five more kernels. Only
+    while the pass is launched eagerly: a captured graph of it would
+    standardise inside the graph (ROADMAP "Code in the port to
+    simplify")."""
+    kept = getattr(w, "_dpt_standardised", None)
+    if kept is not None and kept[0] == w._version:
+        return kept[1]
+    var, mean = torch.var_mean(w, dim=(1, 2, 3), keepdim=True, correction=0)
+    out = (w - mean) / torch.sqrt(var + 1e-6)
+    if not w.requires_grad:
+        w._dpt_standardised = (w._version, out)
+    return out
+
+
 def _conv(x, w, b=None, stride=1, padding="SAME", std=False):
     """NCHW conv with an OIHW weight. ``padding`` "SAME" (TF semantics) or
     an int of symmetric padding; ``std`` standardises the weight per output
-    channel first (timm StdConv2dSame: biased variance, eps 1e-6)."""
+    channel first (:func:`_standardised`)."""
     if std:
-        var, mean = torch.var_mean(w, dim=(1, 2, 3), keepdim=True,
-                                   correction=0)
-        w = (w - mean) / torch.sqrt(var + 1e-6)
+        w = _standardised(w)
     if padding == "SAME":
         kh, kw = w.shape[2:]
         (pt, pb), (pl, pr) = (_same_pads(x.shape[2], kh, stride),
@@ -96,12 +113,17 @@ def _resize_bilinear_ac(x, out_hw):
 
 
 def _resize_pos_embed(pos_embed, gs_h, gs_w):
-    """Bilinear-resize (align_corners=False, the JAX package's
-    ``ops/interp.resize_bilinear``) the grid part of (1, 1 + g*g, D)."""
-    tok, grid = pos_embed[:, :1], pos_embed[0, 1:]
-    gs_old = int(math.isqrt(grid.shape[0]))
-    grid = resize_bilinear(grid.reshape(gs_old, gs_old, -1), (gs_h, gs_w))
-    return torch.cat([tok, grid.reshape(1, gs_h * gs_w, -1)], dim=1)
+    """Bilinear-resize the grid part of (1, 1 + g*g, D) as published DPT
+    does (``F.interpolate``, align_corners=False: a source coordinate left
+    of the first centre takes the first row or column). The JAX package's
+    ``ops/interp.resize_bilinear`` departs from it on a grid larger than
+    g: it blends the first two rows or columns there (ROADMAP, faults)."""
+    tok, grid = pos_embed[:, :1], pos_embed[:, 1:]
+    gs_old = int(math.isqrt(grid.shape[1]))
+    grid = grid.reshape(1, gs_old, gs_old, -1).permute(0, 3, 1, 2)
+    grid = F.interpolate(grid, size=(gs_h, gs_w), mode="bilinear",
+                         align_corners=False)
+    return torch.cat([tok, grid.flatten(2).transpose(1, 2)], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -191,13 +213,16 @@ def _apply_fusion(p, x, res=None):
 
 
 def _apply_dpt_nchw(params, x, scale=0.000305, shift=0.1378, invert=True,
-                    non_negative=True):
+                    non_negative=True, pre_relu=False):
     """The network on NCHW images under the caller's autograd and TF32
-    settings; :func:`apply_dpt_batched` is the entry point."""
+    settings; :func:`apply_dpt_batched` is the entry point. With
+    ``pre_relu`` it returns (depth, the head's output before its ReLU)."""
     B, _, H, W = x.shape
     gh, gw = H // 16, W // 16
 
+    tracing.section("dpt.resnet")
     tap1, tap2, feat = _apply_resnet(params["resnet"], x)
+    tracing.section("dpt.vit")
     tokens = _conv(feat, params["patch_proj"]["w"], params["patch_proj"]["b"])
     tokens = tokens.flatten(2).transpose(1, 2)  # (B, gh*gw, D), row-major
     cls = params["cls_token"].expand(B, 1, VIT_DIM)
@@ -219,6 +244,7 @@ def _apply_dpt_nchw(params, x, scale=0.000305, shift=0.1378, invert=True,
     l4 = _conv(l4, params["post4_conv2"]["w"], params["post4_conv2"]["b"],
                stride=2, padding=1)
 
+    tracing.section("dpt.decoder")
     sc = params["scratch"]
     r1 = _conv(tap1, sc["layer1_rn"]["w"])
     r2 = _conv(tap2, sc["layer2_rn"]["w"])
@@ -237,16 +263,17 @@ def _apply_dpt_nchw(params, x, scale=0.000305, shift=0.1378, invert=True,
     h = _conv(h, hp["conv3"]["w"], hp["conv3"]["b"])[:, 0]
     inv_depth = F.relu(h) if non_negative else h
     if invert:
-        return 1.0 / torch.clamp_min(scale * inv_depth + shift, 1e-8)
-    return inv_depth
+        inv_depth = 1.0 / torch.clamp_min(scale * inv_depth + shift, 1e-8)
+    return (inv_depth, h) if pre_relu else inv_depth
 
 
-def apply_dpt_batched(params, imgs, mesh=None, **kw):
+def apply_dpt_batched(params, imgs, mesh=None, pre_relu=False, **kw):
     """(B, H, W, 3) DPT-normalised images ((x - 0.5) / 0.5), H and W
     multiples of 32, on the parameters' device -> depth (B, H, W) (the
     inverse depth with ``invert`` False; ``scale``, ``shift``, ``invert``,
     ``non_negative`` as in :func:`_apply_dpt_nchw`). Runs with TF32 off and
-    without autograd.
+    without autograd. With ``pre_relu`` it returns (depth, the head's
+    output before its ReLU, (B, H, W)): the same kernels, one more tensor.
 
     With ``mesh`` (``parallel/mesh.py``) the frames are sharded: the batch
     is padded to a multiple of the mesh size with copies of its last frame,
@@ -260,7 +287,9 @@ def apply_dpt_batched(params, imgs, mesh=None, **kw):
     n = imgs.shape[0]
     with torch.no_grad(), no_tf32():
         out = _apply_dpt_nchw(params, shard_rays(imgs, mesh).permute(
-            0, 3, 1, 2), **kw)
+            0, 3, 1, 2), pre_relu=pre_relu, **kw)
+        if pre_relu:
+            return tuple(gather_rays(o, n, mesh)[:B] for o in out)
         return gather_rays(out, n, mesh)[:B]
 
 
@@ -269,10 +298,10 @@ def apply_dpt(params, img, **kw):
     return apply_dpt_batched(params, img[None], **kw)[0]
 
 
-def dpt_input_transform(img, target=384, multiple_of=32):
-    """The reference's ``ResizeImage_mvs``: keep-aspect 'minimal' resize
-    toward a 384x384 target rounded to multiples of 32 (bicubic), then
-    (x - 0.5) / 0.5.
+def dpt_input_transform_batched(frames, target=384, multiple_of=32):
+    """The reference's ``ResizeImage_mvs`` on a batch, on the frames'
+    device: keep-aspect 'minimal' resize toward a 384x384 target rounded to
+    multiples of 32 (bicubic), then (x - 0.5) / 0.5.
 
     'minimal' keeps the per-axis scale CLOSEST TO 1: the smaller one when
     upscaling, the larger one when the image is bigger than 384 (540x960 ->
@@ -281,18 +310,26 @@ def dpt_input_transform(img, target=384, multiple_of=32):
     A = -0.75 kernel and clamped borders) in float64, which lands within
     ~3e-7 of cv2's f32 result where f32 bicubic differs by ~1e-4.
 
-    img: (H, W, 3) float numpy in [0, 1]. Returns (h', w', 3) f32 numpy.
+    frames: (B, H, W, 3) float tensor in [0, 1]. Returns (B, h', w', 3)
+    f32 on the same device.
     """
-    H, W = img.shape[:2]
+    H, W = frames.shape[1:3]
     scale_h, scale_w = target / H, target / W
     scale = scale_w if abs(1 - scale_w) < abs(1 - scale_h) else scale_h
     # np.round (half to even) as the reference's constrain_to_multiple_of
     new_h = int(np.round(scale * H / multiple_of) * multiple_of)
     new_w = int(np.round(scale * W / multiple_of) * multiple_of)
-    x = torch.as_tensor(np.asarray(img), dtype=torch.float64)
-    out = F.interpolate(x.permute(2, 0, 1)[None], size=(new_h, new_w),
-                        mode="bicubic", align_corners=False)[0]
-    return ((out.permute(1, 2, 0).numpy() - 0.5) / 0.5).astype(np.float32)
+    x = frames.to(torch.float64).permute(0, 3, 1, 2)
+    out = F.interpolate(x, size=(new_h, new_w), mode="bicubic",
+                        align_corners=False)
+    return ((out.permute(0, 2, 3, 1) - 0.5) / 0.5).to(torch.float32)
+
+
+def dpt_input_transform(img, target=384, multiple_of=32):
+    """One frame, numpy in and out: (H, W, 3) float in [0, 1] -> (h', w',
+    3) f32; see :func:`dpt_input_transform_batched`."""
+    x = torch.as_tensor(np.asarray(img))[None]
+    return dpt_input_transform_batched(x, target, multiple_of)[0].numpy()
 
 
 # ---------------------------------------------------------------------------

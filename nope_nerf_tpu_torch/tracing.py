@@ -1,5 +1,6 @@
-"""The port's own tracing of its training and pose steps: host spans, the
-device sections of a step, and the device span of each dispatch.
+"""The port's own tracing of its training, pose and depth-prior steps: host
+spans, the device sections of a step, the device span of each dispatch,
+and counters.
 
 Host spans (:func:`span`). A span records its name, its start and end on
 the host clock (``time.perf_counter_ns``), its parent (the innermost span
@@ -10,7 +11,8 @@ span also opens ``torch.profiler.record_function`` of its name, so that it
 lies in the profiler's trace on the device's timeline: in a traced
 benchmark run and in ``tpu.profile_dir``'s trace. Names are ``dispatch``
 and ``dispatch.*`` (the host's side of one call of ``EpochStep`` or
-``PoseOptBlock``) and ``step.*`` (the sections below).
+``PoseOptBlock``), ``step.*`` (the sections below), and ``dpt.batch``
+and ``dpt.*`` (one ``dpt_depth.depth_batch`` call and its sections).
 
 Device sections (:func:`section`). Inside a step that
 ``training/capture.py::StepGraphs`` runs for ``EpochStep`` (phase "train")
@@ -25,12 +27,19 @@ replays that graph as the last step of each call, and a capture of the
 same step without the events as the others. A boundary whose name extends
 the open section's (``step.backward.field`` inside ``step.backward``)
 nests its host span in that section's, and a boundary that names an open
-section resumes it. Outside such a step ``section`` does nothing
-(``render_image``, a bare ``fused_mlp_composite``, ``train()``'s per-step
-route). :func:`section_ms` reads the sections of a phase's last replay, or
-of its last eager step (the warm-up of a captured step, or any step of the
-eager route), in device ms; on the CPU there are no events, only the host
-spans.
+section resumes it. An eager phase outside ``StepGraphs`` opens its steps
+with :func:`eager_step`: the depth-prior pass (phase "depth_priors",
+``dpt_depth.depth_batch``: ``dpt.transform``, ``dpt.resnet``, ``dpt.vit``,
+``dpt.decoder``), one step a batch, its events recorded again by each
+batch. Outside a step ``section`` does nothing (``render_image``, a bare
+``fused_mlp_composite``, ``train()``'s per-step route, a bare
+``apply_dpt_batched``). :func:`section_ms` reads the sections of a
+phase's last replay, or of its last eager step (the warm-up of a captured
+step, any step of the eager route, the last depth-prior batch), in device
+ms; on the CPU there are no events, only the host spans.
+
+Counters (:func:`count`): per-name totals of what a phase has done, such
+as ``dpt.frames`` and ``dpt.batches``; :func:`counters` reads them.
 
 Dispatches (:func:`dispatch`). Each call of ``EpochStep`` or
 ``PoseOptBlock`` is one dispatch: a host span ``dispatch``, and a
@@ -207,6 +216,8 @@ class _State:
         self.step = None
         self.sections = []
         self.last = {}
+        self.eager = {}
+        self.counts = {}
 
 
 _S = _State()
@@ -332,6 +343,27 @@ def step(sections):
         _S.sections, _S.step = [], None
     if not sections.captured:
         _S.last[(sections.phase, False)] = sections
+
+
+def eager_step(phase, device):
+    """:func:`step` for one eager step of ``phase`` on ``device``, into the
+    phase's own :class:`Sections` (one per phase and device, kept until
+    :func:`reset`), so that each step records into the same events."""
+    key = (phase, str(torch.device(device)))
+    sections = _S.eager.get(key)
+    if sections is None:
+        sections = _S.eager[key] = Sections(phase, False, device)
+    return step(sections)
+
+
+def count(name, n=1):
+    """Add ``n`` to the counter ``name``."""
+    _S.counts[name] = _S.counts.get(name, 0) + n
+
+
+def counters():
+    """{name: total} of every counter so far."""
+    return dict(_S.counts)
 
 
 def replayed(sections):

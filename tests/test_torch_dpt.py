@@ -106,17 +106,34 @@ def test_dpt_primitive_matches_jax(case):
     np.testing.assert_allclose(got, want, rtol=PRIM_RTOL, atol=PRIM_ATOL)
 
 
-@pytest.mark.parametrize("gs", [(24, 24), (2, 24), (17, 30), (4, 6)])
+@pytest.mark.parametrize("gs", [(24, 24), (2, 24), (17, 30), (4, 6),
+                                (24, 42)])
 def test_resize_pos_embed_matches_jax(gs):
     """The pos-embed grid resize (align_corners=False, edges clamped) to
-    grids smaller, larger and equal to 24x24."""
+    grids smaller, larger and equal to 24x24: the JAX package's at every
+    token but the first row or column of an axis that grows, and published
+    DPT's ``F.interpolate`` at every token. On that row or column the
+    source coordinate lies left of the first centre: ``F.interpolate``
+    takes the first row or column, and the JAX package blends the first two
+    (it takes the second index from the clamped first; ROADMAP, faults)."""
     pos = np.random.default_rng(1).normal(
         size=(1, 577, 32)).astype(np.float32)
     want = np.asarray(jax.jit(jdpt._resize_pos_embed, static_argnums=(1, 2))(
         jnp.asarray(pos), *gs))
     got = pdpt._resize_pos_embed(torch.tensor(pos), *gs).numpy()
     assert got.shape == want.shape == (1, 1 + gs[0] * gs[1], 32)
-    np.testing.assert_allclose(got, want, rtol=PRIM_RTOL, atol=PRIM_ATOL)
+    same = np.ones(gs, bool)
+    same[0, :] &= gs[0] <= 24
+    same[:, 0] &= gs[1] <= 24
+    same = np.concatenate([[True], same.ravel()])
+    np.testing.assert_allclose(got[:, same], want[:, same], rtol=PRIM_RTOL,
+                               atol=PRIM_ATOL)
+    grid = torch.tensor(pos[:, 1:]).reshape(1, 24, 24, 32).permute(0, 3, 1, 2)
+    published = torch.nn.functional.interpolate(
+        grid, size=gs, mode="bilinear", align_corners=False)
+    np.testing.assert_array_equal(
+        got[0, 1:], published.flatten(2).transpose(1, 2)[0].numpy())
+    np.testing.assert_array_equal(got[0, 0], pos[0, 0])
 
 
 # ---------------------------------------------------------------------------
