@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --gate-control   # the PSNR gate's control only
     python3 chip_smoke.py --recovery-control   # the ATE gate's control only
+    python3 chip_smoke.py --fwd-turns OTHER.cu   # the fused forward against another source
 
 Builds the port's CUDA kernels from ``nope_nerf_tpu_torch/csrc``, holds each
 of the six kernels against its plain PyTorch version at the shapes of the
@@ -201,7 +202,12 @@ it runs only the synthetic phase, with the field's weight-matrix gradients
 zeroed (:func:`gate_control`), and exits 0 when the PSNR gate rejects it;
 with ``--recovery-control`` only the recovery phase, with the pose learning
 rate at 0 (:func:`recovery_control`), and exits 0 when the ATE gate rejects
-it.
+it. With ``--fwd-turns OTHER.cu`` it runs only :func:`fwd_source_turns`:
+the package's fused forward and another version of
+``csrc/mlp_fused_fwd.cu`` (e.g. a parent commit's), each built with
+``-Xptxas -v``, held bit for bit to the layer-by-layer forward and timed in
+turns against the bound: Kernel A at the eval render's chunk without saves
+and at the stock step with them, Kernel C on the stock step's points.
 """
 import collections
 import contextlib
@@ -896,6 +902,111 @@ def check_kernel_a(dev, card):
                "floor_ms": floor, "layer_by_layer_floor_ms": floor_layered,
                **bwd_shapes}
     return fwd_rec, bwd_rec
+
+
+# (kernel, rays of 128 samples, save) of fwd_source_turns: Kernel A at the
+# eval render's chunk (ops/rendering.py::render_image) without saves and at
+# the stock step with them, Kernel C on the stock step's points with them
+FWD_SOURCE_CASES = (("render_chunk", "A", 16384, False),
+                    ("stock_step", "A", N_RAYS, True),
+                    ("stock_points", "C", N_RAYS, True))
+
+
+def fwd_source_turns(dev, card, other):
+    """Kernels A's and C's fused forward built from the package's source
+    and from ``other`` (another version of csrc/mlp_fused_fwd.cu with the same C
+    interface, e.g. a parent commit's), each compiled with ``-Xptxas -v``
+    (registers and spills printed; tools/torch_fused_fwd_probe.py's
+    build_variants): at each FWD_SOURCE_CASES case both held bit for bit to the
+    layer-by-layer forward (outputs, and with saves the 11 saved tensors
+    past the two encodings, whose padding is unset),
+    then timed in turns (package, other, other, package; profiler device
+    ms) beside the bound (:func:`mlp_bounds`). Returns the record and
+    prints it as one JSON line ``{"fwd_turns": ...}``."""
+    import importlib.util
+
+    import torch
+
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    spec = importlib.util.spec_from_file_location(
+        "fused_fwd_probe", os.path.join(ROOT, "tools",
+                                        "torch_fused_fwd_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    fns = probe.build_variants(["package=", f"other={other}:"])
+    real = mk.c_function
+
+    def use(name):
+        mk.c_function = (lambda n, s, f=fns[name]:
+                         f if n == "nnt_mlp_fused_fwd" else real(n, s))
+
+    rec = {"card": card, "other": other, "cases": {}}
+    try:
+        for case, kernel, N, save in FWD_SOURCE_CASES:
+            (cfg, weights, origins, rays_t, dirs, z_t, deltas_t, _,
+             _) = stock_mlp_inputs(dev, N, N_SAMPLES)
+            l_pos, l_dir = (cfg["model"]["pos_enc_levels"],
+                            cfg["model"]["dir_enc_levels"])
+            act = cfg["model"]["occ_activation"]
+            geo = [x.detach().contiguous() for x in (origins, rays_t, dirs)]
+            ws = [w.detach() for w in weights]
+            if kernel == "A":
+                args = (*geo, z_t, deltas_t,
+                        (l_pos, l_dir, act, True, False, False, N_SAMPLES),
+                        ws)
+                fwd, layered, first = (mk._composite_fwd,
+                                       mk._composite_fwd_layered, 7)
+                io = nbytes(*geo, z_t, deltas_t) + 4.0 * N * (4 + N_SAMPLES)
+            else:
+                pts = (geo[0][:, None, :] + geo[1][:, None, :]
+                       * z_t[..., None]).reshape(-1, 3)
+                pdirs = geo[2][:, None, :].expand(N, N_SAMPLES, 3).reshape(
+                    -1, 3).contiguous()
+                args = (pts, pdirs, (l_pos, l_dir, act, True), ws)
+                fwd, layered, first = mk._point_fwd, mk._point_fwd_layered, 4
+                io = nbytes(pts, pdirs) + 16.0 * N * N_SAMPLES
+            ref = layered(*args, save)
+            for name in fns:
+                use(name)
+                out, _, saved = fwd(*args, save)
+                same = all(torch.equal(a, b) for a, b in zip(out, ref[0]))
+                if save:
+                    same &= all(torch.equal(a, b) for a, b in
+                                zip(saved[first:first + 11],
+                                    ref[2][first:first + 11]))
+                if not same:
+                    raise AssertionError(f"fwd turns {case}: the {name} "
+                                         "kernel differs from the "
+                                         "layer-by-layer forward")
+
+            def call():
+                fwd(*args, save)
+
+            times = {name: [] for name in fns}
+            for name in ("package", "other", "other", "package"):
+                use(name)
+                times[name].append(device_ms(call, iters=10))
+            (b_save, by_save), (b_ns, by_ns), _ = mlp_bounds(
+                weights, N * N_SAMPLES, io, N_SAMPLES if kernel == "A" else 1)
+            b, by = (b_save, by_save) if save else (b_ns, by_ns)
+            ms = {name: sum(v) / len(v) for name, v in times.items()}
+            rec["cases"][case] = {
+                "kernel": kernel, "rays": N, "samples": N_SAMPLES,
+                "save": save,
+                "bitwise_to_layer_by_layer": True, "device_ms": times,
+                "bound_ms": b, "bound_by": by,
+                "share_of_bound": {n: b / v for n, v in ms.items()}}
+            print(f"fused fwd turns [{card}] {kernel} {case} {N} x "
+                  f"{N_SAMPLES} save="
+                  f"{save}: package {ms['package']:.4f} ms, other "
+                  f"{ms['other']:.4f} ms, bound {b:.4f} ms ({by}); "
+                  f"bound / time {b / ms['package']:.3f} against "
+                  f"{b / ms['other']:.3f}", flush=True)
+    finally:
+        mk.c_function = real
+    print(json.dumps({"fwd_turns": rec}), flush=True)
+    return rec
 
 
 def fwd_shape_turns(dev, card, N, S, hidden, kernel="A"):
@@ -4736,9 +4847,10 @@ def gate_control(dev, card):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--gate-control"], ["--recovery-control"]):
-        print("usage: chip_smoke.py [--gate-control | --recovery-control]",
-              file=sys.stderr)
+    if argv not in ([], ["--gate-control"], ["--recovery-control"]) and not (
+            len(argv) == 2 and argv[0] == "--fwd-turns"):
+        print("usage: chip_smoke.py [--gate-control | --recovery-control | "
+              "--fwd-turns OTHER.cu]", file=sys.stderr)
         return 2
     if not os.path.isdir(os.path.join(ROOT, "nope_nerf_tpu_torch")):
         print("chip_smoke: nope_nerf_tpu_torch is not beside this script",
@@ -4768,6 +4880,9 @@ def main(argv=None):
         return gate_control(dev, card)
     if argv == ["--recovery-control"]:
         return recovery_control(dev, card)
+    if argv[:1] == ["--fwd-turns"]:
+        fwd_source_turns(dev, card, argv[1])
+        return 0
 
     a_fwd, a_bwd = check_kernel_a(dev, card)
     b = check_kernel_b(dev, card)

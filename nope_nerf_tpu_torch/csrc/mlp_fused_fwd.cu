@@ -22,23 +22,52 @@
 // enc, denc and raw, ~657 MB at M = 131,072, 0.196 ms at 3.35 TB/s.
 //
 // Design: one persistent block per SM walks 128-point tiles (stride
-// gridDim.x); two consumer warpgroups own 64 rows each; a producer
-// warpgroup gives its registers to them (setmaxnreg) and one of its threads
-// streams the weights.
+// gridDim.x); two warpgroups own 64 rows of a tile each and take turns on
+// the tensor cores (a ping-pong, as CUTLASS's pingpong schedule and
+// FlashAttention-3's inter-warpgroup overlap).
+//   * Turns: named barriers 4 and 5 hand the tensor cores from one
+//     warpgroup to the other. A turn is a run of one layer's k-tiles: the
+//     warpgroup waits for its turn, issues them, hands the turn over and
+//     only then retires its last products. While one warpgroup's wgmmas run,
+//     the other runs its CUDA-core work: its last layer's epilogue and save,
+//     the encodings, the heads and the compositing scan. Each warpgroup
+//     reads and writes only its own rows of every tile in shared memory, so
+//     the weights and the compositing are all that joins them; warpgroup 1
+//     runs a turn behind warpgroup 0. A turn holds at most the ring's stages
+//     (trunk1_0's encoding half and rgb_layer's direction half are turns of
+//     their own: at D = 256 five k-tiles would not fit four stages) and ends
+//     with its products retired, so the other's next turn can always load
+//     what it needs: no turn waits on a stage the other still holds.
+//   * 256 threads, no producer warp: a block of 288 or 384 threads is
+//     allocated registers as 384 (168 a thread, whatever setmaxnreg later
+//     gives the consumers), so ptxas spilled and an epilogue with a 256-wide
+//     layer's 128 accumulator registers live had none left to overlap its
+//     loads. At 256 threads a thread may hold 255.
+//   * Weights: each tile's 3 + 9 D / 64 (N x 64) k-tiles of the layers'
+//     K-major weights stream through a ring of 128 KB of (D x 64) stages (4
+//     at D = 256, 8 at 128, 16 at 64) on TMA loads and mbarriers; the 1.2 MB
+//     of weights stay in L2 and both warpgroups read each stage. Warpgroup
+//     1, which is done with a stage last, refills it: its first thread loads
+//     the k-tile STAGES on as soon as both have released the stage.
+//   * Code size: the trunk is a loop over its layers and a turn a loop over
+//     its k-tiles, so one epilogue and one k-tile body serve every layer.
+//     Unrolled, the kernel was 171 KB of code a tile's pass ran through.
 //   * Encoding in the kernel: pts = o + r z (A: per-ray inputs, no FMA
 //     contraction, as encode_points_kernel) or the given points (C);
 //     [x, sin 2^l x, cos 2^l x] with f32 arguments, rounded to bf16, written
 //     straight into shared memory in the 128-byte-swizzled K-major layout
-//     wgmma reads (and TMA writes), zero past the true width. The position
+//     wgmma reads (and TMA writes), zero past the true width; two threads a
+//     row, a warp on one half of 32 rows. Its inputs are loaded a tile (the
+//     position) or half a tile (the direction) before it. The position
 //     encoding stays in its tile for trunk1_0's skip half; the direction
 //     encoding (per point; A repeats its ray's) then takes the same tile for
 //     rgb_layer's direction half.
 //   * The chain in shared memory: one bf16 tile of 128 rows x D is the A
 //     operand of every layer. Each warpgroup issues m64nDk16 wgmmas into a
 //     D / 2-register f32 accumulator, one k-tile in flight; the epilogue adds
-//     the f32 bias (staged in shared memory: global loads missed the L1 that
-//     the tiles leave), takes the ReLU, rounds to bf16 and writes back over
-//     the warpgroup's own rows once its products have retired -- the
+//     the f32 bias (staged in shared memory, every value loaded before the
+//     first write), takes the ReLU, rounds to bf16 and writes back over the
+//     warpgroup's own rows once its products have retired -- the
 //     operations, in their order, of gemm_sm90_kernel's epilogue, so every
 //     activation is bitwise that of the layer-by-layer chain.
 //   * trunk1_0 is two operand pairs (activation K = D, then the encoding,
@@ -47,21 +76,18 @@
 //     feature half run into accumulators of their own (one accumulator's
 //     halves as the two operands made ptxas serialize the wgmmas), added as
 //     gemm_fwd adds its row term: (acc + row term) + bias.
-//   * Weights: the producer streams each layer's K-major (N x 64) k-tiles
-//     through a 4-stage TMA + mbarrier ring (4 x 32 KB at D = 256); the
-//     1.2 MB of weights stay in L2. Their 1.28 GB of L2 reads per forward at
-//     M = 131,072 cost ~2% (no reload after a block's first tile ran 0.012
-//     ms faster on the H100), so no cluster multicasts them.
 //   * Heads: fc_density on trunk1_3's output and fc_rgb on hr, a warp per
 //     point over the warp's own 16 rows, in heads_fwd_kernel's order (raw is
-//     bitwise the layer-by-layer one).
+//     bitwise the layer-by-layer one); the 16 rows' loads first, then their
+//     shuffles.
 //   * Compositing (A, 128 % S == 0): a tile holds 128 / S whole rays. Each
-//     row's alpha and sigmoids are taken in parallel; once warpgroup 0's rows
-//     are in, one thread of warpgroup 1 per ray runs composite_fwd_kernel's
-//     scan in its operation order, so rgbv, dist and alpha are bitwise those
-//     of composite_fwd. Any other S takes the raw route, chosen by shape in
-//     the wrapper: this kernel writes raw and mlp_composite.cu's
-//     composite_fwd runs after it.
+//     row's alpha and sigmoids are taken in parallel, then one thread per
+//     ray runs composite_fwd_kernel's scan in its operation order, so rgbv,
+//     dist and alpha are bitwise those of composite_fwd: a warpgroup scans
+//     the rays in its rows, and at S = 128 warpgroup 0 scans the first 64
+//     samples and hands its running sums to warpgroup 1 for the rest. Any
+//     other S takes the raw route, chosen by shape in the wrapper: this
+//     kernel writes raw and mlp_composite.cu's composite_fwd runs after it.
 //   * Saves only when a backward will read them: with `save`, TMA stores
 //     (from the tile a layer just wrote; the issuing thread waits for the
 //     read before the tile is overwritten) exactly what _chain_bwd reads, in
@@ -72,8 +98,12 @@
 //     the outputs leave the SM.
 //   * Tensor maps are __grid_constant__ parameters; nothing synchronises
 //     with the host, so the launch is capturable in a CUDA graph.
-// Shared memory at D = 256: 64 KB activation tile + 16 KB encoding tile +
-// 128 KB ring + ~18 KB of biases, heads and compositing: one block per SM.
+// Shared memory at D = 256, 229,728 of the 232,448 bytes a block may have:
+// the 64 KB activation tile, the 16 KB encoding tile, the 128 KB ring, 9.5
+// KB of biases, 1.3 KB of head weights, 4.5 KB for the heads' raw outputs
+// and the compositing, the barriers and up to 1 KB to align the tiles. A
+// second activation tile (64 KB, for two tiles a block) does not fit; a
+// ring of fewer stages would leave a turn of a 256-wide layer no room.
 
 #include "sm90.cuh"
 
@@ -86,12 +116,20 @@ constexpr int ROW_BYTES = 128;           // one swizzle row: 64 bf16
 constexpr int KB_BYTES = BM * ROW_BYTES;  // a 64-column k-block of a tile
 constexpr int WG_ROWS = 64;              // rows per consumer warpgroup
 constexpr int WG_BYTES = WG_ROWS * ROW_BYTES;
-constexpr int CONSUMERS = 256;           // two warpgroups
-// + a producer warpgroup, which gives its registers to the consumers
-// (setmaxnreg); one of its threads issues the weight loads
-constexpr int THREADS = CONSUMERS + 128;
-constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-constexpr int STAGES = 4;
+// two warpgroups and no producer warp: at 256 threads a thread may hold
+// 255 registers. ptxas allocates a block of 288 or 384 threads (a producer
+// warp or warpgroup beside them) as 384, 168 registers a thread, whatever
+// setmaxnreg gives the consumers at run time: it then spills, and an
+// epilogue with the 128 accumulator registers of a 256-wide layer live has
+// no register left to overlap its bias loads.
+constexpr int THREADS = 256;
+// the weight ring: 128 KB of (D x 64) k-tile stages, one 256-wide layer at
+// D = 256 (4 stages), two at 128 (8), four at 64 (16)
+constexpr int RING_BYTES = 128 * 1024;
+template <int D>
+constexpr int stages() {
+  return RING_BYTES / (D * ROW_BYTES);
+}
 
 // weight tensor maps, in the order the ring streams them
 enum { W_T00, W_T01, W_T02, W_T03, W_T10, W_T10E, W_T11, W_T12, W_T13, W_FEAT, W_RGBD, W_RGB,
@@ -135,13 +173,15 @@ template <int D>
 struct Smem {
   static constexpr int KT = D / 64;  // k-tiles of a D-wide operand
   static constexpr int STAGE = D * ROW_BYTES;
+  static constexpr int STAGES = stages<D>();
   static constexpr int ACT = 0;
   static constexpr int ENC = KT * KB_BYTES;  // the position, then the direction encoding
   static constexpr int RING = ENC + KB_BYTES;
-  static constexpr int RAW = RING + STAGES * STAGE;  // float4 [BM]
-  static constexpr int COMP = RAW + BM * 16;         // float4 [2][BM]
-  static constexpr int ZS = COMP + 2 * BM * 16;      // float [2][BM]
-  static constexpr int WD = ZS + 2 * BM * 4;         // bf16 [D]
+  static constexpr int RAW = RING + RING_BYTES;      // float4 [BM]
+  static constexpr int COMP = RAW + BM * 16;         // float4 [BM]
+  static constexpr int ZS = COMP + BM * 16;          // float [BM]
+  static constexpr int SCAN = ZS + BM * 4;           // Scan
+  static constexpr int WD = SCAN + 32;               // bf16 [D]
   static constexpr int WC = WD + D * 2;              // bf16 [D / 2][3]
   static constexpr int BIAS = (WC + 3 * (D / 2) * 2 + 15) / 16 * 16;  // f32 [9][D], [D / 2]
   static constexpr int BAR = BIAS + (9 * D + D / 2) * 4;
@@ -163,31 +203,83 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
       : "memory");
 }
 
-// barrier 3 across the two consumer warpgroups: warpgroup 1 waits (sync)
-// for warpgroup 0's rows, warpgroup 0 only signals (arrive)
+// barrier 3 across the two warpgroups: warpgroup 1 waits (sync) for
+// warpgroup 0's running sums over a 128-sample ray's first 64 samples,
+// warpgroup 0 only signals (arrive)
 __device__ __forceinline__ void pair_sync() { asm volatile("bar.sync 3, 256;\n" ::: "memory"); }
 __device__ __forceinline__ void pair_arrive() {
   asm volatile("bar.arrive 3, 256;\n" ::: "memory");
 }
 
+// The tensor cores' turn, barriers 4 (warpgroup 0's) and 5 (warpgroup 1's):
+// a warpgroup waits for its turn before it issues a run of k-tiles and
+// hands the turn to the other once they are issued, so the two issue their
+// wgmmas in alternation and each runs its CUDA-core work under the other's
+__device__ __forceinline__ void turn_take(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(4 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(5 - wg) : "memory");
+}
+
 // ---------------------------------------------------------------------------
-// The weight ring: the producer's TMA loads and the consumers' k-tiles
+// The weight ring: the consumers' k-tiles and the TMA loads that refill it
 // ---------------------------------------------------------------------------
 
+// A block's weight stream is each of its tiles' 3 + 9 KT k-tiles (39 at
+// D = 256) in the order the turns consume them; position x of the stream
+// lives in stage x % STAGES.
 struct Ring {
   uint32_t buf;  // shared address of stage 0
   uint64_t* full;
   uint64_t* empty;
-  int stage;
-  uint32_t phase;
-  int held;  // the stage whose products may still be in flight, or -1
+  const Maps* maps;
+  int total;    // positions of this block's stream
+  int pos;      // the next position to consume
+  int held;     // the position whose products may still be in flight, or -1
+  bool loader;  // this thread refills the stages (warpgroup 1's first)
 };
 
-__device__ __forceinline__ void ring_advance(int& stage, uint32_t& phase) {
-  if (++stage == STAGES) {
-    stage = 0;
-    phase ^= 1;
+// Load position x (if any) into its stage, once both warpgroups have
+// released position x - STAGES there: an (N x 64) box of a layer's K-major
+// weight, N = D, or D / 2 for rgb_layer's two halves.
+template <int D>
+__device__ __forceinline__ void ring_load(const Ring& ring, int x) {
+  constexpr int KT = D / 64, STAGES = Smem<D>::STAGES;
+  if (x >= ring.total) return;
+  int i = x % (3 + 9 * KT), map, j = 0;
+  if (i == 0) {
+    map = W_T00;
+  } else if ((i -= 1) < 3 * KT) {
+    map = W_T01 + i / KT;  // trunk0_1 .. trunk0_3
+    j = i % KT;
+  } else if ((i -= 3 * KT) < KT) {
+    map = W_T10;
+    j = i;
+  } else if ((i -= KT) == 0) {
+    map = W_T10E;
+  } else if ((i -= 1) < 4 * KT) {
+    map = W_T11 + i / KT;  // trunk1_1 .. trunk1_3, fc_feature
+    j = i % KT;
+  } else if ((i -= 4 * KT) == 0) {
+    map = W_RGBD;
+  } else {
+    map = W_RGB;
+    j = i - 1;
   }
+  const int s = x % STAGES;
+  const uint32_t fb = smem_u32(ring.full + s);
+  mbar_wait(smem_u32(ring.empty + s), ((x / STAGES) & 1) ^ 1);  // the first pass is free
+  mbar_expect_tx(fb, (map >= W_RGBD ? D / 2 : D) * ROW_BYTES);
+  tma_load(ring.buf + s * Smem<D>::STAGE, &ring.maps->w[map], fb, 64 * j, 0);
+}
+
+// release the held position's stage; the loader refills it STAGES on
+template <int D>
+__device__ __forceinline__ void ring_release(Ring& ring) {
+  if (ring.held < 0) return;
+  mbar_arrive(smem_u32(ring.empty + ring.held % Smem<D>::STAGES));
+  if (ring.loader) ring_load<D>(ring, ring.held + Smem<D>::STAGES);
 }
 
 // One k-tile of a layer: wait for its weights, issue its four k16 products
@@ -195,10 +287,12 @@ __device__ __forceinline__ void ring_advance(int& stage, uint32_t& phase) {
 // address `a`) @ B^T with B the stage's (N x 64) K-major weight k-tile, and
 // release the previous k-tile's stage once its products have retired (one
 // k-tile stays in flight). `zero`: the first k-tile of the accumulator.
-template <int N, int STAGE>
+template <int N, int D>
 __device__ __forceinline__ void mma_ktile(float (&acc)[N / 2], uint32_t a, Ring& ring, bool zero) {
-  mbar_wait(smem_u32(ring.full + ring.stage), ring.phase);
-  const uint32_t b = ring.buf + static_cast<uint32_t>(ring.stage * STAGE);
+  constexpr int STAGES = Smem<D>::STAGES;
+  const int s = ring.pos % STAGES;
+  mbar_wait(smem_u32(ring.full + s), (ring.pos / STAGES) & 1);
+  const uint32_t b = ring.buf + static_cast<uint32_t>(s * Smem<D>::STAGE);
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
@@ -208,48 +302,17 @@ __device__ __forceinline__ void mma_ktile(float (&acc)[N / 2], uint32_t a, Ring&
   wgmma_commit();
   wgmma_wait<1>();
   fence_regs(acc);
-  if (ring.held >= 0) mbar_arrive(smem_u32(ring.empty + ring.held));
-  ring.held = ring.stage;
-  ring_advance(ring.stage, ring.phase);
+  ring_release<D>(ring);
+  ring.held = ring.pos++;
 }
 
-// the end of a layer's k-tiles: every product retired, the last stage free
-template <int R>
+// the end of a run of k-tiles: every product retired, the last stage free
+template <int D, int R>
 __device__ __forceinline__ void mma_drain(float (&acc)[R], Ring& ring) {
   wgmma_wait<0>();
   fence_regs(acc);
-  if (ring.held >= 0) mbar_arrive(smem_u32(ring.empty + ring.held));
+  ring_release<D>(ring);
   ring.held = -1;
-}
-
-// The producer thread: every tile's 39 (D = 256) weight k-tiles, in the
-// order the consumers run the chain, each an (N x 64) box of a layer's
-// K-major weight (N = D, or D / 2 for rgb_layer).
-template <int D>
-__device__ __forceinline__ void produce(const Maps& maps, int tiles, uint32_t buf, uint64_t* full,
-                                        uint64_t* empty) {
-  constexpr int KT = D / 64, STAGE = Smem<D>::STAGE;
-  int stage = 0;
-  uint32_t phase = 0;
-  auto load = [&](int map, int kx, uint32_t bytes) {
-    const uint32_t fb = smem_u32(full + stage);
-    mbar_wait(smem_u32(empty + stage), phase ^ 1);  // the first pass is free
-    mbar_expect_tx(fb, bytes);
-    tma_load(buf + stage * STAGE, &maps.w[map], fb, kx, 0);
-    ring_advance(stage, phase);
-  };
-  constexpr uint32_t FULL = D * ROW_BYTES, HALF = (D / 2) * ROW_BYTES;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    load(W_T00, 0, FULL);
-    for (int map = W_T01; map <= W_T03; ++map)
-      for (int j = 0; j < KT; ++j) load(map, 64 * j, FULL);
-    for (int j = 0; j < KT; ++j) load(W_T10, 64 * j, FULL);
-    load(W_T10E, 0, FULL);
-    for (int map = W_T11; map <= W_FEAT; ++map)
-      for (int j = 0; j < KT; ++j) load(map, 64 * j, FULL);
-    load(W_RGBD, 0, HALF);
-    for (int j = 0; j < KT; ++j) load(W_RGB, 64 * j, HALF);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -277,23 +340,27 @@ __device__ __forceinline__ float expand(float o, float r, float z) {
   return __fadd_rn(o, __fmul_rn(r, z));
 }
 
-// Half of one row's encoding [x, sin 2^l x, cos 2^l x] of p (levels levels)
-// into the 64 columns of `tile`'s row: half 0 x and the lower levels, half 1
-// the upper levels and zeros up to column 64. `out` (or null) receives the
-// same bf16 values in a global row.
+// Columns 32 half .. 32 half + 31 of one row's encoding [x, sin 2^l x,
+// cos 2^l x] of p (levels levels; zero past the true width 3 (2 levels + 1))
+// into `tile`'s row. `out` (or null) receives the same bf16 values of the
+// true width in a global row. Level 4, whose columns straddle column 32, is
+// taken in both halves.
 __device__ __forceinline__ void encode_half(const float (&p)[3], int levels, int half,
                                             uint8_t* tile, int row, bf16* out) {
+  const int c0 = 32 * half, n = 3 * (2 * levels + 1);
   auto put = [&](int col, float v) {
+    if (col < c0 || col >= c0 + 32) return;
     const bf16 h = __float2bfloat16_rn(v);
     *reinterpret_cast<bf16*>(tile + sw_off(row, col)) = h;
     if (out) out[col] = h;
   };
-  const int split = (levels + 1) / 2;
   if (half == 0) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) put(c, p[c]);
   }
-  for (int l = half ? split : 0; l < (half ? levels : split); ++l) {
+  const int hi = half ? levels : min(levels, 5);
+#pragma unroll 1
+  for (int l = half ? 4 : 0; l < hi; ++l) {
     const float f = ldexpf(1.f, l);  // exact power of two
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -303,28 +370,58 @@ __device__ __forceinline__ void encode_half(const float (&p)[3], int levels, int
       put(3 * (2 + 2 * l) + c, co);
     }
   }
-  if (half == 1) {
-    const bf16 zero = __float2bfloat16_rn(0.f);
-    for (int col = 3 * (2 * levels + 1); col < 64; ++col)
-      *reinterpret_cast<bf16*>(tile + sw_off(row, col)) = zero;
-  }
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int col = max(n, c0); col < c0 + 32; ++col)
+    *reinterpret_cast<bf16*>(tile + sw_off(row, col)) = zero;
 }
 
 // zeros in half of a row's 64 columns (the rows past M)
 __device__ __forceinline__ void zero_half(uint8_t* tile, int row, int half) {
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  for (int col = 32 * half; col < 32 * half + 32; ++col)
-    *reinterpret_cast<bf16*>(tile + sw_off(row, col)) = zero;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    *reinterpret_cast<uint4*>(tile + sw_off(row, 32 * half + 8 * k)) = make_uint4(0, 0, 0, 0);
 }
 
-// One encoding of this warpgroup's 64 rows into `tile`, two threads a row:
-// the position encoding (dir false) of o + r z (A) or the points (C), or
-// the direction encoding (dir true) of the ray's (A) or the point's (C)
-// view direction; A's saving forward also writes the direction encoding
-// per ray, from the ray's first sample.
+// The inputs of one row's encoding, loaded a phase or a tile before it is
+// taken so that their latency passes under other work: the position
+// encoding's o, r and z of the row's ray and sample (A) or its point (C),
+// the direction encoding's view direction
+struct EncIn {
+  float v[7];
+};
+
+__device__ __forceinline__ int enc_row(int wg, int t) { return wg * WG_ROWS + (t & 63); }
+
+__device__ __forceinline__ EncIn enc_load(const Args& p, bool dir, int m) {
+  EncIn in{};
+  if (m >= p.m) return in;
+  if (p.mode == MODE_POINTS) {
+    const float* src = (dir ? p.dirs : p.x0) + static_cast<int64_t>(m) * 3;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) in.v[c] = src[c];
+  } else {
+    const int ray = m / p.S;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) in.v[c] = (dir ? p.dirs : p.x0)[ray * 3 + c];
+    if (!dir) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) in.v[3 + c] = p.x1[ray * 3 + c];
+      in.v[6] = p.z[m];
+    }
+  }
+  return in;
+}
+
+// One encoding of this warpgroup's 64 rows into `tile`, two threads a row
+// (warps 0, 1 of the warpgroup columns 0 .. 31 of its rows, warps 2, 3
+// columns 32 .. 63, so no warp diverges on its half): the position
+// encoding (dir false) of o + r z (A) or the points (C), or the direction
+// encoding (dir true) of the ray's (A) or the point's (C) view direction;
+// A's saving forward also writes the direction encoding per ray, from the
+// ray's first sample. `in`: enc_load's inputs of this thread's row.
 __device__ __forceinline__ void encode_rows(const Args& p, uint8_t* tile, bool dir, int wg, int t,
-                                            int row0) {
-  const int row = wg * WG_ROWS + (t >> 1), half = t & 1;
+                                            int row0, const EncIn& in) {
+  const int row = enc_row(wg, t), half = t >> 6;
   const int m = row0 + row;
   if (m >= p.m) {
     zero_half(tile, row, half);
@@ -332,22 +429,11 @@ __device__ __forceinline__ void encode_rows(const Args& p, uint8_t* tile, bool d
   }
   float x[3];
   bf16* out = nullptr;
-  if (p.mode == MODE_POINTS) {
-    const float* src = (dir ? p.dirs : p.x0) + static_cast<int64_t>(m) * 3;
+  if (p.mode != MODE_POINTS && dir && p.denc_rays && m % p.S == 0)
+    out = p.denc_rays + static_cast<int64_t>(m / p.S) * p.ld_denc;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) x[c] = src[c];
-  } else {
-    const int ray = m / p.S;
-    if (dir) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) x[c] = p.dirs[ray * 3 + c];
-      if (p.denc_rays && m % p.S == 0) out = p.denc_rays + static_cast<int64_t>(ray) * p.ld_denc;
-    } else {
-      const float zz = p.z[m];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) x[c] = expand(p.x0[ray * 3 + c], p.x1[ray * 3 + c], zz);
-    }
-  }
+  for (int c = 0; c < 3; ++c)
+    x[c] = p.mode != MODE_POINTS && !dir ? expand(in.v[c], in.v[3 + c], in.v[6]) : in.v[c];
   encode_half(x, dir ? p.l_dir : p.l_pos, half, tile, row, out);
 }
 
@@ -355,35 +441,54 @@ __device__ __forceinline__ void encode_rows(const Args& p, uint8_t* tile, bool d
 // Epilogues, heads, compositing
 // ---------------------------------------------------------------------------
 
+// a and b rounded to bf16, a in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
 // out = act(acc + bias) rounded to bf16 into this warpgroup's rows of the
-// activation tile, in gemm_sm90_kernel's order
+// activation tile, in gemm_sm90_kernel's order. A thread's values are the
+// accumulator fragment: for each 8-column block j, columns 8 j + cq, + 1 of
+// rows rl and rl + 8 -- the fragment of two 8 x 8 matrices that stmatrix
+// stores, four a time.
 template <int N, int R>
 __device__ __forceinline__ void epilogue(const float (&acc)[R], const float* __restrict__ bias,
                                          bool relu, uint8_t* act, int wg, int t) {
-  const int rl = wg * WG_ROWS + (t >> 5) * 16 + ((t & 31) >> 2);
-  const int cq = (t & 3) * 2;
-  // sw_off(rl + 8 h, 8 j + cq): column 8 j + cq is byte 2 cq of chunk j % 8
-  // of k-block j / 8, and rows rl and rl + 8 swizzle alike
-  uint8_t* row = act + rl * ROW_BYTES + 2 * cq;
-  const int x = (rl & 7) << 4;
+  const int lane = t & 31, cq = (lane & 3) * 2;
+  // lane L addresses row L % 8 + 8 ((L / 8) % 2) of the warp's 16 rows in
+  // column block j + L / 16
+  const int r = wg * WG_ROWS + (t >> 5) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const uint32_t row = smem_u32(act) + r * ROW_BYTES;
+  const int x = r & 7, jl = lane >> 4;
+  // every bias first: a load may not pass a store to the tile, and one at
+  // a time each would wait out its latency
+  float2 bj[N / 8];
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    const float2 b = *reinterpret_cast<const float2*>(bias + j * 8 + cq);
-    uint8_t* out = row + (j >> 3) * KB_BYTES + (((j & 7) << 4) ^ x);
+  for (int j = 0; j < N / 8; ++j) bj[j] = *reinterpret_cast<const float2*>(bias + j * 8 + cq);
+  auto val = [&](int i, float b) {
+    const float v = acc[i] + b;
+    return relu ? fmaxf(v, 0.f) : v;
+  };
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-      v0 += b.x;
-      v1 += b.y;
-      if (relu) {
-        v0 = fmaxf(v0, 0.f);
-        v1 = fmaxf(v1, 0.f);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * h * ROW_BYTES) = __floats2bfloat162_rn(v0, v1);
+  for (int j = 0; j < N / 8; j += 2) {
+    uint32_t q[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // blocks j, j + 1; rows rl, rl + 8
+      const int jj = j + (k >> 1), h = k & 1;
+      q[k] = pack_bf16(val(4 * jj + 2 * h, bj[jj].x), val(4 * jj + 2 * h + 1, bj[jj].y));
     }
+    const int cb = j + jl;
+    stmatrix_x4(row + (cb >> 3) * KB_BYTES + (((cb & 7) ^ x) << 4), q[0], q[1], q[2], q[3]);
   }
 }
-
 
 // A layer's epilogue in this warpgroup: wait until the last saves have read
 // the tile and every warp's products have retired, write, make the writes
@@ -425,39 +530,64 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// raw_sigma of this warp's 16 rows = a13 @ wd + bd, as heads_fwd_kernel
+// raw_sigma of this warp's 16 rows = a13 @ wd + bd, as heads_fwd_kernel:
+// lane l sums its columns l, l + 32, ... in order, then the warp's
+// butterfly. The 16 rows' sums are independent: all loads first, then the
+// shuffles, then the stores, so their latencies overlap.
 template <int D>
 __device__ __forceinline__ void density_head(const uint8_t* act, const bf16* wd, float bd,
                                              float4* raw, int row_base, int lane) {
+  constexpr int Q = D / 32;
+  float w[Q], s[16];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) w[q] = __bfloat162float(wd[lane + 32 * q]);
+#pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const int row = row_base + i;
-    float s = 0.f;
-    for (int k = lane; k < D; k += 32) s += tile_at(act, row, k) * __bfloat162float(wd[k]);
-    s = warp_sum(s);
-    if (lane == 0) raw[row].x = s + bd;
+    s[i] = 0.f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) s[i] += tile_at(act, row_base + i, lane + 32 * q) * w[q];
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = warp_sum(s[i]);
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) raw[row_base + i].x = s[i] + bd;
   }
 }
 
-// raw_rgb of this warp's 16 rows = hr @ wc + bc, as heads_fwd_kernel
+// raw_rgb of this warp's 16 rows = hr @ wc + bc, as heads_fwd_kernel, in
+// the order of density_head
 template <int H2>
 __device__ __forceinline__ void rgb_head(const uint8_t* act, const bf16* wc, const float* bc,
                                          float4* raw, int row_base, int lane) {
+  constexpr int Q = H2 / 32;
+  float w[Q][3], c[16][3];
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) w[q][j] = __bfloat162float(wc[(lane + 32 * q) * 3 + j]);
+#pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const int row = row_base + i;
-    float c0 = 0.f, c1 = 0.f, c2 = 0.f;
-    for (int k = lane; k < H2; k += 32) {
-      const float v = tile_at(act, row, k);
-      c0 += v * __bfloat162float(wc[k * 3]);
-      c1 += v * __bfloat162float(wc[k * 3 + 1]);
-      c2 += v * __bfloat162float(wc[k * 3 + 2]);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) c[i][j] = 0.f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const float v = tile_at(act, row_base + i, lane + 32 * q);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) c[i][j] += v * w[q][j];
     }
-    c0 = warp_sum(c0);
-    c1 = warp_sum(c1);
-    c2 = warp_sum(c2);
-    if (lane == 0) {
-      raw[row].y = c0 + bc[0];
-      raw[row].z = c1 + bc[1];
-      raw[row].w = c2 + bc[2];
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) c[i][j] = warp_sum(c[i][j]);
+  if (lane == 0) {
+    const float b0 = bc[0], b1 = bc[1], b2 = bc[2];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      raw[row_base + i].y = c[i][0] + b0;
+      raw[row_base + i].z = c[i][1] + b1;
+      raw[row_base + i].w = c[i][2] + b2;
     }
   }
 }
@@ -481,6 +611,77 @@ __device__ __forceinline__ float alpha_of(float d, float delta, int s, int n_sam
   return s == n_samples - 1 ? 1.f : 1.f - expf(-d * delta);
 }
 
+// composite_fwd_kernel's running sums over a ray's samples
+struct Scan {
+  float trans, r, g, b, d, w;
+};
+
+// n more samples of a ray into its running sums, in composite_fwd_kernel's
+// operation order
+__device__ __forceinline__ void scan_rows(const float4* c4, const float* z, int n, Scan& s) {
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) {
+    const float4 c = c4[i];
+    const float w = c.x * s.trans;
+    s.r += w * c.y;
+    s.g += w * c.z;
+    s.b += w * c.w;
+    s.d += w * z[i];
+    s.w += w;
+    s.trans *= 1.f - c.x + 1e-6f;
+  }
+}
+
+__device__ __forceinline__ void write_ray(const Args& p, int ray, Scan s) {
+  if (p.f.white_bg) {
+    s.r += 1.f - s.w;
+    s.g += 1.f - s.w;
+    s.b += 1.f - s.w;
+  }
+  p.out0[ray * 3] = s.r;
+  p.out0[ray * 3 + 1] = s.g;
+  p.out0[ray * 3 + 2] = s.b;
+  p.out1[ray] = s.d;
+}
+
+// The compositing of a tile's rays (A, 128 % S == 0) from each row's alpha
+// and sigmoids in comp / z, one thread per ray. A ray of S <= 64 samples
+// lies in one warpgroup's rows and that warpgroup scans it; at S = 128 (the
+// tile one ray) warpgroup 0 scans the first 64 samples and hands its sums
+// to warpgroup 1, which scans the rest -- one sequence of operations, in
+// order, split between two threads.
+__device__ __forceinline__ void composite(const Args& p, const float4* comp, const float* z,
+                                          Scan* handoff, int wg, int t, int row0) {
+  const Scan start{1.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (p.S <= WG_ROWS) {
+    wg_barrier(1 + wg);  // the warpgroup's rows are in
+    const int rays = WG_ROWS / p.S;
+    if ((t * rays) % 128 == 0) {
+      const int first = wg * WG_ROWS + t * rays / 128 * p.S, ray = (row0 + first) / p.S;
+      if (ray < p.n_rays) {
+        Scan s = start;
+        scan_rows(comp + first, z + first, p.S, s);
+        write_ray(p, ray, s);
+      }
+    }
+  } else if (wg == 0) {
+    wg_barrier(1);
+    if (t == 0) {
+      Scan s = start;
+      scan_rows(comp, z, WG_ROWS, s);
+      *handoff = s;
+    }
+    pair_arrive();
+  } else {
+    pair_sync();  // warpgroup 1's rows and warpgroup 0's sums are in
+    if (t == 0) {
+      Scan s = *handoff;
+      scan_rows(comp + WG_ROWS, z + WG_ROWS, WG_ROWS, s);
+      write_ray(p, row0 / p.S, s);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
@@ -489,7 +690,7 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
     mlp_fused_fwd_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Args p) {
   using L = Smem<D>;
-  constexpr int KT = L::KT, H2 = D / 2, STAGE = L::STAGE;
+  constexpr int KT = L::KT, H2 = D / 2, STAGES = L::STAGES;
   constexpr int ACC = D / 2;  // f32 accumulators a thread: m64nD
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle needs 1024-byte-aligned tiles
@@ -499,6 +700,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   float4* raw_s = reinterpret_cast<float4*>(base + L::RAW);
   float4* comp_s = reinterpret_cast<float4*>(base + L::COMP);
   float* z_s = reinterpret_cast<float*>(base + L::ZS);
+  Scan* scan_s = reinterpret_cast<Scan*>(base + L::SCAN);
   bf16* wd_s = reinterpret_cast<bf16*>(base + L::WD);
   bf16* wc_s = reinterpret_cast<bf16*>(base + L::WC);
   float* bias_s = reinterpret_cast<float*>(base + L::BIAS);
@@ -513,18 +715,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(smem_u32(full + s), 1);
-      mbar_init(smem_u32(empty + s), CONSUMERS);
+      mbar_init(smem_u32(empty + s), THREADS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-
-  if (threadIdx.x >= CONSUMERS) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == CONSUMERS) produce<D>(maps, tiles, smem_u32(base + L::RING), full, empty);
-    return;
-  }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
 
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
   const int warp_rows = wg * WG_ROWS + (t >> 5) * 16, lane = t & 31;
@@ -533,15 +728,42 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float bd = p.bd[0];
   const bool save = p.save != 0;
   auto sv = [&](int i) { return save ? &maps.s[i] : nullptr; };
-  Ring ring{smem_u32(base + L::RING), full, empty, 0, 0u, -1};
+  // this block's tiles: blockIdx.x, + gridDim.x, ...
+  const int my_tiles = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  Ring ring{smem_u32(base + L::RING), full, empty, &maps, my_tiles * (3 + 9 * KT), 0, -1,
+            wg == 1 && t == 0};
+  if (ring.loader) {
+    for (int x = 0; x < STAGES; ++x) ring_load<D>(ring, x);
+  }
 
-  int parity = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, parity ^= 1) {
+  // a turn: this warpgroup's first n k-tiles of an operand at shared
+  // address `a` into `acc`, the turn taken before and passed once they are
+  // issued, then their products retired under the other's turn (every
+  // stage released: the other's next turn may need them all)
+  auto turn = [&](auto& acc, uint32_t a, int n, bool zero) {
+    constexpr int N = 2 * sizeof(acc) / sizeof(float);
+    turn_take(wg);
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) mma_ktile<N, D>(acc, a + j * KB_BYTES, ring, zero && j == 0);
+    turn_pass(wg);
+    mma_drain<D>(acc, ring);
+  };
+  if (wg == 1) turn_pass(wg);  // warpgroup 0 takes the first turn
+  const int erow = enc_row(wg, t);
+  EncIn pos_in = enc_load(p, false, blockIdx.x * BM + erow);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int row0 = tile * BM;
+    // this tile's direction and the next tile's position inputs, in flight
+    // from here to their encodings
+    const EncIn dir_in = enc_load(p, true, row0 + erow);
+    const EncIn next_in = tile + gridDim.x < tiles
+                              ? enc_load(p, false, row0 + gridDim.x * BM + erow)
+                              : EncIn{};
     // the position encoding, once the last tile's saves have read the tile
     if (t == 0) bulk_wait_read();
     wg_barrier(1 + wg);
-    encode_rows(p, enc, false, wg, t, row0);
+    encode_rows(p, enc, false, wg, t, row0, pos_in);
+    pos_in = next_in;
     fence_async_smem();
     wg_barrier(1 + wg);
     if (save && t == 0) {
@@ -549,65 +771,47 @@ __global__ void __launch_bounds__(THREADS, 1)
       bulk_commit();
     }
 
-    // trunk0_0 .. trunk0_3 (the accumulators live from here to rgb_layer's
-    // epilogue, none across the encoding)
+    // the trunk, a layer an iteration: trunk0_0 on the encoding, trunk0_1
+    // .. trunk1_3 on the activation tile, trunk1_0 also on the encoding (a
+    // second turn: at D = 256 five k-tiles would not fit the ring's four
+    // stages). The accumulators live from here to fc_feature's epilogue.
     float acc[ACC];
 #pragma unroll
     for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
-    mma_ktile<D, STAGE>(acc, enc_a, ring, true);
-    mma_drain(acc, ring);
-    finish_layer<D>(acc, bias_s, true, act, sv(S_ACT0), wg, t, row0);
-#pragma unroll
-    for (int l = 1; l < 4; ++l) {
-#pragma unroll
-      for (int j = 0; j < KT; ++j) mma_ktile<D, STAGE>(acc, act_a + j * KB_BYTES, ring, j == 0);
-      mma_drain(acc, ring);
-      finish_layer<D>(acc, bias_s + l * D, true, act, sv(S_ACT0 + l), wg, t,
-                      row0);
-    }
-    // trunk1_0: [a03, enc] as two operand pairs; trunk1_1 .. trunk1_3
-#pragma unroll
-    for (int j = 0; j < KT; ++j) mma_ktile<D, STAGE>(acc, act_a + j * KB_BYTES, ring, j == 0);
-    mma_ktile<D, STAGE>(acc, enc_a, ring, false);
-    mma_drain(acc, ring);
-    finish_layer<D>(acc, bias_s + 4 * D, true, act, sv(S_ACT0 + 4), wg, t,
-                    row0);
-    // the direction encoding into the encoding tile, which trunk1_0 and the
-    // save (finish_layer waited for it) have read
-    encode_rows(p, enc, true, wg, t, row0);
-    fence_async_smem();
-    wg_barrier(1 + wg);
-    if (save && t == 0 && p.mode == MODE_POINTS) {
-      tma_store(&maps.s[S_DENC], enc_a, 0, row0 + wg * WG_ROWS);
-      bulk_commit();
-    }
-#pragma unroll
-    for (int l = 5; l < 8; ++l) {
-#pragma unroll
-      for (int j = 0; j < KT; ++j) mma_ktile<D, STAGE>(acc, act_a + j * KB_BYTES, ring, j == 0);
-      mma_drain(acc, ring);
-      finish_layer<D>(acc, bias_s + l * D, true, act, sv(S_ACT0 + l), wg, t,
-                      row0);
+#pragma unroll 1
+    for (int l = 0; l < 8; ++l) {
+      if (l == 0) {
+        turn(acc, enc_a, 1, true);
+      } else {
+        turn(acc, act_a, KT, true);
+        if (l == 4) turn(acc, enc_a, 1, false);
+      }
+      finish_layer<D>(acc, bias_s + l * D, true, act, sv(S_ACT0 + l), wg, t, row0);
+      if (l == 4) {
+        // the direction encoding into the encoding tile, which trunk1_0
+        // and the save (finish_layer waited for it) have read
+        encode_rows(p, enc, true, wg, t, row0, dir_in);
+        fence_async_smem();
+        wg_barrier(1 + wg);
+        if (save && t == 0 && p.mode == MODE_POINTS) {
+          tma_store(&maps.s[S_DENC], enc_a, 0, row0 + wg * WG_ROWS);
+          bulk_commit();
+        }
+      }
     }
     // fc_density on a13 (this warp's rows, which it wrote)
     density_head<D>(act, wd_s, bd, raw_s, warp_rows, lane);
     // fc_feature (no ReLU)
-#pragma unroll
-    for (int j = 0; j < KT; ++j) mma_ktile<D, STAGE>(acc, act_a + j * KB_BYTES, ring, j == 0);
-    mma_drain(acc, ring);
+    turn(acc, act_a, KT, true);
     finish_layer<D>(acc, bias_s + 8 * D, false, act, sv(S_FEAT), wg, t, row0);
     // rgb_layer: the direction half and the feature half in accumulators
-    // of their own
+    // of their own, a turn each (five k-tiles would not fit four stages)
     {
       float dir[H2 / 2], rgb[H2 / 2];
 #pragma unroll
       for (int i = 0; i < H2 / 2; ++i) dir[i] = rgb[i] = 0.f;
-      mma_ktile<H2, STAGE>(dir, enc_a, ring, true);
-#pragma unroll
-      for (int j = 0; j < KT; ++j)
-        mma_ktile<H2, STAGE>(rgb, act_a + j * KB_BYTES, ring, j == 0);
-      mma_drain(rgb, ring);
-      fence_regs(dir);
+      turn(dir, enc_a, 1, true);
+      turn(rgb, act_a, KT, true);
       finish_rgb<H2>(rgb, dir, bias_s + 9 * D, act, sv(S_HR), wg, t, row0);
     }
     rgb_head<H2>(act, wc_s, p.bc, raw_s, warp_rows, lane);
@@ -626,47 +830,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       } else if (p.mode == MODE_COMPOSITE) {
         const float alpha = alpha_of(density_act(rw.x, p.f), p.deltas[m], m % p.S, p.S, p.f);
         p.alpha[m] = alpha;
-        comp_s[parity * BM + row] = make_float4(alpha, sigmoid(rw.y), sigmoid(rw.z), sigmoid(rw.w));
-        z_s[parity * BM + row] = p.z[m];
+        comp_s[row] = make_float4(alpha, sigmoid(rw.y), sigmoid(rw.z), sigmoid(rw.w));
+        z_s[row] = p.z[m];
       }
     }
-    if (p.mode == MODE_COMPOSITE && wg == 0) {
-      pair_arrive();
-    } else if (p.mode == MODE_COMPOSITE) {
-      // once warpgroup 0's rows are in, one thread of warpgroup 1 per ray
-      // scans its samples in composite_fwd_kernel's order
-      pair_sync();
-      const int rays = BM / p.S;
-      if ((t * rays) % 128 == 0) {
-        const int r = t * rays / 128, ray = row0 / p.S + r;
-        if (ray < p.n_rays) {
-          const float4* c4 = comp_s + parity * BM + r * p.S;
-          const float* zr = z_s + parity * BM + r * p.S;
-          float trans = 1.f, rr = 0.f, g = 0.f, b = 0.f, dd = 0.f, wsum = 0.f;
-          for (int s = 0; s < p.S; ++s) {
-            const float4 c = c4[s];
-            const float w = c.x * trans;
-            rr += w * c.y;
-            g += w * c.z;
-            b += w * c.w;
-            dd += w * zr[s];
-            wsum += w;
-            trans *= 1.f - c.x + 1e-6f;
-          }
-          if (p.f.white_bg) {
-            rr += 1.f - wsum;
-            g += 1.f - wsum;
-            b += 1.f - wsum;
-          }
-          p.out0[ray * 3] = rr;
-          p.out0[ray * 3 + 1] = g;
-          p.out0[ray * 3 + 2] = b;
-          p.out1[ray] = dd;
-        }
-      }
-    }
+    if (p.mode == MODE_COMPOSITE) composite(p, comp_s, z_s, scan_s, wg, t, row0);
     __syncwarp();  // converged again for the next tile's wgmmas
   }
+  if (wg == 0) turn_take(wg);  // warpgroup 1's last turn_pass
   if (t == 0) bulk_wait();
 }
 

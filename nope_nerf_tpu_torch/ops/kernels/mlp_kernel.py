@@ -1045,7 +1045,9 @@ def fused_fwd_maps(Wt, dims, saves, points):
 def fused_fwd(Wt, Wh, Bs, dims, mode, levels, S, inputs, outs, flags,
               saves=None, raw=None):
     """One launch of the fused forward (csrc/mlp_fused_fwd.cu), counted in
-    :data:`MLP_FUSED_FWD_LAUNCHES`.
+    :data:`MLP_FUSED_FWD_LAUNCHES`, and its 128-point tiles in the tracing
+    counter ``mlp.fused_fwd_tiles`` (:func:`tracing.count`; a launch
+    captured into a CUDA graph counts once, at capture, not per replay).
 
     ``Wt``/``Wh``/``Bs``: :func:`_kernel_weights`' K-major weights, head
     weights and biases; ``mode``: :data:`MODE_COMPOSITE` (Kernel A, 128 %
@@ -1104,6 +1106,7 @@ def fused_fwd(Wt, Wh, Bs, dims, mode, levels, S, inputs, outs, flags,
         ctypes.addressof(ints), _stream(x0))
     check(err, "mlp_fused_fwd")
     MLP_FUSED_FWD_LAUNCHES.add()
+    tracing.count("mlp.fused_fwd_tiles", -(-M // FUSED_TILE))
 
 
 # ---------------------------------------------------------------------------

@@ -467,6 +467,45 @@ def test_fused_saves_equal_the_layer_by_layer_forward(dev, S, D, act,
             assert torch.equal(x[:, :width], y[:, :width]), i
 
 
+# larger cases of the fused forward, where its two consumer warpgroups take
+# many turns on the tensor cores over many tiles a block: (rays of 128
+# samples, save) -- the eval render's 16,384-ray chunk without saves (124
+# rounds of the H100's 132 blocks and 16 tiles more), and a saving forward
+# over 1,031 rays whose last round of tiles covers 107 of the 132 blocks
+FUSED_LARGE_CASES = [(16384, False), (1031, True)]
+
+
+@pytest.mark.parametrize("N,save", FUSED_LARGE_CASES)
+def test_fused_forward_large_equals_the_layer_by_layer_forward(dev, N, save):
+    """Kernel A's fused forward at the stock width over many tiles: outputs
+    (and with ``save`` the 13 tensors its backward reads) bit for bit those
+    of the layer-by-layer forward and of a second run, and the tracing
+    counter ``mlp.fused_fwd_tiles`` grown by the points / 128."""
+    from nope_nerf_tpu_torch import tracing
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    S = 128
+    ws, geo, z, deltas, _ = _kernel_a_inputs(dev, N, S, 256, 16)
+    geo = [g.contiguous() for g in geo]
+    cfg = (10, 4, "softplus", True, False, False, S)
+    tiles0 = tracing.counters().get("mlp.fused_fwd_tiles", 0)
+    runs = [mk._composite_fwd(*geo, z, deltas, cfg, ws, save=save)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (tracing.counters()["mlp.fused_fwd_tiles"] - tiles0
+            == 2 * N * S // 128)
+    out_l, dims, sav_l = mk._composite_fwd_layered(*geo, z, deltas, cfg, ws,
+                                                   save=save)
+    widths = {0: dims[0], 1: dims[1]}
+    for out_f, _, sav_f in runs:
+        for x, y in zip(out_f, out_l):
+            assert torch.equal(x, y)
+        if save:
+            for i, (x, y) in enumerate(zip(sav_f[5:18], sav_l[5:18])):
+                w = widths.get(i, x.shape[1])
+                assert torch.equal(x[:, :w], y[:, :w]), i
+
+
 @pytest.mark.parametrize("kernel", ["A", "C"])
 def test_fused_forward_gradients_match_plain(dev, kernel):
     """The fused forward + the unchanged backward at the recovery scripts'

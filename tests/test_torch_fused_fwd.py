@@ -237,6 +237,47 @@ def test_fused_fwd_rejects_what_it_cannot_take():
         mk.fused_fwd(*args(64)[:10], saves={})
 
 
+@pytest.mark.parametrize("mode,points,S", [("A", 37 * 128, 128),
+                                            ("A", 5 * 64, 64),
+                                            ("C", 300, 1)])
+def test_fused_fwd_counts_its_tiles(monkeypatch, mode, points, S):
+    """One launch of the fused forward adds its 128-point tiles (a partial
+    last one included) to the tracing counter ``mlp.fused_fwd_tiles`` and
+    one launch to MLP_FUSED_FWD_LAUNCHES (the C entry replaced by a
+    recorder: the kernel runs only on the card)."""
+    from nope_nerf_tpu_torch import tracing
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    launched = []
+    monkeypatch.setattr(mk, "c_function",
+                        lambda name, sig: lambda *a: launched.append(name)
+                        or 0)
+    monkeypatch.setattr(mk, "_stream", lambda t: 0)
+    ws = _weights(64)
+    Wt, _, Wh, Bs = mk._kernel_weights(ws, False)
+    dims = mk._dims(ws, 10, 4)
+    if mode == "A":
+        N = points // S
+        inputs = (torch.zeros((N, 3)), torch.zeros((N, 3)),
+                  torch.zeros((N, 3)), torch.zeros((N, S)),
+                  torch.zeros((N, S)))
+        outs = (torch.zeros((N, 3)), torch.zeros((N, 1)), torch.zeros((N, S)))
+        kind = mk.MODE_COMPOSITE
+    else:
+        inputs = (torch.zeros((points, 3)), None, torch.zeros((points, 3)),
+                  None, None)
+        outs = (torch.zeros((points, 3)), torch.zeros((points, 1)), None)
+        kind = mk.MODE_POINTS
+    tiles0 = tracing.counters().get("mlp.fused_fwd_tiles", 0)
+    n0 = mk.MLP_FUSED_FWD_LAUNCHES.count
+    mk.fused_fwd(Wt, Wh, Bs, dims, kind, (10, 4), S, inputs, outs,
+                 (1, 1, 0, 0))
+    assert launched == ["nnt_mlp_fused_fwd"]
+    assert mk.MLP_FUSED_FWD_LAUNCHES.count == n0 + 1
+    assert (tracing.counters()["mlp.fused_fwd_tiles"] - tiles0
+            == -(-points // 128))
+
+
 @pytest.mark.parametrize("S,levels", [(64, (10, 4)), (48, (4, 2))])
 def test_composite_plain_version_vs_pallas_at_other_shapes(S, levels):
     """Kernel A's plain version (what the fused forward is held to on the
