@@ -10,47 +10,30 @@ Builds the port's CUDA kernels from ``nope_nerf_tpu_torch/csrc``, holds each
 of the six kernels against its plain PyTorch version at the shapes of the
 training step (A: fused MLP + compositing, fwd and bwd; B: banded Chamfer;
 C: per-point fused MLP, fwd and bwd; D: exact Chamfer). A-fwd and C-fwd are
-one launch each of ``csrc/mlp_fused_fwd.cu``: their outputs and the 13
-tensors a saving forward stores for the backward must equal those of the
-layer-by-layer forward it replaced bit for bit (at the stock shapes, and
-for A also on the raw route of an S that does not tile 128 points, where
-``composite_fwd`` runs after it), and each forward is timed in turns
-against the layer-by-layer one and the plain version (CUDA events and the
-profiler's device time) at the stock shapes, without saves, at k = 4
-frames and at the recovery scripts' width (hidden 128, 64 samples).
-B's split-band kernel must return the indices of the per-query kernel
-(``chamfer_band._nearest_idx_banded_per_query``) bit for bit, on the stock
-pair and at every recorded call of the training phases, and is timed in
-turns with it (events and device time); D's device time stands beside its
-events time. A-bwd and C-bwd run ten passes of ``csrc/mlp_fused_bwd.cu``
-(each layer's input and weight gradient in one pass): at the same three
-shapes their gradients are held against the plain version (GRAD_RELL2) and
-against the layer-by-layer backward they replaced
-(``mlp_kernel._chain_bwd_layered``, BWD_LAYERED_RELL2), a rerun must be
-bitwise, and the two backwards are timed in turns with the kernels each
-launches per call and both memory floors (fused and layer-by-layer). Then
-it runs the GEMM phase (the layer-by-layer forward's TMA + wgmma layer
-GEMM of ``csrc/mlp_gemm_sm90.cu``, which no path runs since the fused
-forward, at four layer shapes at M = 131,072: its error against
-``gemm_fwd_reference`` in bf16 ulps, a bitwise rerun, and its time beside
-the WMMA GEMM it replaced, ``torch.addmm`` in bf16 as the cuBLAS
-yardstick, and the memory bound) and the backward GEMM phase (A-bwd's and
-C-bwd's input-gradient GEMM ``gemm_dgrad`` at five shapes and their
-weight-gradient GEMM ``gemm_wgrad`` at three, with Kernel A's per-ray
-direction weight gradient, in the same file, at M = 131,072: error against
-the plain versions, bitwise rerun, time beside the WMMA ``gemm_nn`` /
-``gemm_tn`` they replaced, ``torch.mm`` in bf16 and the memory bound; the
-two narrow heads' weight gradients beside them; both on no path since the
-fused backward), the fused backward pass phase (each pass of the backward
-at M = 131,072 against ``gemm_dwgrad_reference``, bitwise rerun, device
-time beside the layer-by-layer dgrad + wgrad pair, the plain version and
-the memory bound), the compositing / encoding backward phase (Kernel A's
-``composite_bwd`` and ``encode_bwd`` at the stock shapes, k = 4 and the
-recovery width, on the inputs a full and an input-only backward give them:
-bit for bit against the per-ray kernels they replaced, within
-A_BWD_PLAIN_RELL2 of their plain versions, each timed alone in turns with
-the old one beside its bound; the whole A-bwd, full and input-only, bit
-for bit against the same backward on the old pair, timed in turns, and its
+one launch each of ``csrc/mlp_fused_fwd.cu``: their outputs against the
+plain version, and the 13 tensors a saving forward stores for the backward
+against the plain chain's within SAVES_RELL2 (tests/_mlp_saves.py; at the
+stock shapes, and for A also on the raw route of an S that does not tile
+128 points, where ``composite_fwd`` runs after it); each forward is timed
+beside the plain version (CUDA events and the profiler's device time) at
+the stock shapes, without saves, at k = 4 frames and at the recovery
+scripts' width (hidden 128, 64 samples). B's split-band kernel must return
+the plain version's indices bit for bit, on the stock pair and at every
+recorded call of the training phases, and is timed beside it (events and
+device time); D's device time stands beside its events time. A-bwd and
+C-bwd run ten passes of ``csrc/mlp_fused_bwd.cu`` (each layer's input and
+weight gradient in one pass): at the same three shapes their gradients are
+held against the plain version (GRAD_RELL2), a rerun must be bitwise, and
+each backward is timed beside the plain version with the kernels it
+launches per call and its memory floor. Then it runs the fused backward
+pass phase (each pass of the backward at M = 131,072 against
+``gemm_dwgrad_reference``, bitwise rerun, device time beside the plain
+version and the memory bound), the compositing / encoding backward phase
+(Kernel A's ``composite_bwd`` and ``encode_bwd`` at the stock shapes, k = 4
+and the recovery width, on the inputs a full and an input-only backward
+give them: a rerun bit for bit, within A_BWD_PLAIN_RELL2 of their plain
+versions, each timed alone beside its plain version and its bound; the
+whole A-bwd, full and input-only, timed, its launches counted and its
 device time split by kernel), the reference pair phase
 (``check_ref_pair``: ``csrc/ref_pair.cu`` against its plain version at
 Tanks' and LLFF's cloud grids in every PAIR_CASES case, outputs, start
@@ -85,13 +68,11 @@ captured CUDA graph of the step after its eager warm-up step):
 and checks that each run went through every kernel it should reach
 (launches run: eager calls plus each captured graph's launches times its
 replays; the
-fused forward once per forward of A or C and the layer-by-layer forward's
-GEMM never, the fused backward pass 10 times per backward, the launches
-that serve only the weight gradients twice (A) or once (C) per backward
-that needs them, the layer-by-layer backward's GEMMs and the WMMA GEMM
-never; Kernel A once each way, its compositing and
-encoding backward once each and their per-ray predecessors never, and
-Kernel B twice in every training step of the runs on Kernel A) and prints the last epoch's
+fused forward once per forward of A or C, the fused backward pass 10 times
+per backward, the launches that serve only the weight gradients twice (A)
+or once (C) per backward that needs them; Kernel A once each way, its
+compositing and encoding backward once each, and Kernel B twice in every
+training step of the runs on Kernel A) and prints the last epoch's
 ms/step (wall on the host clock, and device) and rays/s of stock,
 multiplier, ssim_normal and multiplier_per_step side by side.
 
@@ -115,11 +96,10 @@ input-only backward, the 540x960 render through Kernel A's forward, PSNR /
 SSIM, PNGs and video), checks its launch counts (Kernel A both ways, no
 weight-gradient launch, no other kernel), renders a 135x240 view through
 Kernel A and through its plain version, holds the input-only backward
-bitwise to the full one, and times the render (through the fused forward
-and, in turns, the layer-by-layer one) and a pose-optimisation step with
-each backward. The eval scores LPIPS with seeded VGG16 and head
-weights in the published layouts, converted by ``python -m
-nope_nerf_tpu_torch.convert_lpips`` (finite; one 540x960 pair held to
+bitwise to the full one, and times the render (through the fused forward)
+and a pose-optimisation step with each backward. The eval scores LPIPS
+with seeded VGG16 and head weights in the published layouts, converted by
+``python -m nope_nerf_tpu_torch.convert_lpips`` (finite; one 540x960 pair held to
 float64 on the card within LPIPS_REL, which the same pair with TF32 on must
 exceed, and timed), and the stock run's parameters, written as
 the reference's four ``.pt`` streams and converted by ``python -m
@@ -187,7 +167,8 @@ late in the run), both held against their plain versions at the last
 step's inputs.
 
 Prints, in order: the card's name and power limit, the kernel build time,
-one line per kernel check, the two GEMM phases' lines, one line per epoch, the
+one line per kernel check, the fused backward pass phase's lines, one line
+per epoch, the
 training runs' checks, the scan phase's lines, the eval phase's, the DPT
 phase's, the multigpu phase's, the synthetic phase's, the recovery phase's,
 the JSON lines of the training runs, the compositing / encoding backward
@@ -205,9 +186,10 @@ rate at 0 (:func:`recovery_control`), and exits 0 when the ATE gate rejects
 it. With ``--fwd-turns OTHER.cu`` it runs only :func:`fwd_source_turns`:
 the package's fused forward and another version of
 ``csrc/mlp_fused_fwd.cu`` (e.g. a parent commit's), each built with
-``-Xptxas -v``, held bit for bit to the layer-by-layer forward and timed in
-turns against the bound: Kernel A at the eval render's chunk without saves
-and at the stock step with them, Kernel C on the stock step's points.
+``-Xptxas -v``, held to the plain version (outputs, saves), compared bit for
+bit with each other and timed in turns against the bound: Kernel A at the
+eval render's chunk without saves and at the stock step with them, Kernel C
+on the stock step's points.
 """
 import collections
 import contextlib
@@ -372,10 +354,6 @@ def run_module(*args):
 # 1.9e-6, alpha 5.7e-5, gradients relL2 <= 4.1e-3 (d_rays). The bars are
 # tightened to leave a margin of 2.4x or more over those.
 RGB_ATOL, DIST_ATOL, ALPHA_ATOL, GRAD_RELL2 = 1e-3, 1e-3, 1e-3, 1e-2
-# the fused backward against the layer-by-layer one on the same graph: the
-# same bf16 cotangents, the weight and bias gradients summed in another f32
-# order (relL2 <= 2e-5 on the H100 at the stock shapes and k = 4)
-BWD_LAYERED_RELL2 = 1e-3
 # rendering.normal_loss's normal_diff against float64 on the card, at the
 # ssim_normal run's 1,024 rays. Its f32 error is set by its few points
 # whose density gradient nearly vanishes, where normalising amplifies the
@@ -392,10 +370,11 @@ NORMAL_RELL2, SSIM_GRAD_RELL2 = 1e-4, 1e-5
 # plain compositing against Kernel A: the JAX package holds its two paths to
 # atol 2e-5 on rgb and alpha and 2e-4 on depth (tests/test_pallas.py:298-311).
 C_VS_A_ATOL, C_VS_A_DIST_ATOL = 2e-5, 2e-4
-# The forward GEMM against gemm_fwd_reference (the same bf16 operands, f32
-# sums in another order): at most one bf16 ulp, judged at the magnitude of
-# max(|ref|, |out|, max|ref| / 256) -- below that, a value is a cancellation
-# whose f32 order error is set by the terms, not by the value.
+# A fused backward pass's bf16 input gradient against
+# gemm_dwgrad_reference (the same bf16 operands, f32 sums in another order):
+# at most one bf16 ulp, judged at the magnitude of max(|ref|, |out|,
+# max|ref| / 256) -- below that, a value is a cancellation whose f32 order
+# error is set by the terms, not by the value.
 GEMM_ULPS = 1.0
 
 # the card's peaks (H100 SXM datasheet, at 700 W):
@@ -448,7 +427,7 @@ def device_ms(fn, iters=10, warmup=2):
         fn()
     torch.cuda.synchronize()
     # CUPTI now and then hands the profiler no device events for a window
-    # (seen in smoke runs on torch.mm and on the WMMA weight gradient);
+    # (seen in smoke runs on torch.mm and on a split-K weight gradient);
     # profile the window again, and after three empty windows time it with
     # CUDA events, which count the host's gaps too
     for _ in range(3):
@@ -502,43 +481,19 @@ def mlp_bounds(weights, m, io, div):
 
 
 def mlp_bwd_floor(m, D, H2, n_pos, n_dir, div, weight_grads=True):
-    """The layer-by-layer memory floor of the fused MLP's backward on ``m``
-    points, ms at the memory rate: each launch of ``_chain_bwd`` reads its
-    inputs once and writes its outputs once (bf16 cotangents and saved
-    activations, f32 g_raw and encoding cotangents), with the compositing
-    or head-activation backward (raw, the cotangents in, g_raw out) and the
-    encoding backward (its f32 cotangents in); the weights, the split
-    partials and the (m / div)-row 3-vectors are left out. ``div`` is the
-    points per direction-encoding row (S in Kernel A, 1 in C)."""
-    bf, f4 = 2.0, 4.0
-    per_row = (
-        3 * 4 * f4                                  # raw, cotangents, g_raw
-        + 4 * f4 + 2 * H2 * bf                      # heads_bwd -> g_hr
-        + (H2 * bf + D * bf) + (H2 * bf + n_dir * f4)  # rgb_layer dgrad
-        + 3 * D * bf + f4                           # fc_feature + fc_density
-        + 7 * 3 * D * bf                            # masked trunk layers
-        + 2 * (D * bf + n_pos * f4)                 # the two encoding tails
-        + (2 * n_pos + n_dir) * f4)                 # encoding backward
-    if weight_grads:
-        per_row += (
-            (H2 * bf + 4 * f4) + (D * bf + 4 * f4)  # fc_rgb, fc_density
-            + (D * bf + H2 * bf)                    # rgb_layer feat half
-            + H2 * bf + n_dir * bf / div            # its direction half
-            + 8 * 2 * D * bf                        # 256 x 256 weight GEMMs
-            + 2 * (n_pos * bf + D * bf)             # trunk1_0 enc, trunk0_0
-            + 4 * f4)                               # the heads' bias sums
-    return 1e3 * m * per_row / HBM_BYTES
-
-
-def mlp_bwd_floor_fused(m, D, H2, n_pos, n_dir, div, weight_grads=True):
-    """The fused backward's memory floor on ``m`` points, ms at the memory
-    rate: each launch of ``_chain_bwd`` reads its inputs once and writes its
-    outputs once, as :func:`mlp_bwd_floor` counts them. The heads' pass
-    reads g_raw and hr once for g_hr, fc_rgb's weight gradient and the
-    heads' biases; each layer's pass reads its cotangent and its saved
-    input once for both its input and its weight gradient (the input only
-    where a mask or a weight gradient needs it); Kernel A's per-ray
-    direction half reads g_hr again."""
+    """The fused MLP backward's memory floor on ``m`` points, ms at the
+    memory rate: each launch of ``_chain_bwd`` reads its inputs once and
+    writes its outputs once (bf16 cotangents and saved activations, f32
+    g_raw and encoding cotangents), with the compositing or head-activation
+    backward (raw, the cotangents in, g_raw out) and the encoding backward
+    (its f32 cotangents in); the weights, the split partials and the
+    (m / div)-row 3-vectors are left out. The heads' pass reads g_raw and
+    hr once for g_hr, fc_rgb's weight gradient and the heads' biases; each
+    layer's pass reads its cotangent and its saved input once for both its
+    input and its weight gradient (the input only where a mask or a weight
+    gradient needs it); Kernel A's per-ray direction half reads g_hr again.
+    ``div`` is the points per direction-encoding row (S in Kernel A, 1 in
+    C)."""
     bf, f4 = 2.0, 4.0
     per_row = (
         3 * 4 * f4                                  # raw, cotangents, g_raw
@@ -602,63 +557,25 @@ def stock_mlp_inputs(dev, N=N_RAYS, S=N_SAMPLES, hidden=None):
             t(deltas), rng, t)
 
 
-@contextlib.contextmanager
-def layered_forward():
-    """Route Kernels A and C's forwards to the layer-by-layer forward the
-    fused kernel replaced (``mlp_kernel._composite_fwd_layered`` /
-    ``_point_fwd_layered``: the encoding launches, eleven ``gemm_sm90``
-    launches, the heads and the compositing), to time it beside it."""
-    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
-
-    real = mk._composite_fwd, mk._point_fwd
-    mk._composite_fwd = mk._composite_fwd_layered
-    mk._point_fwd = mk._point_fwd_layered
-    try:
-        yield
-    finally:
-        mk._composite_fwd, mk._point_fwd = real
-
-
-def fwd_turns(call, plain, iters=10):
-    """A forward timed in turns in this call, on this card: the fused
-    kernel, the layer-by-layer forward (:func:`layered_forward`), the plain
-    version, the layer-by-layer forward and the fused kernel again (CUDA
-    events; ``ms`` and ``earlier_ms`` the means of their two turns), then
-    the device time of the fused and of the layer-by-layer forward by the
-    profiler. ``call`` and ``plain`` run the forward through the public
-    wrapper and through the plain version."""
-    def layered():
-        with layered_forward():
-            call()
-
-    f1, l1 = cuda_ms(call, iters), cuda_ms(layered, iters)
+def kernel_turns(call, plain, iters=10):
+    """A kernel timed in this call, on this card: the kernel, its plain
+    version and the kernel again (CUDA events; ``ms`` the mean of the
+    kernel's two turns), then the kernel's device time by the profiler.
+    ``call`` and ``plain`` run the function through the public wrapper and
+    through the plain version."""
+    f1 = cuda_ms(call, iters)
     p = cuda_ms(plain, iters=3, warmup=1)
-    l2, f2 = cuda_ms(layered, iters), cuda_ms(call, iters)
-    return {"ms": (f1 + f2) / 2, "earlier_ms": (l1 + l2) / 2, "plain_ms": p,
-            "device_ms": device_ms(call, iters),
-            "earlier_device_ms": device_ms(layered, iters)}
+    f2 = cuda_ms(call, iters)
+    return {"ms": (f1 + f2) / 2, "plain_ms": p,
+            "device_ms": device_ms(call, iters)}
 
 
 def turns_line(t):
-    return (f"fused {t['ms']:.4f} ms (device {t['device_ms']:.4f}), "
-            f"layer-by-layer {t['earlier_ms']:.4f} ms (device "
-            f"{t['earlier_device_ms']:.4f}), plain {t['plain_ms']:.3f} ms")
-
-
-@contextlib.contextmanager
-def layered_backward():
-    """Route Kernels A and C's backwards to the layer-by-layer chain the
-    fused passes replaced (``mlp_kernel._chain_bwd_layered``: twelve
-    ``gemm_dgrad`` and eleven or twelve ``gemm_wgrad`` launches with their
-    reductions), to hold the fused backward to it and time it beside it."""
-    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
-
-    real = mk._chain_bwd
-    mk._chain_bwd = mk._chain_bwd_layered
-    try:
-        yield
-    finally:
-        mk._chain_bwd = real
+    line = (f"fused {t['ms']:.4f} ms (device {t['device_ms']:.4f}"
+            + (f", {t['launches_per_call']} launches"
+               if "launches_per_call" in t else "")
+            + f"), plain {t['plain_ms']:.3f} ms")
+    return line
 
 
 def kernel_launches(fn):
@@ -682,101 +599,56 @@ def kernel_launches(fn):
     raise RuntimeError("kernel_launches: the profiler recorded no kernel")
 
 
-def bwd_turns(grads, plain, iters=10):
-    """A backward timed in turns in this call, on this card: the fused
-    passes, the layer-by-layer chain (:func:`layered_backward`), the plain
-    version, the layer-by-layer chain and the fused passes again (CUDA
-    events; ``ms`` and ``earlier_ms`` the means of their two turns), then
-    the device time of both by the profiler and the kernels each launches
-    per call. ``grads`` and ``plain`` run the backward of the kernel's and
-    of the plain version's graph."""
-    def layered():
-        with layered_backward():
-            grads()
-
-    f1, l1 = cuda_ms(grads, iters), cuda_ms(layered, iters)
-    p = cuda_ms(plain, iters=3, warmup=1)
-    l2, f2 = cuda_ms(layered, iters), cuda_ms(grads, iters)
-    return {"ms": (f1 + f2) / 2, "earlier_ms": (l1 + l2) / 2, "plain_ms": p,
-            "device_ms": device_ms(grads, iters),
-            "earlier_device_ms": device_ms(layered, iters),
-            "launches_per_call": kernel_launches(grads),
-            "earlier_launches_per_call": kernel_launches(layered)}
-
-
-def bwd_turns_line(t):
-    return (f"fused passes {t['ms']:.4f} ms (device {t['device_ms']:.4f}, "
-            f"{t['launches_per_call']} launches), layer-by-layer "
-            f"{t['earlier_ms']:.4f} ms (device {t['earlier_device_ms']:.4f}, "
-            f"{t['earlier_launches_per_call']} launches), plain "
-            f"{t['plain_ms']:.3f} ms")
-
-
-def check_bwd_layered(label, grads, names):
+def check_bwd_rerun(label, grads):
     """The fused backward (``grads``: gradients of one graph under fixed
-    cotangents) against a rerun, bit for bit, and against the
-    layer-by-layer backward on the same graph within BWD_LAYERED_RELL2:
-    returns the worst relL2."""
+    cotangents) against a rerun, bit for bit."""
     import torch
 
     g1, g2 = grads(), grads()
-    with layered_backward():
-        gl = grads()
     torch.cuda.synchronize()
     bitwise = all(torch.equal(a, b) for a, b in zip(g1, g2))
-    rels = {n: rel_l2(a, b) for n, a, b in zip(names, g1, gl)}
-    worst = max(rels, key=rels.get)
-    print(f"{label}: fused backward rerun bitwise {bitwise}; against the "
-          f"layer-by-layer backward relL2 max {rels[worst]:.3e} ({worst})")
-    if not bitwise or not rels[worst] < BWD_LAYERED_RELL2:
-        raise AssertionError(f"{label}: fused backward rerun bitwise "
-                             f"{bitwise}, against the layer-by-layer one "
-                             f"{rels}")
-    return rels[worst]
+    print(f"{label}: fused backward rerun bitwise {bitwise}")
+    if not bitwise:
+        raise AssertionError(f"{label}: the fused backward's rerun differs")
 
 
-def check_fwd_saves(label, fused, layered, args, weights, first):
+def check_fwd_saves(label, fused, kernel, args, weights, first):
     """The saving fused forward (``fused``: ``mlp_kernel._composite_fwd``
-    or ``_point_fwd``) against the layer-by-layer one it replaced on the
-    same inputs: the outputs and the 13 tensors the backward reads (the
-    encodings at their true widths) bit for bit, with the same shapes,
-    dtypes and strides; ``first`` is the index of enc in the saved
-    tuple."""
+    for ``kernel`` "A" or ``_point_fwd`` for "C") against the plain
+    version on the same inputs: the outputs within RGB_ATOL and the 13
+    tensors the backward reads (the encodings at their true widths) within
+    SAVES_RELL2 of the plain chain's, in its shapes, dtypes and strides
+    (tests/_mlp_saves.py); ``first`` is the index of enc in the saved
+    tuple. Returns the worst save's relL2."""
     import torch
 
-    out_f, dims, sav_f = fused(*args, weights, save=True)
-    out_l, _, sav_l = layered(*args, weights, save=True)
-    names = ["enc", "denc", "feat", "hr", "raw"] + [f"trunk_out{i}"
-                                                    for i in range(8)]
-    width = {"enc": dims[0], "denc": dims[1]}
-    bad = [f"output {i}" for i, (x, y) in enumerate(zip(out_f, out_l))
-           if not torch.equal(x, y)]
-    for n, x, y in zip(names, sav_f[first:first + 13],
-                       sav_l[first:first + 13]):
-        k = width.get(n, x.shape[1])
-        if (x.shape, x.dtype, x.stride()) != (y.shape, y.dtype, y.stride()):
-            bad.append(f"{n} layout {tuple(x.shape)} {x.dtype} {x.stride()}")
-        elif not torch.equal(x[:, :k], y[:, :k]):
-            bad.append(f"{n} max|diff| "
-                       f"{float((x[:, :k].float() - y[:, :k].float()).abs().max()):.3e}")
-    print(f"{label}: fused forward against the layer-by-layer one: outputs "
-          f"and the 13 saved tensors {'bitwise equal' if not bad else bad}")
-    if bad:
-        raise AssertionError(f"{label}: the fused forward's outputs or saves "
-                             f"differ from the layer-by-layer forward: {bad}")
-    return True
+    from _mlp_saves import SAVES_RELL2, plain_forward, saves_rel_l2
+
+    out, dims, saved = fused(*args, weights, save=True)
+    out_p, plain = plain_forward(weights, args, kernel)
+    err = max(float(torch.max(torch.abs(x - y))) for x, y in zip(out, out_p))
+    rels = saves_rel_l2(saved, plain, first, dims)
+    worst = max(rels, key=rels.get)
+    print(f"{label}: saving fused forward against the plain version: "
+          f"outputs max|err| {err:.3e}, the 13 saved tensors relL2 max "
+          f"{rels[worst]:.3e} ({worst}) against the plain chain's "
+          f"(bar {SAVES_RELL2})")
+    if not (err <= RGB_ATOL and rels[worst] <= SAVES_RELL2):
+        raise AssertionError(f"{label}: the fused forward's outputs "
+                             f"({err:.3e}) or saves ({rels}) are off the "
+                             "plain version")
+    return rels[worst]
 
 
 def check_kernel_a(dev, card):
     """Kernel A (the fused forward of csrc/mlp_fused_fwd.cu, the backward of
-    csrc/mlp_gemm_sm90.cu + mlp_composite.cu) against its plain version at
+    csrc/mlp_fused_bwd.cu + mlp_composite.cu) against its plain version at
     the stock step's shapes: forward errors, backward relL2; the saving
-    forward's outputs and saves against the layer-by-layer forward, bit for
-    bit, at the stock shapes and on the raw route (S = 96); the forward
-    timed in turns against the layer-by-layer one and the plain version at
+    forward's saves against the plain chain's, at the stock shapes and on
+    the raw route (S = 96); the forward timed beside the plain version at
     the stock shapes, without saves, at k = 4 frames (4,096 rays) and at the
     recovery scripts' width (hidden 128, 1024 rays x 64 samples); the
-    backward timed."""
+    backward timed likewise."""
     import torch
 
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -820,9 +692,9 @@ def check_kernel_a(dev, card):
     bwd_abs = max(float(torch.max(torch.abs(a - b))) for a, b in zip(g_k, g_r))
     finite = all(bool(torch.isfinite(x).all()) for x in (*o_k, *g_k))
     geo = [x.detach().contiguous() for x in (origins, rays_t, dirs)]
-    check_fwd_saves(f"kernel A [{card}] N={N} S={S}", mk._composite_fwd,
-                    mk._composite_fwd_layered,
-                    (*geo, z_t, deltas_t, static), weights, 5)
+    saves_rel = check_fwd_saves(f"kernel A [{card}] N={N} S={S}",
+                                mk._composite_fwd, "A",
+                                (*geo, z_t, deltas_t, static), weights, 5)
 
     def nosave():
         with torch.no_grad():
@@ -832,15 +704,15 @@ def check_kernel_a(dev, card):
         with torch.no_grad():
             fwd(mk.fused_mlp_composite_reference)
 
-    t_save = fwd_turns(lambda: fwd(mk.fused_mlp_composite),
+    t_save = kernel_turns(lambda: fwd(mk.fused_mlp_composite),
                        lambda: fwd(mk.fused_mlp_composite_reference))
-    t_nosave = fwd_turns(nosave, nosave_plain)
-    vs_layered = check_bwd_layered(f"kernel A bwd [{card}] N={N} S={S}",
-                                   lambda: grads(out_k), names)
-    t_bwd = bwd_turns(lambda: grads(out_k), lambda: grads(out_r))
+    t_nosave = kernel_turns(nosave, nosave_plain)
+    check_bwd_rerun(f"kernel A bwd [{card}] N={N} S={S}",
+                    lambda: grads(out_k))
+    t_bwd = kernel_turns(lambda: grads(out_k), lambda: grads(out_r))
+    t_bwd["launches_per_call"] = kernel_launches(lambda: grads(out_k))
     widths = _mlp_widths(weights, static)
-    floor = mlp_bwd_floor_fused(N * S, *widths, div=S)
-    floor_layered = mlp_bwd_floor(N * S, *widths, div=S)
+    floor = mlp_bwd_floor(N * S, *widths, div=S)
     io = nbytes(origins, rays_t, dirs, z_t, deltas_t, *o_k)
     (b_save, by_save), (b_ns, by_ns), (b_bwd, by_bwd) = mlp_bounds(
         weights, N * S, io, S)
@@ -853,12 +725,8 @@ def check_kernel_a(dev, card):
     worst = max(rels, key=rels.get)
     print(f"kernel A bwd [{card}]: relL2 max {rels[worst]:.3e} ({worst}); "
           + " ".join(f"{n}={v:.2e}" for n, v in rels.items())
-          + f"; {bwd_turns_line(t_bwd)}; bound {b_bwd:.4f} ms ({by_bwd}); "
-          f"memory floor fused {floor:.3f} ms, layer-by-layer "
-          f"{floor_layered:.3f} ms")
-    print(f"kernel A launches per full backward [{card}]: layer-by-layer "
-          f"{t_bwd['earlier_launches_per_call']}, fused "
-          f"{t_bwd['launches_per_call']}")
+          + f"; {turns_line(t_bwd)}; bound {b_bwd:.4f} ms ({by_bwd}); "
+          f"memory floor {floor:.3f} ms")
     fails = []
     if not finite:
         fails.append("non-finite kernel output")
@@ -883,7 +751,7 @@ def check_kernel_a(dev, card):
                "source": "nope_nerf_tpu_torch/csrc/mlp_fused_fwd.cu",
                "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:668",
                "max_abs_err": max(err.values()),
-               "saves_bitwise_to_layer_by_layer": True, **t_save,
+               "saves_max_rel_l2_to_plain": saves_rel, **t_save,
                "bound_ms": b_save, "bound_by": by_save, "library_ms": None,
                "nosave": {**t_nosave, "bound_ms": b_ns, "bound_by": by_ns},
                **shapes, "raw_route": raw_route,
@@ -896,11 +764,9 @@ def check_kernel_a(dev, card):
                          "nope_nerf_tpu_torch/csrc/mlp_composite.cu",
                "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:702",
                "max_abs_err": bwd_abs, "max_rel_l2": rels[worst],
-               "max_rel_l2_vs_layer_by_layer": vs_layered,
                "rerun_bitwise": True, **t_bwd,
                "bound_ms": b_bwd, "bound_by": by_bwd, "library_ms": None,
-               "floor_ms": floor, "layer_by_layer_floor_ms": floor_layered,
-               **bwd_shapes}
+               "floor_ms": floor, **bwd_shapes}
     return fwd_rec, bwd_rec
 
 
@@ -917,17 +783,21 @@ def fwd_source_turns(dev, card, other):
     and from ``other`` (another version of csrc/mlp_fused_fwd.cu with the same C
     interface, e.g. a parent commit's), each compiled with ``-Xptxas -v``
     (registers and spills printed; tools/torch_fused_fwd_probe.py's
-    build_variants): at each FWD_SOURCE_CASES case both held bit for bit to the
-    layer-by-layer forward (outputs, and with saves the 11 saved tensors
-    past the two encodings, whose padding is unset),
-    then timed in turns (package, other, other, package; profiler device
-    ms) beside the bound (:func:`mlp_bounds`). Returns the record and
-    prints it as one JSON line ``{"fwd_turns": ...}``."""
+    build_variants): at each FWD_SOURCE_CASES case both held to the plain
+    version (outputs within RGB_ATOL, and with saves the 13 saved tensors
+    within SAVES_RELL2 of the plain chain's; tests/_mlp_saves.py), the
+    other's outputs and saves compared bit for bit with the package's (and
+    the answer recorded), then timed in turns (package, other, other,
+    package; profiler device ms) beside the bound (:func:`mlp_bounds`).
+    Returns the record and prints it as one JSON line
+    ``{"fwd_turns": ...}``."""
     import importlib.util
 
     import torch
 
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    from _mlp_saves import SAVES_RELL2, plain_forward, saves_rel_l2
 
     spec = importlib.util.spec_from_file_location(
         "fused_fwd_probe", os.path.join(ROOT, "tools",
@@ -953,35 +823,37 @@ def fwd_source_turns(dev, card, other):
             ws = [w.detach() for w in weights]
             if kernel == "A":
                 args = (*geo, z_t, deltas_t,
-                        (l_pos, l_dir, act, True, False, False, N_SAMPLES),
-                        ws)
-                fwd, layered, first = (mk._composite_fwd,
-                                       mk._composite_fwd_layered, 7)
+                        (l_pos, l_dir, act, True, False, False, N_SAMPLES))
+                fwd, first = mk._composite_fwd, 5
                 io = nbytes(*geo, z_t, deltas_t) + 4.0 * N * (4 + N_SAMPLES)
             else:
                 pts = (geo[0][:, None, :] + geo[1][:, None, :]
                        * z_t[..., None]).reshape(-1, 3)
                 pdirs = geo[2][:, None, :].expand(N, N_SAMPLES, 3).reshape(
                     -1, 3).contiguous()
-                args = (pts, pdirs, (l_pos, l_dir, act, True), ws)
-                fwd, layered, first = mk._point_fwd, mk._point_fwd_layered, 4
+                args = (pts, pdirs, (l_pos, l_dir, act, True))
+                fwd, first = mk._point_fwd, 2
                 io = nbytes(pts, pdirs) + 16.0 * N * N_SAMPLES
-            ref = layered(*args, save)
+            out_p, plain = plain_forward(ws, args, kernel)
+            runs = {}
             for name in fns:
                 use(name)
-                out, _, saved = fwd(*args, save)
-                same = all(torch.equal(a, b) for a, b in zip(out, ref[0]))
-                if save:
-                    same &= all(torch.equal(a, b) for a, b in
-                                zip(saved[first:first + 11],
-                                    ref[2][first:first + 11]))
-                if not same:
+                out, dims, saved = fwd(*args, ws, save)
+                err = max(float(torch.max(torch.abs(a - b)))
+                          for a, b in zip(out, out_p))
+                rel = (max(saves_rel_l2(saved, plain, first, dims).values())
+                       if save else 0.0)
+                if not (err <= RGB_ATOL and rel <= SAVES_RELL2):
                     raise AssertionError(f"fwd turns {case}: the {name} "
-                                         "kernel differs from the "
-                                         "layer-by-layer forward")
+                                         f"kernel is off the plain version: "
+                                         f"outputs {err:.3e}, saves {rel:.3e}")
+                kept = [*out, *(saved[first + 2:first + 13] if save else ())]
+                runs[name] = ([t.clone() for t in kept], err, rel)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(runs["package"][0], runs["other"][0]))
 
             def call():
-                fwd(*args, save)
+                fwd(*args, ws, save)
 
             times = {name: [] for name in fns}
             for name in ("package", "other", "other", "package"):
@@ -993,13 +865,17 @@ def fwd_source_turns(dev, card, other):
             ms = {name: sum(v) / len(v) for name, v in times.items()}
             rec["cases"][case] = {
                 "kernel": kernel, "rays": N, "samples": N_SAMPLES,
-                "save": save,
-                "bitwise_to_layer_by_layer": True, "device_ms": times,
+                "save": save, "other_bitwise_to_package": same,
+                "max_abs_err_to_plain": {n: v[1] for n, v in runs.items()},
+                "saves_max_rel_l2_to_plain": {n: v[2]
+                                              for n, v in runs.items()},
+                "device_ms": times,
                 "bound_ms": b, "bound_by": by,
                 "share_of_bound": {n: b / v for n, v in ms.items()}}
             print(f"fused fwd turns [{card}] {kernel} {case} {N} x "
                   f"{N_SAMPLES} save="
-                  f"{save}: package {ms['package']:.4f} ms, other "
+                  f"{save}: other bitwise to package {same}; package "
+                  f"{ms['package']:.4f} ms, other "
                   f"{ms['other']:.4f} ms, bound {b:.4f} ms ({by}); "
                   f"bound / time {b / ms['package']:.3f} against "
                   f"{b / ms['other']:.3f}", flush=True)
@@ -1012,7 +888,7 @@ def fwd_source_turns(dev, card, other):
 def fwd_shape_turns(dev, card, N, S, hidden, kernel="A"):
     """Kernel A's forward at N rays x S samples (width ``hidden``, default
     the stock 256), or Kernel C's at the same N x S points, against its
-    plain version (RGB_ATOL) and timed in turns (:func:`fwd_turns`)
+    plain version (RGB_ATOL) and timed beside it (:func:`kernel_turns`)
     saving, as a training step calls it."""
     import torch
 
@@ -1041,7 +917,7 @@ def fwd_shape_turns(dev, card, N, S, hidden, kernel="A"):
 
     err = max(float(torch.max(torch.abs(a.detach() - b.detach())))
               for a, b in zip(fwd(fns[0]), fwd(fns[1])))
-    t = fwd_turns(lambda: fwd(fns[0]), lambda: fwd(fns[1]))
+    t = kernel_turns(lambda: fwd(fns[0]), lambda: fwd(fns[1]))
     (b_save, by_save), _, _ = mlp_bounds(weights, N * S, io,
                                          S if kernel == "A" else 1)
     D = cfg["model"]["hidden_dim"]
@@ -1059,8 +935,8 @@ def bwd_shape_turns(dev, card, N, S, hidden, kernel="A"):
     """Kernel A's backward at N rays x S samples (width ``hidden``, default
     the stock 256), or Kernel C's at the same N x S points, under the
     training step's cotangents: against its plain version (GRAD_RELL2) and
-    the layer-by-layer backward (:func:`check_bwd_layered`), and timed in
-    turns (:func:`bwd_turns`)."""
+    a rerun (:func:`check_bwd_rerun`), and timed beside the plain version
+    (:func:`kernel_turns`)."""
     import torch
 
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -1099,33 +975,30 @@ def bwd_shape_turns(dev, card, N, S, hidden, kernel="A"):
     worst = max(rels, key=rels.get)
     D = cfg["model"]["hidden_dim"]
     label = f"kernel {kernel} bwd [{card}] {N} x {S} points D={D}"
-    vs_layered = check_bwd_layered(label, lambda: grads(outs[0]), names)
-    tt = bwd_turns(lambda: grads(outs[0]), lambda: grads(outs[1]))
+    check_bwd_rerun(label, lambda: grads(outs[0]))
+    tt = kernel_turns(lambda: grads(outs[0]), lambda: grads(outs[1]))
+    tt["launches_per_call"] = kernel_launches(lambda: grads(outs[0]))
     div = S if kernel == "A" else 1
     widths = _mlp_widths(weights, static)
     io = nbytes(*args) + 4.0 * N * (4 + S) if kernel == "A" else \
         nbytes(*args) + 16.0 * N * S
     _, _, (b_bwd, by_bwd) = mlp_bounds(weights, N * S, io, div)
-    floor = mlp_bwd_floor_fused(N * S, *widths, div=div)
-    floor_layered = mlp_bwd_floor(N * S, *widths, div=div)
+    floor = mlp_bwd_floor(N * S, *widths, div=div)
     print(f"{label}: relL2 max {rels[worst]:.3e} ({worst}) against the plain "
-          f"version; {bwd_turns_line(tt)}; bound {b_bwd:.4f} ms ({by_bwd}); "
-          f"memory floor fused {floor:.3f} ms, layer-by-layer "
-          f"{floor_layered:.3f} ms")
+          f"version; {turns_line(tt)}; bound {b_bwd:.4f} ms ({by_bwd}); "
+          f"memory floor {floor:.3f} ms")
     if not (rels[worst] < GRAD_RELL2
             and all(bool(torch.isfinite(g).all()) for g in g_k)):
         raise AssertionError(f"{label}: against its plain version {rels}")
     return {"rays": N, "samples": S, "hidden": D, "max_rel_l2": rels[worst],
-            "max_rel_l2_vs_layer_by_layer": vs_layered, **tt,
-            "bound_ms": b_bwd, "bound_by": by_bwd, "floor_ms": floor,
-            "layer_by_layer_floor_ms": floor_layered}
+            **tt, "bound_ms": b_bwd, "bound_by": by_bwd, "floor_ms": floor}
 
 
 def check_raw_route(dev, card):
     """Kernel A at 1024 rays x 96 samples, an S that does not tile 128
     points: the fused kernel writes raw and composite_fwd runs after it
     (one launch each), against the plain version (RGB_ATOL) and, saving,
-    against the layer-by-layer forward bit for bit."""
+    its saves against the plain chain's (:func:`check_fwd_saves`)."""
     import torch
 
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -1146,9 +1019,9 @@ def check_raw_route(dev, card):
     err = max(float(torch.max(torch.abs(a - b.detach())))
               for a, b in zip(out, ref))
     geo = [x.detach().contiguous() for x in (origins, rays_t, dirs)]
-    check_fwd_saves(f"kernel A raw route [{card}] S={S}", mk._composite_fwd,
-                    mk._composite_fwd_layered,
-                    (*geo, z_t, deltas_t, static), weights, 5)
+    saves_rel = check_fwd_saves(f"kernel A raw route [{card}] S={S}",
+                                mk._composite_fwd, "A",
+                                (*geo, z_t, deltas_t, static), weights, 5)
     print(f"kernel A raw route [{card}] N={N_RAYS} S={S}: launches fused "
           f"{launches[0]}, composite_fwd after it {launches[1]}; max|err| "
           f"{err:.3e}")
@@ -1156,7 +1029,7 @@ def check_raw_route(dev, card):
         raise AssertionError(f"kernel A raw route: launches {launches}, "
                              f"max|err| {err:.3e}")
     return {"samples": S, "launches": launches, "max_abs_err": err,
-            "saves_bitwise_to_layer_by_layer": True}
+            "saves_max_rel_l2_to_plain": saves_rel}
 
 
 def _mlp_widths(weights, static):
@@ -1198,11 +1071,9 @@ def depth_pair(dev, hs, ws, seed):
 
 def check_kernel_b(dev, card):
     """Kernel B (banded Chamfer argmin) on a 135x240 depth-map pair warped
-    by a small rigid motion: bit for bit the per-query kernel's and the
-    plain version's indices; then the kernel and the per-query kernel (as
-    its wrapper ran it, with its two padded copies) in turns by CUDA events
-    and by device time (:func:`pair_turns`), the per-query kernel alone by
-    device time, and the plain version by events."""
+    by a small rigid motion: bit for bit the plain version's indices; then
+    the kernel timed beside the plain version (:func:`kernel_turns`: events
+    and device time)."""
     import torch
 
     from nope_nerf_tpu_torch.geometry.rays import project_to_cam
@@ -1216,50 +1087,34 @@ def check_kernel_b(dev, card):
     n = hs * ws
     starts = cb.rows_to_start_tiles(X, n, (hs, ws), cam, project_to_cam, k)
     idx_k = cb.nearest_idx_banded(X, Y, starts, k)
-    idx_o = cb._nearest_idx_banded_per_query(X, Y, starts, k)
     idx_r = cb.nearest_idx_banded_reference(X, Y, starts, k)
     torch.cuda.synchronize()
     mism = int(torch.sum(idx_k != idx_r))
-    mism_old = int(torch.sum(idx_k != idx_o))
     dk = torch.linalg.vector_norm(X - Y[idx_k.long()], dim=-1)
     dr = torch.linalg.vector_norm(X - Y[idx_r.long()], dim=-1)
     max_abs = float(torch.max(torch.abs(dk - dr)))
-    turns = pair_turns(lambda: cb.nearest_idx_banded(X, Y, starts, k),
-                       lambda: cb._nearest_idx_banded_per_query(X, Y, starts,
-                                                                k),
-                       lambda: cb.nearest_idx_banded_reference(X, Y, starts,
-                                                               k),
-                       iters=50)
-    old_split = kernel_split(
-        lambda: cb._nearest_idx_banded_per_query(X, Y, starts, k), iters=50)
-    old_kernel = sum(v for name, v in old_split.items()
-                     if "band_argmin_kernel" in name)
+    turns = kernel_turns(lambda: cb.nearest_idx_banded(X, Y, starts, k),
+                      lambda: cb.nearest_idx_banded_reference(X, Y, starts,
+                                                              k),
+                      iters=50)
     # every query group scans k_tiles (at most Y's tiles) of TILE rows
     pairs = n * min(k, -(-n // cb.TILE)) * cb.TILE
     b_ms, b_by = bound(instr=BAND_PAIR_INSTR * pairs,
                        nbytes=nbytes(X, Y, starts, idx_k))
     print(f"kernel B [{card}] {n} x {n} points, k_tiles={k}: {mism} index "
-          f"mismatches against the plain version, {mism_old} against the "
-          f"per-query kernel, max|err| of the matched distance "
-          f"{max_abs:.3e}; kernel {turns['ms']:.4f} ms by events, device "
-          f"{turns['device_ms']:.4f}; the per-query kernel with its copies "
-          f"{turns['earlier_ms']:.4f}, device "
-          f"{turns['earlier_device_ms']:.4f} (the kernel alone "
-          f"{old_kernel:.4f}); plain {turns['plain_ms']:.3f} ms; bound "
-          f"{b_ms:.4f} ms ({b_by})")
-    if mism or mism_old:
+          f"mismatches against the plain version, max|err| of the matched "
+          f"distance {max_abs:.3e}; kernel {turns['ms']:.4f} ms by events, "
+          f"device {turns['device_ms']:.4f}; plain {turns['plain_ms']:.3f} "
+          f"ms; bound {b_ms:.4f} ms ({b_by})")
+    if mism:
         raise AssertionError(f"kernel B: {mism} indices differ from its "
-                             f"plain version, {mism_old} from the per-query "
-                             "kernel")
+                             "plain version")
     return {"name": "chamfer_band", "route": "cuda",
             "source": "nope_nerf_tpu_torch/csrc/chamfer_band.cu",
             "replaces": "nope_nerf_tpu/ops/pallas/chamfer_band.py:90",
             "max_abs_err": max_abs, "index_mismatches": mism,
-            "per_query_mismatches": mism_old, "ms": turns["ms"],
-            "device_ms": turns["device_ms"], "plain_ms": turns["plain_ms"],
-            "per_query_ms": turns["earlier_ms"],
-            "per_query_device_ms": turns["earlier_device_ms"],
-            "per_query_kernel_device_ms": old_kernel, "bound_ms": b_ms,
+            "ms": turns["ms"], "device_ms": turns["device_ms"],
+            "plain_ms": turns["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
 
 
@@ -1267,10 +1122,10 @@ def check_kernel_c(dev, card):
     """Kernel C (per-point fused MLP: the fused forward of
     csrc/mlp_fused_fwd.cu) against its plain version at the stock step's
     131,072 points, under the training step's cotangents; the saving
-    forward against the layer-by-layer one, bit for bit; the forward timed
-    in turns as Kernel A's (stock, without saves, k = 4, the recovery
-    width); then Kernel C + the plain compositing against Kernel A on the
-    same rays."""
+    forward's saves against the plain chain's; the forward and the backward
+    timed as Kernel A's (stock, without saves, k = 4, the recovery width);
+    then Kernel C + the plain compositing against Kernel A on the same
+    rays."""
     import torch
 
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -1318,10 +1173,10 @@ def check_kernel_c(dev, card):
     bwd_abs = max(float(torch.max(torch.abs(a - b))) for a, b in zip(g_k, g_r))
     finite = all(bool(torch.isfinite(x).all()) for x in (*o_k, *g_k))
 
-    check_fwd_saves(f"kernel C [{card}] M={N * S}", mk._point_fwd,
-                    mk._point_fwd_layered,
-                    (pts.detach(), pdirs.detach(), (l_pos, l_dir, act, True)),
-                    weights, 2)
+    saves_rel = check_fwd_saves(
+        f"kernel C [{card}] M={N * S}", mk._point_fwd, "C",
+        (pts.detach(), pdirs.detach().contiguous(),
+         (l_pos, l_dir, act, True)), weights, 2)
 
     def nosave():
         with torch.no_grad():
@@ -1331,15 +1186,14 @@ def check_kernel_c(dev, card):
         with torch.no_grad():
             fwd(mk.fused_mlp_reference)
 
-    t_save = fwd_turns(lambda: fwd(mk.fused_mlp),
+    t_save = kernel_turns(lambda: fwd(mk.fused_mlp),
                        lambda: fwd(mk.fused_mlp_reference))
-    t_nosave = fwd_turns(nosave, nosave_plain)
-    vs_layered = check_bwd_layered(f"kernel C bwd [{card}] M={N * S}",
-                                   lambda: grads(out_k), names)
-    t_bwd = bwd_turns(lambda: grads(out_k), lambda: grads(out_r))
+    t_nosave = kernel_turns(nosave, nosave_plain)
+    check_bwd_rerun(f"kernel C bwd [{card}] M={N * S}", lambda: grads(out_k))
+    t_bwd = kernel_turns(lambda: grads(out_k), lambda: grads(out_r))
+    t_bwd["launches_per_call"] = kernel_launches(lambda: grads(out_k))
     widths = _mlp_widths(weights, (l_pos, l_dir))
-    floor = mlp_bwd_floor_fused(N * S, *widths, div=1)
-    floor_layered = mlp_bwd_floor(N * S, *widths, div=1)
+    floor = mlp_bwd_floor(N * S, *widths, div=1)
 
     # Kernel C + plain compositing against Kernel A at the same inputs
     with torch.no_grad():
@@ -1362,9 +1216,8 @@ def check_kernel_c(dev, card):
     worst = max(rels, key=rels.get)
     print(f"kernel C bwd [{card}]: relL2 max {rels[worst]:.3e} ({worst}); "
           + " ".join(f"{n}={v:.2e}" for n, v in rels.items())
-          + f"; {bwd_turns_line(t_bwd)}; bound {b_bwd:.4f} ms ({by_bwd}); "
-          f"memory floor fused {floor:.3f} ms, layer-by-layer "
-          f"{floor_layered:.3f} ms")
+          + f"; {turns_line(t_bwd)}; bound {b_bwd:.4f} ms ({by_bwd}); "
+          f"memory floor {floor:.3f} ms")
     print(f"kernel C + plain compositing vs kernel A [{card}]: max|err| "
           + " ".join(f"{n}={v:.3e}" for n, v in vs_a.items()))
     fails = []
@@ -1394,7 +1247,7 @@ def check_kernel_c(dev, card):
                "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:244",
                "max_abs_err": max(err.values()),
                "max_abs_err_vs_kernel_a": max(vs_a.values()),
-               "saves_bitwise_to_layer_by_layer": True, **t_save,
+               "saves_max_rel_l2_to_plain": saves_rel, **t_save,
                "bound_ms": b_save, "bound_by": by_save, "library_ms": None,
                "nosave": {**t_nosave, "bound_ms": b_ns, "bound_by": by_ns},
                **shapes}
@@ -1403,11 +1256,9 @@ def check_kernel_c(dev, card):
                          "nope_nerf_tpu_torch/csrc/mlp_composite.cu",
                "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:258",
                "max_abs_err": bwd_abs, "max_rel_l2": rels[worst],
-               "max_rel_l2_vs_layer_by_layer": vs_layered,
                "rerun_bitwise": True, **t_bwd,
                "bound_ms": b_bwd, "bound_by": by_bwd, "library_ms": None,
-               "floor_ms": floor, "layer_by_layer_floor_ms": floor_layered,
-               **bwd_shapes}
+               "floor_ms": floor, **bwd_shapes}
     return fwd_rec, bwd_rec
 
 
@@ -1779,16 +1630,6 @@ def check_ref_pair(dev, card):
             "library_ms": None, "shapes": timings}
 
 
-# the forward's layer GEMMs timed in the GEMM phase: (layer, K1, K2, N,
-# direction row term, ReLU) at the stock widths
-GEMM_CASES = (
-    ("trunk0_1", 256, 0, 256, False, True),
-    ("trunk0_0", 63, 0, 256, False, True),
-    ("trunk1_0", 256, 63, 256, False, True),
-    ("rgb_layer", 256, 0, 128, True, True),
-)
-
-
 def gemm_ulps(out, ref):
     """max |out - ref| in bf16 ulps of max(|ref|, |out|, max|ref| / 256)
     (see GEMM_ULPS)."""
@@ -1799,385 +1640,6 @@ def gemm_ulps(out, ref):
                         ref.abs().max() / 256)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     return float(torch.max((out - ref).abs() / ulp))
-
-
-def check_gemm(dev, card):
-    """The GEMM phase (see the module docstring). Operands: the stock
-    field's weights and biases (seed SEED), bf16 activations from a seeded
-    normal, and encodings whose padding column holds NaN (the tensor maps
-    take the true widths, so it must never be read)."""
-    import torch
-
-    from nope_nerf_tpu_torch.models.nerf import init_nerf_params
-    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
-
-    cfg = stock_cfg()
-    params = init_nerf_params(torch.Generator().manual_seed(SEED), cfg, dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    M, S = N_RAYS * N_SAMPLES, N_SAMPLES
-    bf = torch.bfloat16
-
-    def acts(rows, k):
-        buf = torch.full((rows, mk._pad8(k)), float("nan"), dtype=bf,
-                         device=dev)
-        buf[:, :k] = torch.randn((rows, k), generator=gen, device=dev)
-        return buf[:, :k]
-
-    layers, chain_new, chain_old, chain_lib = {}, [], [], []
-    for name, k1, k2, n, has_rt, relu in GEMM_CASES:
-        w, b = params[name]["w"].detach(), params[name]["b"].detach()
-        wt, wb = mk._padded_t(w), w.to(bf)
-        a1 = acts(M, k1)
-        a2 = acts(M, k2) if k2 else None
-        two = dict(a2=a2, w2t=wt[:, k1:k1 + k2]) if k2 else {}
-        rt, div, old_two, rt_err = None, 1, {}, None
-        if has_rt:  # the direction half of [feat, denc], one row per ray
-            denc = acts(N_RAYS, w.shape[0] - k1)
-            rt = mk.gemm_fwd(denc, wt[:, k1:w.shape[0]], out=torch.empty(
-                (N_RAYS, n), dtype=torch.float32, device=dev))
-            div = S
-            rt_err = float(torch.max(torch.abs(rt - mk.gemm_fwd_reference(
-                denc.float(), w[k1:], out_dtype=torch.float32))))
-            old_two = dict(a2=mk._Mat(denc, denc.shape[1], ld=denc.stride(0),
-                                      row_div=S), b2=wb[k1:])
-        elif k2:
-            old_two = dict(a2=mk._Mat(a2, k2, ld=a2.stride(0)), b2=wb[k1:])
-        out = torch.empty((M, n), dtype=bf, device=dev)
-        out_old = torch.empty_like(out)
-
-        def new(out=out, a1=a1, wt=wt, k1=k1, b=b, relu=relu, rt=rt, div=div,
-                two=two):
-            return mk.gemm_fwd(a1, wt[:, :k1], bias=b, relu=relu, rowterm=rt,
-                               div=div, out=out, **two)
-
-        def old(out=out_old, a1=a1, wb=wb, k1=k1, n=n, b=b, relu=relu,
-                two=old_two):
-            return mk._gemm_nn(mk._Mat(a1, k1, ld=a1.stride(0)), wb[:k1], M,
-                               n, out, bias=b, relu=relu, **two)
-
-        # cuBLAS on the same FLOPs (bias, no ReLU): [a1 | a2] @ W, or the
-        # main product of rgb_layer (its row term has no cuBLAS form)
-        a_lib = torch.cat([a1, a2], 1) if k2 else a1
-        w_lib = wb if k2 else wb[:k1]
-        b_lib = b.to(bf)
-
-        def lib(a=a_lib, w=w_lib, b=b_lib):
-            return torch.addmm(b, a, w)
-
-        def plain(a1=a1, w=w, k1=k1, a2=a2, b=b, relu=relu, rt=rt, div=div):
-            return mk.gemm_fwd_reference(
-                a1.float(), w[:k1], None if a2 is None else a2.float(),
-                w[k1:] if a2 is not None else None, b, relu, rt, div)
-
-        got, ref = new(), plain()
-        again = mk.gemm_fwd(a1, wt[:, :k1], bias=b, relu=relu, rowterm=rt,
-                            div=div, out=torch.empty_like(out), **two)
-        torch.cuda.synchronize()
-        ulps = gemm_ulps(got, ref)
-        abs_err = float(torch.max(torch.abs(got.float() - ref)))
-        bitwise = torch.equal(got, again)
-        finite = bool(torch.isfinite(got.float()).all())
-        ms = cuda_ms(new, iters=50, warmup=5)
-        ms_old = cuda_ms(old, iters=20, warmup=2)
-        ms_lib = cuda_ms(lib, iters=50, warmup=5)
-        ms_plain = cuda_ms(plain, iters=3, warmup=1)
-        moved = 2.0 * (M * (k1 + k2) + n * (k1 + k2) + M * n) + 4.0 * n + (
-            4.0 * rt.numel() if rt is not None else 0.0)
-        b_ms, b_by = bound(2.0 * M * n * (k1 + k2), moved)
-        rec = {"K": k1 + k2, "N": n, "max_ulps": ulps, "max_abs_err": abs_err,
-               "bitwise_rerun": bitwise, "ms": ms, "old_ms": ms_old,
-               "library_ms": ms_lib, "plain_ms": ms_plain, "bound_ms": b_ms,
-               "bound_by": b_by, "gb_per_s": moved / ms / 1e6,
-               "rowterm_max_abs_err": rt_err}
-        layers[name] = rec
-        print(f"gemm {name} [{card}] M={M} K={k1}+{k2} N={n}"
-              f"{f' + row term (max|err| {rt_err:.2e})' if has_rt else ''}"
-              f": max err {ulps:.2f} bf16 ulp "
-              f"(abs {abs_err:.3e}), bitwise rerun {bitwise}; new {ms:.4f} "
-              f"ms, old WMMA {ms_old:.4f} ms, addmm {ms_lib:.4f} ms, plain "
-              f"{ms_plain:.3f} ms; {rec['gb_per_s']:.0f} GB/s of "
-              f"{HBM_BYTES / 1e9:.0f}, bound {b_ms:.4f} ms ({b_by})")
-        if not (finite and bitwise and ulps <= GEMM_ULPS
-                and (rt_err is None or rt_err <= 1e-5)):
-            raise AssertionError(f"gemm {name}: {ulps:.2f} ulps (bar "
-                                 f"{GEMM_ULPS}), finite {finite}, bitwise "
-                                 f"rerun {bitwise}")
-    # the forward's ten layer GEMMs (+ the row term) as a chain
-    D = cfg["model"]["hidden_dim"]
-    tw = {n: (mk._padded_t(params[n]["w"].detach()), params[n]["b"].detach())
-          for n in mk.GEMM_LAYERS}
-    enc, denc = acts(M, 63), acts(N_RAYS, 27)
-    hbuf = [torch.empty((M, D), dtype=bf, device=dev) for _ in range(2)]
-    hr = torch.empty((M, D // 2), dtype=bf, device=dev)
-    rtb = torch.empty((N_RAYS, D // 2), dtype=torch.float32, device=dev)
-
-    def chain():
-        h = enc
-        for i, name in enumerate(mk.GEMM_LAYERS[:9]):
-            w, b = tw[name]
-            two = (dict(a2=enc, w2t=w[:, D:D + 63]) if name == "trunk1_0"
-                   else {})
-            h = mk.gemm_fwd(h, w[:, :h.shape[1]], bias=b,
-                            relu=name != "fc_feature", out=hbuf[i % 2], **two)
-        w, b = tw["rgb_layer"]
-        rt = mk.gemm_fwd(denc, w[:, D:D + 27], out=rtb)
-        return mk.gemm_fwd(h, w[:, :D], bias=b, relu=True, rowterm=rt, div=S,
-                           out=hr)
-
-    lib_ops = []
-    for name in mk.GEMM_LAYERS:
-        w, b = params[name]["w"].detach(), params[name]["b"].detach()
-        lib_ops.append((torch.randn((M, w.shape[0]), generator=gen,
-                                    device=dev).to(bf), w.to(bf), b.to(bf)))
-
-    def chain_addmm():
-        for a, w, b in lib_ops:
-            torch.addmm(b, a, w)
-
-    ms_chain = cuda_ms(chain, iters=10)
-    ms_chain_lib = cuda_ms(chain_addmm, iters=10)
-    # host cost of one launch (the training step is host-bound): 200 calls
-    # at M = 128, where the device finishes each before the next is issued
-    a_s, (w_s, b_s) = acts(128, D), tw["trunk0_1"]
-    w_s, wb_s = w_s[:, :D], params["trunk0_1"]["w"].detach().to(bf)
-    bb_s, o_s = b_s.to(bf), torch.empty((128, D), dtype=bf, device=dev)
-    host_us = {
-        "new": lambda: mk.gemm_fwd(a_s, w_s, bias=b_s, relu=True, out=o_s),
-        "old": lambda: mk._gemm_nn(mk._Mat(a_s, D), wb_s, 128, D, o_s,
-                                   bias=b_s, relu=True),
-        "addmm": lambda: torch.addmm(bb_s, a_s, wb_s)}
-    host_us = {k: host_ms(fn, iters=200, sync=False)
-               for k, fn in host_us.items()}
-    host_us = {k: 1e3 * v for k, v in host_us.items()}
-    flops = 2.0 * M * sum(params[n]["w"].numel() for n in mk.GEMM_LAYERS)
-    print(f"gemm chain [{card}] M={M}: ten layer GEMMs + row term "
-          f"{ms_chain:.4f} ms, ten addmm {ms_chain_lib:.4f} ms "
-          f"({flops / 1e9:.1f} GFLOP: {flops / ms_chain / 1e9:.1f} TFLOP/s);"
-          f" host us per launch: " + ", ".join(
-              f"{k} {v:.1f}" for k, v in host_us.items()))
-    head = layers["trunk0_1"]
-    return {"name": "mlp_gemm_sm90", "route": "cuda",
-            "source": "nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu",
-            "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:668",
-            "also_serves": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:244",
-            "on_path": False,
-            "runs_on": "no path: the layer-by-layer forward that "
-                       "csrc/mlp_fused_fwd.cu replaced, timed as the fused "
-                       "forwards' earlier_ms",
-            "shape": "trunk0_1: M=131072 K=256 N=256",
-            "max_abs_err": max(r["max_abs_err"] for r in layers.values()),
-            "max_ulps": max(r["max_ulps"] for r in layers.values()),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "old_ms": head["old_ms"], "library_ms": head["library_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "layers": layers, "chain_ms": ms_chain,
-            "chain_addmm_ms": ms_chain_lib, "host_us_per_launch": host_us}
-
-
-# the backward's input-gradient GEMMs timed in the backward GEMM phase:
-# (what it computes, K, N, output type, ReLU mask, fc_density's rank-1 term,
-# column sums) at the stock widths; the trunk shape also serves trunk1_3..0
-# (activation half) and trunk0_3..1, the 63-wide one trunk0_0
-DGRAD_CASES = (
-    ("rgb_layer->feat", 128, 256, "bf16", False, False, True),
-    ("rgb_layer->denc", 128, 27, "f32", False, False, False),
-    ("fc_feature+fc_density", 256, 256, "bf16", True, True, True),
-    ("trunk", 256, 256, "bf16", True, False, True),
-    ("trunk1_0->enc", 256, 63, "f32", False, False, False),
-)
-# its weight gradients: (layer, K_in, N, kind) with kind "wgmma" (gemm_wgrad),
-# "per_ray" (Kernel A's direction half of rgb_layer: ray sums, then an f32
-# product) or "head" (a narrow head, from g_raw's f32 columns)
-WGRAD_CASES = (
-    ("trunk", 256, 256, "wgmma"),
-    ("trunk0_0 / trunk1_0 enc", 63, 256, "wgmma"),
-    ("rgb_layer feat", 256, 128, "wgmma"),
-    ("rgb_layer denc per ray", 27, 128, "per_ray"),
-    ("fc_density", 256, 1, "head"),
-    ("fc_rgb", 128, 3, "head"),
-)
-
-
-def check_gemm_bwd(dev, card):
-    """The backward GEMM phase: each input-gradient shape of gemm_dgrad and
-    each weight-gradient shape of gemm_wgrad (and Kernel A's per-ray
-    direction weight gradient) at M = 131,072 against its plain version
-    (bf16 outputs in bf16 ulps as in the forward's phase, f32 outputs and
-    column sums in relL2), a bitwise rerun, and its device time
-    (:func:`device_ms`: the split-K reductions included) beside the WMMA
-    gemm_nn / gemm_tn it replaced (run as they ran, on f32 cotangents),
-    ``torch.mm`` in bf16 on the same operands, and the memory bound."""
-    import torch
-
-    from nope_nerf_tpu_torch.models.nerf import init_nerf_params
-    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
-
-    cfg = stock_cfg()
-    D = cfg["model"]["hidden_dim"]
-    params = init_nerf_params(torch.Generator().manual_seed(SEED), cfg, dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    M, S = N_RAYS * N_SAMPLES, N_SAMPLES
-    bf, f32 = torch.bfloat16, torch.float32
-
-    def rows(m, k, relu=False, scale=1.0):
-        """bf16 (m, k) normal values with NaN in the row padding."""
-        buf = torch.full((m, mk._pad8(k)), float("nan"), dtype=bf, device=dev)
-        x = torch.randn((m, k), generator=gen, device=dev) * scale
-        buf[:, :k] = x.relu() if relu else x
-        return buf[:, :k]
-
-    def out_buf(m, n, dtype):
-        return torch.empty((m, mk._pad8(n)), dtype=dtype, device=dev)[:, :n]
-
-    def rel(a, b):
-        return rel_l2(a.float(), b.float())
-
-    dgrad, wgrad = {}, {}
-    g_raw = torch.randn((M, 4), generator=gen, device=dev) * 1e-3
-    wd = params["fc_density"]["w"].detach().to(bf).reshape(-1)
-    for name, K, N, odt, masked, rank1, sums in DGRAD_CASES:
-        dtype = bf if odt == "bf16" else f32
-        # a weight whose rows are the layer's inputs and columns its K
-        w = mk._padded(torch.randn((N, K), generator=gen, device=dev)
-                       * K ** -0.5)
-        a = rows(M, K, scale=1e-3)
-        mask = rows(M, N, relu=True) if masked else None
-        extra = dict(gsig=g_raw[:, 0], wd=wd) if rank1 else {}
-
-        def new(out=out_buf(M, N, dtype), a=a, w=w, mask=mask, extra=extra,
-                sums=sums):
-            return mk.gemm_dgrad(a, w, out, mask=mask, colsum=sums, **extra)
-
-        def plain(a=a, w=w, mask=mask, rank1=rank1):
-            return mk.gemm_dgrad_reference(
-                a.float(), w.float(), None if mask is None else mask.float(),
-                g_raw[:, 0] if rank1 else None, wd.float() if rank1 else None)
-
-        got, colsum = new()
-        again, colsum2 = new(out=out_buf(M, N, dtype))
-        ref = plain()
-        torch.cuda.synchronize()
-        err = (gemm_ulps(got, ref.to(bf)) if dtype == bf else rel(got, ref))
-        sum_err = rel(colsum, ref.sum(0)) if sums else None
-        bitwise = torch.equal(got, again) and (
-            not sums or torch.equal(colsum, colsum2))
-        finite = bool(torch.isfinite(got.float()).all())
-        # the WMMA kernel as the old backward ran it: f32 cotangents, the
-        # transposed weight as its (K, n) B, an f32 output
-        a_old = a.float().contiguous()
-        w_old = mk._padded_t(w.float())
-        out_old = torch.empty((M, mk._pad8(N)), dtype=f32, device=dev)
-        m_old = None if mask is None else mk._Mat(mask, N)
-        ms = device_ms(new, iters=20)
-        ms_old = device_ms(lambda a_old=a_old, w_old=w_old, m_old=m_old, N=N,
-                           K=K, out_old=out_old: mk._gemm_nn(
-                               mk._Mat(a_old, K), w_old, M, N, out_old,
-                               mask=m_old), iters=5)
-        ms_lib = device_ms(lambda a=a, w=w: torch.mm(a, w.t()), iters=20)
-        ms_plain = device_ms(plain, iters=3, warmup=1)
-        moved = (2.0 * M * K + 2.0 * N * K + M * N * got.element_size()
-                 + (2.0 * M * N if masked else 0.0)
-                 + (4.0 * M + 2.0 * N if rank1 else 0.0)
-                 + (4.0 * N if sums else 0.0))
-        b_ms, b_by = bound(2.0 * M * K * N, moved)
-        rec = {"K": K, "N": N, "out": odt, "mask": masked, "rank1": rank1,
-               "err": err, "err_unit": "bf16 ulps" if dtype == bf else
-               "relL2", "colsum_rel_l2": sum_err, "bitwise_rerun": bitwise,
-               "ms": ms, "old_ms": ms_old, "library_ms": ms_lib,
-               "plain_ms": ms_plain, "bound_ms": b_ms, "bound_by": b_by,
-               "gb_per_s": moved / ms / 1e6,
-               "max_abs_err": float(torch.max(torch.abs(got.float() - ref)))}
-        dgrad[name] = rec
-        print(f"gemm dgrad {name} [{card}] M={M} K={K} N={N} {odt}"
-              f"{' mask' if masked else ''}{' rank-1' if rank1 else ''}: err "
-              f"{err:.3e} {rec['err_unit']}"
-              + (f", column sums relL2 {sum_err:.2e}" if sums else "")
-              + f"; bitwise rerun {bitwise}; new {ms:.4f} ms, old WMMA "
-              f"{ms_old:.4f} ms, torch.mm {ms_lib:.4f} ms, plain "
-              f"{ms_plain:.3f} ms; {rec['gb_per_s']:.0f} GB/s, bound "
-              f"{b_ms:.4f} ms ({b_by})")
-        ok = finite and bitwise and (err <= GEMM_ULPS if dtype == bf
-                                     else err <= 1e-5)
-        if not ok or (sums and not sum_err <= 1e-5):
-            raise AssertionError(f"gemm dgrad {name}: err {err}, column sums "
-                                 f"{sum_err}, finite {finite}, bitwise "
-                                 f"{bitwise}")
-
-    denc = rows(N_RAYS, 27)
-    g4 = torch.randn((M, 4), generator=gen, device=dev) * 1e-3  # g_raw
-    for name, K, N, kind in WGRAD_CASES:
-        x = denc if kind == "per_ray" else rows(M, K, relu=True)
-        # a head reads g_raw's f32 columns: fc_density the first, fc_rgb 1:4
-        c0 = 0 if N == 1 else 1
-        g = g4[:, c0:c0 + N] if kind == "head" else rows(M, N, scale=1e-3)
-
-        def new(x=x, g=g, kind=kind, K=K, N=N):
-            if kind == "head":
-                return mk.head_weight_grad(x, g)
-            out = torch.empty((K, N), dtype=f32, device=dev)
-            if kind == "per_ray":
-                return mk.dir_weight_grad(x, g, S, out)
-            return mk.gemm_wgrad(x, g, out)
-
-        def plain(x=x, g=g, kind=kind):
-            if kind == "per_ray":
-                return mk.dir_weight_grad_reference(x, g, S)
-            return mk.gemm_wgrad_reference(x.float(), g.float())
-
-        got, again, ref = new(), new(), plain()
-        torch.cuda.synchronize()
-        err = rel(got, ref)
-        bitwise = torch.equal(got, again)
-        # the WMMA gemm_tn as the old backward ran it, on f32 cotangents
-        g_old = (mk._Mat(g4, N, offset=c0) if kind == "head"
-                 else mk._Mat(g.float().contiguous(), N))
-        if kind == "per_ray":  # its one [feat | denc per ray] launch
-            feat = rows(M, D, relu=True)
-            x_old = dict(x1=mk._Mat(feat, D), x2=mk._Mat(denc, 27, row_div=S))
-        else:
-            x_old = dict(x1=mk._Mat(x, K))
-        g_lib = None if kind == "per_ray" else g.to(bf).contiguous()
-        ms = device_ms(new, iters=20)
-        ms_old = device_ms(lambda g_old=g_old, x_old=x_old: mk._weight_grad(
-            g=g_old, m=M, **x_old), iters=5)
-        ms_lib = None if g_lib is None else device_ms(
-            lambda x=x, g_lib=g_lib: torch.mm(x.t(), g_lib), iters=20)
-        ms_plain = device_ms(plain, iters=3, warmup=1)
-        moved = (2.0 * x.shape[0] * K + M * N * g.element_size()
-                 + 4.0 * K * N)
-        b_ms, b_by = bound(2.0 * M * K * N, moved)
-        rec = {"K_in": K, "N": N, "kind": kind, "rel_l2": err,
-               "bitwise_rerun": bitwise, "ms": ms, "old_ms": ms_old,
-               "library_ms": ms_lib, "plain_ms": ms_plain, "bound_ms": b_ms,
-               "bound_by": b_by, "gb_per_s": moved / ms / 1e6,
-               "max_abs_err": float(torch.max(torch.abs(got - ref)))}
-        wgrad[name] = rec
-        print(f"gemm wgrad {name} [{card}] M={M} K_in={K} N={N} ({kind}): "
-              f"relL2 {err:.3e}; bitwise rerun {bitwise}; new {ms:.4f} ms, "
-              f"old WMMA {ms_old:.4f} ms"
-              f"{' (with the feat half)' if kind == 'per_ray' else ''}"
-              ", torch.mm " + ("n/a" if ms_lib is None else f"{ms_lib:.4f} ms")
-              + f", plain {ms_plain:.3f} ms; {rec['gb_per_s']:.0f} GB/s, "
-              f"bound {b_ms:.4f} ms ({b_by})")
-        if not (bitwise and err <= 1e-5 and bool(torch.isfinite(got).all())):
-            raise AssertionError(f"gemm wgrad {name}: relL2 {err}, bitwise "
-                                 f"{bitwise}")
-    src = "nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu"
-    recs = []
-    for rec_name, head, table, err_key in (
-            ("mlp_gemm_dgrad", dgrad["trunk"], dgrad, "max_abs_err"),
-            ("mlp_gemm_wgrad", wgrad["trunk"], wgrad, "max_abs_err")):
-        recs.append({
-            "name": rec_name, "route": "cuda", "source": src,
-            "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:702",
-            "also_serves": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:258",
-            "shape": "one 256x256 trunk layer at M=131072",
-            "max_abs_err": max(r[err_key] for r in table.values()),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "old_ms": head["old_ms"], "library_ms": head["library_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "shapes": table})
-    return recs
 
 
 # the fused backward pass (csrc/mlp_fused_bwd.cu) at each pass of the
@@ -2198,9 +1660,8 @@ def check_fused_bwd(dev, card):
     at M = 131,072: its input gradients (bf16 in ulps, f32 in relL2), column
     sums and weight gradients (fc_density's too) against
     ``gemm_dwgrad_reference``, a bitwise rerun, and its device time (the
-    split reduction included) beside the layer-by-layer pair it replaced
-    (``gemm_dgrad`` of each group, then ``gemm_wgrad`` of each; fc_density
-    on ``head_weight_grad``), the plain version and the memory bound."""
+    split reduction included) beside the plain version and the memory
+    bound."""
     import torch
 
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -2254,17 +1715,6 @@ def check_fused_bwd(dev, card):
                 wd.float() if rank1 and i == 0 else None)
                 for i in range(2 if K1 else 1)]
 
-        def layered(gs=groups()):
-            for i, grp in enumerate(gs):
-                mk.gemm_dgrad(g, grp.w, grp.out,
-                              mask=grp.x if grp.mask else None,
-                              colsum=grp.colsum is not None,
-                              **(rank if i == 0 else {}))
-            for grp in gs:
-                mk.gemm_wgrad(grp.x, g, grp.dw)
-            if rank1:
-                mk.head_weight_grad(xs[0], g_raw[:, :1])
-
         (got, dwd), (again, dwd2) = new(), new()
         ref = plain()
         torch.cuda.synchronize()
@@ -2285,7 +1735,6 @@ def check_fused_bwd(dev, card):
         finite = all(bool(torch.isfinite(grp.out.float()).all())
                      and bool(torch.isfinite(grp.dw).all()) for grp in got)
         ms = device_ms(new, iters=20)
-        ms_old = device_ms(layered, iters=20)
         ms_plain = device_ms(plain, iters=3, warmup=1)
         K = K0 + K1
         moved = (2.0 * M * N + 2.0 * M * K
@@ -2299,7 +1748,7 @@ def check_fused_bwd(dev, card):
                  if grp.out.dtype == bf]]
         rec = {"K": [K0, K1], "N": N, "mask": masked, "rank1": rank1,
                "errors": errs, "bitwise_rerun": bitwise, "ms": ms,
-               "earlier_ms": ms_old, "plain_ms": ms_plain, "library_ms": None,
+               "plain_ms": ms_plain, "library_ms": None,
                "bound_ms": b_ms, "bound_by": b_by,
                "gb_per_s": moved / ms / 1e6,
                "max_abs_err": max(float(torch.max(torch.abs(
@@ -2309,8 +1758,7 @@ def check_fused_bwd(dev, card):
         print(f"fused bwd pass {name} [{card}] M={M} K={K0}+{K1} N={N}: "
               + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
               + f" (bf16 outputs in ulps, the rest relL2); bitwise rerun "
-              f"{bitwise}; {ms:.4f} ms device beside the layer-by-layer "
-              f"dgrad + wgrad {ms_old:.4f} ms, plain {ms_plain:.3f} ms; "
+              f"{bitwise}; {ms:.4f} ms device, plain {ms_plain:.3f} ms; "
               f"{rec['gb_per_s']:.0f} GB/s, bound {b_ms:.4f} ms ({b_by})")
         if not (finite and bitwise and all(u <= GEMM_ULPS for u in ulps)
                 and all(r <= 1e-5 for r in rels)):
@@ -2324,28 +1772,9 @@ def check_fused_bwd(dev, card):
             "shape": "one 256x256 trunk layer at M=131072, weight gradient "
                      "included",
             "max_abs_err": worst_err, "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "earlier_ms": head["earlier_ms"],
-            "library_ms": None, "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "shapes": table}
-
-
-@contextlib.contextmanager
-def per_ray_backward():
-    """Route Kernel A's compositing and encoding backward to the kernels
-    the group and staged kernels replaced (``mlp_kernel.
-    _composite_bwd_per_ray``: one thread per ray through a global scratch
-    buffer; ``_encode_bwd_per_ray``: one warp per ray whose lanes read
-    whole rows alone), to hold the new pair to them and time them beside
-    it."""
-    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
-
-    real = mk.composite_bwd, mk.encode_bwd
-    mk.composite_bwd = mk._composite_bwd_per_ray
-    mk.encode_bwd = mk._encode_bwd_per_ray
-    try:
-        yield
-    finally:
-        mk.composite_bwd, mk.encode_bwd = real
+            "plain_ms": head["plain_ms"], "library_ms": None,
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "shapes": table}
 
 
 def kernel_split(fn, iters=10):
@@ -2403,17 +1832,15 @@ def check_composite_encode_bwd(dev, card):
     backward (``encode_bwd``) at A_BWD_SHAPES, on the inputs a full
     backward gives them (recorded on the path) and that an input-only one
     gives them (which must be the same tensors' values, bit for bit): each
-    kernel's outputs against the per-ray kernel it replaced, bit for bit,
-    and against its plain version (A_BWD_PLAIN_RELL2); each kernel alone
-    timed in turns with the old one (new, old, old, new; events and
-    profiler device time) beside its plain version and its bound (bytes:
-    each input read once at its true width, each output written once);
-    the whole A-bwd, full and input-only, against the same backward on the
-    old pair (:func:`per_ray_backward`): gradients bit for bit, device
-    time in turns, launches per call, and the profiler's split of its
-    device time by kernel; then Kernel C's backward at the stock step's
-    points split likewise. Returns the two kernels' records and every
-    shape's numbers."""
+    kernel's outputs against a rerun, bit for bit, and against its plain
+    version (A_BWD_PLAIN_RELL2); each kernel alone timed beside its plain
+    version (:func:`kernel_turns`: events and profiler device time) and its
+    bound (bytes: each input read once at its true width, each output
+    written once); the whole A-bwd, full and input-only: events and device
+    time, launches per call, and the profiler's split of its device time by
+    kernel; then Kernel C's backward at the stock step's points split
+    likewise. Returns the two kernels' records and every shape's
+    numbers."""
     import torch
 
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -2451,15 +1878,14 @@ def check_composite_encode_bwd(dev, card):
             for a, b in zip(x, y))
         c_args, e_args = calls["full"]
         torch.cuda.synchronize()
-        got_c, old_c = mk.composite_bwd(*c_args), mk._composite_bwd_per_ray(
-            *c_args)
-        got_e, old_e = mk.encode_bwd(*e_args), mk._encode_bwd_per_ray(*e_args)
+        got_c, again_c = mk.composite_bwd(*c_args), mk.composite_bwd(*c_args)
+        got_e, again_e = mk.encode_bwd(*e_args), mk.encode_bwd(*e_args)
         ref_c = mk.composite_bwd_reference(*c_args)
         ref_e = mk.encode_bwd_reference(*e_args)
         torch.cuda.synchronize()
-        bitwise = {"g_raw": torch.equal(got_c, old_c),
-                   **{n: torch.equal(a, b) for n, a, b in
-                      zip(("d_o", "d_r", "d_d"), got_e, old_e)}}
+        rerun = {"g_raw": torch.equal(got_c, again_c),
+                 **{n: torch.equal(a, b) for n, a, b in
+                    zip(("d_o", "d_r", "d_d"), got_e, again_e)}}
         rel = {"g_raw": rel_l2(got_c, ref_c),
                **{n: rel_l2(a, b) for n, a, b in
                   zip(("d_o", "d_r", "d_d"), got_e, ref_e)}}
@@ -2469,43 +1895,24 @@ def check_composite_encode_bwd(dev, card):
         finite = bool(torch.isfinite(got_c).all()) and all(
             bool(torch.isfinite(a).all()) for a in got_e)
 
-        grads = {}
-        for route, fn in (("full", full), ("input_only", input_only)):
-            g_new = fn()
-            with per_ray_backward():
-                g_old = fn()
-            torch.cuda.synchronize()
-            grads[route] = all(torch.equal(a, b) for a, b in zip(g_new, g_old))
-
-        def old_pair(fn):
-            def run():
-                with per_ray_backward():
-                    fn()
-            return run
-
-        t_c = pair_turns(lambda: mk.composite_bwd(*c_args),
-                         lambda: mk._composite_bwd_per_ray(*c_args),
-                         lambda: mk.composite_bwd_reference(*c_args))
-        t_e = pair_turns(lambda: mk.encode_bwd(*e_args),
-                         lambda: mk._encode_bwd_per_ray(*e_args),
-                         lambda: mk.encode_bwd_reference(*e_args))
-        t_full = pair_turns(full, old_pair(full), iters=10)
-        t_io = pair_turns(input_only, old_pair(input_only), iters=10)
+        t_c = kernel_turns(lambda: mk.composite_bwd(*c_args),
+                        lambda: mk.composite_bwd_reference(*c_args), iters=20)
+        t_e = kernel_turns(lambda: mk.encode_bwd(*e_args),
+                        lambda: mk.encode_bwd_reference(*e_args), iters=20)
+        t_full = {"ms": cuda_ms(full), "device_ms": device_ms(full)}
+        t_io = {"ms": cuda_ms(input_only), "device_ms": device_ms(input_only)}
         launches = {"full": kernel_launches(full),
-                    "input_only": kernel_launches(input_only),
-                    "full_old_pair": kernel_launches(old_pair(full))}
+                    "input_only": kernel_launches(input_only)}
         split = {"full": kernel_split(full),
-                 "input_only": kernel_split(input_only),
-                 "full_old_pair": kernel_split(old_pair(full))}
+                 "input_only": kernel_split(input_only)}
         M = N * S
         n_pos, n_dir = (3 * (2 * static[0] + 1), 3 * (2 * static[1] + 1))
         b_c = bound(nbytes=nbytes(*c_args[:6]) + nbytes(got_c))
         b_e = bound(nbytes=4.0 * M * (2 * n_pos + n_dir + 1)
                     + nbytes(*e_args[:3]) + nbytes(*got_e))
         rec = {"rays": N, "samples": S, "hidden": model["hidden_dim"],
-               "bitwise_to_per_ray": bitwise,
+               "rerun_bitwise": rerun,
                "input_only_inputs_equal_full": same_inputs,
-               "a_bwd_bitwise_to_per_ray_pair": grads,
                "rel_l2_to_plain": rel, "composite_max_abs_err": err_c,
                "encode_max_abs_err": err_e,
                "composite_bwd": {**t_c, "bound_ms": b_c[0],
@@ -2516,35 +1923,26 @@ def check_composite_encode_bwd(dev, card):
                "a_bwd_device_ms_by_kernel": split}
         shapes[label] = rec
         print(f"kernel A compositing / encoding backward [{card}] {label} "
-              f"{N} x {S} D={model['hidden_dim']}: bitwise to the per-ray "
-              f"kernels {bitwise}, the input-only backward's inputs equal "
-              f"{same_inputs}, A-bwd bitwise to the per-ray pair {grads}; "
+              f"{N} x {S} D={model['hidden_dim']}: reruns bitwise {rerun}, "
+              f"the input-only backward's inputs equal {same_inputs}; "
               "relL2 to plain " + " ".join(f"{k}={v:.2e}" for k, v in
                                             rel.items())
               + f"; composite_bwd {t_c['ms']:.4f} ms (device "
-              f"{t_c['device_ms']:.4f}) against {t_c['earlier_ms']:.4f} "
-              f"(device {t_c['earlier_device_ms']:.4f}), plain "
-              f"{t_c['plain_ms']:.3f}, bound {b_c[0]:.4f} ({b_c[1]}); "
-              f"encode_bwd {t_e['ms']:.4f} ms (device "
-              f"{t_e['device_ms']:.4f}) against {t_e['earlier_ms']:.4f} "
-              f"(device {t_e['earlier_device_ms']:.4f}), plain "
-              f"{t_e['plain_ms']:.3f}, bound {b_e[0]:.4f} ({b_e[1]}); "
-              f"A-bwd full device {t_full['device_ms']:.4f} against "
-              f"{t_full['earlier_device_ms']:.4f}, input-only "
-              f"{t_io['device_ms']:.4f} against "
-              f"{t_io['earlier_device_ms']:.4f}; launches {launches}")
+              f"{t_c['device_ms']:.4f}), plain {t_c['plain_ms']:.3f}, bound "
+              f"{b_c[0]:.4f} ({b_c[1]}); encode_bwd {t_e['ms']:.4f} ms "
+              f"(device {t_e['device_ms']:.4f}), plain {t_e['plain_ms']:.3f}"
+              f", bound {b_e[0]:.4f} ({b_e[1]}); A-bwd full device "
+              f"{t_full['device_ms']:.4f}, input-only "
+              f"{t_io['device_ms']:.4f}; launches {launches}")
         print(f"kernel A bwd device ms by kernel [{card}] {label}: "
               + json.dumps(split))
-        fails = [k for k, v in bitwise.items() if not v]
-        fails += [f"A-bwd {k}" for k, v in grads.items() if not v]
+        fails = [f"{k} rerun" for k, v in rerun.items() if not v]
         fails += [f"{k} relL2 {v:.3e}" for k, v in rel.items()
                   if not v < A_BWD_PLAIN_RELL2]
         if not same_inputs:
             fails.append("the input-only backward's kernel inputs differ")
         if not finite:
             fails.append("non-finite outputs")
-        if launches["full"] != launches["full_old_pair"]:
-            fails.append(f"launches per A-bwd {launches}")
         if fails:
             raise AssertionError(f"kernel A compositing / encoding backward "
                                  f"{label}: {fails}")
@@ -2584,66 +1982,49 @@ def check_composite_encode_bwd(dev, card):
             "max_abs_err": stock[err], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            "earlier_ms": t["earlier_ms"], "device_ms": t["device_ms"],
-            "earlier_device_ms": t["earlier_device_ms"],
-            "bitwise_to_per_ray": True,
-            "shapes": {k: {**v[name], "bitwise_to_per_ray":
-                           v["bitwise_to_per_ray"]}
-                       for k, v in shapes.items()}})
+            "device_ms": t["device_ms"], "rerun_bitwise": True,
+            "shapes": {k: v[name] for k, v in shapes.items()}})
     return records, dict(shapes, c_bwd_device_ms_by_kernel=c_split)
 
 
 def kernel_counters():
-    """The launch counters of the six kernels (with Kernel B's per-query
-    kernel, on no path), the fused forward and the
+    """The launch counters of the six kernels, the fused forward and the
     compositing after it (Kernel A's raw route), the fused backward pass,
-    the layer-by-layer forward's GEMM, the layer-by-layer backward's input-
-    and weight-gradient GEMMs, the launches that serve only the weight
-    gradients, the WMMA GEMM, and Kernel A's compositing and encoding
-    backward with the per-ray kernels they replaced, and the reference
-    pair's forward and backward."""
+    the launches that serve only the weight gradients, Kernel A's
+    compositing and encoding backward, and the reference pair's forward and
+    backward."""
     from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
     from nope_nerf_tpu_torch.ops.kernels import chamfer_kernel as ck
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
     from nope_nerf_tpu_torch.ops.kernels import ref_pair as rp
 
     return (mk.FWD_LAUNCHES, mk.BWD_LAUNCHES, cb.LAUNCHES,
-            cb.PER_QUERY_LAUNCHES, mk.FWD_POINT_LAUNCHES,
-            mk.BWD_POINT_LAUNCHES, ck.LAUNCHES,
+            mk.FWD_POINT_LAUNCHES, mk.BWD_POINT_LAUNCHES, ck.LAUNCHES,
             mk.MLP_FUSED_FWD_LAUNCHES, mk.COMPOSITE_AFTER_LAUNCHES,
-            mk.MLP_FUSED_BWD_LAUNCHES, mk.GEMM_SM90_LAUNCHES,
-            mk.GEMM_DGRAD_LAUNCHES,
-            mk.GEMM_WGRAD_LAUNCHES, mk.WGRAD_LAUNCHES, mk.GEMM_NN_LAUNCHES,
-            mk.COMPOSITE_BWD_LAUNCHES, mk.ENCODE_BWD_LAUNCHES,
-            mk.COMPOSITE_BWD_PER_RAY_LAUNCHES,
-            mk.ENCODE_BWD_PER_RAY_LAUNCHES, rp.LAUNCHES, rp.BWD_LAUNCHES)
+            mk.MLP_FUSED_BWD_LAUNCHES, mk.WGRAD_LAUNCHES,
+            mk.COMPOSITE_BWD_LAUNCHES, mk.ENCODE_BWD_LAUNCHES, rp.LAUNCHES,
+            rp.BWD_LAUNCHES)
 
 
 def check_gemm_counts(label, counts, weight_grads=True):
     """Every forward of Kernels A and C ran as one launch of the fused
     forward (csrc/mlp_fused_fwd.cu; every S on these paths tiles 128
-    points, so no compositing after it) and the layer-by-layer forward's
-    GEMM never; every backward ran its ten fused passes
-    (csrc/mlp_fused_bwd.cu) and, with ``weight_grads``, the launches that
-    serve only the weight gradients (A: the per-ray direction half and the
-    split reduction, 2; C: the split reduction, 1; none without); the
-    layer-by-layer backward's GEMMs and the WMMA GEMM never ran; every
+    points, so no compositing after it); every backward ran its ten fused
+    passes (csrc/mlp_fused_bwd.cu) and, with ``weight_grads``, the launches
+    that serve only the weight gradients (A: the per-ray direction half and
+    the split reduction, 2; C: the split reduction, 1; none without); every
     backward of A ran its compositing and its encoding backward once each
-    (csrc/mlp_composite.cu's group and staged kernels) and the per-ray
-    kernels they replaced never."""
+    (csrc/mlp_composite.cu's group and staged kernels)."""
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     fwd = counts["mlp_composite_fwd"] + counts["mlp_point_fwd"]
     a_bwd, c_bwd = counts["mlp_composite_bwd"], counts["mlp_point_bwd"]
     per = mk.WGRAD_PER_BWD
     want = {"mlp_fused_fwd": fwd, "mlp_composite_after_fused": 0,
-            "mlp_gemm_sm90": 0, "mlp_gemm_nn": 0, "mlp_gemm_dgrad": 0,
-            "mlp_gemm_wgrad": 0,
             "mlp_fused_bwd": mk.FUSED_BWD_PER_BWD * (a_bwd + c_bwd),
             "mlp_weight_grad_gemm": (per["A"] * a_bwd + per["C"] * c_bwd
                                      if weight_grads else 0),
-            "composite_bwd": a_bwd, "encode_bwd": a_bwd,
-            "composite_bwd_per_ray": 0, "encode_bwd_per_ray": 0}
+            "composite_bwd": a_bwd, "encode_bwd": a_bwd}
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"{label}: GEMM launches {got} for {fwd} "
@@ -3145,8 +2526,7 @@ def check_input_only_backward(dev, card):
     the full one at the stock shapes: d_origins / d_rays / d_dirs bitwise
     equal, the same ten fused passes, WGRAD_PER_BWD["A"] launches that
     serve only the weight gradients against none, both timed beside the
-    input-only memory floors (fused and layer-by-layer) and the input-only
-    layer-by-layer backward."""
+    input-only memory floor."""
     import torch
 
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -3177,22 +2557,16 @@ def check_input_only_backward(dev, card):
                                                 retain_graph=True))
     dev_in = device_ms(lambda: torch.autograd.grad(out_in, geo, cots,
                                                    retain_graph=True))
-    with layered_backward():
-        dev_in_layered = device_ms(lambda: torch.autograd.grad(
-            out_in, geo, cots, retain_graph=True))
     widths = _mlp_widths(weights, static)
-    floor = mlp_bwd_floor_fused(N_RAYS * N_SAMPLES, *widths, div=N_SAMPLES,
+    floor = mlp_bwd_floor(N_RAYS * N_SAMPLES, *widths, div=N_SAMPLES,
                                 weight_grads=False)
-    floor_layered = mlp_bwd_floor(N_RAYS * N_SAMPLES, *widths, div=N_SAMPLES,
-                                  weight_grads=False)
     print(f"kernel A input-only bwd [{card}] N={N_RAYS} S={N_SAMPLES}: "
           f"d_origins/d_rays/d_dirs bitwise equal to the full backward "
           f"{same}; weight-gradient launches {n1[0] - n0[0]} (full) vs "
           f"{n2[0] - n1[0]}, fused passes {n1[1] - n0[1]} vs "
           f"{n2[1] - n1[1]}; full {ms_full:.3f} ms, input-only {ms_in:.3f} ms"
-          f" (device {dev_in:.3f} ms; layer-by-layer {dev_in_layered:.3f} "
-          f"ms); input-only memory floor fused {floor:.3f} ms, "
-          f"layer-by-layer {floor_layered:.3f} ms")
+          f" (device {dev_in:.3f} ms); input-only memory floor "
+          f"{floor:.3f} ms")
     want = ((mk.WGRAD_PER_BWD["A"], mk.FUSED_BWD_PER_BWD),
             (0, mk.FUSED_BWD_PER_BWD))
     got = tuple((b[0] - a[0], b[1] - a[1]) for a, b in ((n0, n1), (n1, n2)))
@@ -3200,10 +2574,7 @@ def check_input_only_backward(dev, card):
         raise AssertionError("kernel A's input-only backward differs from "
                              f"the full one (launches {got}, expected {want})")
     return {"ms_full": ms_full, "ms_input_only": ms_in,
-            "device_ms_input_only": dev_in,
-            "layer_by_layer_device_ms_input_only": dev_in_layered,
-            "floor_ms_input_only": floor,
-            "layer_by_layer_floor_ms_input_only": floor_layered}
+            "device_ms_input_only": dev_in, "floor_ms_input_only": floor}
 
 
 def pose_step_ms(dev, nerf_params, scene, render_cfg, weight_grads):
@@ -3296,22 +2667,13 @@ def run_eval(dev, card, cfg, trained):
         return render_image(nerf, (H, W), cam, world, eye, render_cfg,
                             chunk=65536)
 
-    def render_layered():
-        with layered_forward():
-            render_full()
-
     render_ms = host_ms(render_full, iters=3)
     during = {k: v - before[k] for k, v in executed(counters).items()}
     check_gemm_counts("eval render", during, weight_grads=False)
     print(f"eval render launches [{card}]: {during}")
-    # the render through the layer-by-layer forward, in turns with the
-    # fused one (fused, layered, layered, fused)
-    earlier = [host_ms(render_layered, iters=3) for _ in range(2)]
     render_ms = (render_ms + host_ms(render_full, iters=3)) / 2
-    render_earlier_ms = sum(earlier) / 2
     print(f"eval render [{card}]: {H}x{W}, {render_ms:.1f} ms/image through "
-          f"the fused forward, {render_earlier_ms:.1f} ms/image through the "
-          "layer-by-layer forward (host clock, each render synchronised)")
+          "the fused forward (host clock, each render synchronised)")
     small = render_image(nerf, SMALL_VIEW, cam, world, eye, render_cfg)
     with kernel_a_plain():
         small_plain = render_image(nerf, SMALL_VIEW, cam, world, eye,
@@ -3340,7 +2702,6 @@ def run_eval(dev, card, cfg, trained):
                     "reference_tensors_restored": n_reference,
                     "ms_per_image": res["ms_per_image"][0],
                     "render_ms": render_ms,
-                    "render_earlier_ms": render_earlier_ms,
                     "peak_bytes": peak,
                     "small_view_max_abs_err": err, "small_view_ms": small_ms,
                     "small_view_plain_ms": small_plain_ms,
@@ -3544,8 +2905,7 @@ def run_dpt(dev, card):
     kernel_checks = {
         "chamfer_band": check_argmin_calls(
             "dpt training's chamfer_band", cb.nearest_idx_banded,
-            cb.nearest_idx_banded_reference, argmin_calls,
-            cb._nearest_idx_banded_per_query),
+            cb.nearest_idx_banded_reference, argmin_calls),
         "mlp_point_fwd": check_point_mlp_call(
             "dpt training's visualisation", point_calls)}
     print(f"dpt training [{card}]: {len(losses)} steps on the priors "
@@ -3915,10 +3275,9 @@ def check_ssim_normal(dev, card, cfg, state):
             "step_ms_with_normal": [on1, on2]}
 
 
-def check_argmin_calls(label, kernel, plain, calls, oracle=None):
+def check_argmin_calls(label, kernel, plain, calls):
     """Rerun recorded calls of a Chamfer argmin wrapper through the kernel
-    and its plain version: identical indices required; with ``oracle``
-    (the kernel it replaced) also bit for bit its indices."""
+    and its plain version: identical indices required."""
     import torch
 
     def mismatches(a, b):
@@ -3926,22 +3285,15 @@ def check_argmin_calls(label, kernel, plain, calls, oracle=None):
             a, b = (a,), (b,)
         return sum(int(torch.sum(x != y)) for x, y in zip(a, b))
 
-    mism = old = 0
+    mism = 0
     for args, kwargs in calls:
-        out_k = kernel(*args, **kwargs)
-        mism += mismatches(out_k, plain(*args, **kwargs))
-        if oracle is not None:
-            old += mismatches(out_k, oracle(*args, **kwargs))
-    if not calls or mism or old:
+        mism += mismatches(kernel(*args, **kwargs), plain(*args, **kwargs))
+    if not calls or mism:
         raise AssertionError(f"{label}: {len(calls)} recorded calls, {mism} "
-                             f"indices differ from the plain version, {old} "
-                             "from the kernel it replaced")
+                             "indices differ from the plain version")
     X, Y = calls[-1][0][:2]
-    out = {"calls": len(calls), "points": [X.shape[0], Y.shape[0]],
-           "index_mismatches": mism}
-    if oracle is not None:
-        out["per_query_mismatches"] = old
-    return out
+    return {"calls": len(calls), "points": [X.shape[0], Y.shape[0]],
+            "index_mismatches": mism}
 
 
 def check_point_mlp_call(label, calls):
@@ -4005,10 +3357,9 @@ def run_synthetic(dev, card):
     # the Chamfer kernel `auto` resolves to: its counter, wrapper and plain
     # version ("grid" runs none)
     argmin = {"band": ("chamfer_band", cb, "nearest_idx_banded",
-                       cb.nearest_idx_banded_reference,
-                       cb._nearest_idx_banded_per_query),
+                       cb.nearest_idx_banded_reference),
               "exact": ("chamfer_exact", ck, "nearest_idx_exact",
-                        ck.nearest_idx_exact_reference, None)}.get(mode)
+                        ck.nearest_idx_exact_reference)}.get(mode)
     torch.cuda.empty_cache()
     counters = reset_counts()
     t0 = time.perf_counter()
@@ -4056,7 +3407,7 @@ def run_synthetic(dev, card):
     if argmin:
         kernel_checks[argmin[0]] = check_argmin_calls(
             f"synthetic training's {argmin[0]}", getattr(argmin[1], argmin[2]),
-            argmin[3], argmin_calls, argmin[4])
+            argmin[3], argmin_calls)
 
     counters = reset_counts()
     t0 = time.perf_counter()
@@ -4253,8 +3604,7 @@ def run_recovery(dev, card, pose_lr=None):
     kernel_checks = {
         "chamfer_band": check_argmin_calls(
             "recovery's last step's chamfer_band", cb.nearest_idx_banded,
-            cb.nearest_idx_banded_reference, argmin_calls,
-            cb._nearest_idx_banded_per_query),
+            cb.nearest_idx_banded_reference, argmin_calls),
         "mlp_composite": check_kernel_a_call(f"recovery [{card}]", a_call)}
     print(f"recovery launches [{card}]: {counts}")
     shutil.rmtree(base)
@@ -4538,8 +3888,7 @@ def mg_worker(rank, port, out, dpt_cfg_path):
                                  f"{a_check['rays']} rays, not {N_RAYS // 2}")
         b_check = check_argmin_calls(f"{label} chamfer_band",
                                      cb.nearest_idx_banded,
-                                     cb.nearest_idx_banded_reference, b_calls,
-                                     cb._nearest_idx_banded_per_query)
+                                     cb.nearest_idx_banded_reference, b_calls)
         it = iter(range(MG_STEPS, MG_STEPS + 100))
         ms = host_ms(lambda: step(state, mg_batch(batch0, scene, next(it)),
                                   scalars, static), iters=5)
@@ -4856,7 +4205,8 @@ def main(argv=None):
         print("chip_smoke: nope_nerf_tpu_torch is not beside this script",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    # the package, and tests/ for the plain saves the fused forward is held to
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
     import torch
 
     if not torch.cuda.is_available():
@@ -4888,13 +4238,11 @@ def main(argv=None):
     b = check_kernel_b(dev, card)
     c_fwd, c_bwd = check_kernel_c(dev, card)
     d = check_kernel_d(dev, card)
-    gemm = check_gemm(dev, card)
-    gemm_bwd = check_gemm_bwd(dev, card)
     fused_bwd = check_fused_bwd(dev, card)
     a_bwd_parts, a_bwd_pair = check_composite_encode_bwd(dev, card)
     pair = check_ref_pair(dev, card)
-    records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d, gemm, *gemm_bwd, fused_bwd,
-               *a_bwd_parts, pair]
+    records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d, fused_bwd, *a_bwd_parts,
+               pair]
     launches = {rec["name"]: 0 for rec in records}
     runs = {}
     for label, overrides, expect in RUNS:

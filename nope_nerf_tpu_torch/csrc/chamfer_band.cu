@@ -44,54 +44,14 @@
 //   later rows (the argument of csrc/chamfer_exact.cu). One launch per call.
 // * The ragged query tail is masked; no padded copy of X or Y is made.
 //
-// band_argmin_kernel is the kernel this design replaced (one query a thread,
-// the whole band in order), kept as the bitwise oracle of the new kernel in
-// chip_smoke.py and the card tests; it takes the sentinel-padded copies its
-// wrapper makes.
+// tests/test_torch_cuda.py holds it bit for bit to a sequential sweep of
+// the band in numpy (tests/_band_sweep.py), NaN, infinite and sentinel rows
+// included.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
-
-constexpr int BAND_THREADS = 256;
-constexpr int MAX_TILE = 1024;
-
-__global__ void __launch_bounds__(BAND_THREADS)
-    band_argmin_kernel(const float* __restrict__ xp, const float* __restrict__ yp,
-                       const int* __restrict__ starts, int* __restrict__ out, int n_tiles,
-                       int k_tiles, int tile, int qb) {
-  __shared__ float ys[3][MAX_TILE];
-  const int q = blockIdx.x * BAND_THREADS + threadIdx.x;
-  const int group = (blockIdx.x * BAND_THREADS) / qb;
-  const int start = min(max(starts[group], 0), max(n_tiles - k_tiles, 0));
-  const float x0 = xp[q * 3], x1 = xp[q * 3 + 1], x2 = xp[q * 3 + 2];
-  float best = INFINITY;
-  int best_i = start * tile;
-  for (int t = 0; t < k_tiles; ++t) {
-    const int row0 = (start + t) * tile;
-    __syncthreads();
-    for (int i = threadIdx.x; i < tile; i += BAND_THREADS) {
-      const float* y = yp + (size_t)(row0 + i) * 3;
-      ys[0][i] = y[0];
-      ys[1][i] = y[1];
-      ys[2][i] = y[2];
-    }
-    __syncthreads();
-    for (int i = 0; i < tile; ++i) {
-      const float d0 = __fsub_rn(x0, ys[0][i]);
-      const float d1 = __fsub_rn(x1, ys[1][i]);
-      const float d2 = __fsub_rn(x2, ys[2][i]);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)),
-                                __fmul_rn(d2, d2));
-      if (d < best) {
-        best = d;
-        best_i = row0 + i;
-      }
-    }
-  }
-  out[q] = best_i;
-}
 
 constexpr int Q = 4;                       // queries a thread
 constexpr int SPLIT = 8;                   // warps a block, parts of the band
@@ -223,19 +183,6 @@ __global__ void __launch_bounds__(32 * SPLIT, 2)
 }
 
 }  // namespace
-
-// The per-query kernel on sentinel-padded X (n_queries_padded rows, a multiple of
-// qb) and Y (n_tiles * tile rows); the bitwise oracle of nnt_band_argmin_split.
-extern "C" int nnt_band_argmin(const float* xp, const float* yp, const int* starts, int* out,
-                               int n_queries_padded, int n_tiles, int k_tiles, int tile, int qb,
-                               void* stream) {
-  if (tile > MAX_TILE || qb % BAND_THREADS != 0 || n_queries_padded % qb != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  band_argmin_kernel<<<n_queries_padded / BAND_THREADS, BAND_THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(xp, yp, starts, out, n_tiles, k_tiles,
-                                                            tile, qb);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The main path's kernel on X (n_x, 3) and Y (n_y, 3) as they are: out gets
 // n_x indices; starts has ceil(n_x / qb) entries; k_tiles <= n_tiles =

@@ -1,5 +1,5 @@
-// PTX helpers of the port's Hopper kernels (mlp_gemm_sm90.cu,
-// mlp_fused_fwd.cu, mlp_fused_bwd.cu): shared-memory addresses, mbarriers,
+// PTX helpers of the port's Hopper kernels (mlp_fused_fwd.cu,
+// mlp_fused_bwd.cu): shared-memory addresses, mbarriers,
 // TMA loads, bulk groups, proxy fences, named barriers, wgmma and its
 // descriptors, and the driver's tensor-map encoder.
 #pragma once

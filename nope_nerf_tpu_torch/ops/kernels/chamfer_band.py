@@ -12,15 +12,12 @@ rows, :func:`band_start_tiles`).
   replacing the Pallas ``_band_kernel``) on X and Y as they are, and count
   it in :data:`LAUNCHES`; CPU tensors run
   :func:`nearest_idx_banded_reference`; any other device raises.
-* :func:`_nearest_idx_banded_per_query` launches the per-query kernel that
-  the split-band kernel replaced (one query a thread) on padded copies,
-  counted in :data:`PER_QUERY_LAUNCHES`. It is on no path: chip_smoke.py
-  and the card tests hold the split-band kernel to it bit for bit, NaN and
-  infinite rows included.
-* All compute the direct (x - y)^2 sum without FMAs and break ties toward
+* Both compute the direct (x - y)^2 sum without FMAs and break ties toward
   the first occurrence, so they return identical indices on finite inputs
   (``torch.argmin`` of the plain version takes a NaN distance as the
-  minimum; the kernels never pick one).
+  minimum; the kernel never picks one). The card tests hold the kernel bit
+  for bit to a sequential sweep of the band in numpy, NaN and infinite rows
+  included.
 """
 from __future__ import annotations
 
@@ -36,7 +33,6 @@ QB = 1024        # queries per group (one start tile each)
 _SENTINEL = 1e5  # padded X rows -> +S, padded Y rows -> -S (never win)
 
 LAUNCHES = LaunchCounter("chamfer_band")
-PER_QUERY_LAUNCHES = LaunchCounter("chamfer_band_per_query")
 
 
 def band_start_tiles(row_hint, n_y, ws_y, k_tiles, qb=QB):
@@ -119,7 +115,7 @@ def nearest_idx_banded_reference(X, Y, starts, k_tiles):
 
 
 def _check_cuda_inputs(X, Y, starts, k_tiles):
-    """Raise on what the kernels cannot take; returns _band_shapes."""
+    """Raise on what the kernel cannot take; returns _band_shapes."""
     dev = X.device
     if Y.device != dev or starts.device != dev:
         raise ValueError("nearest_idx_banded: X, Y and starts must share "
@@ -160,28 +156,6 @@ def nearest_idx_banded(X, Y, starts, k_tiles=8):
     check(err, "band_argmin_split")
     LAUNCHES.add()
     return out
-
-
-def _nearest_idx_banded_per_query(X, Y, starts, k_tiles=8):
-    """:func:`nearest_idx_banded` on the per-query kernel the split-band
-    kernel replaced (CUDA tensors only): one query a thread over
-    sentinel-padded copies of X and Y."""
-    dev = X.device
-    if dev.type != "cuda":
-        raise ValueError(f"_nearest_idx_banded_per_query: unsupported device "
-                         f"{dev}")
-    S, n_tiles, k_tiles, Sp, Dp = _check_cuda_inputs(X, Y, starts, k_tiles)
-    Xp = _prep(X.detach(), Sp, _SENTINEL).contiguous()
-    Yp = _prep(Y.detach(), Dp, -_SENTINEL).contiguous()
-    st = starts.to(torch.int32).contiguous()
-    out = torch.empty(Sp, dtype=torch.int32, device=dev)
-    err = c_function("nnt_band_argmin", "ppppiiiiip")(
-        Xp.data_ptr(), Yp.data_ptr(), st.data_ptr(), out.data_ptr(),
-        Sp, n_tiles, k_tiles, TILE, QB,
-        torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "band_argmin")
-    PER_QUERY_LAUNCHES.add()
-    return out[:S]
 
 
 def chamfer_loss_banded(X, Y, starts_x, starts_y, k_tiles=8,

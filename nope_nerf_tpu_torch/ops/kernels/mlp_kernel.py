@@ -7,29 +7,31 @@ Port of ``nope_nerf_tpu/ops/pallas/mlp_kernel.py``: ``fused_mlp_composite``
 l.244 and ``_make_bwd_kernel`` l.258). The CUDA sources are
 ``nope_nerf_tpu_torch/csrc/mlp_fused_fwd.cu`` (both forwards, one launch
 each), ``nope_nerf_tpu_torch/csrc/mlp_fused_bwd.cu`` (both backwards, one
-pass per layer), ``nope_nerf_tpu_torch/csrc/mlp_gemm_sm90.cu`` (the
-layer-by-layer GEMMs, on no path) and
-``nope_nerf_tpu_torch/csrc/mlp_composite.cu``; the headers say what bounds
+pass per layer) and ``nope_nerf_tpu_torch/csrc/mlp_composite.cu`` (the
+compositing and encoding work outside them); the headers say what bounds
 the kernels on the H100 and how the design answers it.
 
 * :func:`fused_mlp_composite` (Kernel A) and :func:`fused_mlp` (Kernel C)
   are the public wrappers. For CUDA tensors they run
   :class:`FusedMLPComposite` / :class:`FusedMLP` and count the launches in
   :data:`FWD_LAUNCHES` / :data:`BWD_LAUNCHES` and :data:`FWD_POINT_LAUNCHES`
-  / :data:`BWD_POINT_LAUNCHES`. Each forward is one launch of the fused
-  kernel (:func:`fused_fwd`, counted in :data:`MLP_FUSED_FWD_LAUNCHES`):
-  encodings, the ten layer GEMMs on a tile kept in shared memory, the heads,
-  and the compositing or the head activations; for an S that does not
-  divide 128 (:func:`fused_route`) Kernel A's compositing runs after it in
-  ``composite_fwd`` (:data:`COMPOSITE_AFTER_LAUNCHES`). Each backward runs
-  ten fused layer passes (:func:`gemm_dwgrad`, counted in
-  :data:`MLP_FUSED_BWD_LAUNCHES`); Kernel A's backward runs them between
-  its compositing backward (:func:`composite_bwd`) and its encoding
-  backward (:func:`encode_bwd`), each bitwise equal to the per-ray kernel
-  it replaced (:func:`_composite_bwd_per_ray`, :func:`_encode_bwd_per_ray`,
-  on no path). CPU tensors run the plain versions
+  / :data:`BWD_POINT_LAUNCHES`. CPU tensors run the plain versions
   :func:`fused_mlp_composite_reference` / :func:`fused_mlp_reference`; any
   other device raises.
+* The forward is one launch of the fused kernel (:func:`fused_fwd`,
+  counted in :data:`MLP_FUSED_FWD_LAUNCHES`): encodings, the ten layer
+  GEMMs on a tile kept in shared memory, the heads, and the compositing or
+  the head activations; for an S that does not divide 128
+  (:func:`fused_route`) Kernel A's compositing runs after it in
+  ``composite_fwd`` (:data:`COMPOSITE_AFTER_LAUNCHES`).
+* The backward of A is :func:`composite_bwd` (compositing and head
+  activations) -> :func:`heads_bwd_fused` (the rgb head) -> ten fused layer
+  passes (:func:`gemm_dwgrad`, counted in :data:`MLP_FUSED_BWD_LAUNCHES`;
+  A's per-ray direction half of rgb_layer's weight gradient in
+  :func:`dir_weight_grad`) -> :func:`encode_bwd` (encodings and ray sums).
+  C's is ``head_act_bwd`` -> the same passes -> ``encode_points_bwd``. The
+  passes keep their cotangents bf16 after their ReLU masks and take the bias
+  gradients as f32 column sums in their epilogues (:func:`_chain_bwd`).
 * What the graph needs, and no more: when nothing is to be differentiated
   (grad disabled, or no input requires grad: the eval render) the fused
   forward stores nothing but its outputs; otherwise it also stores what
@@ -38,24 +40,11 @@ the kernels on the H100 and how the design answers it.
   with their weight-gradient half off and skips the launches that serve
   only the weight gradients (counted in :data:`WGRAD_LAUNCHES`). Either way
   the outputs and input gradients are bitwise those of the full path.
-* The layer-by-layer forward the fused kernel replaced
-  (:func:`_composite_fwd_layered`, :func:`_point_fwd_layered`: the encoding
-  launches, :func:`_chain_fwd`'s eleven :func:`gemm_fwd` launches and the
-  heads) runs on no path; chip_smoke.py holds the fused forward's saved
-  tensors to it bit for bit and times it beside it.
-* The backward (:func:`_chain_bwd`) keeps its cotangents bf16 after their
-  ReLU masks and takes the bias gradients as f32 column sums in the passes'
-  epilogues; every step has a plain version beside it, so it runs whole on
-  CPU tensors too. The layer-by-layer backward it replaced
-  (:func:`_chain_bwd_layered`: twelve :func:`gemm_dgrad` and eleven or
-  twelve :func:`gemm_wgrad` launches with their reductions) runs on no
-  path; chip_smoke.py holds the fused backward to it and times it beside
-  it.
-* The plain versions emulate bf16 operands as bf16-rounded f32 tensors with
-  f32 matmuls and take the backward from autograd (matmul cotangents
-  rounded to bf16 as in the kernels); both share :func:`_chain_reference`,
-  whose layers are :func:`gemm_fwd_reference`, the plain version of
-  :func:`gemm_fwd`.
+* Every kernel has a plain version beside it, so the backward runs whole on
+  CPU tensors too. The plain versions emulate bf16 operands as bf16-rounded
+  f32 tensors with f32 matmuls and take the backward from autograd (matmul
+  cotangents rounded to bf16 as in the kernels); both forwards share
+  :func:`_chain_reference`, whose layers are :func:`gemm_fwd_reference`.
 
 Numerics (all versions): bf16 matmul operands, f32 accumulation, f32
 biases, activations rounded to bf16 after the bias/ReLU epilogue, raw head
@@ -90,8 +79,7 @@ BWD_POINT_LAUNCHES = LaunchCounter("mlp_point_bwd")
 # the launches of Kernels A and C's backwards that run only for the weight
 # gradients: WGRAD_PER_BWD[kernel] per backward that computes them (the one
 # split reduction at its end, and A's per-ray direction half of rgb_layer's),
-# none in one that needs only the input gradients. The layer-by-layer
-# backward (_chain_bwd_layered) counts its weight-gradient GEMMs here too
+# none in one that needs only the input gradients
 WGRAD_LAUNCHES = LaunchCounter("mlp_weight_grad_gemm")
 WGRAD_PER_BWD = {"A": 2, "C": 1}
 # the fused backward pass of one layer (csrc/mlp_fused_bwd.cu):
@@ -102,31 +90,13 @@ FUSED_BWD_PER_BWD = 10
 # per forward; Kernel A's raw route (fused_route) runs composite_fwd after it
 MLP_FUSED_FWD_LAUNCHES = LaunchCounter("mlp_fused_fwd")
 COMPOSITE_AFTER_LAUNCHES = LaunchCounter("mlp_composite_after_fused")
-# the layer-by-layer forward's GEMM (csrc/mlp_gemm_sm90.cu, 11 per forward:
-# the ten layer GEMMs and the direction row term of rgb_layer); no path
-# launches it since the fused forward (chip_smoke.py times it beside it)
-GEMM_SM90_LAUNCHES = LaunchCounter("mlp_gemm_sm90")
-# the layer-by-layer backward's input-gradient GEMMs on
-# csrc/mlp_gemm_sm90.cu: DGRAD_PER_BWD per backward of _chain_bwd_layered,
-# with or without the weight gradients; no path launches them since the
-# fused backward (chip_smoke.py times them beside it)
-GEMM_DGRAD_LAUNCHES = LaunchCounter("mlp_gemm_dgrad")
-DGRAD_PER_BWD = 12
-# its weight-gradient GEMMs on csrc/mlp_gemm_sm90.cu (wgmma): 11 per full
-# backward of A, 12 of C
-GEMM_WGRAD_LAUNCHES = LaunchCounter("mlp_gemm_wgrad")
-# the WMMA GEMM of csrc/mlp_composite.cu that the GEMMs above replaced; no
-# path launches it (chip_smoke.py times it beside them)
-GEMM_NN_LAUNCHES = LaunchCounter("mlp_gemm_nn")
 # Kernel A's compositing backward and encoding backward
 # (csrc/mlp_composite.cu: composite_bwd_group, encode_bwd_staged), once each
-# per backward; the one-thread- and one-warp-per-ray kernels they replaced
-# bit for bit run on no path (chip_smoke.py times them beside them)
+# per backward
 COMPOSITE_BWD_LAUNCHES = LaunchCounter("composite_bwd")
 ENCODE_BWD_LAUNCHES = LaunchCounter("encode_bwd")
-COMPOSITE_BWD_PER_RAY_LAUNCHES = LaunchCounter("composite_bwd_per_ray")
-ENCODE_BWD_PER_RAY_LAUNCHES = LaunchCounter("encode_bwd_per_ray")
-# the layers that run as GEMMs (the two narrow heads run in heads_fwd)
+# the layers that run as GEMMs (the two narrow heads are dot products in the
+# fused forward's epilogue and heads_bwd_fused)
 GEMM_LAYERS = tuple(n for n in W_NAMES if n not in ("fc_density", "fc_rgb"))
 HEAD_LAYERS = ("fc_density", "fc_rgb")
 
@@ -189,11 +159,11 @@ def _act_fwd(raw_sigma, raw_rgb, act, occ_alpha):
 
 def gemm_fwd_reference(a1, b1, a2=None, b2=None, bias=None, relu=False,
                        rowterm=None, div=1, out_dtype=_BF):
-    """Plain version of :func:`gemm_fwd` with the weights as (K, N):
+    """One layer of the plain forward chain, the weights as (K, N):
     act((bf16(a1) @ bf16(b1) [+ bf16(a2) @ bf16(b2)] [+ rowterm[row // div]])
     [+ bias]), f32 accumulation (TF32 off), rounded to bf16 (kept in f32) for
     ``out_dtype`` bf16. Two inputs are one product over the concatenation,
-    as the kernel's one accumulator over A1's k-tiles, then A2's."""
+    as the fused forward's one accumulator over the skip layer's k-tiles."""
     x, w = a1, b1
     if a2 is not None:
         x, w = torch.cat([a1, a2], dim=-1), torch.cat([b1, b2], dim=0)
@@ -210,11 +180,12 @@ def gemm_fwd_reference(a1, b1, a2=None, b2=None, bias=None, relu=False,
 
 
 def gemm_dgrad_reference(a, b, mask=None, gsig=None, wd=None):
-    """Plain version of :func:`gemm_dgrad`, in f32 and before the output's
-    rounding: mask(bf16(a) @ bf16(b)^T [+ bf16(gsig) bf16(wd)^T]), the
-    entries whose ``mask`` activation is <= 0 set to 0. ``b`` is the layer's
-    (fan_in, fan_out) weight; the rank-1 term is a product over K = 1 (exact
-    in f32), added as autograd adds the two heads' shares of d(a13)."""
+    """The input gradient of one layer of the plain backward, in f32 and
+    before the output's rounding: mask(bf16(a) @ bf16(b)^T [+ bf16(gsig)
+    bf16(wd)^T]), the entries whose ``mask`` activation is <= 0 set to 0.
+    ``b`` is the layer's (fan_in, fan_out) weight; the rank-1 term is a
+    product over K = 1 (exact in f32), added as autograd adds the two heads'
+    shares of d(a13)."""
     y = _mm(a, b.t())
     if gsig is not None:
         y = y + _mm(gsig.reshape(-1, 1), wd.reshape(1, -1))
@@ -224,13 +195,15 @@ def gemm_dgrad_reference(a, b, mask=None, gsig=None, wd=None):
 
 
 def gemm_wgrad_reference(x, g):
-    """Plain version of :func:`gemm_wgrad`: bf16(x)^T @ bf16(g), f32."""
+    """The weight gradient of one layer of the plain backward: bf16(x)^T @
+    bf16(g), f32."""
     return _mm(x.t(), g)
 
 
 def heads_bwd_reference(g_raw, hr, wc):
-    """Plain version of :func:`heads_bwd`, in f32 before the rounding:
-    relu_mask(hr) * (bf16(g_raw[:, 1:4]) @ bf16(wc)^T)."""
+    """Plain version of the rgb head's backward in :func:`heads_bwd_fused`,
+    in f32 before the rounding: relu_mask(hr) * (bf16(g_raw[:, 1:4]) @
+    bf16(wc)^T)."""
     y = _mm(g_raw[:, 1:4], wc.t())
     return torch.where(hr > 0, y, torch.zeros_like(y))
 
@@ -245,16 +218,20 @@ def dir_weight_grad_reference(denc, g, div):
 
 def _chain_reference(W, enc, denc):
     """The MLP from the bf16-rounded encodings (M, 63) / (M, 27) to the raw
-    heads: (raw_sigma (M, 1), raw_rgb (M, 3)), f32. The layers are those of
-    the kernels' chain: rgb_layer's input [feat, denc] is split into feat @
-    W[:D] and the direction row term denc @ W[D:], added before the bias.
-    The row term is taken per point here (denc comes per point), so its
-    weight gradient sums the bf16-rounded per-point cotangents, as the
-    kernels' backward does."""
+    heads, with what the kernels' backward reads on the way: (acts (the 8
+    trunk outputs), feat, hr, raw_sigma (M, 1), raw_rgb (M, 3)), all f32,
+    the activations bf16-rounded. The layers are those of the kernels'
+    chain: rgb_layer's input [feat, denc] is split into feat @ W[:D] and the
+    direction row term denc @ W[D:], added before the bias. The row term is
+    taken per point here (denc comes per point), so its weight gradient
+    sums the bf16-rounded per-point cotangents, as the kernels' backward
+    does."""
+    acts = []
     h = enc
     for i in range(4):
         w, b = W[f"trunk0_{i}"]
         h = gemm_fwd_reference(h, w, bias=b, relu=True)
+        acts.append(h)
     D = h.shape[1]
     for i in range(4):
         w, b = W[f"trunk1_{i}"]
@@ -262,13 +239,14 @@ def _chain_reference(W, enc, denc):
             h = gemm_fwd_reference(h, w[:D], enc, w[D:], bias=b, relu=True)
         else:
             h = gemm_fwd_reference(h, w, bias=b, relu=True)
+        acts.append(h)
     raw_sigma = _mm(h, W["fc_density"][0]) + W["fc_density"][1]
     feat = gemm_fwd_reference(h, W["fc_feature"][0], bias=W["fc_feature"][1])
     wr, br = W["rgb_layer"]
     hr = gemm_fwd_reference(feat, wr[:D], bias=br, relu=True,
                             rowterm=_mm(denc, wr[D:]))
     raw_rgb = _mm(hr, W["fc_rgb"][0]) + W["fc_rgb"][1]
-    return raw_sigma, raw_rgb
+    return acts, feat, hr, raw_sigma, raw_rgb
 
 
 def fused_mlp_reference(weights, pts, dirs, l_pos=10, l_dir=4,
@@ -277,7 +255,8 @@ def fused_mlp_reference(weights, pts, dirs, l_pos=10, l_dir=4,
     outputs): pts, dirs (M, 3) -> (rgb (M, 3), density (M, 1))."""
     enc = _bf(encode_position(pts, l_pos))
     denc = _bf(encode_position(dirs, l_dir))
-    raw_sigma, raw_rgb = _chain_reference(_weights_dict(weights), enc, denc)
+    *_, raw_sigma, raw_rgb = _chain_reference(_weights_dict(weights), enc,
+                                              denc)
     return _act_fwd(raw_sigma, raw_rgb, act, occ_alpha)
 
 
@@ -288,8 +267,8 @@ def fused_mlp_composite_reference(weights, origins, rays, dirs, z, deltas,
     and outputs): per-ray (N, 3) geometry and (N, S) z/deltas ->
     (rgb_values (N, 3), dist (N, 1), alpha (N, S))."""
     enc, denc = _encodings_reference(origins, rays, dirs, z, l_pos, l_dir)
-    raw_sigma, raw_rgb = _chain_reference(_weights_dict(weights), _bf(enc),
-                                          _bf(denc))
+    *_, raw_sigma, raw_rgb = _chain_reference(_weights_dict(weights),
+                                              _bf(enc), _bf(denc))
     return _composite_reference(raw_sigma, raw_rgb, z, deltas, act,
                                 occ_alpha, dist_alpha, white_bg)
 
@@ -443,31 +422,15 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-class _Mat:
-    """A row-major operand view: tensor, element offset, row stride, width."""
-
-    def __init__(self, t, k, ld=None, offset=0, row_div=1):
-        self.t, self.k, self.offset, self.row_div = t, k, offset, row_div
-        self.ld = t.stride(0) if ld is None else ld
-
-    @property
-    def ptr(self):
-        return _ptr(self.t, self.offset)
-
-    @property
-    def is_f32(self):
-        return int(self.t.dtype == _F32)
-
-
 def _pad8(n):
-    """Row strides padded to 8 elements keep every row 16-byte aligned, so
-    the GEMMs read whole rows with vector loads."""
+    """Row strides padded to 8 elements keep every row 16-byte aligned, as
+    the tensor maps (:func:`tma_2d`) require."""
     return -(-n // 8) * 8
 
 
 def _padded_t(w):
     """bf16 w^T (fan_out, fan_in) in a zeroed buffer whose row stride is
-    padded to 8: the K-major weight of the forward's GEMMs."""
+    padded to 8: the K-major weight of the fused forward's GEMMs."""
     out = torch.zeros((w.shape[1], _pad8(w.shape[0])), dtype=_BF,
                       device=w.device)
     out[:, :w.shape[0]] = w.t()
@@ -476,33 +439,31 @@ def _padded_t(w):
 
 def _padded(w):
     """bf16 w (fan_in, fan_out), untransposed, row stride padded to 8: the
-    B operand of the backward's input-gradient GEMMs (:func:`gemm_dgrad`),
-    whose rows are the layer's inputs and whose columns its K."""
+    weight rows of the fused backward's passes (:class:`DwGroup`), whose
+    rows are the layer's inputs and whose columns its fan_out."""
     out = torch.zeros((w.shape[0], _pad8(w.shape[1])), dtype=_BF,
                       device=w.device)
     out[:, :w.shape[1]] = w
     return out[:, :w.shape[1]]
 
 
-# every tensor-map box is one 128-byte swizzle row wide; boxes are 128 rows
-# (A), N rows (B) and 64 rows (C, one consumer warpgroup's) deep
+# every tensor-map box is one 128-byte swizzle row wide; a box stored from
+# the accumulators is 64 rows (one consumer warpgroup's) deep
 TMA_BOX_BYTES = 128
-GEMM_BM, GEMM_STORE_ROWS = 128, 64
-# the output widths csrc/mlp_gemm_sm90.cu is built for
-GEMM_WIDTHS = {_BF: (32, 64, 128, 256), _F32: (32, 64, 128)}
-# the row term rides in registers beside the accumulators up to this width
-ROWTERM_MAX_N = 128
+GEMM_STORE_ROWS = 64
+# the element types a tensor map takes
+TMA_DTYPES = (_BF, _F32)
 
 
 def tma_2d(t, box_rows):
-    """The tensor-map arguments of a row-major 2D view ``t`` for
-    csrc/mlp_gemm_sm90.cu: (address, width, rows, row stride in bytes, box
-    width, box rows). The width is the view's true width, not the padded
-    row stride: TMA zero-fills the box's columns past it on a load (the
-    padding of an encoding is uninitialised, and NaN x 0 is NaN) and clips
-    them on a store. Raises unless the address and the row stride are
-    16-byte aligned, as TMA requires."""
-    if t.dim() != 2 or t.stride(1) != 1 or t.dtype not in GEMM_WIDTHS:
+    """The tensor-map arguments of a row-major 2D view ``t`` for the fused
+    kernels (csrc/mlp_fused_fwd.cu, csrc/mlp_fused_bwd.cu): (address,
+    width, rows, row stride in bytes, box width, box rows). The width is the
+    view's true width, not the padded row stride: TMA zero-fills the box's
+    columns past it on a load (the padding of an encoding is uninitialised,
+    and NaN x 0 is NaN) and clips them on a store. Raises unless the address
+    and the row stride are 16-byte aligned, as TMA requires."""
+    if t.dim() != 2 or t.stride(1) != 1 or t.dtype not in TMA_DTYPES:
         raise ValueError("a TMA operand is a row-major 2D bf16 or f32 view, "
                          f"got {tuple(t.shape)} strides {t.stride()} {t.dtype}")
     es = t.element_size()
@@ -517,61 +478,6 @@ def tma_2d(t, box_rows):
 _NO_MAP = (None, 0, 0, 0, 0, 0)
 
 
-def gemm_fwd(a1, w1t, a2=None, w2t=None, bias=None, relu=False, rowterm=None,
-             div=1, out=None):
-    """One layer of the forward chain: out (M, N) = act(a1 @ w1t^T [+ a2 @
-    w2t^T] [+ rowterm[row // div]] [+ bias]) on the TMA + wgmma GEMM
-    (csrc/mlp_gemm_sm90.cu), counted in :data:`GEMM_SM90_LAUNCHES`.
-
-    a1, a2: bf16 (M, K) views; w1t, w2t: the K-major bf16 weights (N, K)
-    (:func:`_padded_t` columns); bias f32 (N,); rowterm f32 (ceil(M / div),
-    N); out bf16 or f32 (M, N), allocated bf16 when None. CPU tensors run
-    :func:`gemm_fwd_reference`; on the card an operand the kernel cannot take
-    raises."""
-    M, N = a1.shape[0], w1t.shape[0]
-    dtype = _BF if out is None else out.dtype
-    if a1.device.type == "cpu":
-        res = gemm_fwd_reference(
-            a1.float(), w1t.float().t(), None if a2 is None else a2.float(),
-            None if w2t is None else w2t.float().t(), bias, relu, rowterm,
-            div, dtype)
-        if out is None:
-            return res.to(dtype)
-        return out.copy_(res)
-    if a1.device.type != "cuda":
-        raise ValueError(f"gemm_fwd: unsupported device {a1.device}")
-    if out is None:
-        out = torch.empty((M, N), dtype=_BF, device=a1.device)
-    if N not in GEMM_WIDTHS[dtype] or out.shape != (M, N):
-        raise ValueError(f"gemm_fwd: output {tuple(out.shape)} {dtype} for "
-                         f"({M}, {N}); widths {GEMM_WIDTHS[dtype]}")
-    if any(x is not None and x.dtype != _BF for x in (a1, w1t, a2, w2t)):
-        raise ValueError("gemm_fwd: A and B operands must be bf16")
-    if bias is not None and (bias.dtype != _F32 or bias.shape != (N,)
-                             or not bias.is_contiguous()):
-        raise ValueError(f"gemm_fwd: bias must be contiguous f32 ({N},)")
-    if rowterm is not None and (
-            N > ROWTERM_MAX_N or rowterm.dtype != _F32 or rowterm.dim() != 2
-            or rowterm.shape != (-(-M // div), N) or rowterm.stride(1) != 1):
-        raise ValueError(f"gemm_fwd: rowterm must be f32 ({-(-M // div)}, "
-                         f"{N}) rows, N <= {ROWTERM_MAX_N}")
-    if (a2 is None) != (w2t is None):
-        raise ValueError("gemm_fwd: a2 and w2t come together")
-    maps = (tma_2d(a1, GEMM_BM),
-            _NO_MAP if a2 is None else tma_2d(a2, GEMM_BM),
-            tma_2d(w1t, N), _NO_MAP if w2t is None else tma_2d(w2t, N),
-            tma_2d(out, GEMM_STORE_ROWS))
-    fn = c_function("nnt_gemm_sm90", "piiiii" * 5 + "ipipiip")
-    err = fn(*[x for m in maps for x in m], int(dtype == _F32),
-             _ptr(bias) if bias is not None else None, int(relu),
-             _ptr(rowterm) if rowterm is not None else None,
-             rowterm.stride(0) if rowterm is not None else 0, int(div),
-             _stream(out))
-    check(err, "gemm_sm90")
-    GEMM_SM90_LAUNCHES.add()
-    return out
-
-
 def _device(name, t):
     """'cpu' or 'cuda' for a wrapper's operand; raises on any other."""
     if t.device.type not in ("cpu", "cuda"):
@@ -583,151 +489,8 @@ def _sm_count(dev):
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _tile_width(n, dtype):
-    """The tile width of csrc/mlp_gemm_sm90.cu that holds an output n wide."""
-    for w in GEMM_WIDTHS[dtype]:
-        if n <= w:
-            return w
-    raise ValueError(f"no GEMM tile holds {n} {dtype} columns; widths "
-                     f"{GEMM_WIDTHS[dtype]}")
-
-
-def gemm_dgrad(a, b, out, mask=None, gsig=None, wd=None, colsum=False):
-    """One input-gradient GEMM of the backward chain: out (M, N) =
-    mask(a @ b^T [+ bf16(gsig) wd^T]) on the TMA + wgmma GEMM
-    (csrc/mlp_gemm_sm90.cu), counted in :data:`GEMM_DGRAD_LAUNCHES`.
-
-    a: the bf16 cotangent (M, K) view; b: bf16 rows of a layer's weight as
-    :func:`_padded` stores it, (N, K = fan_out); out: bf16 (a cotangent, N
-    a tile width) or f32 (an encoding's cotangent, N <= 128) (M, N) view;
-    mask: a bf16 (M, N) activation whose entries <= 0 zero the output; gsig
-    f32 (M,) (any stride) and wd bf16 (N,): the rank-1 term. Returns (out,
-    the f32 column sums of the values before rounding (N,), with
-    ``colsum``, else None). CPU tensors run :func:`gemm_dgrad_reference`; on
-    the card an operand the kernel cannot take raises."""
-    M, N = out.shape
-    if _device("gemm_dgrad", a) == "cpu":
-        y = gemm_dgrad_reference(
-            a.float(), b.float(), None if mask is None else mask.float(),
-            gsig, None if wd is None else wd.float())
-        out.copy_(y)
-        return out, (y.sum(0) if colsum else None)
-    bn = _tile_width(N, out.dtype)
-    if a.dtype != _BF or b.dtype != _BF or a.shape != (M, b.shape[1]) \
-            or b.shape[0] != N:
-        raise ValueError(f"gemm_dgrad: a {tuple(a.shape)} {a.dtype}, b "
-                         f"{tuple(b.shape)} {b.dtype} for out {tuple(out.shape)}"
-                         "; a and b must be bf16 (M, K) and (N, K)")
-    if mask is not None and (mask.dtype != _BF or mask.shape != (M, N)
-                             or out.dtype != _BF or N != bn):
-        raise ValueError("gemm_dgrad: a mask is a bf16 (M, N) activation of a "
-                         "bf16 output N a tile width wide")
-    if (gsig is None) != (wd is None) or (gsig is not None and (
-            gsig.dtype != _F32 or gsig.shape != (M,) or wd.dtype != _BF
-            or wd.shape != (N,) or not wd.is_contiguous() or N != bn)):
-        raise ValueError("gemm_dgrad: the rank-1 term is f32 gsig (M,) with "
-                         "contiguous bf16 wd (N,), N a tile width")
-    if colsum and N != bn:
-        raise ValueError(f"gemm_dgrad: column sums need N a tile width, not {N}")
-    # persistent blocks: one per 128-row tile, up to one per SM; each
-    # warpgroup's column sums are one row of ``sums``
-    grid = max(1, min(-(-M // GEMM_BM), _sm_count(out.device)))
-    sums = (torch.empty((2 * grid, N), dtype=_F32, device=out.device)
-            if colsum else None)
-    maps = (tma_2d(a, GEMM_BM), tma_2d(b, bn), tma_2d(out, GEMM_STORE_ROWS))
-    mask_map = _NO_MAP if mask is None else tma_2d(mask, GEMM_STORE_ROWS)
-    fn = c_function("nnt_gemm_dgrad", "piiiii" * 3 + "i" + "piiiii" + "pippip")
-    err = fn(*[x for m in maps for x in m], int(out.dtype == _F32), *mask_map,
-             _ptr(gsig) if gsig is not None else None,
-             gsig.stride(0) if gsig is not None else 0,
-             _ptr(wd) if wd is not None else None,
-             _ptr(sums) if sums is not None else None, grid, _stream(out))
-    check(err, "gemm_dgrad")
-    GEMM_DGRAD_LAUNCHES.add()
-    if sums is None:
-        return out, None
-    return out, _reduce_splits(sums, torch.empty(N, dtype=_F32,
-                                                 device=out.device))
-
-
-# rows per ring stage of the weight-gradient GEMM, and the rows of dW a block
-# owns (two warpgroups x 64)
-WGRAD_CHUNK, WGRAD_ROWS = 64, 128
-
-
-def wgrad_rows_per_split(m, k_in, sms):
-    """Rows each block of :func:`gemm_wgrad` sums: about one block per SM
-    over the (dW row tiles x splits) grid, a multiple of the 64-row chunk."""
-    splits = max(1, sms // -(-k_in // WGRAD_ROWS))
-    return -(-m // (splits * WGRAD_CHUNK)) * WGRAD_CHUNK
-
-
-def gemm_wgrad(x, g, out=None):
-    """One weight-gradient GEMM of the backward chain: out (K_in, N) f32 =
-    x^T @ g summed over the M rows, on wgmma (csrc/mlp_gemm_sm90.cu) as
-    deterministic split-K partial sums + :func:`_reduce_splits`, counted in
-    :data:`GEMM_WGRAD_LAUNCHES` and :data:`WGRAD_LAUNCHES`.
-
-    x: the saved bf16 activation (M, K_in) view; g: the bf16 cotangent (M, N)
-    view, N a multiple of 8 up to 256; out: a contiguous f32 (K_in, N) (rows
-    of a larger dW), allocated when None. CPU tensors run
-    :func:`gemm_wgrad_reference`; on the card an operand the kernel cannot
-    take raises."""
-    (M, K), N = x.shape, g.shape[1]
-    if out is None:
-        out = torch.empty((K, N), dtype=_F32, device=x.device)
-    if _device("gemm_wgrad", x) == "cpu":
-        return out.copy_(gemm_wgrad_reference(x.float(), g.float()))
-    if x.dtype != _BF or g.dtype != _BF or g.shape[0] != M or N % 8 \
-            or N > 256 or out.dtype != _F32 or out.shape != (K, N) \
-            or not out.is_contiguous():
-        raise ValueError(f"gemm_wgrad: x {tuple(x.shape)} {x.dtype}, g "
-                         f"{tuple(g.shape)} {g.dtype}, out {tuple(out.shape)}"
-                         f" {out.dtype}: x and g bf16 with M rows, N a "
-                         "multiple of 8 <= 256, out contiguous f32 (K_in, N)")
-    if M == 0:
-        return out.zero_()
-    rps = wgrad_rows_per_split(M, K, _sm_count(x.device))
-    partial = torch.empty((-(-M // rps), K, N), dtype=_F32, device=x.device)
-    err = c_function("nnt_gemm_wgrad", "piiiii" * 2 + "ipp")(
-        *tma_2d(x, WGRAD_CHUNK), *tma_2d(g, WGRAD_CHUNK), rps, _ptr(partial),
-        _stream(partial))
-    check(err, "gemm_wgrad")
-    GEMM_WGRAD_LAUNCHES.add()
-    WGRAD_LAUNCHES.add()
-    return _reduce_splits(partial, out)
-
-
-# rows per block of heads_bwd_kernel, rays per split of dir_wgrad_kernel and
-# rows per split of head_wgrad_kernel (the partial sums' row counts)
-HEADS_BWD_ROWS, DIR_WGRAD_RAYS, HEAD_WGRAD_ROWS = 64, 32, 256
-
-
-def heads_bwd(g_raw, hr, wc, out, colsum=False):
-    """The rgb head's backward: out (M, H2) bf16 = relu_mask(hr) *
-    (bf16(g_raw[:, 1:4]) @ wc^T), from g_raw (M, 4) f32, the saved bf16 hr
-    and the bf16 fc_rgb weight wc (H2, 3). Returns (out, the f32 column sums
-    before rounding (H2,): rgb_layer's bias gradient, with ``colsum``, else
-    None). CPU tensors run :func:`heads_bwd_reference`."""
-    M, H2 = hr.shape
-    if _device("heads_bwd", g_raw) == "cpu":
-        y = heads_bwd_reference(g_raw, hr.float(), wc.float())
-        out.copy_(y)
-        return out, (y.sum(0) if colsum else None)
-    if out.dtype != _BF or out.shape != (M, H2) or not out.is_contiguous() \
-            or not hr.is_contiguous() or not g_raw.is_contiguous():
-        raise ValueError("heads_bwd: contiguous g_raw, hr and a bf16 out")
-    sums = (torch.empty((-(-M // HEADS_BWD_ROWS), H2), dtype=_F32,
-                        device=out.device) if colsum else None)
-    err = c_function("nnt_heads_bwd", "pppppiiip")(
-        _ptr(g_raw), _ptr(hr), _ptr(wc), _ptr(out),
-        _ptr(sums) if sums is not None else None, M, H2, HEADS_BWD_ROWS,
-        _stream(out))
-    check(err, "heads_bwd")
-    if sums is None:
-        return out, None
-    return out, _reduce_splits(sums, torch.empty(H2, dtype=_F32,
-                                                 device=out.device))
+# rays per split of dir_wgrad_kernel (the partial sums' row count)
+DIR_WGRAD_RAYS = 32
 
 
 def dir_weight_grad(denc, g, div, out):
@@ -756,133 +519,6 @@ def dir_weight_grad(denc, g, div, out):
     return out
 
 
-def head_weight_grad(x, g):
-    """The weight gradient of a narrow head (fc_rgb, fc_density): (K, n)
-    f32 = x^T @ bf16(g) with x the saved bf16 (M, K) activation and g an f32
-    (M, n <= 4) view of g_raw's columns (csrc/mlp_composite.cu
-    head_wgrad_kernel, split over rows + :func:`_reduce_splits`), counted in
-    :data:`WGRAD_LAUNCHES`. CPU tensors run :func:`gemm_wgrad_reference`."""
-    (M, K), n = x.shape, g.shape[1]
-    if _device("head_weight_grad", x) == "cpu":
-        return gemm_wgrad_reference(x.float(), g)
-    if x.dtype != _BF or g.dtype != _F32 or g.shape[0] != M or n > 4 \
-            or x.stride(1) != 1 or g.stride(1) != 1 or K % 2 or K > 512 \
-            or x.stride(0) % 2 or x.data_ptr() % 4:
-        raise ValueError("head_weight_grad: row-major bf16 x (M, K <= 512), K"
-                         " and its row stride even, and f32 g (M, n <= 4)")
-    partial = torch.empty((-(-M // HEAD_WGRAD_ROWS), K, n), dtype=_F32,
-                          device=x.device)
-    err = c_function("nnt_head_wgrad", "piipiiiipp")(
-        _ptr(x), x.stride(0), K, _ptr(g), g.stride(0), n, M, HEAD_WGRAD_ROWS,
-        _ptr(partial), _stream(partial))
-    check(err, "head_wgrad")
-    WGRAD_LAUNCHES.add()
-    return _reduce_splits(partial, torch.empty((K, n), dtype=_F32,
-                                               device=x.device))
-
-
-def _gemm_nn(a1, b1, m, n, out, a2=None, b2=None, bias=None, relu=False,
-             mask=None):
-    """out (m, n) = epilogue(a1 @ b1 [+ a2 @ b2] [+ bias]) on the WMMA
-    gemm_nn that gemm_fwd and gemm_dgrad replaced, kept for chip_smoke.py's
-    timing beside them; ``mask`` is a ``_Mat`` of a saved bf16 activation
-    whose ReLU mask zeroes out[:, :k]. b1 / b2 are bf16 (K, >= n) tensors,
-    their row stride is shape[1]."""
-    fn = c_function("nnt_gemm_nn", "piiipiiiipipipipiipiiiip")
-    err = fn(
-        a1.ptr, a1.is_f32, a1.ld, a1.k,
-        a2.ptr if a2 else None, a2.is_f32 if a2 else 0, a2.ld if a2 else 0,
-        a2.k if a2 else 0, a2.row_div if a2 else 1,
-        _ptr(b1), b1.shape[1],
-        _ptr(b2) if b2 is not None else None,
-        b2.shape[1] if b2 is not None else 0,
-        _ptr(bias) if bias is not None else None, int(relu),
-        mask.ptr if mask else None, mask.ld if mask else 0,
-        mask.k if mask else 0,
-        _ptr(out), int(out.dtype == _F32), out.shape[1], m, n, _stream(out),
-    )
-    check(err, "gemm_nn")
-    GEMM_NN_LAUNCHES.add()
-    return out
-
-
-def _split_rows(m, K, n, blocks=528):
-    """Rows per split of a split-K weight-gradient GEMM: enough splits that
-    the (K/128, n/128, splits) grid has about ``blocks`` blocks (4 per SM
-    of an H100), a multiple of the 32-row GEMM step."""
-    tiles = -(-K // 128) * -(-n // 128)
-    splits = max(1, -(-blocks // tiles))
-    return max(32, -(-m // (splits * 32)) * 32)
-
-
-def _weight_grad(x1, g, m, x2=None):
-    """dW = [x1 | x2]^T @ bf16(g) on the WMMA gemm_tn as deterministic
-    split-K partial sums + reduce: the weight-gradient GEMM that gemm_wgrad
-    replaced, kept for chip_smoke.py's timing beside it. x1/x2 are bf16
-    ``_Mat``s (x2 may be read per ray, row / row_div), g an f32 ``_Mat``;
-    returns f32 (K, n)."""
-    K = x1.k + (x2.k if x2 else 0)
-    n = g.k
-    dev = g.t.device
-    rps = _split_rows(m, K, n)
-    splits = -(-m // rps)
-    partial = torch.empty((splits, K, n), dtype=_F32, device=dev)
-    err = c_function("nnt_gemm_tn", "piipiiipiiiipp")(
-        x1.ptr, x1.ld, x1.k,
-        x2.ptr if x2 else None, x2.ld if x2 else 0, x2.k if x2 else 0,
-        x2.row_div if x2 else 1,
-        g.ptr, g.ld, n, m, rps, _ptr(partial), _stream(partial),
-    )
-    check(err, "gemm_tn")
-    WGRAD_LAUNCHES.add()
-    return _reduce_splits(partial, torch.empty((K, n), dtype=_F32,
-                                               device=dev))
-
-
-def _bias_grad(g):
-    """Column sums (1, n) of an f32 (M, n) view (split + reduce): the
-    biases of the two narrow heads, from g_raw's four columns. 256-row
-    splits, one thread per column and split. CPU tensors run the plain
-    version."""
-    m, n = g.shape
-    if _device("bias_grad", g) == "cpu":
-        return g.sum(0, keepdim=True)
-    rps = 256
-    splits = -(-m // rps)
-    partial = torch.empty((splits, n), dtype=_F32, device=g.device)
-    err = c_function("nnt_colsum", "piiiipp")(
-        _ptr(g), g.stride(0), n, m, rps, _ptr(partial), _stream(partial))
-    check(err, "colsum")
-    return _reduce_splits(partial, torch.empty((1, n), dtype=_F32,
-                                               device=g.device))
-
-
-def _reduce_splits(partial, out):
-    """out (contiguous, partial[0]'s size) = the sum over partial's first
-    dimension, in order."""
-    err = c_function("nnt_reduce_splits", "piipp")(
-        _ptr(partial), partial.shape[0], out.numel(), _ptr(out),
-        _stream(out))
-    check(err, "reduce_splits")
-    return out
-
-
-def heads_fwd(h, hr, wd, bd, wc, bc):
-    """The two narrow heads: raw (M, 4) f32 = [h @ wd + bd, hr @ wc + bc]
-    (bf16 operands, f32 sums; csrc/mlp_composite.cu heads_fwd_kernel). CPU
-    tensors run the plain version."""
-    M, D = h.shape
-    if _device("heads_fwd", h) == "cpu":
-        return torch.cat([_mm(h.float(), wd.float()) + bd,
-                          _mm(hr.float(), wc.float()) + bc], 1)
-    raw = torch.empty((M, 4), dtype=_F32, device=h.device)
-    err = c_function("nnt_heads_fwd", "pppppppiiip")(
-        _ptr(h), _ptr(hr), _ptr(wd), _ptr(bd), _ptr(wc), _ptr(bc), _ptr(raw),
-        M, D, hr.shape[1], _stream(raw))
-    check(err, "heads_fwd")
-    return raw
-
-
 def _dims(weights, l_pos, l_dir):
     n_pos = 3 * (2 * l_pos + 1)
     n_dir = 3 * (2 * l_dir + 1)
@@ -905,9 +541,8 @@ def _dims(weights, l_pos, l_dir):
 def _kernel_weights(weights, save):
     """The weights as the kernels read them: the K-major bf16 weights of the
     forward's GEMM layers (:func:`_padded_t`), with ``save`` the untransposed
-    bf16 weights of the backward's input-gradient GEMMs (:func:`_padded`;
-    else None), the bf16 (K, N) head weights and the f32 bias vectors (all
-    dicts)."""
+    bf16 weight rows of the backward's passes (:func:`_padded`; else None),
+    the bf16 (K, N) head weights and the f32 bias vectors (all dicts)."""
     W = _weights_dict(weights)
     wt = {name: _padded_t(W[name][0].detach()) for name in GEMM_LAYERS}
     wb = ({name: _padded(W[name][0].detach()) for name in GEMM_LAYERS}
@@ -917,60 +552,6 @@ def _kernel_weights(weights, save):
     bs = {name: b.detach().reshape(-1).to(_F32).contiguous()
           for name, (_, b) in W.items()}
     return wt, wb, wh, bs
-
-
-def _chain_fwd(Wt, Wh, Bs, enc, denc, denc_div, M, dims, save=True):
-    """The GEMM chain from the bf16 encodings to the raw heads, its ten layer
-    GEMMs and the direction row term on :func:`gemm_fwd`. ``denc`` rows
-    are read once per ``denc_div`` points (per ray in Kernel A, per point in
-    C): rgb_layer = feat @ W[:D] + (denc @ W[D:])[row // denc_div] + b.
-    Returns (acts (the 8 trunk outputs), feat, hr, raw (M, 4) f32 =
-    [raw_sigma, raw_rgb]).
-
-    With ``save`` False (nothing will be differentiated) the trunk runs on
-    two ping-pong buffers and ``feat`` reuses the free one: only
-    ``acts[-1]`` is then still the trunk output it names, and the outputs
-    are bitwise those of the saving chain (the same GEMMs on the same
-    inputs)."""
-    n_pos, n_dir, D, H2 = dims
-    dev = enc.device
-    acts = []
-    bufs = (None if save else
-            [torch.empty((M, D), dtype=_BF, device=dev) for _ in range(2)])
-
-    def trunk_out(i):
-        if save:
-            return torch.empty((M, D), dtype=_BF, device=dev)
-        return bufs[i % 2]
-
-    pos = enc[:, :n_pos]  # true width: the padding column is never read
-    h = pos
-    for i in range(4):
-        w = Wt[f"trunk0_{i}"]
-        h = gemm_fwd(h, w[:, :h.shape[1]], bias=Bs[f"trunk0_{i}"], relu=True,
-                     out=trunk_out(i))
-        acts.append(h)
-    for i in range(4):
-        w = Wt[f"trunk1_{i}"]
-        # the skip concat [h, enc] as two operand pairs
-        skip = dict(a2=pos, w2t=w[:, D:D + n_pos]) if i == 0 else {}
-        h = gemm_fwd(h, w[:, :D], bias=Bs[f"trunk1_{i}"], relu=True,
-                     out=trunk_out(4 + i), **skip)
-        acts.append(h)
-    feat = gemm_fwd(h, Wt["fc_feature"][:, :D], bias=Bs["fc_feature"],
-                    out=trunk_out(8))
-    wr = Wt["rgb_layer"]
-    # [feat, denc] without building the concat: the direction half once per
-    # denc row, added in the epilogue of the per-point GEMM
-    rowterm = gemm_fwd(denc[:, :n_dir], wr[:, D:D + n_dir],
-                       out=torch.empty((denc.shape[0], H2), dtype=_F32,
-                                       device=dev))
-    hr = gemm_fwd(feat, wr[:, :D], bias=Bs["rgb_layer"], relu=True,
-                  rowterm=rowterm, div=denc_div,
-                  out=torch.empty((M, H2), dtype=_BF, device=dev))
-    raw = heads_fwd(acts[-1], hr, Wh["fc_density"], Bs["fc_density"],
-                    Wh["fc_rgb"], Bs["fc_rgb"])
-    return acts, feat, hr, raw
 
 
 # the fused forward (csrc/mlp_fused_fwd.cu): the hidden widths it is built
@@ -1002,10 +583,10 @@ def fused_route(S):
 
 def fused_fwd_saves(M, denc_rows, dims, dev):
     """The tensors a saving fused forward writes, in the shapes, dtypes and
-    row strides :func:`_chain_bwd` reads (those the layer-by-layer forward
-    allocated): enc (M, pad8(n_pos)) and denc (denc_rows, pad8(n_dir)) bf16
-    (their padding column is never written), the 8 trunk outputs, feat
-    (M, D) and hr (M, H2) bf16, raw (M, 4) f32."""
+    row strides :func:`_chain_bwd` reads: enc (M, pad8(n_pos)) and denc
+    (denc_rows, pad8(n_dir)) bf16 (their padding column is never written),
+    the 8 trunk outputs, feat (M, D) and hr (M, H2) bf16, raw (M, 4)
+    f32."""
     n_pos, n_dir, D, H2 = dims
     bf = dict(dtype=_BF, device=dev)
     return {"enc": torch.empty((M, _pad8(n_pos)), **bf),
@@ -1366,13 +947,13 @@ def heads_bwd_fused(g_raw, hr, wc, out, b_rgb=None, dw_rgb=None,
                     b_heads=None, sums=None):
     """The rgb head's backward with the heads' weight-gradient work folded
     in (csrc/mlp_fused_bwd.cu heads_bwd_fused_kernel): out (M, H2) bf16 =
-    relu_mask(hr) * (bf16(g_raw[:, 1:4]) @ wc^T) as :func:`heads_bwd`, and
-    with the three f32 outputs: ``b_rgb`` (H2,) its column sums before the
-    rounding (rgb_layer's bias gradient), ``dw_rgb`` (H2, 3) = hr^T
-    bf16(g_raw[:, 1:4]) (fc_rgb's), ``b_heads`` (4,) = g_raw's column sums
-    (fc_density's and fc_rgb's biases): split partial sums added by
-    ``sums`` (:class:`SplitSums`) or, without it, before returning. CPU
-    tensors run the plain versions."""
+    relu_mask(hr) * (bf16(g_raw[:, 1:4]) @ wc^T) (as
+    :func:`heads_bwd_reference`), and with the three f32 outputs: ``b_rgb``
+    (H2,) its column sums before the rounding (rgb_layer's bias gradient),
+    ``dw_rgb`` (H2, 3) = hr^T bf16(g_raw[:, 1:4]) (fc_rgb's), ``b_heads``
+    (4,) = g_raw's column sums (fc_density's and fc_rgb's biases): split
+    partial sums added by ``sums`` (:class:`SplitSums`) or, without it,
+    before returning. CPU tensors run the plain versions."""
     M, H2 = hr.shape
     wgrad = b_rgb is not None
     if _device("heads_bwd_fused", g_raw) == "cpu":
@@ -1423,7 +1004,7 @@ def heads_bwd_fused(g_raw, hr, wc, out, b_rgb=None, dw_rgb=None,
 
 def _chain_bwd(Wb, Wh, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
                weight_grads=True):
-    """Backward of :func:`_chain_fwd` from the cotangents of the raw heads,
+    """Backward of the MLP chain from the cotangents of the raw heads,
     g_raw (M, 4) f32 = [sigma, rgb]: the rgb head's backward
     (:func:`heads_bwd_fused`), then one fused pass per layer
     (:func:`gemm_dwgrad`, ten in all) from rgb_layer ([feat | denc]) and
@@ -1518,91 +1099,6 @@ def _chain_bwd(Wb, Wh, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
     return d_weights, enc_cots, g_denc
 
 
-def _chain_bwd_layered(Wb, Wh, g_raw, enc, denc, denc_div, feat, hr, acts,
-                       M, dims, weight_grads=True):
-    """The layer-by-layer backward that :func:`_chain_bwd` replaced: the
-    same contract, on about 55 launches. No path runs it; chip_smoke.py
-    holds the fused backward to it and times the two in turns.
-
-    Every cotangent that a matmul reads is stored bf16, after its ReLU mask:
-    the rounding the plain version (and the TPU kernel) applies where it
-    enters the matmul, and rounding commutes with the mask. Each bias
-    gradient is the f32 column sum of a masked cotangent before rounding,
-    taken in the epilogue that produces it; the encodings' cotangents stay
-    f32. The twelve input-gradient GEMMs run on :func:`gemm_dgrad`: the
-    direction half of rgb_layer and its feature half, fc_feature with
-    fc_density's rank-1 term, the trunk (trunk1_0 as its activation half and
-    its encoding half) down to trunk0_0.
-
-    Returns (the 24 weight and bias gradients in kernel order, or 24 Nones
-    without ``weight_grads``; the cotangent of the position encoding as two
-    f32 (M, n_pos) summands; that of the direction encoding, f32 (M, n_dir),
-    per point). Without ``weight_grads`` the same GEMMs run without their
-    column sums, so the input cotangents are bitwise equal either way. Runs
-    on CPU tensors too (every step's plain version)."""
-    n_pos, n_dir, D, H2 = dims
-    dev = g_raw.device
-    sums = weight_grads
-
-    def buf(width, dtype=_BF):
-        # rows padded to 16 bytes, as TMA needs; the view has the true width
-        return torch.empty((M, _pad8(width)), dtype=dtype, device=dev)[:, :width]
-
-    b = {}  # bias gradients
-    g_hr, b["rgb_layer"] = heads_bwd(g_raw, hr, Wh["fc_rgb"], buf(H2), sums)
-    wr = Wb["rgb_layer"]
-    g_feat, b["fc_feature"] = gemm_dgrad(g_hr, wr[:D], buf(D), colsum=sums)
-    g_denc, _ = gemm_dgrad(g_hr, wr[D:D + n_dir], buf(n_dir, _F32))
-    a13 = acts[7]
-    # g[name]: the masked cotangent of a trunk layer's output
-    g = {}
-    g["trunk1_3"], b["trunk1_3"] = gemm_dgrad(
-        g_feat, Wb["fc_feature"], buf(D), mask=a13, gsig=g_raw[:, 0],
-        wd=Wh["fc_density"].reshape(-1), colsum=sums)
-    for j in (3, 2, 1):
-        lower = f"trunk1_{j - 1}"
-        g[lower], b[lower] = gemm_dgrad(g[f"trunk1_{j}"], Wb[f"trunk1_{j}"],
-                                        buf(D), mask=acts[4 + j - 1],
-                                        colsum=sums)
-    w10 = Wb["trunk1_0"]  # its input is [a03, enc]
-    g["trunk0_3"], b["trunk0_3"] = gemm_dgrad(
-        g["trunk1_0"], w10[:D], buf(D), mask=acts[3], colsum=sums)
-    g_enc_skip, _ = gemm_dgrad(g["trunk1_0"], w10[D:D + n_pos],
-                               buf(n_pos, _F32))
-    for j in (3, 2, 1):
-        lower = f"trunk0_{j - 1}"
-        g[lower], b[lower] = gemm_dgrad(g[f"trunk0_{j}"], Wb[f"trunk0_{j}"],
-                                        buf(D), mask=acts[j - 1], colsum=sums)
-    g_enc, _ = gemm_dgrad(g["trunk0_0"], Wb["trunk0_0"], buf(n_pos, _F32))
-    enc_cots = (g_enc_skip, g_enc)
-    if not weight_grads:
-        return [None] * (2 * len(W_NAMES)), enc_cots, g_denc
-
-    pos = enc[:, :n_pos]
-    heads_b = _bias_grad(g_raw)  # [fc_density, fc_rgb]
-    b["fc_density"], b["fc_rgb"] = heads_b[0, :1], heads_b[0, 1:]
-    dw = {"fc_rgb": head_weight_grad(hr, g_raw[:, 1:]),
-          "fc_density": head_weight_grad(a13, g_raw[:, :1])}
-    dw["rgb_layer"] = torch.empty((D + n_dir, H2), dtype=_F32, device=dev)
-    gemm_wgrad(feat, g_hr, dw["rgb_layer"][:D])
-    if denc_div == 1:
-        gemm_wgrad(denc[:, :n_dir], g_hr, dw["rgb_layer"][D:])
-    else:
-        dir_weight_grad(denc[:, :n_dir], g_hr, denc_div, dw["rgb_layer"][D:])
-    dw["fc_feature"] = gemm_wgrad(a13, g_feat)
-    for j in (3, 2, 1):
-        dw[f"trunk1_{j}"] = gemm_wgrad(acts[4 + j - 1], g[f"trunk1_{j}"])
-    dw["trunk1_0"] = torch.empty((D + n_pos, D), dtype=_F32, device=dev)
-    gemm_wgrad(acts[3], g["trunk1_0"], dw["trunk1_0"][:D])
-    gemm_wgrad(pos, g["trunk1_0"], dw["trunk1_0"][D:])
-    for j in (3, 2, 1):
-        dw[f"trunk0_{j}"] = gemm_wgrad(acts[j - 1], g[f"trunk0_{j}"])
-    dw["trunk0_0"] = gemm_wgrad(pos, g["trunk0_0"])
-    d_weights = [t for name in W_NAMES
-                 for t in (dw[name], b[name].reshape(1, -1))]
-    return d_weights, enc_cots, g_denc
-
-
 def _weight_list(Wb, Wh):
     """The kernel weights a backward reads, as saved tensors."""
     return [Wb[n] for n in GEMM_LAYERS] + [Wh[n] for n in HEAD_LAYERS]
@@ -1627,19 +1123,19 @@ COMPOSITE_BWD_POINTS = 512
 SMEM_LIMIT = 227 * 1024
 
 
-def _composite_bwd_args(raw, z, deltas, g_rgbv, g_dist, g_alpha, name):
+def _composite_bwd_args(raw, z, deltas, g_rgbv, g_dist, g_alpha):
     """Checks of the compositing backward's operands: (N, S)."""
     N, S = z.shape
     want = {"raw": (N * S, 4), "deltas": (N, S), "g_rgbv": (N, 3),
             "g_dist": (N, 1), "g_alpha": (N, S)}
     for key, t in zip(want, (raw, deltas, g_rgbv, g_dist, g_alpha)):
         if tuple(t.shape) != want[key]:
-            raise ValueError(f"{name}: {key} is {tuple(t.shape)}, expected "
-                             f"{want[key]} for z {(N, S)}")
+            raise ValueError(f"composite_bwd: {key} is {tuple(t.shape)}, "
+                             f"expected {want[key]} for z {(N, S)}")
     tensors = (raw, z, deltas, g_rgbv, g_dist, g_alpha)
     if any(t.device != z.device or t.dtype != _F32 or not t.is_contiguous()
            for t in tensors):
-        raise ValueError(f"{name}: operands must be contiguous f32 on "
+        raise ValueError("composite_bwd: operands must be contiguous f32 on "
                          f"{z.device}")
     return N, S
 
@@ -1651,17 +1147,14 @@ def composite_bwd(raw, z, deltas, g_rgbv, g_dist, g_alpha, flags):
     (M = N * S, 4) and the (N, S) z and deltas; ``flags`` (softplus,
     occ_alpha, dist_alpha, white_bg). CUDA tensors launch
     ``composite_bwd_group`` (csrc/mlp_composite.cu: a block per group of
-    whole rays; counted in :data:`COMPOSITE_BWD_LAUNCHES`), bitwise equal
-    to the one-thread-per-ray kernel it replaced
-    (:func:`_composite_bwd_per_ray`); CPU tensors run
+    whole rays; counted in :data:`COMPOSITE_BWD_LAUNCHES`); CPU tensors run
     :func:`composite_bwd_reference`. Raises on a shape the kernel cannot
     take."""
     if z.device.type == "cpu":
         return composite_bwd_reference(raw, z, deltas, g_rgbv, g_dist,
                                        g_alpha, flags)
     _device("composite_bwd", z)
-    N, S = _composite_bwd_args(raw, z, deltas, g_rgbv, g_dist, g_alpha,
-                               "composite_bwd")
+    N, S = _composite_bwd_args(raw, z, deltas, g_rgbv, g_dist, g_alpha)
     rays = max(1, COMPOSITE_BWD_POINTS // S)
     if 16 * ((S | 1) + 1) > SMEM_LIMIT:
         raise ValueError(f"composite_bwd: {S} samples a ray; a ray's four "
@@ -1678,55 +1171,32 @@ def composite_bwd(raw, z, deltas, g_rgbv, g_dist, g_alpha, flags):
     return g_raw
 
 
-def _composite_bwd_per_ray(raw, z, deltas, g_rgbv, g_dist, g_alpha, flags):
-    """The compositing backward :func:`composite_bwd` replaced, one thread
-    per ray through a global scratch buffer (4 x S x N f32); the same
-    contract, CUDA tensors only (counted in
-    :data:`COMPOSITE_BWD_PER_RAY_LAUNCHES`). No path runs it;
-    chip_smoke.py holds the new kernel to it bit for bit and times the two
-    in turns."""
-    if z.device.type != "cuda":
-        raise ValueError("composite_bwd_per_ray: CUDA tensors only")
-    N, S = _composite_bwd_args(raw, z, deltas, g_rgbv, g_dist, g_alpha,
-                               "composite_bwd_per_ray")
-    g_raw = torch.empty((N * S, 4), dtype=_F32, device=z.device)
-    scratch = torch.empty((4, S, N), dtype=_F32, device=z.device)
-    err = c_function("nnt_composite_bwd", "ppppppppiiiiiip")(
-        _ptr(raw), _ptr(z), _ptr(deltas), _ptr(g_rgbv), _ptr(g_dist),
-        _ptr(g_alpha), _ptr(scratch), _ptr(g_raw), N, S,
-        *(int(bool(f)) for f in flags), _stream(z))
-    check(err, "composite_bwd_per_ray")
-    COMPOSITE_BWD_PER_RAY_LAUNCHES.add()
-    return g_raw
-
-
 # the direction encoding's widest cotangent the encoding backward takes
 MAX_ENC = 3 * (2 * 16 + 1)
 # the warps of encode_bwd_staged's block, one block a ray
 ENCODE_BWD_WARPS = 2
 
 
-def _encode_bwd_args(origins, rays, dirs, z, ge1, ge2, gd, l_pos, l_dir,
-                     name):
+def _encode_bwd_args(origins, rays, dirs, z, ge1, ge2, gd, l_pos, l_dir):
     """Checks of the encoding backward's operands: (N, S, n_pos, n_dir)."""
     N, S = z.shape
     n_pos, n_dir = 3 * (2 * l_pos + 1), 3 * (2 * l_dir + 1)
     if min(l_pos, l_dir) < 0 or n_dir > MAX_ENC:
-        raise ValueError(f"{name}: levels {l_pos} / {l_dir}; the direction "
-                         f"encoding may be at most {MAX_ENC} wide")
+        raise ValueError(f"encode_bwd: levels {l_pos} / {l_dir}; the "
+                         f"direction encoding may be at most {MAX_ENC} wide")
     for key, t in (("origins", origins), ("rays", rays), ("dirs", dirs)):
         if tuple(t.shape) != (N, 3) or not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous ({N}, 3)")
+            raise ValueError(f"encode_bwd: {key} must be contiguous ({N}, 3)")
     if not z.is_contiguous():
-        raise ValueError(f"{name}: z must be contiguous")
+        raise ValueError("encode_bwd: z must be contiguous")
     for key, t, k in (("ge1", ge1, n_pos), ("ge2", ge2, n_pos),
                       ("gd", gd, n_dir)):
         if t.shape[0] != N * S or t.shape[1] < k or t.stride(1) != 1:
-            raise ValueError(f"{name}: {key} must be ({N * S}, >= {k}) with "
-                             "unit column stride")
+            raise ValueError(f"encode_bwd: {key} must be ({N * S}, >= {k}) "
+                             "with unit column stride")
     if any(t.device != z.device or t.dtype != _F32
            for t in (origins, rays, dirs, z, ge1, ge2, gd)):
-        raise ValueError(f"{name}: operands must be f32 on {z.device}")
+        raise ValueError(f"encode_bwd: operands must be f32 on {z.device}")
     return N, S, n_pos, n_dir
 
 
@@ -1737,9 +1207,8 @@ def encode_bwd(origins, rays, dirs, z, ge1, ge2, gd, l_pos, l_dir):
     n_dir) -> (d_origins, d_rays, d_dirs), each (N, 3) f32. CUDA tensors
     launch ``encode_bwd_staged`` (csrc/mlp_composite.cu: a block of two
     warps per ray, the rows staged through shared memory with coalesced
-    loads, the sums in the old lanes' order; counted in
-    :data:`ENCODE_BWD_LAUNCHES`), bitwise equal to the kernel it replaced
-    (:func:`_encode_bwd_per_ray`); it reads ge1 and ge2 as float4 up to
+    loads, the sums in the order of :func:`_lane_sums`; counted in
+    :data:`ENCODE_BWD_LAUNCHES`); it reads ge1 and ge2 as float4 up to
     their padding, so their base must be 16-byte aligned and their row
     strides multiples of 4 columns covering ceil(n_pos / 4) * 4. CPU
     tensors run :func:`encode_bwd_reference`. Raises on what the kernel
@@ -1749,7 +1218,7 @@ def encode_bwd(origins, rays, dirs, z, ge1, ge2, gd, l_pos, l_dir):
                                     l_pos, l_dir)
     _device("encode_bwd", z)
     N, S, n_pos, n_dir = _encode_bwd_args(origins, rays, dirs, z, ge1, ge2,
-                                          gd, l_pos, l_dir, "encode_bwd")
+                                          gd, l_pos, l_dir)
     row = -(-n_pos // 4) * 4
     for key, t in (("ge1", ge1), ("ge2", ge2)):
         end = (t.storage_offset() + (t.shape[0] - 1) * t.stride(0) + row) * 4
@@ -1774,28 +1243,6 @@ def encode_bwd(origins, rays, dirs, z, ge1, ge2, gd, l_pos, l_dir):
             _stream(z))
         check(err, "encode_bwd")
         ENCODE_BWD_LAUNCHES.add()
-    return tuple(outs)
-
-
-def _encode_bwd_per_ray(origins, rays, dirs, z, ge1, ge2, gd, l_pos, l_dir):
-    """The encoding backward :func:`encode_bwd` replaced, one warp per ray
-    whose lanes read whole rows alone; the same contract, CUDA tensors only
-    (counted in :data:`ENCODE_BWD_PER_RAY_LAUNCHES`). No path runs it;
-    chip_smoke.py holds the new kernel to it bit for bit and times the two
-    in turns."""
-    if z.device.type != "cuda":
-        raise ValueError("encode_bwd_per_ray: CUDA tensors only")
-    N, S, _, _ = _encode_bwd_args(origins, rays, dirs, z, ge1, ge2, gd,
-                                  l_pos, l_dir, "encode_bwd_per_ray")
-    outs = [torch.empty((N, 3), dtype=_F32, device=z.device)
-            for _ in range(3)]
-    err = c_function("nnt_encode_bwd", "ppppp" "ipipi" "pppiiiip")(
-        _ptr(origins), _ptr(rays), _ptr(dirs), _ptr(z),
-        _ptr(ge1), ge1.stride(0), _ptr(ge2), ge2.stride(0), _ptr(gd),
-        gd.stride(0), *(_ptr(t) for t in outs), N, S, l_pos, l_dir,
-        _stream(z))
-    check(err, "encode_bwd_per_ray")
-    ENCODE_BWD_PER_RAY_LAUNCHES.add()
     return tuple(outs)
 
 
@@ -1834,44 +1281,6 @@ def _composite_fwd(origins, rays, dirs, z, deltas, cfg, weights, save):
     saved = ((origins, rays, dirs, z, deltas, sv["enc"], sv["denc"],
               sv["feat"], sv["hr"], sv["raw"], *sv["acts"],
               *_weight_list(Wb, Wh)) if save else None)
-    return (rgbv, dist, alpha), dims, saved
-
-
-def _composite_fwd_layered(origins, rays, dirs, z, deltas, cfg, weights,
-                           save):
-    """The layer-by-layer forward of Kernel A that :func:`_composite_fwd`
-    replaced (encode_fwd, :func:`_chain_fwd`, composite_fwd; no launch
-    counter of its own): (rgbv, dist, alpha) and, with ``save``, the
-    tensors its backward reads. No path runs it; chip_smoke.py holds the
-    fused forward to it."""
-    l_pos, l_dir, act, occ_alpha, dist_alpha, white_bg, S = cfg
-    dims = _dims(weights, l_pos, l_dir)
-    n_pos, n_dir = dims[:2]
-    N = origins.shape[0]
-    M = N * S
-    dev = origins.device
-    Wt, Wb, Wh, Bs = _kernel_weights(weights, save)
-    stream = _stream(origins)
-
-    enc = torch.empty((M, _pad8(n_pos)), dtype=_BF, device=dev)
-    denc = torch.empty((N, _pad8(n_dir)), dtype=_BF, device=dev)
-    err = c_function("nnt_encode_fwd", "pppppipiiiiip")(
-        _ptr(origins), _ptr(rays), _ptr(dirs), _ptr(z), _ptr(enc),
-        enc.shape[1], _ptr(denc), denc.shape[1], N, S, l_pos, l_dir,
-        stream)
-    check(err, "encode_fwd")
-    acts, feat, hr, raw = _chain_fwd(Wt, Wh, Bs, enc, denc, S, M, dims,
-                                     save)
-    rgbv = torch.empty((N, 3), dtype=_F32, device=dev)
-    dist = torch.empty((N, 1), dtype=_F32, device=dev)
-    alpha = torch.empty((N, S), dtype=_F32, device=dev)
-    err = c_function("nnt_composite_fwd", "ppppppiiiiiip")(
-        _ptr(raw), _ptr(z), _ptr(deltas), _ptr(rgbv), _ptr(dist),
-        _ptr(alpha), N, S, int(act == "softplus"), int(occ_alpha),
-        int(dist_alpha), int(white_bg), stream)
-    check(err, "composite_fwd")
-    saved = ((origins, rays, dirs, z, deltas, enc, denc, feat, hr, raw,
-              *acts, *_weight_list(Wb, Wh)) if save else None)
     return (rgbv, dist, alpha), dims, saved
 
 
@@ -1943,40 +1352,6 @@ def _point_fwd(pts, dirs, cfg, weights, save):
     saved = ((pts, dirs, sv["enc"], sv["denc"], sv["feat"], sv["hr"],
               sv["raw"], *sv["acts"], *_weight_list(Wb, Wh)) if save
              else None)
-    return (rgb, density), dims, saved
-
-
-def _point_fwd_layered(pts, dirs, cfg, weights, save):
-    """The layer-by-layer forward of Kernel C that :func:`_point_fwd`
-    replaced (encode_points, :func:`_chain_fwd`, head_act_fwd; no launch
-    counter of its own). No path runs it; chip_smoke.py holds the fused
-    forward to it."""
-    l_pos, l_dir, act, occ_alpha = cfg
-    dims = _dims(weights, l_pos, l_dir)
-    n_pos, n_dir = dims[:2]
-    M = pts.shape[0]
-    dev = pts.device
-    Wt, Wb, Wh, Bs = _kernel_weights(weights, save)
-    stream = _stream(pts)
-
-    encs = []
-    for x, levels, n in ((pts, l_pos, n_pos), (dirs, l_dir, n_dir)):
-        e = torch.empty((M, _pad8(n)), dtype=_BF, device=dev)
-        err = c_function("nnt_encode_points", "ppiiip")(
-            _ptr(x), _ptr(e), e.shape[1], M, levels, stream)
-        check(err, "encode_points")
-        encs.append(e)
-    enc, denc = encs
-    acts, feat, hr, raw = _chain_fwd(Wt, Wh, Bs, enc, denc, 1, M, dims,
-                                     save)
-    rgb = torch.empty((M, 3), dtype=_F32, device=dev)
-    density = torch.empty((M, 1), dtype=_F32, device=dev)
-    err = c_function("nnt_head_act_fwd", "pppiiip")(
-        _ptr(raw), _ptr(rgb), _ptr(density), M, int(act == "softplus"),
-        int(occ_alpha), stream)
-    check(err, "head_act_fwd")
-    saved = ((pts, dirs, enc, denc, feat, hr, raw, *acts,
-              *_weight_list(Wb, Wh)) if save else None)
     return (rgb, density), dims, saved
 
 

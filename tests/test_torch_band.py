@@ -3,35 +3,20 @@ on the CPU: a numpy replay of its algorithm (no padded copies, Y's rows past
 its end as the -1e5 sentinel row, the query tail masked, the band split in
 contiguous parts, a running minimum per chunk of candidates, the first row
 at the minimum found by a rescan, the parts merged in band order) against
-the sequential strict '<' sweep of the per-query kernel it replaced over
-the padded clouds, the port's plain version and the JAX package's Pallas
-kernel in interpret mode. The card tests (tests/test_torch_cuda.py) hold
-the kernel itself to the per-query one.
+the sequential strict '<' sweep over the padded clouds
+(tests/_band_sweep.py), the port's plain version and the JAX package's
+Pallas kernel in interpret mode. The card tests (tests/test_torch_cuda.py)
+hold the kernel itself to the same sweep.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _band_sweep import (QB, SENTINEL, TILE, band, clouds, sequential_sweep,
+                         sq_dist)
+
 torch.set_num_threads(1)
-
-TILE = QB = 1024
-SENTINEL = np.float32(1e5)
-
-
-def _sq_dist(x, y):
-    """((x0-y0)^2 + (x1-y1)^2) + (x2-y2)^2 in f32, (Q, 3) x (W, 3) -> (Q, W);
-    numpy rounds every operation, as the kernels' _rn intrinsics do."""
-    with np.errstate(invalid="ignore", over="ignore"):
-        d = x[:, None, :] - y[None, :, :]
-        sq = d * d
-        return (sq[..., 0] + sq[..., 1]) + sq[..., 2]
-
-
-def _band(n_y, start, k_tiles):
-    n_tiles = -(-n_y // TILE)
-    k = min(k_tiles, n_tiles)
-    return min(max(int(start), 0), max(n_tiles - k, 0)), k
 
 
 def split_kernel_replay(X, Y, starts, k_tiles, split=8, chunk=16):
@@ -40,11 +25,11 @@ def split_kernel_replay(X, Y, starts, k_tiles, split=8, chunk=16):
     out = np.empty(S, np.int32)
     for g in range(-(-S // QB)):
         q = X[g * QB: min((g + 1) * QB, S)]            # the masked tail
-        start, k = _band(D, starts[g], k_tiles)
+        start, k = band(D, starts[g], k_tiles)
         rows = start * TILE + np.arange(k * TILE)
         yb = np.where((rows < D)[:, None], Y[np.minimum(rows, D - 1)],
                       -SENTINEL)                        # sentinel rows
-        d = _sq_dist(q, yb)
+        d = sq_dist(q, yb)
         best_all = np.full(len(q), np.inf, np.float32)
         idx_all = np.full(len(q), start * TILE, np.int64)
         part = k * TILE // split
@@ -69,47 +54,6 @@ def split_kernel_replay(X, Y, starts, k_tiles, split=8, chunk=16):
     return out
 
 
-def sequential_sweep(X, Y, starts, k_tiles):
-    """The per-query kernel: X padded with +1e5 rows, Y with -1e5 rows, one
-    strict '<' sweep of each group's band in row order from +inf."""
-    S, D = len(X), len(Y)
-    n_tiles = -(-D // TILE)
-    Xp = np.concatenate([X, np.full((-S % QB, 3), SENTINEL, np.float32)])
-    Yp = np.concatenate([Y, np.full((n_tiles * TILE - D, 3), -SENTINEL,
-                                    np.float32)])
-    out = np.empty(len(Xp), np.int32)
-    for g in range(len(Xp) // QB):
-        start, k = _band(D, starts[g], k_tiles)
-        d = _sq_dist(Xp[g * QB:(g + 1) * QB],
-                     Yp[start * TILE:(start + k) * TILE])
-        best = np.full(QB, np.inf, np.float32)
-        idx = np.full(QB, start * TILE, np.int64)
-        for j in range(d.shape[1]):
-            better = d[:, j] < best
-            best = np.where(better, d[:, j], best)
-            idx = np.where(better, start * TILE + j, idx)
-        out[g * QB:(g + 1) * QB] = idx
-    return out[:S]
-
-
-def _clouds(rng, S, D, special):
-    """Normal clouds with duplicate rows of Y and queries on rows of Y
-    (exact ties); with ``special`` NaN and infinite rows and entries in
-    both and rows equal to the -1e5 sentinel."""
-    X = rng.normal(size=(S, 3)).astype(np.float32)
-    Y = rng.normal(size=(D, 3)).astype(np.float32)
-    Y[rng.integers(0, D, D // 4)] = Y[rng.integers(0, D, D // 4)]
-    X[: S // 8] = Y[rng.integers(0, D, S // 8)]
-    if special:
-        Y[rng.integers(0, D, 20)] = np.nan
-        Y[rng.integers(0, D, 20), rng.integers(0, 3, 20)] = np.inf
-        Y[rng.integers(0, D, 5)] = -SENTINEL
-        X[rng.integers(0, S, 20)] = np.nan
-        X[rng.integers(0, S, 20), 1] = -np.inf
-        X[rng.integers(0, S, 5)] = np.inf
-    return X, Y
-
-
 @pytest.mark.parametrize("S,D", [(100, 900), (1500, 2100), (2100, 1500)])
 @pytest.mark.parametrize("special", [False, True])
 def test_split_band_replay_equals_sequential_sweep(S, D, special):
@@ -120,7 +64,7 @@ def test_split_band_replay_equals_sequential_sweep(S, D, special):
     from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
 
     rng = np.random.default_rng(S + D + special)
-    X, Y = _clouds(rng, S, D, special)
+    X, Y = clouds(rng, S, D, special)
     n_tiles = -(-D // TILE)
     for k in sorted({1, 2, n_tiles, n_tiles + 1}):
         starts = rng.integers(-2, n_tiles + 2, size=-(-S // QB))

@@ -3,7 +3,7 @@
 The kernels (csrc/mlp_composite.cu: ``composite_bwd_group`` and
 ``encode_bwd_staged``, launched by ``mlp_kernel.composite_bwd`` /
 ``encode_bwd``) run only on the card (tests/test_torch_cuda.py holds them
-bit for bit to the per-ray kernels they replaced). Here their plain
+to these plain versions). Here their plain
 versions, ``composite_bwd_reference`` and ``encode_bwd_reference``, are held
 on seeded numpy inputs (16 rays x 16 and x 12 samples, every compositing
 flag combination a config can ask for) against
@@ -237,8 +237,7 @@ def test_lane_sums_follow_the_warp():
 
 def test_wrappers_run_the_plain_versions_on_the_cpu():
     """composite_bwd and encode_bwd on CPU tensors return their plain
-    versions' values and count no launch; the per-ray kernels they
-    replaced take CUDA tensors only."""
+    versions' values and count no launch."""
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     raw, z, deltas, cots = _composite_inputs(16, 7)
@@ -254,8 +253,3 @@ def test_wrappers_run_the_plain_versions_on_the_cpu():
                     _port_encode_bwd(geo, z2, ecots, 10, 4)):
         assert torch.equal(a, b)
     assert [c.count for c in counters] == before
-    with pytest.raises(ValueError, match="CUDA tensors only"):
-        mk._composite_bwd_per_ray(t(raw), t(z), t(deltas),
-                                  *(t(c) for c in cots), (1, 1, 0, 0))
-    with pytest.raises(ValueError, match="CUDA tensors only"):
-        _port_encode_bwd(geo, z2, ecots, 10, 4, mk._encode_bwd_per_ray)

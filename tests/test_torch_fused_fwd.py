@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from _mlp_saves import plain_saves
+
 torch.set_num_threads(1)
 
 BF = torch.bfloat16
@@ -166,10 +168,10 @@ def test_kernel_c_forward_route(monkeypatch, save):
 
 def test_saves_are_what_the_backward_reads():
     """The tensors a saving fused forward allocates have the shapes, dtypes
-    and row strides of the layer-by-layer chain's (the encodings padded to
-    8 columns, the activations dense, raw f32), and _chain_bwd reading them
-    (filled with the chain's values) gives the gradients it gives on the
-    chain's own tensors, bit for bit."""
+    and row strides _chain_bwd reads (the encodings padded to 8 columns,
+    the activations dense, raw f32), and _chain_bwd reading them (filled
+    with the plain chain's values) gives the gradients it gives on the
+    plain chain's own tensors, bit for bit."""
     from nope_nerf_tpu_torch.ops.encoding import encode_position
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
@@ -179,23 +181,26 @@ def test_saves_are_what_the_backward_reads():
     ws = _weights(D)
     dims = mk._dims(ws, 10, 4)
     n_pos, n_dir = dims[:2]
-    Wt, Wb, Wh, Bs = mk._kernel_weights(ws, True)
+    _, Wb, Wh, _ = mk._kernel_weights(ws, True)
     pts = torch.tensor(rng.normal(size=(M, 3)), dtype=torch.float32)
     dirs = torch.tensor(rng.normal(size=(N, 3)), dtype=torch.float32)
     enc = torch.zeros((M, mk._pad8(n_pos)), dtype=BF)
     enc[:, :n_pos] = encode_position(pts, 10).to(BF)
     denc = torch.zeros((N, mk._pad8(n_dir)), dtype=BF)
     denc[:, :n_dir] = encode_position(dirs, 4).to(BF)
-    acts, feat, hr, raw = mk._chain_fwd(Wt, Wh, Bs, enc, denc, S, M, dims)
-    sv = mk.fused_fwd_saves(M, N, dims, "cpu")
-    chain = {"enc": enc, "denc": denc, "acts": acts, "feat": feat, "hr": hr,
-             "raw": raw}
-    for name, ref in chain.items():
-        for a, b in zip(sv[name] if name == "acts" else [sv[name]],
-                        ref if name == "acts" else [ref]):
-            assert (a.shape, a.dtype, a.stride()) == (b.shape, b.dtype,
-                                                      b.stride()), name
-            a.copy_(b)
+    sv = plain_saves(ws, enc, denc, S, dims)
+    layout = {"enc": ((M, 64), BF), "denc": ((N, 32), BF),
+              "feat": ((M, D), BF), "hr": ((M, D // 2), BF),
+              "raw": ((M, 4), torch.float32)}
+    layout.update({i: ((M, D), BF) for i in range(8)})
+    for key, (shape, dtype) in layout.items():
+        a = sv["acts"][key] if isinstance(key, int) else sv[key]
+        assert (a.shape, a.dtype, a.is_contiguous()) == (shape, dtype, True)
+    *chain, _, _ = mk._chain_reference(
+        mk._weights_dict(ws), enc[:, :n_pos].float(),
+        denc[:, :n_dir].float().repeat_interleave(S, 0))
+    acts = [a.to(BF) for a in chain[0]]
+    feat, hr = chain[1].to(BF), chain[2].to(BF)
     g_raw = torch.tensor(rng.normal(size=(M, 4)), dtype=torch.float32)
     got = mk._chain_bwd(Wb, Wh, g_raw, sv["enc"], sv["denc"], S, sv["feat"],
                         sv["hr"], sv["acts"], M, dims)

@@ -1,8 +1,8 @@
-"""The Python side of the forward's TMA + wgmma GEMM (csrc/mlp_gemm_sm90.cu):
-the tensor-map arguments, the plain version ``gemm_fwd_reference`` against
-the layer math of the MLP chain, the wrapper's CPU path, and the rebuilt
-plain chain against the JAX Pallas kernel in interpret mode. The kernel
-itself runs only on the card (tests/test_torch_cuda.py).
+"""The tensor-map arguments of the fused kernels (``mlp_kernel.tma_2d``),
+the plain layer ``gemm_fwd_reference`` against the layer math of the MLP
+chain, and the plain chain against the JAX Pallas kernel in interpret
+mode. The kernels themselves run only on the card
+(tests/test_torch_cuda.py).
 """
 import jax
 import jax.numpy as jnp
@@ -24,21 +24,21 @@ def _bf16_rows(rng, rows, k, ld):
 
 def test_tma_2d_arguments():
     """True width with the padded row stride, box one 128-byte row wide and
-    as deep as asked, for the forward's operands: the position encoding
-    (63 of 64), the direction encoding (27 of 32), an activation (256), the
-    f32 row term, and the second half of a K-major weight."""
+    as deep as asked, for the fused kernels' operands: the position
+    encoding (63 of 64), the direction encoding (27 of 32), an activation
+    (256), an f32 view, and the second half of a K-major weight."""
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     rng = np.random.default_rng(0)
     enc = _bf16_rows(rng, 300, 63, 64)
     denc = _bf16_rows(rng, 20, 27, 32)
     act = torch.zeros((300, 256), dtype=BF)
-    rowterm = torch.zeros((20, 128), dtype=torch.float32)
+    f32 = torch.zeros((20, 128), dtype=torch.float32)
     wt = mk._padded_t(torch.zeros((319, 256)))
     cases = [(enc[:, :63], 128, (63, 300, 128, 64, 128)),
              (denc[:, :27], 128, (27, 20, 64, 64, 128)),
              (act, 64, (256, 300, 512, 64, 64)),
-             (rowterm, 64, (128, 20, 512, 32, 64)),
+             (f32, 64, (128, 20, 512, 32, 64)),
              (wt[:, 256:319], 256, (63, 256, 640, 64, 256)),
              (wt[:, :256], 256, (256, 256, 640, 64, 256))]
     for view, box_rows, want in cases:
@@ -116,44 +116,6 @@ def test_gemm_fwd_reference_is_the_chain_layer_math(seed):
         rtol=0, atol=0)
     rt32 = mk.gemm_fwd_reference(denc, wr[D:], out_dtype=torch.float32)
     torch.testing.assert_close(rt32, mm(denc, wr[D:]), rtol=0, atol=0)
-
-
-def test_gemm_fwd_cpu_path_is_the_plain_version():
-    """gemm_fwd on CPU tensors (K-major weights, bf16 views with NaN
-    padding) returns gemm_fwd_reference's values, into ``out`` when given,
-    and launches nothing."""
-    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
-
-    rng = np.random.default_rng(3)
-    M, D, S = 64, 32, 8
-    enc = _bf16_rows(rng, M, 63, 64)[:, :63]
-    h = _bf16_rows(rng, M, D, D)
-    denc = _bf16_rows(rng, M // S, 27, 32)[:, :27]
-    w_skip = torch.tensor(rng.normal(size=(D + 63, D)) * 0.1,
-                          dtype=torch.float32)
-    w_rgb = torch.tensor(rng.normal(size=(D + 27, D // 2)) * 0.1,
-                         dtype=torch.float32)
-    b = torch.tensor(rng.normal(size=(D,)), dtype=torch.float32)
-    ts, tr = mk._padded_t(w_skip), mk._padded_t(w_rgb)
-    n0 = mk.GEMM_SM90_LAUNCHES.count
-    got = mk.gemm_fwd(h, ts[:, :D], a2=enc, w2t=ts[:, D:D + 63], bias=b,
-                      relu=True)
-    assert got.dtype == BF and got.shape == (M, D)
-    want = mk.gemm_fwd_reference(h.float(), w_skip[:D], enc.float(),
-                                 w_skip[D:], b, True)
-    torch.testing.assert_close(got.float(), want, rtol=0, atol=0)
-    rt = mk.gemm_fwd(denc, tr[:, D:D + 27],
-                     out=torch.empty((M // S, D // 2), dtype=torch.float32))
-    torch.testing.assert_close(rt, mk.gemm_fwd_reference(
-        denc.float(), w_rgb[D:], out_dtype=torch.float32), rtol=0, atol=0)
-    out = torch.empty((M, D // 2), dtype=BF)
-    res = mk.gemm_fwd(got, tr[:, :D], relu=True, rowterm=rt, div=S, out=out)
-    assert res is out
-    torch.testing.assert_close(out.float(), mk.gemm_fwd_reference(
-        got.float(), w_rgb[:D], relu=True, rowterm=rt, div=S), rtol=0, atol=0)
-    assert mk.GEMM_SM90_LAUNCHES.count == n0
-    with pytest.raises(ValueError, match="unsupported device"):
-        mk.gemm_fwd(h.to("meta"), ts[:, :D].to("meta"))
 
 
 def test_row_term_chain_against_pallas_interpret():

@@ -1,21 +1,22 @@
 """The Python side of the backward's kernels -- the fused layer pass
 (csrc/mlp_fused_bwd.cu: ``gemm_dwgrad``, each layer's input and weight
-gradient in one pass, with ``heads_bwd_fused`` and the split reduction) and
-the layer-by-layer GEMMs it replaced (csrc/mlp_gemm_sm90.cu: the
-input-gradient ``gemm_dgrad`` and the weight-gradient ``gemm_wgrad``) -- and
-of the chain backward that runs on them: their tensor-map arguments and
-split rules, the plain versions against the JAX kernels' ``_mm_t`` /
-``_mm_acc`` and JAX autograd, the wrappers' CPU paths, and ``_chain_bwd``
-run whole on CPU tensors (every step's plain version: buffer widths, f32
-tails, bias sums) against autograd through the plain chain, against the
-layer-by-layer chain and against the JAX Pallas backwards in interpret mode.
-The kernels themselves run only on the card (tests/test_torch_cuda.py).
+gradient in one pass, with ``heads_bwd_fused`` and the split reduction;
+Kernel A's per-ray ``dir_weight_grad``) -- and of the chain backward that
+runs on them: their tensor-map arguments and split rules, the plain
+versions against the JAX kernels' ``_mm_t`` / ``_mm_acc`` and JAX autograd,
+the wrappers' CPU paths, and ``_chain_bwd`` run whole on CPU tensors (every
+step's plain version: buffer widths, f32 tails, bias sums) on the plain
+chain's saves (tests/_mlp_saves.py) against autograd through the plain
+chain and against the JAX Pallas backwards in interpret mode. The kernels
+themselves run only on the card (tests/test_torch_cuda.py).
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from _mlp_saves import plain_saves
 
 torch.set_num_threads(1)
 
@@ -37,56 +38,6 @@ def _nan_padded(rng, rows, k, scale=1.0):
     buf = torch.full((rows, mk._pad8(k)), float("nan"), dtype=BF)
     buf[:, :k] = torch.tensor(rng.normal(size=(rows, k)) * scale, dtype=F32)
     return buf
-
-
-def test_tma_2d_arguments_of_the_backward_operands():
-    """The dgrad B operand is rows of the untransposed bf16 weight (true
-    width fan_out, row stride padded, box as deep as the output tile); the
-    wgrad operands are 64-row boxes down M of the activations (true widths
-    63 and 27 with the padded stride) and of the cotangents."""
-    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
-
-    rng = np.random.default_rng(0)
-    D, M = 256, 300
-    w_rgb = mk._padded(torch.zeros((D + 27, D // 2)))
-    w_skip = mk._padded(torch.zeros((D + 63, D)))
-    assert w_rgb.dtype == BF and w_rgb.shape == (D + 27, D // 2)
-    enc = _nan_padded(rng, M, 63)[:, :63]
-    denc = _nan_padded(rng, M, 27)[:, :27]
-    g = torch.zeros((M, D), dtype=BF)
-    cases = [(w_rgb[:D], 256, (128, D, 256, 64, 256)),
-             (w_rgb[D:D + 27], 32, (128, 27, 256, 64, 32)),
-             (w_skip[:D], 256, (256, D, 512, 64, 256)),
-             (w_skip[D:D + 63], 64, (256, 63, 512, 64, 64)),
-             (enc, mk.WGRAD_CHUNK, (63, M, 128, 64, 64)),
-             (denc, mk.WGRAD_CHUNK, (27, M, 64, 64, 64)),
-             (g, mk.WGRAD_CHUNK, (256, M, 512, 64, 64))]
-    for view, box_rows, want in cases:
-        args = mk.tma_2d(view, box_rows)
-        assert args[0] == view.data_ptr() and args[0] % 16 == 0
-        assert args[1:] == want
-    assert mk.tma_2d(w_rgb[D:D + 27], 32)[0] == w_rgb.data_ptr() + D * 256
-    assert mk.tma_2d(w_skip[D:], 64)[0] == w_skip.data_ptr() + D * 512
-    # the tile an output runs at, and what no tile holds
-    assert [mk._tile_width(n, BF) for n in (27, 63, 128, 256)] == [
-        32, 64, 128, 256]
-    assert mk._tile_width(63, F32) == 64
-    with pytest.raises(ValueError, match="no GEMM tile"):
-        mk._tile_width(256, F32)
-
-
-@pytest.mark.parametrize("M", [200, 2048])
-def test_wgrad_rows_per_split(M):
-    """About one block per SM of an H100 (132), splits of whole 64-row
-    chunks that cover M, the dW row tiles of one split side by side."""
-    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
-
-    for k_in, tiles in ((256, 2), (63, 1), (27, 1)):
-        rps = mk.wgrad_rows_per_split(M * 64, k_in, 132)
-        splits = -(-M * 64 // rps)
-        assert rps % mk.WGRAD_CHUNK == 0 and splits * rps >= M * 64
-        assert splits * tiles <= 132
-    assert mk.wgrad_rows_per_split(131072, 256, 132) == 2048
 
 
 def test_tma_2d_arguments_of_the_fused_backward():
@@ -155,12 +106,14 @@ def test_dwgrad_split(M):
 
 
 def test_fused_backward_wrappers_cpu_path_is_the_plain_version():
-    """gemm_dwgrad and heads_bwd_fused on CPU tensors fill their outputs
-    with the plain versions' values (the input gradient rounded to the
-    output's type, the column sums taken before the rounding, the weight
-    gradients of the groups that ask for one, fc_density's from the rank-1
-    term) and launch nothing; the split sums of a CPU backward are empty;
-    any other device raises."""
+    """gemm_dwgrad, heads_bwd_fused and dir_weight_grad on CPU tensors fill
+    their outputs with the plain versions' values (the input gradient
+    rounded to the output's type, the column sums taken before the
+    rounding, the weight gradients of the groups that ask for one,
+    fc_density's from the rank-1 term, the per-ray direction weight
+    gradient equal to the per-point one up to f32 order) and launch
+    nothing; the split sums of a CPU backward are empty; any other device
+    raises."""
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     rng = np.random.default_rng(6)
@@ -204,6 +157,15 @@ def test_fused_backward_wrappers_cpu_path_is_the_plain_version():
     torch.testing.assert_close(dw_rgb, mk.gemm_wgrad_reference(
         hr.float(), g_raw[:, 1:]), rtol=0, atol=0)
     torch.testing.assert_close(b_heads, g_raw.sum(0), rtol=0, atol=0)
+    S = 8
+    denc = _nan_padded(rng, M // S, 27)[:, :27]
+    out = torch.empty((27, D))
+    assert mk.dir_weight_grad(denc, g, S, out) is out
+    torch.testing.assert_close(out, mk.dir_weight_grad_reference(denc, g, S),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(out, mk.gemm_wgrad_reference(
+        denc.float().repeat_interleave(S, 0), g.float()), rtol=1e-5,
+        atol=1e-5)
     sums.run()  # nothing to add on the CPU: no launch
     assert [c.count for c in counters] == n0
     meta = lambda x: x.to("meta")  # noqa: E731
@@ -211,6 +173,8 @@ def test_fused_backward_wrappers_cpu_path_is_the_plain_version():
         mk.gemm_dwgrad(meta(g), [mk.DwGroup(meta(w[:D]), meta(out0))])
     with pytest.raises(ValueError, match="unsupported device"):
         mk.heads_bwd_fused(meta(g_raw), meta(hr), meta(wc), meta(out0))
+    with pytest.raises(ValueError, match="unsupported device"):
+        mk.dir_weight_grad(meta(denc), meta(g), S, meta(out))
 
 
 def _bf(x):
@@ -276,78 +240,11 @@ def test_backward_gemm_references_match_jax(seed):
     assert mk.gemm_dwgrad_reference(t(g), t(w))[1] is None
 
 
-def test_backward_wrappers_cpu_path_is_the_plain_version():
-    """gemm_dgrad, gemm_wgrad, heads_bwd, dir_weight_grad and
-    head_weight_grad on CPU tensors return their plain versions' values
-    (rounded to the output's type, the column sums taken before the
-    rounding), into the given outputs, and launch nothing; any other device
-    raises."""
-    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
-
-    rng = np.random.default_rng(4)
-    M, D, S = 64, 32, 8
-    g = _nan_padded(rng, M, D)[:, :D]
-    act = _nan_padded(rng, M, D)[:, :D]
-    w = mk._padded(torch.tensor(rng.normal(size=(D + 27, D)) * 0.2,
-                                dtype=F32))
-    gsig = torch.tensor(rng.normal(size=(M, 4)), dtype=F32)[:, 0]
-    wd = torch.tensor(rng.normal(size=(D,)), dtype=F32).to(BF)
-    counters = (mk.GEMM_DGRAD_LAUNCHES, mk.GEMM_WGRAD_LAUNCHES,
-                mk.WGRAD_LAUNCHES)
-    n0 = [c.count for c in counters]
-
-    out = torch.empty((M, D), dtype=BF)
-    res, sums = mk.gemm_dgrad(g, w[:D], out, mask=act, gsig=gsig, wd=wd,
-                              colsum=True)
-    want = mk.gemm_dgrad_reference(g.float(), w[:D].float(), act.float(),
-                                   gsig, wd.float())
-    assert res is out
-    torch.testing.assert_close(out, want.to(BF), rtol=0, atol=0)
-    torch.testing.assert_close(sums, want.sum(0), rtol=0, atol=0)
-    tail = torch.empty((M, 32), dtype=F32)[:, :27]
-    res, none = mk.gemm_dgrad(g, w[D:], tail)
-    assert none is None and res is tail
-    torch.testing.assert_close(tail, mk.gemm_dgrad_reference(
-        g.float(), w[D:].float()), rtol=0, atol=0)
-
-    dw = mk.gemm_wgrad(act, g)
-    torch.testing.assert_close(dw, mk.gemm_wgrad_reference(act.float(),
-                                                           g.float()),
-                               rtol=0, atol=0)
-    denc = _nan_padded(rng, M // S, 27)[:, :27]
-    got = mk.dir_weight_grad(denc, g, S, torch.empty((27, D)))
-    per_point = denc.float().repeat_interleave(S, 0)
-    torch.testing.assert_close(got, mk.gemm_wgrad_reference(per_point,
-                                                            g.float()),
-                               rtol=1e-5, atol=1e-5)
-
-    g_raw = torch.tensor(rng.normal(size=(M, 4)), dtype=F32)
-    for cols in (slice(1, 4), slice(0, 1)):  # fc_rgb, fc_density
-        torch.testing.assert_close(
-            mk.head_weight_grad(act, g_raw[:, cols]),
-            mk.gemm_wgrad_reference(act.float(), g_raw[:, cols]),
-            rtol=0, atol=0)
-    wc = torch.tensor(rng.normal(size=(D, 3)), dtype=F32).to(BF)
-    g_hr, sums = mk.heads_bwd(g_raw, act, wc, torch.empty((M, D), dtype=BF),
-                              colsum=True)
-    want = mk.heads_bwd_reference(g_raw, act.float(), wc.float())
-    torch.testing.assert_close(g_hr, want.to(BF), rtol=0, atol=0)
-    torch.testing.assert_close(sums, want.sum(0), rtol=0, atol=0)
-    assert [c.count for c in counters] == n0
-    meta = lambda x: x.to("meta")  # noqa: E731
-    with pytest.raises(ValueError, match="unsupported device"):
-        mk.gemm_dgrad(meta(g), meta(w[:D]), meta(out))
-    with pytest.raises(ValueError, match="unsupported device"):
-        mk.gemm_wgrad(meta(act), meta(g))
-    with pytest.raises(ValueError, match="unsupported device"):
-        mk.heads_bwd(meta(g_raw), meta(act), meta(wc), meta(out))
-
-
 def _chain_inputs(hidden, M, div, seed):
     """Random field weights (the port's init), NaN-padded bf16 encodings
-    (per point, the direction one per ``div`` points) and the kernel
-    chain's forward on CPU tensors: (weights, enc, denc, the forward's
-    saved tensors (acts, feat, hr, raw), dims, the kernel weights)."""
+    (per point, the direction one per ``div`` points) and the plain chain's
+    forward on CPU tensors: (weights, enc, denc, the saves the backward
+    reads (:func:`plain_saves`), dims, the kernel weights)."""
     from nope_nerf_tpu_torch.models.nerf import init_nerf_params
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
@@ -360,14 +257,15 @@ def _chain_inputs(hidden, M, div, seed):
     enc = _nan_padded(rng, M, 63)
     denc = _nan_padded(rng, M // div, 27)
     dims = mk._dims(weights, 10, 4)
-    Wt, Wb, Wh, Bs = mk._kernel_weights(weights, True)
-    fwd = mk._chain_fwd(Wt, Wh, Bs, enc, denc, div, M, dims)
-    return weights, enc, denc, fwd, dims, (Wb, Wh), rng
+    _, Wb, Wh, _ = mk._kernel_weights(weights, True)
+    sv = plain_saves(weights, enc, denc, div, dims)
+    return weights, enc, denc, sv, dims, (Wb, Wh), rng
 
 
 @pytest.mark.parametrize("hidden,M,div", [(32, 296, 8), (64, 296, 1),
-                                          (64, 200, 8), (32, 200, 1),
-                                          (128, 300, 1), (128, 300, 4)])
+                                          (64, 296, 8), (64, 200, 8),
+                                          (32, 200, 1), (128, 300, 1),
+                                          (128, 300, 4)])
 def test_chain_bwd_matches_autograd(hidden, M, div):
     """_chain_bwd on CPU tensors (ragged M) against autograd through the
     plain chain on the same forward: every weight and bias gradient and the
@@ -376,18 +274,19 @@ def test_chain_bwd_matches_autograd(hidden, M, div):
     gradient differs). The forward's raw heads are the plain chain's."""
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
-    weights, enc, denc, (acts, feat, hr, raw), dims, (Wb, Wh), rng = \
-        _chain_inputs(hidden, M, div, hidden + M + div)
+    weights, enc, denc, sv, dims, (Wb, Wh), rng = _chain_inputs(
+        hidden, M, div, hidden + M + div)
     g_raw = torch.tensor(rng.normal(size=(M, 4)) / M, dtype=F32)
-    d_w, (ge1, ge2), gd = mk._chain_bwd(Wb, Wh, g_raw, enc, denc, div, feat,
-                                        hr, acts, M, dims)
+    d_w, (ge1, ge2), gd = mk._chain_bwd(Wb, Wh, g_raw, sv["enc"], sv["denc"],
+                                        div, sv["feat"], sv["hr"], sv["acts"],
+                                        M, dims)
     assert ge1.dtype == F32 and ge1.shape == (M, 63) and gd.shape == (M, 27)
 
     ws = [w.detach().clone().requires_grad_() for w in weights]
     enc_in = enc[:, :63].float().requires_grad_()
     denc_in = denc[:, :27].float().repeat_interleave(div, 0).requires_grad_()
-    rs, rr = mk._chain_reference(mk._weights_dict(ws), enc_in, denc_in)
-    torch.testing.assert_close(raw, torch.cat([rs, rr], 1).detach(),
+    *_, rs, rr = mk._chain_reference(mk._weights_dict(ws), enc_in, denc_in)
+    torch.testing.assert_close(sv["raw"], torch.cat([rs, rr], 1).detach(),
                                rtol=1e-6, atol=1e-6)
     torch.autograd.backward([rs, rr], [g_raw[:, :1], g_raw[:, 1:]])
     names = [f"{n}/{k}" for n in mk.W_NAMES for k in "wb"]
@@ -398,35 +297,16 @@ def test_chain_bwd_matches_autograd(hidden, M, div):
     assert _rel_l2(gd, denc_in.grad) <= 1e-5
 
 
-@pytest.mark.parametrize("hidden,M,div", [(64, 296, 8), (128, 300, 1)])
-def test_chain_bwd_matches_the_layered_chain(hidden, M, div):
-    """On CPU tensors the fused passes' chain and the layer-by-layer chain
-    it replaced run the same plain versions: every weight and bias gradient
-    and both encodings' cotangents bitwise equal, with and without the
-    weight gradients."""
-    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
-
-    _, enc, denc, (acts, feat, hr, _), dims, (Wb, Wh), rng = _chain_inputs(
-        hidden, M, div, hidden + div)
-    g_raw = torch.tensor(rng.normal(size=(M, 4)) / M, dtype=F32)
-    for weight_grads in (True, False):
-        args = (Wb, Wh, g_raw, enc, denc, div, feat, hr, acts, M, dims,
-                weight_grads)
-        (dw, (e1, e2), gd), (dw_l, (e1_l, e2_l), gd_l) = (
-            mk._chain_bwd(*args), mk._chain_bwd_layered(*args))
-        for a, b in zip((*dw, e1, e2, gd), (*dw_l, e1_l, e2_l, gd_l)):
-            assert (a is None and b is None) or torch.equal(a, b)
-
-
 def test_chain_bwd_input_only_is_bitwise():
-    """Without the weight gradients the chain runs the same input-gradient
-    GEMMs without their column sums: the encodings' cotangents are bitwise
+    """Without the weight gradients the chain runs the same passes with
+    their weight-gradient half off: the encodings' cotangents are bitwise
     those of the full backward, and no weight gradient is returned."""
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     M, div = 160, 8
-    _, enc, denc, (acts, feat, hr, _), dims, (Wb, Wh), rng = _chain_inputs(
-        32, M, div, 5)
+    _, _, _, sv, dims, (Wb, Wh), rng = _chain_inputs(32, M, div, 5)
+    enc, denc, acts, feat, hr = (sv[k] for k in ("enc", "denc", "acts",
+                                                 "feat", "hr"))
     g_raw = torch.tensor(rng.normal(size=(M, 4)) / M, dtype=F32)
     full = mk._chain_bwd(Wb, Wh, g_raw, enc, denc, div, feat, hr, acts, M,
                          dims)
@@ -521,8 +401,10 @@ def test_chain_bwd_weight_grads_vs_pallas(act, occ_alpha, hidden, M, S):
 
     enc, denc = encoded(pts, 10, 63), encoded(dirs, 4, 27)
     dims = mk._dims(weights, 10, 4)
-    Wt, Wb, Wh, Bs = mk._kernel_weights(weights, True)
-    acts, feat, hr, raw = mk._chain_fwd(Wt, Wh, Bs, enc, denc, S, M, dims)
+    _, Wb, Wh, _ = mk._kernel_weights(weights, True)
+    sv = plain_saves(weights, enc, denc, S, dims)
+    enc, denc, acts, feat, hr, raw = (sv[k] for k in (
+        "enc", "denc", "acts", "feat", "hr", "raw"))
     raw_sigma = raw[:, :1].clone().requires_grad_()
     raw_rgb = raw[:, 1:].clone().requires_grad_()
     rgb, den = mk._act_fwd(raw_sigma, raw_rgb, act, occ_alpha)

@@ -217,8 +217,9 @@ def test_an_eager_pose_step_marks_its_sections_in_order():
 
 def _kernel_a_backward_args(N=8, S=16, hidden=32, seed=0):
     """A context of ``FusedMLPComposite.backward`` built on CPU tensors:
-    the saves of Kernel A's forward (the kernel chain's forward run whole
-    on the CPU) and the cotangents of its outputs."""
+    the saves of Kernel A's forward (the plain chain's, laid out as the
+    fused forward saves them) and the cotangents of its outputs."""
+    from _mlp_saves import plain_saves
     from nope_nerf_tpu_torch.models.nerf import init_nerf_params
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
@@ -240,13 +241,14 @@ def _kernel_a_backward_args(N=8, S=16, hidden=32, seed=0):
     denc = torch.zeros((N, mk._pad8(27)), dtype=torch.bfloat16)
     denc[:, :27] = torch.randn((N, 27), generator=gen).to(torch.bfloat16)
     dims = mk._dims(weights, 10, 4)
-    Wt, Wb, Wh, Bs = mk._kernel_weights(weights, True)
-    acts, feat, hr, raw = mk._chain_fwd(Wt, Wh, Bs, enc, denc, S, M, dims)
+    _, Wb, Wh, _ = mk._kernel_weights(weights, True)
+    sv = plain_saves(weights, enc, denc, S, dims)
     ctx = Ctx()
     ctx.cfg = (10, 4, "softplus", False, False, False, S)
     ctx.dims = dims
-    ctx.saved_tensors = (origins, rays, dirs, z, deltas, enc, denc, feat,
-                         hr, raw, *acts, *mk._weight_list(Wb, Wh))
+    ctx.saved_tensors = (origins, rays, dirs, z, deltas, sv["enc"],
+                         sv["denc"], sv["feat"], sv["hr"], sv["raw"],
+                         *sv["acts"], *mk._weight_list(Wb, Wh))
     ctx.needs_input_grad = (True,) * 3 + (False,) * 3 + (True,) * 24
     cots = (torch.randn((N, 3), generator=gen),
             torch.randn((N, 1), generator=gen), None)

@@ -1,6 +1,6 @@
 """Build variants of Kernel B's split-band kernel (``csrc/chamfer_band.cu``)
-and hold each against the per-query kernel it replaced, then time them in
-turns, on one GPU.
+and hold each against the sequential sweep that defines its result, then
+time them in turns beside the package's kernel, on one GPU.
 
     python3 tools/torch_band_probe.py base= q8=path/to/copy.cu: ...
 
@@ -9,14 +9,15 @@ package's; a variant is an edited copy of it, e.g. with another ``Q``,
 ``SPLIT`` or ``CHUNK`` constant) compiled with ``-D`` flags (comma
 separated, if the copy reads any) into a library of its own under
 ``build/band_probe/`` with ``-Xptxas -v``, whose registers and spills are
-printed. Each variant's ``nnt_band_argmin_split`` must return the per-query
-kernel's indices (``nnt_band_argmin`` of the package's build) bit for bit
-on the stock pair (chip_smoke's 135x240 depth maps, k_tiles 8) and on
-random clouds with ragged tails, every k_tiles, clamped starts, duplicate
-rows and NaN and infinite rows. Then, in two rounds (the second in reverse
-order), every variant and the per-query kernel (with its two padded
-copies, as its wrapper runs it) are timed at the stock pair: device time by
-the profiler and CUDA events, in ms per call. Needs a CUDA device.
+printed. Each variant's ``nnt_band_argmin_split`` must return the indices
+of the sequential strict '<' sweep of each band (``sequential_sweep`` of
+tests/_band_sweep.py, in numpy) bit for bit on the stock pair
+(chip_smoke's 135x240 depth maps, k_tiles 8) and on random clouds with
+ragged tails, every k_tiles, clamped starts, duplicate rows and NaN and
+infinite rows. Then, in two rounds (the second in reverse order), every
+variant and the package's kernel (``chamfer_band.nearest_idx_banded``,
+``base`` below) are timed at the stock pair: device time by the profiler
+and CUDA events, in ms per call. Needs a CUDA device.
 """
 import ctypes
 import os
@@ -24,7 +25,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 SOURCE = os.path.join(ROOT, "nope_nerf_tpu_torch", "csrc", "chamfer_band.cu")
 OUT = os.path.join(ROOT, "build", "band_probe")
@@ -119,6 +120,7 @@ def main(argv):
     import torch
 
     import chip_smoke as cs
+    from _band_sweep import sequential_sweep
     from nope_nerf_tpu_torch import _build
     from nope_nerf_tpu_torch.geometry.rays import project_to_cam
     from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
@@ -140,18 +142,20 @@ def main(argv):
     stock = [("stock pair", X, Y, starts, k), ("stock pair, Y to X", Y, X,
                                                 starts, k)]
     inputs = stock + cases(dev)
+    wants = [torch.from_numpy(sequential_sweep(
+        x.cpu().numpy(), y.cpu().numpy(), st.cpu().numpy(), kk)).to(dev)
+        for _, x, y, st, kk in inputs]
     for name, fn in fns.items():
         bad = []
-        for label, x, y, st, kk in inputs:
-            want = cb._nearest_idx_banded_per_query(x, y, st, kk)
+        for (label, x, y, st, kk), want in zip(inputs, wants):
             got = variant_call(fn, x, y, st, kk)
             if not torch.equal(got, want):
                 bad.append((label, int((got != want).sum())))
         print(f"{name} [{card}]: {len(inputs)} inputs, bitwise the "
-              f"per-query kernel's indices except {bad}", flush=True)
+              f"sequential sweep's indices except {bad}", flush=True)
     calls = {n: (lambda fn=fn: variant_call(fn, X, Y, starts, k))
              for n, fn in fns.items()}
-    calls["pr1"] = lambda: cb._nearest_idx_banded_per_query(X, Y, starts, k)
+    calls["package"] = lambda: cb.nearest_idx_banded(X, Y, starts, k)
     times = {n: [] for n in calls}
     for order in (list(calls), list(calls)[::-1]):
         for n in order:
@@ -161,8 +165,6 @@ def main(argv):
         print(f"{n} [{card}]: device ms " + " / ".join(
             f"{d:.4f}" for d, _ in t) + "; events ms " + " / ".join(
             f"{e:.4f}" for _, e in t), flush=True)
-    print(f"pr1 by kernel [{card}], device ms: "
-          f"{cs.kernel_split(calls['pr1'], iters=50)}", flush=True)
     return 0
 
 

@@ -1,6 +1,6 @@
 """Time variants of Kernel A's encoding backward (``encode_bwd_staged`` in
-``csrc/mlp_composite.cu``) against each other and against the per-ray
-kernel it replaced, on one GPU, in turns.
+``csrc/mlp_composite.cu``) against each other and against the package's
+kernel, on one GPU, in turns.
 
     python3 tools/torch_encode_bwd_probe.py base= other=path/to/copy.cu:FLAG=1 ...
 
@@ -12,9 +12,10 @@ are printed. On seeded inputs at the stock shapes (1024 rays x 128
 samples), at k = 4 (4096 rays) and at the recovery scripts' 1024 x 64
 (the position and direction encodings' cotangents in rows padded to 8
 columns, as the chain backward leaves them), each variant's outputs are
-held to the package's per-ray kernel (bitwise or not), and its device time
-by the profiler is taken in two rounds, the second in reverse order, the
-per-ray kernel among them. Needs a CUDA device.
+compared with the package's kernel (``mlp_kernel.encode_bwd``; bitwise or
+not) and with the plain version (``encode_bwd_reference``, relL2), and its
+device time by the profiler is taken in two rounds, the second in reverse
+order, the package's kernel among them. Needs a CUDA device.
 """
 import ctypes
 import os
@@ -121,7 +122,8 @@ def main(argv):
     for label, N, S in SHAPES:
         args = inputs(N, S, dev)
         o, r, d, z, ge1, ge2, gd, l_pos, l_dir = args
-        want = mk._encode_bwd_per_ray(*args)
+        want = mk.encode_bwd(*args)
+        plain = mk.encode_bwd_reference(*args)
 
         def call(fn):
             outs = [torch.empty((N, 3), device=dev) for _ in range(3)]
@@ -142,15 +144,19 @@ def main(argv):
             run()
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(outs, want))
-            runs[name] = (run, same)
-        runs["per_ray"] = (lambda: mk._encode_bwd_per_ray(*args), True)
+            rel = max(float(torch.linalg.vector_norm(a - b)
+                            / torch.linalg.vector_norm(b))
+                      for a, b in zip(outs, plain))
+            runs[name] = (run, same, rel)
+        runs["package"] = (lambda: mk.encode_bwd(*args), True, None)
         times = {name: [] for name in runs}
         for order in (list(runs), list(runs)[::-1]):
             for name in order:
                 times[name].append(device_ms(runs[name][0]))
         print(f"{label} {N} x {S}: " + "; ".join(
-            f"{name} {sum(t) / 2:.4f} ms ({t[0]:.4f}, {t[1]:.4f}; "
-            f"bitwise {runs[name][1]})" for name, t in times.items()),
+            f"{name} {sum(t) / 2:.4f} ms ({t[0]:.4f}, {t[1]:.4f}; bitwise "
+            f"to the package's {runs[name][1]}, relL2 to plain "
+            f"{runs[name][2]})" for name, t in times.items()),
             flush=True)
 
 

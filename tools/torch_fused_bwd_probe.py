@@ -1,6 +1,6 @@
 """Time variants of the fused backward pass (``csrc/mlp_fused_bwd.cu``)
-against each other and against the layer-by-layer backward on one GPU, in
-turns, at the stock step's shapes.
+against each other and against the package's pass on one GPU, in turns, at
+the stock step's shapes.
 
     python3 tools/torch_fused_bwd_probe.py base= other=path/to/copy.cu:FLAG=1,X=2 ...
 
@@ -11,13 +11,12 @@ its own under ``build/fused_bwd_probe/`` with ``-Xptxas -v`` (the package's
 (C75xx) are printed. Kernel A's saving forward runs once at 1024 rays x
 128 samples, width 256 (``RAYS=4096`` for k = 4), and then, in two rounds
 (the second in reverse order), Kernel A's chain backward
-(``mlp_kernel._chain_bwd``) on each variant's pass and the layer-by-layer
-one (``_chain_bwd_layered``): each variant's gradients against the
-layer-by-layer ones (relL2; input cotangents bitwise or not), and the
-device time by the profiler of the whole backward, with and without the
-weight gradients, and of its passes alone. The first round also prints
-the per-kernel device-time table of the package's backward. Needs a CUDA
-device.
+(``mlp_kernel._chain_bwd``) on the package's pass and on each variant's:
+each variant's gradients against the package's (relL2; input cotangents
+bitwise or not), and the device time by the profiler of the whole
+backward, with and without the weight gradients, and of its passes alone.
+The first round also prints the per-kernel device-time table of the first
+variant's backward. Needs a CUDA device.
 """
 import ctypes
 import os
@@ -129,7 +128,7 @@ def main(argv):
         return chain(Wb, Wh, g_raw, enc, denc, S, feat, hr, acts, M, dims,
                      weight_grads)
 
-    ref = bwd(mk._chain_bwd_layered)
+    ref = bwd(mk._chain_bwd)
     real = mk.c_function
     times = {}
 
@@ -139,10 +138,11 @@ def main(argv):
 
     try:
         for rnd, order in enumerate((list(fns), list(fns)[::-1])):
-            times.setdefault("layered", []).append(
-                profile_ms(lambda: bwd(mk._chain_bwd_layered)))
-            times.setdefault("layered input-only", []).append(
-                profile_ms(lambda: bwd(mk._chain_bwd_layered, False)))
+            mk.c_function = real
+            times.setdefault("package", []).append(
+                profile_ms(lambda: bwd(mk._chain_bwd)))
+            times.setdefault("package input-only", []).append(
+                profile_ms(lambda: bwd(mk._chain_bwd, False)))
             for name in order:
                 mk.c_function = (lambda n, s, f=fns[name]: f
                                  if n == "nnt_mlp_fused_bwd" else real(n, s))
@@ -151,8 +151,8 @@ def main(argv):
                 same = all(torch.equal(a, b) for a, b in
                            zip((*got[1], got[2]), (*ref[1], ref[2])))
                 print(f"{name}: weight gradients max relL2 {worst:.3e} "
-                      f"against the layer-by-layer backward; input "
-                      f"cotangents bitwise equal: {same}", flush=True)
+                      f"against the package's backward; input cotangents "
+                      f"bitwise equal: {same}", flush=True)
                 if rnd == 0 and name == order[0]:
                     print(f"  {name}: kernels of one backward (device ms, "
                           "launches):")

@@ -10,8 +10,8 @@ its own under ``build/fused_probe/`` with ``-Xptxas -v`` (the package's
 spills and wgmma-serialisation warnings (C7511) are printed. Then, in two
 rounds (the second in reverse order), Kernel A's forward
 (``mlp_kernel._composite_fwd``) runs on each variant at width 256 and 128
-samples: whether its outputs and saved tensors equal the layer-by-layer
-forward's bit for bit at 1024 rays (a knockout variant will not) and its
+samples: whether its outputs and saved tensors equal the package's
+kernel's bit for bit at 1024 rays (a knockout variant will not) and its
 outputs at the render's 16,384-ray chunk, and the variant kernel's device
 time by the profiler: saving and not at 1024 rays, not saving at 16,384.
 
@@ -186,8 +186,8 @@ def main(argv):
         return o, r, -r, z, dl
 
     stock, render = inputs(STOCK_RAYS), inputs(RENDER_RAYS)
-    ref = mk._composite_fwd_layered(*stock, static, ws, True)
-    ref_render = mk._composite_fwd_layered(*render, static, ws, False)[0]
+    ref = mk._composite_fwd(*stock, static, ws, True)
+    ref_render = mk._composite_fwd(*render, static, ws, False)[0]
     cases = {"stock_save": (stock, True), "stock_nosave": (stock, False),
              "render_nosave": (render, False)}
     real = mk.c_function
@@ -204,7 +204,7 @@ def main(argv):
                 got_r = mk._composite_fwd(*render, static, ws, False)[0]
                 same_r = all(torch.equal(a, b)
                              for a, b in zip(got_r, ref_render))
-                print(f"{name}: bitwise equal to the layer-by-layer forward: "
+                print(f"{name}: bitwise equal to the package's kernel: "
                       f"stock outputs and saves {same}, render chunk outputs "
                       f"{same_r}", flush=True)
                 for case, (args, save) in cases.items():

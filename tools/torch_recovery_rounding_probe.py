@@ -1,23 +1,21 @@
 """Run chip_smoke.py's recovery phase under other f32 roundings of the
 backward, to see how its ATE gate depends on them. On one GPU:
 
-    python3 tools/torch_recovery_rounding_probe.py fused layered fused_sm100 layered_halfsplits control ...
+    python3 tools/torch_recovery_rounding_probe.py fused fused_sm100 fused_halfsplits control ...
 
 Each argument is one run of ``chip_smoke.run_recovery`` (the 20-frame
 script's scene and config from identity poses, the gate and its bar
-unchanged): ``fused`` runs the backward on the fused passes
-(``mlp_kernel._chain_bwd``), ``layered`` on the layer-by-layer chain it
-replaced (``_chain_bwd_layered``); a suffix changes only the order in which
-the weight and bias gradients are summed: ``_smN`` computes every split
-rule for N SMs instead of the card's, ``_halfsplits`` halves the splits of
-the weight-gradient sums, ``_heads2`` doubles the rows per block of the
-heads' pass. ``control`` runs the fused backward with the pose learning
-rate at 0. ``REC_EPOCHS`` sets the epochs (0: the whole schedule; default
-chip_smoke's). Prints, per run, the gate's verdict and the mean ATE of 10
-epochs over the first epoch's at every 100th epoch and the last, and
-writes the same lines to ``chiprun_out/rec_probe_<epochs or
-schedule>.txt``. The launch-count check of the phase is skipped (the
-layer-by-layer chain is off the path). With ``SAVE_CALL=<path.npz>`` each
+unchanged) with the backward on the fused passes
+(``mlp_kernel._chain_bwd``): ``fused`` as the port runs it; a suffix
+changes only the order in which the weight and bias gradients are summed:
+``_smN`` computes every split rule for N SMs instead of the card's,
+``_halfsplits`` halves the splits of the weight-gradient sums, ``_heads2``
+doubles the rows per block of the heads' pass. ``control`` runs it with the
+pose learning rate at 0. ``REC_EPOCHS`` sets the epochs (0: the whole
+schedule; default chip_smoke's). Prints, per run, the gate's verdict and
+the mean ATE of 10 epochs over the first epoch's at every 100th epoch and
+the last, and writes the same lines to ``chiprun_out/rec_probe_<epochs or
+schedule>.txt``. With ``SAVE_CALL=<path.npz>`` each
 run's last Kernel A training call (the one the phase holds against the
 plain version) is saved there before that check (:func:`save_call`).
 Needs a CUDA device.
@@ -103,9 +101,7 @@ def main(argv):
     card = cs.card_line()
     _build.load_library()
     cs.REC_EPOCHS = int(os.environ.get("REC_EPOCHS", cs.REC_EPOCHS or 0)) or None
-    cs.check_launches = lambda *a, **k: None
-    real = dict(chain=mk._chain_bwd, split=mk.dwgrad_split,
-                wrps=mk.wgrad_rows_per_split, heads=mk.heads_rows_per_block,
+    real = dict(split=mk.dwgrad_split, heads=mk.heads_rows_per_block,
                 sms=mk._sm_count, train=loop.train)
     histories = []
 
@@ -129,18 +125,14 @@ def main(argv):
                         f"rec_probe_{cs.REC_EPOCHS or 'schedule'}.txt")
     with open(path, "w") as out:
         for name in argv:
-            mk._chain_bwd = (mk._chain_bwd_layered if name.startswith("layered")
-                             else real["chain"])
             mk._sm_count = real["sms"]
-            mk.dwgrad_split, mk.wgrad_rows_per_split = real["split"], real["wrps"]
+            mk.dwgrad_split = real["split"]
             mk.heads_rows_per_block = real["heads"]
             if "_sm" in name:
                 n = int(name.split("_sm")[1])
                 mk._sm_count = lambda dev, n=n: n
             if name.endswith("_halfsplits"):
                 mk.dwgrad_split = lambda m, s, sms: real["split"](m, s, sms // 2)
-                mk.wgrad_rows_per_split = lambda m, k, sms: real["wrps"](
-                    m, k, sms // 2)
             if name.endswith("_heads2"):
                 mk.heads_rows_per_block = lambda m, sms: 2 * real["heads"](m, sms)
             try:
