@@ -5,6 +5,7 @@
     python3 chip_smoke.py --gate-control   # the PSNR gate's control only
     python3 chip_smoke.py --recovery-control   # the ATE gate's control only
     python3 chip_smoke.py --fwd-turns OTHER.cu   # the fused forward against another source
+    python3 chip_smoke.py --input-bwd   # the input-only backward's phase only
 
 Builds the port's CUDA kernels from ``nope_nerf_tpu_torch/csrc``, holds each
 of the six kernels against its plain PyTorch version at the shapes of the
@@ -28,7 +29,13 @@ each backward is timed beside the plain version with the kernels it
 launches per call and its memory floor. Then it runs the fused backward
 pass phase (each pass of the backward at M = 131,072 against
 ``gemm_dwgrad_reference``, bitwise rerun, device time beside the plain
-version and the memory bound), the compositing / encoding backward phase
+version and the memory bound), the input-only backward phase
+(``check_input_bwd``: one launch of ``csrc/mlp_input_bwd.cu`` at the pose
+step's shape and the recovery width on a fused forward's saves, its three
+encoding cotangents bit for bit those of the ten-pass input-only chain, a
+rerun bitwise, timed in turns with the ten passes beside its bound and the
+plain version; ``--input-bwd`` runs this phase alone), the compositing /
+encoding backward phase
 (Kernel A's ``composite_bwd`` and ``encode_bwd`` at the stock shapes, k = 4
 and the recovery width, on the inputs a full and an input-only backward
 give them: a rerun bit for bit, within A_BWD_PLAIN_RELL2 of their plain
@@ -482,32 +489,36 @@ def mlp_bounds(weights, m, io, div):
 
 def mlp_bwd_floor(m, D, H2, n_pos, n_dir, div, weight_grads=True):
     """The fused MLP backward's memory floor on ``m`` points, ms at the
-    memory rate: each launch of ``_chain_bwd`` reads its inputs once and
-    writes its outputs once (bf16 cotangents and saved activations, f32
-    g_raw and encoding cotangents), with the compositing or head-activation
-    backward (raw, the cotangents in, g_raw out) and the encoding backward
-    (its f32 cotangents in); the weights, the split partials and the
-    (m / div)-row 3-vectors are left out. The heads' pass reads g_raw and
-    hr once for g_hr, fc_rgb's weight gradient and the heads' biases; each
-    layer's pass reads its cotangent and its saved input once for both its
-    input and its weight gradient (the input only where a mask or a weight
-    gradient needs it); Kernel A's per-ray direction half reads g_hr again.
+    memory rate: each of its launches reads its inputs once and writes its
+    outputs once, with the compositing or head-activation backward (raw,
+    the cotangents in, g_raw out) and the encoding backward (its f32
+    cotangents in); the weights, the split partials and the (m / div)-row
+    3-vectors are left out. With ``weight_grads`` the chain is
+    ``_chain_bwd``'s passes (bf16 cotangents and saved activations, f32
+    g_raw and encoding cotangents): the heads' pass reads g_raw and hr once
+    for g_hr, fc_rgb's weight gradient and the heads' biases; each layer's
+    pass reads its cotangent and its saved input once for both its input
+    and its weight gradient (the input only where a mask needs it);
+    Kernel A's per-ray direction half reads g_hr again. Without, it is one
+    launch of the input-only backward (``input_bwd_bound``'s bytes: the
+    saves that mask it and g_raw in, the encodings' f32 cotangents out).
     ``div`` is the points per direction-encoding row (S in Kernel A, 1 in
     C)."""
     bf, f4 = 2.0, 4.0
-    per_row = (
-        3 * 4 * f4                                  # raw, cotangents, g_raw
-        + 4 * f4 + 2 * H2 * bf                      # heads -> g_hr
+    per_row = (3 * 4 * f4                           # raw, cotangents, g_raw
+               + (2 * n_pos + n_dir) * f4)          # encoding backward
+    if not weight_grads:
+        return 1e3 * m * per_row / HBM_BYTES + input_bwd_bound(
+            m, D, H2, n_pos, n_dir, 0.0)[0]
+    per_row += (
+        4 * f4 + 2 * H2 * bf                        # heads -> g_hr
         + H2 * bf + D * bf + n_dir * f4             # rgb_layer -> g_feat, g_denc
         + 3 * D * bf + f4                           # fc_feature + fc_density
         + 7 * 3 * D * bf                            # masked trunk layers
         + n_pos * f4 + (D * bf + n_pos * f4)        # trunk1_0's enc, trunk0_0
-        + (2 * n_pos + n_dir) * f4)                 # encoding backward
-    if weight_grads:
-        per_row += (
-            D * bf                                  # rgb_layer reads feat
-            + (n_dir * bf if div == 1 else H2 * bf + n_dir * bf / div)
-            + 2 * n_pos * bf)                       # trunk1_0, trunk0_0 read enc
+        + D * bf                                    # rgb_layer reads feat
+        + (n_dir * bf if div == 1 else H2 * bf + n_dir * bf / div)
+        + 2 * n_pos * bf)                           # trunk1_0, trunk0_0 read enc
     return 1e3 * m * per_row / HBM_BYTES
 
 
@@ -1777,6 +1788,133 @@ def check_fused_bwd(dev, card):
             "shapes": table}
 
 
+# the input-only backward (csrc/mlp_input_bwd.cu): the pose step's shape
+# (stock rays x samples, D = 256) and the recovery scripts' (D = 128, 64
+# samples); the first is the kernel table's row
+INPUT_BWD_SHAPES = (("pose", N_RAYS, N_SAMPLES, None),
+                    ("recovery", N_RAYS, 64, 128))
+
+
+def input_bwd_bound(m, D, H2, n_pos, n_dir, flops):
+    """(bound ms, what sets it, bytes) of the input-only backward on ``m``
+    rows: each input read once (the 8 trunk outputs and hr, bf16, for the
+    masks; g_raw f32), each output written once (the three f32 encoding
+    cotangents); the weights (~1.2 MB, read from L2 by every tile) left
+    out; ``flops`` the forward's products (the backward computes their input
+    gradients)."""
+    moved = m * (2.0 * (8 * D + H2) + 16.0 + 4.0 * (2 * n_pos + n_dir))
+    ms, by = bound(flops, moved)
+    return ms, by, moved
+
+
+def check_input_bwd(dev, card):
+    """The input-only backward (one launch of csrc/mlp_input_bwd.cu) at
+    INPUT_BWD_SHAPES on the saves of a fused forward and the g_raw of its
+    compositing backward: its three encoding cotangents bit for bit those
+    of the ten-pass input-only chain (``_chain_bwd(..., weight_grads=
+    False)``: heads_bwd_fused and ten launches of csrc/mlp_fused_bwd.cu), a
+    rerun bit for bit, one launch and its tiles counted, the plain version
+    (``input_bwd_reference`` on the card: the same roundings, its f32 sums
+    in torch's order, so bf16 flips carry down the chain) within
+    GRAD_RELL2; then timed in turns with the ten passes (events, profiler
+    device time), the plain version once, beside its bound."""
+    import torch
+
+    from nope_nerf_tpu_torch import tracing
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    table = {}
+    for label, N, S, hidden in INPUT_BWD_SHAPES:
+        (cfg, weights, origins, rays_t, dirs, z_t, deltas_t, rng,
+         t) = stock_mlp_inputs(dev, N, S, hidden)
+        static = (cfg["model"]["pos_enc_levels"],
+                  cfg["model"]["dir_enc_levels"],
+                  cfg["model"]["occ_activation"], True, False, False, S)
+        frozen = [w.detach() for w in weights]
+        with torch.no_grad():
+            _, dims, saved = mk._composite_fwd(
+                *(x.detach().contiguous() for x in (origins, rays_t, dirs)),
+                z_t, deltas_t, static, frozen, save=True)
+        enc, denc, feat, hr, raw = saved[5:10]
+        acts = list(saved[10:18])
+        Wb, Wh = mk._weight_dicts(saved[18:])
+        M = N * S
+        g_raw = mk.composite_bwd(
+            raw, z_t, deltas_t, t(rng.normal(size=(N, 3)) / N),
+            t(rng.normal(size=(N, 1)) / N), torch.zeros((N, S), device=dev),
+            (static[2] == "softplus", True, False, False))
+
+        def new():
+            return mk.input_bwd(Wb, Wh, g_raw, hr, acts, dims)
+
+        def ten():
+            return mk._chain_bwd(Wb, Wh, g_raw, enc, denc, S, feat, hr, acts,
+                                 M, dims, weight_grads=False)
+
+        def plain():
+            return mk.input_bwd_reference(Wb, Wh, g_raw, hr, acts, dims)
+
+        counters = (mk.MLP_INPUT_BWD_LAUNCHES, mk.MLP_FUSED_BWD_LAUNCHES)
+        n0 = [c.count for c in counters]
+        tiles0 = tracing.counters().get("mlp.input_bwd_tiles", 0)
+        (g1, g2), g3 = new()
+        launches = [c.count - n for c, n in zip(counters, n0)]
+        tiles = tracing.counters()["mlp.input_bwd_tiles"] - tiles0
+        (r1, r2), r3 = new()
+        _, (p1, p2), p3 = ten()
+        (q1, q2), q3 = plain()
+        torch.cuda.synchronize()
+        got, again, passes = (g1, g2, g3), (r1, r2, r3), (p1, p2, p3)
+        names = ("g_enc_skip", "g_enc", "g_denc")
+        bitwise = {n: torch.equal(a, b) for n, a, b in zip(names, got, passes)}
+        rerun = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = {n: rel_l2(a, b) for n, a, b in zip(names, got, (q1, q2, q3))}
+        if not all(bitwise.values()):
+            gaps = {n: float(torch.max(torch.abs(a - b)))
+                    for n, a, b in zip(names, got, passes)}
+            print(f"input-only bwd {label}: max |kernel - ten passes| {gaps}")
+        turns = pair_turns(new, ten, plain, iters=20)
+        n_pos, n_dir, D, H2 = dims
+        flops = 2.0 * M * sum(w.numel() for w in weights[0::2])
+        b_ms, b_by, moved = input_bwd_bound(M, D, H2, n_pos, n_dir, flops)
+        rec = dict(turns, rows=M, hidden=D, bitwise_vs_passes=bitwise,
+                   max_abs_err=max(float(torch.max(torch.abs(a - b)))
+                                   for a, b in zip(got, (q1, q2, q3))),
+                   rerun_bitwise=rerun, plain_rel_l2=errs,
+                   launches=launches, tiles=tiles, bound_ms=b_ms,
+                   bound_by=b_by, ops_bound_ms=1e3 * flops / BF16_FLOPS,
+                   bytes_bound_ms=1e3 * moved / HBM_BYTES,
+                   roofline_pct=100.0 * b_ms / turns["device_ms"])
+        table[label] = rec
+        print(f"input-only bwd {label} [{card}] M={M} D={D}: bitwise vs the "
+              f"ten passes {bitwise}, rerun {rerun}, plain relL2 "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; launches (input_bwd, fused passes) {launches}, tiles "
+              f"{tiles}; device {turns['device_ms']:.4f} ms (events "
+              f"{turns['ms']:.4f}) against the ten passes' "
+              f"{turns['earlier_device_ms']:.4f} ({turns['earlier_ms']:.4f})"
+              f", plain {turns['plain_ms']:.3f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}; bytes {rec['bytes_bound_ms']:.4f}, operations "
+              f"{rec['ops_bound_ms']:.4f}), {rec['roofline_pct']:.1f}%")
+        if not (all(bitwise.values()) and rerun
+                and launches == [1, 0] and tiles == -(-M // 128)
+                and all(v <= GRAD_RELL2 for v in errs.values())):
+            raise AssertionError(f"input-only bwd {label}: bitwise {bitwise}"
+                                 f", rerun {rerun}, launches {launches}, "
+                                 f"tiles {tiles}, plain relL2 {errs}")
+    head = table["pose"]
+    return {"name": "mlp_input_bwd", "route": "cuda",
+            "source": "nope_nerf_tpu_torch/csrc/mlp_input_bwd.cu",
+            "replaces": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:702",
+            "also_serves": "nope_nerf_tpu/ops/pallas/mlp_kernel.py:258",
+            "shape": "Kernel A's input-only backward chain at the pose step's "
+                     "1024 rays x 128 samples, D = 256",
+            "max_abs_err": head["max_abs_err"], "ms": head["device_ms"],
+            "plain_ms": head["plain_ms"], "library_ms": None,
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "shapes": table}
+
+
 def kernel_split(fn, iters=10):
     """{kernel name: device ms per call} of ``fn`` by the profiler, the
     kernels' own time summed by name (warmed up once)."""
@@ -1990,7 +2128,8 @@ def check_composite_encode_bwd(dev, card):
 def kernel_counters():
     """The launch counters of the six kernels, the fused forward and the
     compositing after it (Kernel A's raw route), the fused backward pass,
-    the launches that serve only the weight gradients, Kernel A's
+    the input-only backward, the launches that serve only the weight
+    gradients, Kernel A's
     compositing and encoding backward, and the reference pair's forward and
     backward."""
     from nope_nerf_tpu_torch.ops.kernels import chamfer_band as cb
@@ -2001,7 +2140,8 @@ def kernel_counters():
     return (mk.FWD_LAUNCHES, mk.BWD_LAUNCHES, cb.LAUNCHES,
             mk.FWD_POINT_LAUNCHES, mk.BWD_POINT_LAUNCHES, ck.LAUNCHES,
             mk.MLP_FUSED_FWD_LAUNCHES, mk.COMPOSITE_AFTER_LAUNCHES,
-            mk.MLP_FUSED_BWD_LAUNCHES, mk.WGRAD_LAUNCHES,
+            mk.MLP_FUSED_BWD_LAUNCHES, mk.MLP_INPUT_BWD_LAUNCHES,
+            mk.WGRAD_LAUNCHES,
             mk.COMPOSITE_BWD_LAUNCHES, mk.ENCODE_BWD_LAUNCHES, rp.LAUNCHES,
             rp.BWD_LAUNCHES)
 
@@ -2009,19 +2149,23 @@ def kernel_counters():
 def check_gemm_counts(label, counts, weight_grads=True):
     """Every forward of Kernels A and C ran as one launch of the fused
     forward (csrc/mlp_fused_fwd.cu; every S on these paths tiles 128
-    points, so no compositing after it); every backward ran its ten fused
-    passes (csrc/mlp_fused_bwd.cu) and, with ``weight_grads``, the launches
-    that serve only the weight gradients (A: the per-ray direction half and
-    the split reduction, 2; C: the split reduction, 1; none without); every
-    backward of A ran its compositing and its encoding backward once each
-    (csrc/mlp_composite.cu's group and staged kernels)."""
+    points, so no compositing after it); with ``weight_grads`` every
+    backward ran its ten fused passes (csrc/mlp_fused_bwd.cu) and the
+    launches that serve only the weight gradients (A: the per-ray direction
+    half and the split reduction, 2; C: the split reduction, 1), without
+    them one launch of the input-only backward (csrc/mlp_input_bwd.cu) and
+    neither; every backward of A ran its compositing and its encoding
+    backward once each (csrc/mlp_composite.cu's group and staged
+    kernels)."""
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     fwd = counts["mlp_composite_fwd"] + counts["mlp_point_fwd"]
     a_bwd, c_bwd = counts["mlp_composite_bwd"], counts["mlp_point_bwd"]
     per = mk.WGRAD_PER_BWD
     want = {"mlp_fused_fwd": fwd, "mlp_composite_after_fused": 0,
-            "mlp_fused_bwd": mk.FUSED_BWD_PER_BWD * (a_bwd + c_bwd),
+            "mlp_fused_bwd": (mk.FUSED_BWD_PER_BWD * (a_bwd + c_bwd)
+                              if weight_grads else 0),
+            "mlp_input_bwd": 0 if weight_grads else a_bwd + c_bwd,
             "mlp_weight_grad_gemm": (per["A"] * a_bwd + per["C"] * c_bwd
                                      if weight_grads else 0),
             "composite_bwd": a_bwd, "encode_bwd": a_bwd}
@@ -2524,9 +2668,10 @@ def check_restore(dev, card, cfg, trained):
 def check_input_only_backward(dev, card):
     """Kernel A's input-only backward (no weight needs a gradient) against
     the full one at the stock shapes: d_origins / d_rays / d_dirs bitwise
-    equal, the same ten fused passes, WGRAD_PER_BWD["A"] launches that
-    serve only the weight gradients against none, both timed beside the
-    input-only memory floor."""
+    equal; the full one's ten fused passes and WGRAD_PER_BWD["A"] launches
+    that serve only the weight gradients against the input-only one's one
+    launch of csrc/mlp_input_bwd.cu and none of either; both timed beside
+    the input-only memory floor."""
     import torch
 
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -2542,7 +2687,8 @@ def check_input_only_backward(dev, card):
     geo = [origins, rays_t, dirs]
     out_full = mk.fused_mlp_composite(weights, *geo, z_t, deltas_t, *static)
     out_in = mk.fused_mlp_composite(frozen, *geo, z_t, deltas_t, *static)
-    count = (mk.WGRAD_LAUNCHES, mk.MLP_FUSED_BWD_LAUNCHES)
+    count = (mk.WGRAD_LAUNCHES, mk.MLP_FUSED_BWD_LAUNCHES,
+             mk.MLP_INPUT_BWD_LAUNCHES)
     n0 = [c.count for c in count]
     g_full = torch.autograd.grad(out_full, geo + weights, cots,
                                  retain_graph=True)
@@ -2564,12 +2710,13 @@ def check_input_only_backward(dev, card):
           f"d_origins/d_rays/d_dirs bitwise equal to the full backward "
           f"{same}; weight-gradient launches {n1[0] - n0[0]} (full) vs "
           f"{n2[0] - n1[0]}, fused passes {n1[1] - n0[1]} vs "
-          f"{n2[1] - n1[1]}; full {ms_full:.3f} ms, input-only {ms_in:.3f} ms"
-          f" (device {dev_in:.3f} ms); input-only memory floor "
+          f"{n2[1] - n1[1]}, input-only launches {n1[2] - n0[2]} vs "
+          f"{n2[2] - n1[2]}; full {ms_full:.3f} ms, input-only {ms_in:.3f} "
+          f"ms (device {dev_in:.3f} ms); input-only memory floor "
           f"{floor:.3f} ms")
-    want = ((mk.WGRAD_PER_BWD["A"], mk.FUSED_BWD_PER_BWD),
-            (0, mk.FUSED_BWD_PER_BWD))
-    got = tuple((b[0] - a[0], b[1] - a[1]) for a, b in ((n0, n1), (n1, n2)))
+    want = ((mk.WGRAD_PER_BWD["A"], mk.FUSED_BWD_PER_BWD, 0), (0, 0, 1))
+    got = tuple(tuple(y - x for x, y in zip(a, b))
+                for a, b in ((n0, n1), (n1, n2)))
     if not all(same) or got != want:
         raise AssertionError("kernel A's input-only backward differs from "
                              f"the full one (launches {got}, expected {want})")
@@ -2646,7 +2793,7 @@ def run_eval(dev, card, cfg, trained):
           f"peak memory {peak / 2**30:.3f} GiB; launches {counts}")
     stray = [n for n, v in counts.items() if v and n not in (
         "mlp_composite_fwd", "mlp_composite_bwd", *MLP_GEMMS,
-        *A_BWD_KERNELS)]
+        "mlp_input_bwd", *A_BWD_KERNELS)]
     if not (counts["mlp_composite_fwd"] and counts["mlp_composite_bwd"]) \
             or stray or not finite:
         raise AssertionError(f"eval: kernel A fwd/bwd not both launched, or "
@@ -4196,10 +4343,11 @@ def gate_control(dev, card):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--gate-control"], ["--recovery-control"]) and not (
+    if argv not in ([], ["--gate-control"], ["--recovery-control"],
+                    ["--input-bwd"]) and not (
             len(argv) == 2 and argv[0] == "--fwd-turns"):
         print("usage: chip_smoke.py [--gate-control | --recovery-control | "
-              "--fwd-turns OTHER.cu]", file=sys.stderr)
+              "--input-bwd | --fwd-turns OTHER.cu]", file=sys.stderr)
         return 2
     if not os.path.isdir(os.path.join(ROOT, "nope_nerf_tpu_torch")):
         print("chip_smoke: nope_nerf_tpu_torch is not beside this script",
@@ -4233,16 +4381,20 @@ def main(argv=None):
     if argv[:1] == ["--fwd-turns"]:
         fwd_source_turns(dev, card, argv[1])
         return 0
+    if argv == ["--input-bwd"]:
+        print(json.dumps({"kernels": [check_input_bwd(dev, card)]}))
+        return 0
 
     a_fwd, a_bwd = check_kernel_a(dev, card)
     b = check_kernel_b(dev, card)
     c_fwd, c_bwd = check_kernel_c(dev, card)
     d = check_kernel_d(dev, card)
     fused_bwd = check_fused_bwd(dev, card)
+    input_bwd = check_input_bwd(dev, card)
     a_bwd_parts, a_bwd_pair = check_composite_encode_bwd(dev, card)
     pair = check_ref_pair(dev, card)
-    records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d, fused_bwd, *a_bwd_parts,
-               pair]
+    records = [a_fwd, a_bwd, b, c_fwd, c_bwd, d, fused_bwd, input_bwd,
+               *a_bwd_parts, pair]
     launches = {rec["name"]: 0 for rec in records}
     runs = {}
     for label, overrides, expect in RUNS:

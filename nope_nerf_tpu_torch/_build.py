@@ -25,8 +25,9 @@ import threading
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("mlp_fused_fwd.cu", "mlp_fused_bwd.cu", "mlp_composite.cu",
-           "chamfer_band.cu", "chamfer_exact.cu", "ref_pair.cu")
+SOURCES = ("mlp_fused_fwd.cu", "mlp_fused_bwd.cu", "mlp_input_bwd.cu",
+           "mlp_composite.cu", "chamfer_band.cu", "chamfer_exact.cu",
+           "ref_pair.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -6,8 +6,10 @@ Port of ``nope_nerf_tpu/ops/pallas/mlp_kernel.py``: ``fused_mlp_composite``
 ``_make_bwd_composite_kernel`` l.702) and ``fused_mlp`` (``_make_fwd_kernel``
 l.244 and ``_make_bwd_kernel`` l.258). The CUDA sources are
 ``nope_nerf_tpu_torch/csrc/mlp_fused_fwd.cu`` (both forwards, one launch
-each), ``nope_nerf_tpu_torch/csrc/mlp_fused_bwd.cu`` (both backwards, one
-pass per layer) and ``nope_nerf_tpu_torch/csrc/mlp_composite.cu`` (the
+each), ``nope_nerf_tpu_torch/csrc/mlp_fused_bwd.cu`` (both backwards with
+their weight gradients, one pass per layer),
+``nope_nerf_tpu_torch/csrc/mlp_input_bwd.cu`` (both backwards without
+them, one launch) and ``nope_nerf_tpu_torch/csrc/mlp_composite.cu`` (the
 compositing and encoding work outside them); the headers say what bounds
 the kernels on the H100 and how the design answers it.
 
@@ -25,21 +27,27 @@ the kernels on the H100 and how the design answers it.
   (:func:`fused_route`) Kernel A's compositing runs after it in
   ``composite_fwd`` (:data:`COMPOSITE_AFTER_LAUNCHES`).
 * The backward of A is :func:`composite_bwd` (compositing and head
-  activations) -> :func:`heads_bwd_fused` (the rgb head) -> ten fused layer
-  passes (:func:`gemm_dwgrad`, counted in :data:`MLP_FUSED_BWD_LAUNCHES`;
-  A's per-ray direction half of rgb_layer's weight gradient in
-  :func:`dir_weight_grad`) -> :func:`encode_bwd` (encodings and ray sums).
-  C's is ``head_act_bwd`` -> the same passes -> ``encode_points_bwd``. The
-  passes keep their cotangents bf16 after their ReLU masks and take the bias
-  gradients as f32 column sums in their epilogues (:func:`_chain_bwd`).
+  activations) -> the MLP chain's backward -> :func:`encode_bwd` (encodings
+  and ray sums); C's is ``head_act_bwd`` -> the same chain ->
+  ``encode_points_bwd``. The chain runs one of two routes
+  (:func:`bwd_route`). When a weight needs a gradient (training):
+  :func:`heads_bwd_fused` (the rgb head) -> ten fused layer passes
+  (:func:`gemm_dwgrad`, counted in :data:`MLP_FUSED_BWD_LAUNCHES`; A's
+  per-ray direction half of rgb_layer's weight gradient in
+  :func:`dir_weight_grad`), which keep their cotangents bf16 after their
+  ReLU masks and take the bias gradients as f32 column sums in their
+  epilogues (:func:`_chain_bwd`). When none does (test-time pose
+  optimisation): one launch of the input-only backward
+  (:func:`input_bwd`, csrc/mlp_input_bwd.cu, counted in
+  :data:`MLP_INPUT_BWD_LAUNCHES`), the cotangent of a tile kept on chip
+  from the heads to the encodings.
 * What the graph needs, and no more: when nothing is to be differentiated
   (grad disabled, or no input requires grad: the eval render) the fused
   forward stores nothing but its outputs; otherwise it also stores what
   :func:`_chain_bwd` reads (:func:`fused_fwd_saves`). When no weight needs
-  a gradient (test-time pose optimisation) the backward runs its passes
-  with their weight-gradient half off and skips the launches that serve
-  only the weight gradients (counted in :data:`WGRAD_LAUNCHES`). Either way
-  the outputs and input gradients are bitwise those of the full path.
+  a gradient the backward skips the launches that serve only the weight
+  gradients (counted in :data:`WGRAD_LAUNCHES`). Either way the outputs
+  and input gradients are bitwise those of the full path.
 * Every kernel has a plain version beside it, so the backward runs whole on
   CPU tensors too. The plain versions emulate bf16 operands as bf16-rounded
   f32 tensors with f32 matmuls and take the backward from autograd (matmul
@@ -83,9 +91,13 @@ BWD_POINT_LAUNCHES = LaunchCounter("mlp_point_bwd")
 WGRAD_LAUNCHES = LaunchCounter("mlp_weight_grad_gemm")
 WGRAD_PER_BWD = {"A": 2, "C": 1}
 # the fused backward pass of one layer (csrc/mlp_fused_bwd.cu):
-# FUSED_BWD_PER_BWD per backward, with or without the weight gradients
+# FUSED_BWD_PER_BWD per backward that computes the weight gradients
 MLP_FUSED_BWD_LAUNCHES = LaunchCounter("mlp_fused_bwd")
 FUSED_BWD_PER_BWD = 10
+# the input-only backward of Kernels A and C (csrc/mlp_input_bwd.cu): one
+# launch per backward that needs no weight gradient (bwd_route "input"), in
+# place of heads_bwd_fused and the ten fused passes
+MLP_INPUT_BWD_LAUNCHES = LaunchCounter("mlp_input_bwd")
 # the fused forward of Kernels A and C (csrc/mlp_fused_fwd.cu): one launch
 # per forward; Kernel A's raw route (fused_route) runs composite_fwd after it
 MLP_FUSED_FWD_LAUNCHES = LaunchCounter("mlp_fused_fwd")
@@ -1027,7 +1039,9 @@ def _chain_bwd(Wb, Wh, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
     f32 (M, n_pos) summands; that of the direction encoding, f32 (M, n_dir),
     per point). Without ``weight_grads`` the same passes run with their
     weight-gradient half off, so the input cotangents are bitwise equal
-    either way. Runs on CPU tensors too (every step's plain version)."""
+    either way: the chain the input-only backward (:func:`input_bwd`, which
+    the backward takes then, :func:`bwd_route`) is held to. Runs on CPU
+    tensors too (every step's plain version)."""
     n_pos, n_dir, D, H2 = dims
     dev = g_raw.device
     wg = weight_grads
@@ -1097,6 +1111,191 @@ def _chain_bwd(Wb, Wh, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
     d_weights = [t for name in W_NAMES
                  for t in (dw[name], b[name].reshape(1, -1))]
     return d_weights, enc_cots, g_denc
+
+
+# ---------------------------------------------------------------------------
+# The input-only backward (csrc/mlp_input_bwd.cu): one launch
+# ---------------------------------------------------------------------------
+
+# the hidden widths it is built for (rgb_layer's output D / 2), its row tile,
+# and the rows of an encoding's part of a layer (n_pos, n_dir <= 64)
+INPUT_BWD_WIDTHS = FUSED_WIDTHS
+INPUT_BWD_TILE = 128
+INPUT_BWD_ENC_ROWS = 64
+# the weight maps in the order the kernel's ring streams them: (layer, first
+# row of its untransposed weight, rows: "D", "pos" or "dir")
+INPUT_BWD_WEIGHT_MAPS = (
+    ("rgb_layer", "D", "dir"), ("rgb_layer", 0, "D"), ("fc_feature", 0, "D"),
+    ("trunk1_3", 0, "D"), ("trunk1_2", 0, "D"), ("trunk1_1", 0, "D"),
+    ("trunk1_0", "D", "pos"), ("trunk1_0", 0, "D"), ("trunk0_3", 0, "D"),
+    ("trunk0_2", 0, "D"), ("trunk0_1", 0, "D"), ("trunk0_0", 0, "pos"))
+
+
+def bwd_route(D, weight_grads):
+    """How the backward of Kernels A and C runs the MLP chain, chosen by
+    whether a weight needs a gradient and by the hidden width: ``"passes"``
+    when one does (:func:`_chain_bwd`: heads_bwd_fused, the ten fused
+    passes and the split reduction, csrc/mlp_fused_bwd.cu); ``"input"``
+    when none does and D is one of :data:`INPUT_BWD_WIDTHS` (the widths of
+    the fused forward, which every backward follows): one launch of
+    :func:`input_bwd`. Both routes are kernels; neither stands in for the
+    other."""
+    return "input" if not weight_grads and D in INPUT_BWD_WIDTHS else "passes"
+
+
+def input_bwd_reference(Wb, Wh, g_raw, hr, acts, dims):
+    """Plain version of :func:`input_bwd`, the steps of
+    ``_chain_bwd(..., weight_grads=False)`` on CPU tensors: each layer's
+    input gradient in f32 (:func:`gemm_dgrad_reference`), rounded to bf16
+    where a matmul reads it. Returns ((g_enc_skip, g_enc) (M, n_pos) f32,
+    g_denc (M, n_dir) f32)."""
+    n_pos, n_dir, D, H2 = dims
+
+    def bf(y):
+        return y.to(_BF).float()
+
+    def w(name):
+        return Wb[name].float()
+
+    g = bf(heads_bwd_reference(g_raw, hr.float(), Wh["fc_rgb"].float()))
+    g_denc = gemm_dgrad_reference(g, w("rgb_layer")[D:D + n_dir])
+    g = bf(gemm_dgrad_reference(g, w("rgb_layer")[:D]))
+    g = bf(gemm_dgrad_reference(g, w("fc_feature"), acts[7].float(),
+                                g_raw[:, 0],
+                                Wh["fc_density"].reshape(-1).float()))
+    for i, name in enumerate(("trunk1_3", "trunk1_2", "trunk1_1")):
+        g = bf(gemm_dgrad_reference(g, w(name), acts[6 - i].float()))
+    g_skip = gemm_dgrad_reference(g, w("trunk1_0")[D:D + n_pos])
+    g = bf(gemm_dgrad_reference(g, w("trunk1_0")[:D], acts[3].float()))
+    for i, name in enumerate(("trunk0_3", "trunk0_2", "trunk0_1")):
+        g = bf(gemm_dgrad_reference(g, w(name), acts[2 - i].float()))
+    g_enc = gemm_dgrad_reference(g, w("trunk0_0"))
+    return (g_skip, g_enc), g_denc
+
+
+def input_bwd_args(Wb, Wh, g_raw, hr, acts, dims, outs):
+    """The arguments of one :func:`input_bwd_launch` (csrc/mlp_input_bwd.cu
+    ``nnt_mlp_input_bwd``): (the 22 tensor-map tuples of :func:`tma_2d`:
+    the weights' K-major rows of :data:`INPUT_BWD_WEIGHT_MAPS` (box rows D,
+    or :data:`INPUT_BWD_ENC_ROWS` for an encoding's rows), the 8 trunk
+    outputs and hr (box rows 64), g_raw (one 16-byte row of four f32, 64
+    rows); the 5 pointers: wd, wc, g_denc, g_enc_skip, g_enc; the 7 ints: D,
+    M, n_pos, n_dir and the outputs' row strides). ``outs`` is (g_enc_skip,
+    g_enc, g_denc). Raises on anything the kernel cannot take."""
+    n_pos, n_dir, D, H2 = dims
+    M = g_raw.shape[0]
+    if D not in INPUT_BWD_WIDTHS or H2 != D // 2:
+        raise ValueError(f"input_bwd: hidden width {D} with rgb width {H2}; "
+                         f"the kernel takes D in {INPUT_BWD_WIDTHS}, D / 2")
+    if not (1 <= n_pos <= INPUT_BWD_ENC_ROWS and 1 <= n_dir
+            <= INPUT_BWD_ENC_ROWS):
+        raise ValueError(f"input_bwd: encodings {n_pos} and {n_dir} wide; "
+                         f"at most {INPUT_BWD_ENC_ROWS}")
+    if M >= 2 ** 31:
+        raise ValueError(f"input_bwd: {M} rows; fewer than 2^31")
+    if g_raw.dtype != _F32 or g_raw.shape != (M, 4) \
+            or not g_raw.is_contiguous():
+        raise ValueError(f"input_bwd: g_raw {tuple(g_raw.shape)} "
+                         f"{g_raw.dtype}; contiguous f32 (M, 4)")
+    want = {"rgb_layer": (D + n_dir, H2), "fc_feature": (D, D),
+            "trunk1_0": (D + n_pos, D), "trunk0_0": (n_pos, D)}
+    for name, _, _ in INPUT_BWD_WEIGHT_MAPS:
+        shape = want.get(name, (D, D))
+        if Wb[name].dtype != _BF or tuple(Wb[name].shape) != shape:
+            raise ValueError(f"input_bwd: {name} weight rows "
+                             f"{tuple(Wb[name].shape)} {Wb[name].dtype}; "
+                             f"bf16 {shape}")
+    for name, shape in (("fc_density", (D, 1)), ("fc_rgb", (H2, 3))):
+        t = Wh[name]
+        if t.dtype != _BF or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"input_bwd: {name} weight {tuple(t.shape)} "
+                             f"{t.dtype}; contiguous bf16 {shape}")
+    if len(acts) != 8 or any(x.dtype != _BF or tuple(x.shape) != (M, D)
+                             for x in acts):
+        raise ValueError(f"input_bwd: eight bf16 trunk outputs ({M}, {D})")
+    if hr.dtype != _BF or tuple(hr.shape) != (M, H2):
+        raise ValueError(f"input_bwd: hr {tuple(hr.shape)} {hr.dtype}; bf16 "
+                         f"({M}, {H2})")
+    for t, n in zip(outs, (n_pos, n_pos, n_dir)):
+        if t.dtype != _F32 or tuple(t.shape) != (M, n) or t.stride(1) != 1 \
+                or t.stride(0) % 2 or t.data_ptr() % 8:
+            raise ValueError(f"input_bwd: outputs f32 ({M}, {n}), 8-byte "
+                             "aligned rows")
+    tensors = (*(Wb[n] for n, _, _ in INPUT_BWD_WEIGHT_MAPS), *Wh.values(),
+               *acts, hr, *outs)
+    if any(t.device != g_raw.device for t in tensors):
+        raise ValueError(f"input_bwd: every operand on {g_raw.device}")
+    rows = {"D": D, "pos": n_pos, "dir": n_dir}
+    maps = []
+    for name, r0, n in INPUT_BWD_WEIGHT_MAPS:
+        r0 = D if r0 == "D" else r0
+        maps.append(tma_2d(Wb[name][r0:r0 + rows[n]],
+                           D if n == "D" else INPUT_BWD_ENC_ROWS))
+    maps += [tma_2d(x, GEMM_STORE_ROWS) for x in (*acts, hr)]
+    if g_raw.data_ptr() % 16:
+        raise ValueError("input_bwd: g_raw must be 16-byte aligned")
+    maps.append((g_raw.data_ptr(), 4, M, 16, 4, GEMM_STORE_ROWS))
+    g_skip, g_enc, g_denc = outs
+    ptrs = (Wh["fc_density"], Wh["fc_rgb"], g_denc, g_skip, g_enc)
+    ints = (D, M, n_pos, n_dir, g_denc.stride(0), g_skip.stride(0),
+            g_enc.stride(0))
+    return maps, ptrs, ints
+
+
+def input_bwd_launch(Wb, Wh, g_raw, hr, acts, dims, outs):
+    """One launch of the input-only backward (csrc/mlp_input_bwd.cu),
+    counted in :data:`MLP_INPUT_BWD_LAUNCHES` and its 128-row tiles in the
+    tracing counter ``mlp.input_bwd_tiles`` (:func:`tracing.count`; a launch
+    captured into a CUDA graph counts once, at capture, not per replay):
+    ``outs`` (g_enc_skip, g_enc, g_denc) filled from the saves of a fused
+    forward. Raises on anything the kernel cannot take
+    (:func:`input_bwd_args`)."""
+    maps, ptrs, ints = input_bwd_args(Wb, Wh, g_raw, hr, acts, dims, outs)
+    M = ints[1]
+    if M == 0:
+        return
+    specs = (ctypes.c_int64 * (6 * len(maps)))(
+        *[int(v or 0) for m in maps for v in m])
+    ptr_arr = (ctypes.c_uint64 * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    int_arr = (ctypes.c_int * len(ints))(*ints)
+    err = c_function("nnt_mlp_input_bwd", "pppp")(
+        ctypes.addressof(specs), ctypes.addressof(ptr_arr),
+        ctypes.addressof(int_arr), _stream(g_raw))
+    check(err, "mlp_input_bwd")
+    MLP_INPUT_BWD_LAUNCHES.add()
+    tracing.count("mlp.input_bwd_tiles", -(-M // INPUT_BWD_TILE))
+
+
+def input_bwd(Wb, Wh, g_raw, hr, acts, dims):
+    """The MLP chain's backward without weight gradients, from the
+    cotangents of the raw heads g_raw (M, 4) f32 = [sigma, rgb] and the
+    saves of a fused forward (hr, the 8 trunk outputs): the cotangent of
+    the position encoding as two f32 (M, n_pos) summands and that of the
+    direction encoding, f32 (M, n_dir) per point -- bitwise those of
+    ``_chain_bwd(..., weight_grads=False)``. CUDA tensors take one launch
+    of :func:`input_bwd_launch`; CPU tensors run
+    :func:`input_bwd_reference`; any other device raises. Returns
+    ((g_enc_skip, g_enc), g_denc)."""
+    if _device("input_bwd", g_raw) == "cpu":
+        return input_bwd_reference(Wb, Wh, g_raw, hr, acts, dims)
+    n_pos, n_dir = dims[:2]
+    M = g_raw.shape[0]
+    outs = [torch.empty((M, _pad8(n)), dtype=_F32, device=g_raw.device)[:, :n]
+            for n in (n_pos, n_pos, n_dir)]
+    input_bwd_launch(Wb, Wh, g_raw, hr, acts, dims, outs)
+    return (outs[0], outs[1]), outs[2]
+
+
+def _mlp_bwd(Wb, Wh, g_raw, enc, denc, denc_div, feat, hr, acts, M, dims,
+             weight_grads):
+    """The MLP chain's backward on its route (:func:`bwd_route`): the
+    returns of :func:`_chain_bwd`, with 24 Nones for the weight gradients
+    on the input-only route."""
+    if bwd_route(dims[2], weight_grads) == "input":
+        return ([None] * (2 * len(W_NAMES)),
+                *input_bwd(Wb, Wh, g_raw, hr, acts, dims))
+    return _chain_bwd(Wb, Wh, g_raw, enc, denc, denc_div, feat, hr, acts, M,
+                      dims, weight_grads)
 
 
 def _weight_list(Wb, Wh):
@@ -1288,10 +1487,10 @@ class FusedMLPComposite(torch.autograd.Function):
     """CUDA forward/backward of :func:`fused_mlp_composite` (Kernel A).
     ``cfg`` is (l_pos, l_dir, act, occ_alpha, dist_alpha, white_bg, S).
     The backward computes the weight gradients only when a weight needs
-    one (test-time pose optimisation needs only d_origins / d_rays /
-    d_dirs). Inside a traced step the backward is the section
-    ``step.backward.field`` (``tracing.py``), after which ``step.backward``
-    resumes."""
+    one; test-time pose optimisation needs only d_origins / d_rays /
+    d_dirs, and takes :func:`bwd_route`'s input-only launch. Inside a
+    traced step the backward is the section ``step.backward.field``
+    (``tracing.py``), after which ``step.backward`` resumes."""
 
     @staticmethod
     def forward(ctx, origins, rays, dirs, z, deltas, cfg, *weights):
@@ -1321,7 +1520,7 @@ class FusedMLPComposite(torch.autograd.Function):
         g_raw = composite_bwd(raw, z, deltas, g_rgbv, g_dist, g_alpha,
                               (act == "softplus", occ_alpha, dist_alpha,
                                white_bg))
-        d_weights, (ge1, ge2), gd = _chain_bwd(
+        d_weights, (ge1, ge2), gd = _mlp_bwd(
             Wb, Wh, g_raw, enc, denc, S, feat, hr, acts, M, ctx.dims,
             weight_grads=any(ctx.needs_input_grad[6:]))
         # encoding backward + ray sums
@@ -1386,7 +1585,7 @@ class FusedMLP(torch.autograd.Function):
             _ptr(raw), _ptr(g_rgb), _ptr(g_density), _ptr(g_raw), M,
             int(act == "softplus"), int(occ_alpha), stream)
         check(err, "head_act_bwd")
-        d_weights, (ge1, ge2), gd = _chain_bwd(
+        d_weights, (ge1, ge2), gd = _mlp_bwd(
             Wb, Wh, g_raw, enc, denc, 1, feat, hr, acts, M, ctx.dims,
             weight_grads=any(ctx.needs_input_grad[3:]))
         d_pts = torch.empty((M, 3), dtype=_F32, device=dev)

@@ -335,25 +335,87 @@ def test_forward_without_graph_saves_nothing(dev, kernel):
 @pytest.mark.parametrize("kernel", ["A", "C"])
 def test_input_only_backward_is_bitwise(dev, kernel):
     """When no weight needs a gradient (test-time pose optimisation), the
-    backward runs its ten fused passes with their weight-gradient half off
-    and none of the launches that serve only the weight gradients, and
-    returns the input gradients of the full backward bit for bit."""
+    backward runs one launch of the input-only backward
+    (csrc/mlp_input_bwd.cu) instead of the ten fused passes, and none of
+    the launches that serve only the weight gradients, and returns the
+    input gradients of the full backward bit for bit."""
     from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
 
     fn, ws, ins, cots = _kernel_call(dev, kernel)
     x = [a.clone().requires_grad_() for a in ins]
     w = [a.clone().requires_grad_() for a in ws]
-    counters = (mk.WGRAD_LAUNCHES, mk.MLP_FUSED_BWD_LAUNCHES)
+    counters = (mk.WGRAD_LAUNCHES, mk.MLP_FUSED_BWD_LAUNCHES,
+                mk.MLP_INPUT_BWD_LAUNCHES)
     n0 = [c.count for c in counters]
     full = torch.autograd.grad(fn(w, x), x + w, cots)
     n1 = [c.count for c in counters]
     inputs_only = torch.autograd.grad(fn(ws, x), x, cots)
     n2 = [c.count for c in counters]
     assert [b - a for a, b in zip(n0, n1)] == [
-        mk.WGRAD_PER_BWD[kernel], mk.FUSED_BWD_PER_BWD]
-    assert [b - a for a, b in zip(n1, n2)] == [0, mk.FUSED_BWD_PER_BWD]
+        mk.WGRAD_PER_BWD[kernel], mk.FUSED_BWD_PER_BWD, 0]
+    assert [b - a for a, b in zip(n1, n2)] == [0, 0, 1]
     for a, b in zip(inputs_only, full[:len(x)]):
         assert torch.equal(a, b)
+
+
+# the input-only backward (csrc/mlp_input_bwd.cu): (hidden, rows, points per
+# direction-encoding row of the saves). The pose step's shape (1024 rays x
+# 128 samples, A's per-ray direction encoding); ragged M, one with the last
+# tile's second warpgroup wholly past M (1030 = 8 x 128 + 6), one with it
+# partly in (1000); the recovery scripts' width 128 and width 64, C's
+# per-point direction encoding
+INPUT_BWD_CASES = [
+    pytest.param(256, 1024 * 128, 128, id="pose"),
+    pytest.param(256, 1030, 1, id="ragged-C"),
+    pytest.param(256, 1000, 8, id="ragged-A"),
+    pytest.param(128, 37 * 64, 64, id="hidden128-A"),
+    pytest.param(64, 300, 1, id="hidden64-C"),
+]
+
+
+@pytest.mark.parametrize("hidden,M,div", INPUT_BWD_CASES)
+def test_input_bwd_matches_the_ten_passes(dev, hidden, M, div):
+    """One launch of the input-only backward against the ten-pass
+    input-only chain (``_chain_bwd(..., weight_grads=False)``) on the plain
+    chain's saves: g_enc_skip, g_enc and g_denc bit for bit, a rerun bit for
+    bit, one launch and none of the fused passes, its 128-row tiles
+    counted."""
+    from _mlp_saves import plain_saves
+
+    from nope_nerf_tpu_torch import tracing
+    from nope_nerf_tpu_torch.models.nerf import init_nerf_params
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    cfg = {"model": {"hidden_dim": hidden, "pos_enc_levels": 10,
+                     "dir_enc_levels": 4},
+           "rendering": {"white_background": False}}
+    gen = torch.Generator(device=dev).manual_seed(hidden + M + div)
+    params = init_nerf_params(torch.Generator().manual_seed(hidden + div),
+                              cfg, dev)
+    weights = mk.collect_weights(params)
+    dims = mk._dims(weights, 10, 4)
+    _, Wb, Wh, _ = mk._kernel_weights(weights, True)
+    enc = torch.randn((M, 64), generator=gen, device=dev).to(torch.bfloat16)
+    denc = torch.randn((M // div, 32), generator=gen, device=dev).to(
+        torch.bfloat16)
+    sv = plain_saves(weights, enc, denc, div, dims)
+    g_raw = torch.randn((M, 4), generator=gen, device=dev) / M
+    counters = (mk.MLP_INPUT_BWD_LAUNCHES, mk.MLP_FUSED_BWD_LAUNCHES)
+    n0 = [c.count for c in counters]
+    tiles0 = tracing.counters().get("mlp.input_bwd_tiles", 0)
+    (g1, g2), g3 = mk.input_bwd(Wb, Wh, g_raw, sv["hr"], sv["acts"], dims)
+    assert [c.count - n for c, n in zip(counters, n0)] == [1, 0]
+    assert (tracing.counters()["mlp.input_bwd_tiles"] - tiles0
+            == -(-M // 128))
+    (r1, r2), r3 = mk.input_bwd(Wb, Wh, g_raw, sv["hr"], sv["acts"], dims)
+    _, (p1, p2), p3 = mk._chain_bwd(Wb, Wh, g_raw, sv["enc"], sv["denc"],
+                                    div, sv["feat"], sv["hr"], sv["acts"], M,
+                                    dims, weight_grads=False)
+    assert g1.shape == (M, 63) and g3.shape == (M, 27)
+    for a, b, c in zip((g1, g2, g3), (r1, r2, r3), (p1, p2, p3)):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+        assert torch.equal(a, c)
 
 
 # the fused forward (csrc/mlp_fused_fwd.cu): (samples a ray, hidden width,

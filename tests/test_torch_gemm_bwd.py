@@ -7,8 +7,11 @@ versions against the JAX kernels' ``_mm_t`` / ``_mm_acc`` and JAX autograd,
 the wrappers' CPU paths, and ``_chain_bwd`` run whole on CPU tensors (every
 step's plain version: buffer widths, f32 tails, bias sums) on the plain
 chain's saves (tests/_mlp_saves.py) against autograd through the plain
-chain and against the JAX Pallas backwards in interpret mode. The kernels
-themselves run only on the card (tests/test_torch_cuda.py).
+chain and against the JAX Pallas backwards in interpret mode; and the
+input-only backward (csrc/mlp_input_bwd.cu: ``bwd_route``, ``input_bwd``'s
+plain version bit for bit the ten-pass input-only chain, its launch
+arguments, what it refuses, its tile counter). The kernels themselves run
+only on the card (tests/test_torch_cuda.py).
 """
 import jax
 import jax.numpy as jnp
@@ -315,6 +318,175 @@ def test_chain_bwd_input_only_is_bitwise():
     assert all(x is None for x in inputs_only[0])
     for a, b in zip((*inputs_only[1], inputs_only[2]), (*full[1], full[2])):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D,weight_grads,route", [
+    (256, False, "input"), (128, False, "input"), (64, False, "input"),
+    (256, True, "passes"), (128, True, "passes"), (64, True, "passes"),
+    (32, False, "passes"), (512, False, "passes")])
+def test_bwd_route(D, weight_grads, route):
+    """The chain's backward takes the input-only launch when no weight
+    needs a gradient at a width the fused forward (and the kernel) is built
+    for, the ten fused passes otherwise."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    assert mk.bwd_route(D, weight_grads) == route
+
+
+@pytest.mark.parametrize("hidden,M,div", [(32, 296, 8), (64, 200, 1),
+                                          (64, 1030, 1), (128, 300, 4),
+                                          (256, 260, 130)])
+def test_input_bwd_cpu_path_is_the_input_only_chain(hidden, M, div):
+    """input_bwd on CPU tensors runs its plain version, bit for bit
+    ``_chain_bwd(..., weight_grads=False)`` on the same saves (ragged M
+    included), launches nothing; _mlp_bwd takes the input-only route
+    without weight gradients at the kernel's widths and the passes with
+    them."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    _, _, _, sv, dims, (Wb, Wh), rng = _chain_inputs(hidden, M, div,
+                                                     hidden + M)
+    enc, denc, acts, feat, hr = (sv[k] for k in ("enc", "denc", "acts",
+                                                 "feat", "hr"))
+    g_raw = torch.tensor(rng.normal(size=(M, 4)) / M, dtype=F32)
+    counters = (mk.MLP_INPUT_BWD_LAUNCHES, mk.MLP_FUSED_BWD_LAUNCHES)
+    n0 = [c.count for c in counters]
+    (g1, g2), g3 = mk.input_bwd(Wb, Wh, g_raw, hr, acts, dims)
+    assert [c.count for c in counters] == n0
+    _, (p1, p2), p3 = mk._chain_bwd(Wb, Wh, g_raw, enc, denc, div, feat, hr,
+                                    acts, M, dims, weight_grads=False)
+    assert g1.shape == (M, 63) and g3.shape == (M, 27)
+    for a, b in zip((g1, g2, g3), (p1, p2, p3)):
+        assert a.dtype == F32 and torch.equal(a, b)
+    routed = mk._mlp_bwd(Wb, Wh, g_raw, enc, denc, div, feat, hr, acts, M,
+                         dims, False)
+    assert all(x is None for x in routed[0])
+    for a, b in zip((*routed[1], routed[2]), (p1, p2, p3)):
+        assert torch.equal(a, b)
+    full = mk._mlp_bwd(Wb, Wh, g_raw, enc, denc, div, feat, hr, acts, M,
+                       dims, True)
+    assert all(x is not None for x in full[0])
+    for a, b in zip((*full[1], full[2]), (p1, p2, p3)):
+        assert torch.equal(a, b)
+
+
+def _input_bwd_operands(D=256, M=300):
+    """Zero operands of the input-only backward at width D on CPU tensors in
+    the layouts the saving forward and _kernel_weights give them: (Wb, Wh,
+    g_raw, hr, acts, dims, outs)."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    n_pos, n_dir, H2 = 63, 27, D // 2
+    shapes = {"rgb_layer": (D + n_dir, H2), "fc_feature": (D, D),
+              "trunk1_0": (D + n_pos, D), "trunk0_0": (n_pos, D)}
+    Wb = {n: mk._padded(torch.zeros(shapes.get(n, (D, D))))
+          for n in mk.GEMM_LAYERS}
+    Wh = {"fc_density": torch.zeros((D, 1), dtype=BF),
+          "fc_rgb": torch.zeros((H2, 3), dtype=BF)}
+    sv = mk.fused_fwd_saves(M, M, (n_pos, n_dir, D, H2), "cpu")
+    outs = [torch.zeros((M, mk._pad8(n)))[:, :n] for n in (n_pos, n_pos, n_dir)]
+    return (Wb, Wh, torch.zeros((M, 4)), sv["hr"], sv["acts"],
+            (n_pos, n_dir, D, H2), outs)
+
+
+def test_input_bwd_launch_arguments():
+    """The input-only backward's launch arguments: the weights' K-major rows
+    in the ring's order (box rows D, or 64 for an encoding's rows: rgb_layer's
+    direction rows, trunk1_0's skip rows, trunk0_0), the 8 trunk outputs and
+    hr as 64-row boxes, g_raw as 64 rows of one 16-byte box; wd, wc and the
+    three outputs; D, M, the encodings' widths and the outputs' row
+    strides."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    Wb, Wh, g_raw, hr, acts, dims, outs = _input_bwd_operands(256, 300)
+    maps, ptrs, ints = mk.input_bwd_args(Wb, Wh, g_raw, hr, acts, dims, outs)
+    assert len(maps) == 22 and len(ptrs) == 5
+    assert ints == (256, 300, 63, 27, 32, 64, 64)
+    want_w = [(128, 27, 64), (128, 256, 256), *[(256, 256, 256)] * 4,
+              (256, 63, 64), *[(256, 256, 256)] * 4, (256, 63, 64)]
+    for m, (width, rows, box) in zip(maps[:12], want_w):
+        assert (m[1], m[2], m[4], m[5]) == (width, rows, 64, box)
+    assert maps[0][0] == Wb["rgb_layer"][256].data_ptr()
+    assert maps[6][0] == Wb["trunk1_0"][256].data_ptr()
+    assert maps[1][3] == mk._pad8(128) * 2 and maps[2][3] == 512
+    for m, x in zip(maps[12:21], (*acts, hr)):
+        assert m == (x.data_ptr(), x.shape[1], 300, x.stride(0) * 2, 64, 64)
+    assert maps[21] == (g_raw.data_ptr(), 4, 300, 16, 4, 64)
+    assert ptrs == (Wh["fc_density"], Wh["fc_rgb"], outs[2], outs[0],
+                    outs[1])
+
+
+def _break(ops, fault):
+    """The operands of :func:`_input_bwd_operands` with one fault."""
+    Wb, Wh, g_raw, hr, acts, dims, outs = ops
+    if fault == "g_raw dtype":
+        g_raw = g_raw.double()
+    elif fault == "g_raw shape":
+        g_raw = torch.zeros((g_raw.shape[0], 3))
+    elif fault == "act dtype":
+        acts = [acts[0].float(), *acts[1:]]
+    elif fault == "act rows":
+        acts = [a[:-1] for a in acts]
+    elif fault == "seven acts":
+        acts = acts[:7]
+    elif fault == "hr width":
+        hr = torch.zeros((hr.shape[0], hr.shape[1] + 8), dtype=BF)
+    elif fault == "weight dtype":
+        Wb = dict(Wb, trunk0_2=Wb["trunk0_2"].float())
+    elif fault == "weight shape":
+        Wb = dict(Wb, trunk0_0=Wb["trunk0_0"][:32])
+    elif fault == "head weight":
+        Wh = dict(Wh, fc_rgb=Wh["fc_rgb"].float())
+    elif fault == "width 32":
+        dims = (dims[0], dims[1], 32, 16)
+    elif fault == "rgb width":
+        dims = (dims[0], dims[1], dims[2], dims[2])
+    elif fault == "encoding 75":
+        dims = (75, dims[1], dims[2], dims[3])
+    elif fault == "output dtype":
+        outs = [outs[0].to(BF), *outs[1:]]
+    elif fault == "output stride":
+        outs = [*outs[:2], torch.zeros((outs[2].shape[0], 27))]
+    return Wb, Wh, g_raw, hr, acts, dims, outs
+
+
+@pytest.mark.parametrize("fault", [
+    "g_raw dtype", "g_raw shape", "act dtype", "act rows", "seven acts",
+    "hr width", "weight dtype", "weight shape", "head weight", "width 32",
+    "rgb width", "encoding 75", "output dtype", "output stride"])
+def test_input_bwd_rejects_what_it_cannot_take(fault):
+    """input_bwd_args raises on a wrong dtype, shape or width before any
+    launch."""
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    ops = _break(_input_bwd_operands(256, 300), fault)
+    with pytest.raises(ValueError, match="input_bwd"):
+        mk.input_bwd_args(*ops)
+
+
+@pytest.mark.parametrize("D,M", [(256, 131072), (256, 1030), (128, 300),
+                                 (64, 128)])
+def test_input_bwd_counts_its_tiles(monkeypatch, D, M):
+    """One launch of the input-only backward adds its 128-row tiles (a
+    partial last one included) to the tracing counter
+    ``mlp.input_bwd_tiles`` and one launch to MLP_INPUT_BWD_LAUNCHES (the C
+    entry replaced by a recorder: the kernel runs only on the card)."""
+    from nope_nerf_tpu_torch import tracing
+    from nope_nerf_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    launched = []
+    monkeypatch.setattr(mk, "c_function",
+                        lambda name, sig: lambda *a: launched.append(name)
+                        or 0)
+    monkeypatch.setattr(mk, "_stream", lambda t: 0)
+    ops = _input_bwd_operands(D, M)
+    tiles0 = tracing.counters().get("mlp.input_bwd_tiles", 0)
+    n0 = mk.MLP_INPUT_BWD_LAUNCHES.count
+    mk.input_bwd_launch(*ops)
+    assert launched == ["nnt_mlp_input_bwd"]
+    assert mk.MLP_INPUT_BWD_LAUNCHES.count == n0 + 1
+    assert (tracing.counters()["mlp.input_bwd_tiles"] - tiles0
+            == -(-M // 128))
 
 
 @pytest.mark.parametrize("act,occ_alpha,hidden,M,S", [

@@ -15,7 +15,11 @@ its own under ``build/fused_bwd_probe/`` with ``-Xptxas -v`` (the package's
 each variant's gradients against the package's (relL2; input cotangents
 bitwise or not), and the device time by the profiler of the whole
 backward, with and without the weight gradients, and of its passes alone.
-The first round also prints the per-kernel device-time table of the first
+Without the weight gradients the package's backward takes its input-only
+launch (``csrc/mlp_input_bwd.cu``, ``mlp_kernel.bwd_route``), timed as
+"package input-only" beside the ten passes' input-only chain ("package
+ten-pass input-only"); a variant's input-only time is its passes'. The
+first round also prints the per-kernel device-time table of the first
 variant's backward. Needs a CUDA device.
 """
 import ctypes
@@ -142,6 +146,8 @@ def main(argv):
             times.setdefault("package", []).append(
                 profile_ms(lambda: bwd(mk._chain_bwd)))
             times.setdefault("package input-only", []).append(
+                profile_ms(lambda: bwd(mk._mlp_bwd, False)))
+            times.setdefault("package ten-pass input-only", []).append(
                 profile_ms(lambda: bwd(mk._chain_bwd, False)))
             for name in order:
                 mk.c_function = (lambda n, s, f=fns[name]: f
