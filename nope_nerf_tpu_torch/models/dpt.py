@@ -33,7 +33,9 @@ from ..training.checkpoints import load_pytree
 RESNET_LAYERS = (3, 4, 9)
 RESNET_CHANNELS = (256, 512, 1024)
 VIT_DIM = 768
-VIT_HEADS = 12
+# attention heads are 64 wide in ViT-B/16 (12 heads) and in every DINOv2
+# size (ViT-L/14: 16 heads)
+HEAD_DIM = 64
 VIT_BLOCKS = 12
 VIT_GRID = 24  # 384 / 16
 FEATURES = 256  # scratch width
@@ -165,21 +167,32 @@ def _apply_resnet(p, x):
 # ---------------------------------------------------------------------------
 
 
-def _apply_vit_block(p, x):
+def _apply_vit_block(p, x, attn_section=None):
     """Pre-LN transformer block; attention as matmul, softmax, matmul in
-    f32."""
+    f32, over heads :data:`HEAD_DIM` wide, with q scaled by ``HEAD_DIM **
+    -0.5`` before ``q k^T`` (a power of two, so the same bits as scaling
+    the product, as DPT's ViT writes it). Where ``p`` has LayerScale gammas
+    ``ls1`` and ``ls2`` (DINOv2) they scale each branch before its residual
+    add. ``attn_section`` names the tracing section that runs from q's
+    scaling to the output projection, where the enclosing section
+    resumes."""
     B, T, D = x.shape
     h = _layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"])
     qkv = F.linear(h, p["qkv"]["w"], p["qkv"]["b"])
-    qkv = qkv.reshape(B, T, 3, VIT_HEADS, D // VIT_HEADS).permute(2, 0, 3, 1, 4)
+    qkv = qkv.reshape(B, T, 3, D // HEAD_DIM, HEAD_DIM).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]  # (B, heads, T, hd)
-    attn = torch.softmax(q @ k.transpose(-1, -2) * (D // VIT_HEADS) ** -0.5,
-                         dim=-1)
+    if attn_section is not None:
+        tracing.section(attn_section)
+    attn = torch.softmax((q * HEAD_DIM ** -0.5) @ k.transpose(-1, -2), dim=-1)
     out = (attn @ v).transpose(1, 2).reshape(B, T, D)
-    x = x + F.linear(out, p["proj"]["w"], p["proj"]["b"])
+    if attn_section is not None:
+        tracing.section(attn_section.rsplit(".", 1)[0])
+    h = F.linear(out, p["proj"]["w"], p["proj"]["b"])
+    x = x + (h * p["ls1"] if "ls1" in p else h)
     h = _layer_norm(x, p["ln2"]["scale"], p["ln2"]["bias"])
     h = F.gelu(F.linear(h, p["mlp1"]["w"], p["mlp1"]["b"]))
-    return x + F.linear(h, p["mlp2"]["w"], p["mlp2"]["b"])
+    h = F.linear(h, p["mlp2"]["w"], p["mlp2"]["b"])
+    return x + (h * p["ls2"] if "ls2" in p else h)
 
 
 def _readout(tokens_full, rp, gh, gw):
@@ -203,12 +216,15 @@ def _apply_rcu(p, x):
     return h + x
 
 
-def _apply_fusion(p, x, res=None):
-    """FeatureFusionBlock_custom."""
+def _apply_fusion(p, x, res=None, size=None):
+    """FeatureFusionBlock_custom: resized to ``size`` (default twice the
+    grid) with aligned corners before its output convolution."""
     if res is not None:
         x = x + _apply_rcu(p["rcu1"], res)
     x = _apply_rcu(p["rcu2"], x)
-    x = _resize_bilinear_ac(x, (x.shape[2] * 2, x.shape[3] * 2))
+    if size is None:
+        size = (x.shape[2] * 2, x.shape[3] * 2)
+    x = _resize_bilinear_ac(x, size)
     return _conv(x, p["out_conv"]["w"], p["out_conv"]["b"])
 
 
@@ -256,11 +272,24 @@ def _apply_dpt_nchw(params, x, scale=0.000305, shift=0.1378, invert=True,
     p2 = _apply_fusion(params["refinenet2"], p3, r2)
     p1 = _apply_fusion(params["refinenet1"], p2, r1)
 
-    hp = params["head"]
-    h = _conv(p1, hp["conv1"]["w"], hp["conv1"]["b"])
-    h = _resize_bilinear_ac(h, (h.shape[2] * 2, h.shape[3] * 2))
+    h = _apply_head(params["head"], p1, (p1.shape[2] * 2, p1.shape[3] * 2))
+    return _depth_tail(h, scale, shift, invert, non_negative, pre_relu)
+
+
+def _apply_head(hp, x, size):
+    """The monodepth head: a 3x3 convolution, a bilinear resize with
+    aligned corners to ``size``, 3x3 convolution and ReLU, 1x1 to one
+    channel -> (B, H, W), the output before the final ReLU."""
+    h = _conv(x, hp["conv1"]["w"], hp["conv1"]["b"])
+    h = _resize_bilinear_ac(h, size)
     h = F.relu(_conv(h, hp["conv2"]["w"], hp["conv2"]["b"]))
-    h = _conv(h, hp["conv3"]["w"], hp["conv3"]["b"])[:, 0]
+    return _conv(h, hp["conv3"]["w"], hp["conv3"]["b"])[:, 0]
+
+
+def _depth_tail(h, scale, shift, invert, non_negative, pre_relu):
+    """The head's ReLU (``non_negative``) and NoPe-NeRF's tail
+    ``1 / max(scale * x + shift, 1e-8)`` (``invert``) on its output ``h``;
+    with ``pre_relu`` (that, ``h``)."""
     inv_depth = F.relu(h) if non_negative else h
     if invert:
         inv_depth = 1.0 / torch.clamp_min(scale * inv_depth + shift, 1e-8)
@@ -274,6 +303,14 @@ def apply_dpt_batched(params, imgs, mesh=None, pre_relu=False, **kw):
     ``non_negative`` as in :func:`_apply_dpt_nchw`). Runs with TF32 off and
     without autograd. With ``pre_relu`` it returns (depth, the head's
     output before its ReLU, (B, H, W)): the same kernels, one more tensor.
+    Sharded over ``mesh`` as :func:`run_frames` says."""
+    return run_frames(_apply_dpt_nchw, params, imgs, mesh, pre_relu, **kw)
+
+
+def run_frames(forward, params, imgs, mesh=None, pre_relu=False, **kw):
+    """``forward(params, NCHW images, pre_relu=..., **kw)`` on (B, H, W, 3)
+    images with TF32 off and without autograd: the depth (B, H', W'), and
+    with ``pre_relu`` the head's output before its ReLU beside it.
 
     With ``mesh`` (``parallel/mesh.py``) the frames are sharded: the batch
     is padded to a multiple of the mesh size with copies of its last frame,
@@ -286,8 +323,8 @@ def apply_dpt_batched(params, imgs, mesh=None, pre_relu=False, **kw):
             imgs = torch.cat([imgs, imgs[-1:].expand(pad, *imgs.shape[1:])])
     n = imgs.shape[0]
     with torch.no_grad(), no_tf32():
-        out = _apply_dpt_nchw(params, shard_rays(imgs, mesh).permute(
-            0, 3, 1, 2), pre_relu=pre_relu, **kw)
+        out = forward(params, shard_rays(imgs, mesh).permute(0, 3, 1, 2),
+                      pre_relu=pre_relu, **kw)
         if pre_relu:
             return tuple(gather_rays(o, n, mesh)[:B] for o in out)
         return gather_rays(out, n, mesh)[:B]
@@ -298,31 +335,61 @@ def apply_dpt(params, img, **kw):
     return apply_dpt_batched(params, img[None], **kw)[0]
 
 
-def dpt_input_transform_batched(frames, target=384, multiple_of=32):
+def transform_hw(h, w, target=384, multiple_of=32, resize_method="minimal"):
+    """The network input's (h', w') for frames of h x w: a keep-aspect
+    resize toward ``target`` x ``target``, each side rounded to a multiple
+    of ``multiple_of`` (np.round, half to even, as the published
+    ``constrain_to_multiple_of``).
+
+    'minimal' (DPT) keeps the per-axis scale CLOSEST TO 1: the smaller one
+    when upscaling, the larger one when the image is bigger than the target
+    (540x960 -> 384x672). 'lower_bound' (Depth Anything) takes the larger
+    scale, so that neither side falls under the target, and rounds a side
+    that would up instead (540x960 -> 518x924 at 518 and 14)."""
+    scale_h, scale_w = target / h, target / w
+    if resize_method == "minimal":
+        scale = scale_w if abs(1 - scale_w) < abs(1 - scale_h) else scale_h
+        return tuple(int(np.round(scale * n / multiple_of) * multiple_of)
+                     for n in (h, w))
+    if resize_method != "lower_bound":
+        raise ValueError(f"no resize method {resize_method!r}")
+    scale = max(scale_h, scale_w)
+    out = []
+    for n in (h, w):
+        side = int(np.round(scale * n / multiple_of) * multiple_of)
+        if side < target:
+            side = int(np.ceil(scale * n / multiple_of) * multiple_of)
+        out.append(side)
+    return tuple(out)
+
+
+def dpt_input_transform_batched(frames, target=384, multiple_of=32,
+                                resize_method="minimal", mean=0.5, std=0.5):
     """The reference's ``ResizeImage_mvs`` on a batch, on the frames'
     device: keep-aspect 'minimal' resize toward a 384x384 target rounded to
-    multiples of 32 (bicubic), then (x - 0.5) / 0.5.
+    multiples of 32 (bicubic, :func:`transform_hw`), then (x - 0.5) / 0.5.
+    Depth Anything's transform is the same with 'lower_bound' toward 518
+    in multiples of 14 and ImageNet's per-channel ``mean`` and ``std``.
 
-    'minimal' keeps the per-axis scale CLOSEST TO 1: the smaller one when
-    upscaling, the larger one when the image is bigger than 384 (540x960 ->
-    384x672). The JAX package resizes with ``cv2.resize(INTER_CUBIC)``;
-    this is ``F.interpolate(mode="bicubic", align_corners=False)`` (the same
-    A = -0.75 kernel and clamped borders) in float64, which lands within
-    ~3e-7 of cv2's f32 result where f32 bicubic differs by ~1e-4.
+    The JAX package resizes with ``cv2.resize(INTER_CUBIC)``; this is
+    ``F.interpolate(mode="bicubic", align_corners=False)`` (the same A =
+    -0.75 kernel and clamped borders) in float64, which lands within ~3e-7
+    of cv2's f32 result where f32 bicubic differs by ~1e-4. The
+    normalisation is float64 too, as the published float64 numpy
+    pipelines, and the result is rounded to f32 once.
 
     frames: (B, H, W, 3) float tensor in [0, 1]. Returns (B, h', w', 3)
     f32 on the same device.
     """
-    H, W = frames.shape[1:3]
-    scale_h, scale_w = target / H, target / W
-    scale = scale_w if abs(1 - scale_w) < abs(1 - scale_h) else scale_h
-    # np.round (half to even) as the reference's constrain_to_multiple_of
-    new_h = int(np.round(scale * H / multiple_of) * multiple_of)
-    new_w = int(np.round(scale * W / multiple_of) * multiple_of)
+    size = transform_hw(*frames.shape[1:3], target, multiple_of,
+                        resize_method)
     x = frames.to(torch.float64).permute(0, 3, 1, 2)
-    out = F.interpolate(x, size=(new_h, new_w), mode="bicubic",
-                        align_corners=False)
-    return ((out.permute(0, 2, 3, 1) - 0.5) / 0.5).to(torch.float32)
+    out = F.interpolate(x, size=size, mode="bicubic", align_corners=False)
+    out = out.permute(0, 2, 3, 1)
+    if not isinstance(mean, float):
+        mean = torch.tensor(mean, dtype=torch.float64, device=out.device)
+        std = torch.tensor(std, dtype=torch.float64, device=out.device)
+    return ((out - mean) / std).to(torch.float32)
 
 
 def dpt_input_transform(img, target=384, multiple_of=32):

@@ -29,7 +29,9 @@ the open section's (``step.backward.field`` inside ``step.backward``)
 nests its host span in that section's, and a boundary that names an open
 section resumes it. An eager phase outside ``StepGraphs`` opens its steps
 with :func:`eager_step`: the depth-prior pass (phase "depth_priors",
-``dpt_depth.depth_batch``: ``dpt.transform``, ``dpt.resnet``, ``dpt.vit``,
+``dpt_depth.depth_batch``: ``dpt.transform``, then DPT-Hybrid's
+``dpt.resnet``, ``dpt.vit``, ``dpt.decoder``, or Depth Anything's
+``dpt.dinov2``, its 24 ``dpt.dinov2.attn`` intervals nested in it, and
 ``dpt.decoder``), one step a batch, its events recorded again by each
 batch. Outside a step ``section`` does nothing (``render_image``, a bare
 ``fused_mlp_composite``, ``train()``'s per-step route, a bare
@@ -39,7 +41,8 @@ step, any step of the eager route, the last depth-prior batch), in device
 ms; on the CPU there are no events, only the host spans.
 
 Counters (:func:`count`): per-name totals of what a phase has done, such
-as ``dpt.frames`` and ``dpt.batches``; :func:`counters` reads them.
+as ``dpt.frames``, ``dpt.batches`` and ``dpt.tokens``; :func:`counters`
+reads them.
 
 Dispatches (:func:`dispatch`). Each call of ``EpochStep`` or
 ``PoseOptBlock`` is one dispatch: a host span ``dispatch``, and a

@@ -210,8 +210,9 @@ def test_standardised_weights_are_kept_until_the_weight_changes():
 
 def test_depth_batch_leaves_its_spans_and_counters(params, frames):
     """One call on the CPU: the host span ``dpt.batch`` with the four
-    sections' spans in it, in order; the frame and batch counters; no
-    device time; a bare ``apply_dpt_batched`` opens no section."""
+    sections' spans in it, in order; the frame, batch and token counters
+    (2 x 1 + 2 x 24 tokens here; 1,009 a 540x960 frame); no device time;
+    a bare ``apply_dpt_batched`` opens no section."""
     dpt.apply_dpt_batched(params, dpt.dpt_input_transform_batched(frames))
     assert tracing.spans() == [] and tracing.counters() == {}
     dpt_depth.depth_batch(params, frames, CFG)
@@ -221,7 +222,8 @@ def test_depth_batch_leaves_its_spans_and_counters(params, frames):
         ("dpt.vit", "dpt.batch"), ("dpt.decoder", "dpt.batch"),
         ("dpt.batch", None)]
     assert sum(r.ns for r in recs[:4]) <= recs[4].ns
-    assert tracing.counters() == {"dpt.frames": 2, "dpt.batches": 1}
+    assert tracing.counters() == {"dpt.frames": 2, "dpt.batches": 1,
+                                  "dpt.tokens": 2 * (2 * 24 + 1)}
     assert tracing.section_ms(dpt_depth.PHASE, eager=True) is None
 
 
